@@ -1,0 +1,93 @@
+"""Build and bind the package's hand-written CUDA kernels.
+
+Each source under ``qsm_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain ``extern "C"`` interface and
+loaded with ``ctypes``.  The build happens at first use, never at import,
+into ``build/qsm_tpu_torch/`` beside the package, keyed by a hash of the
+source and the flags, so a changed source rebuilds and an unchanged one
+loads the library already there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "qsm_tpu_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry returned a CUDA error: the launch never ran."""
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    src = CSRC_DIR / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{key}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library already exists.  The
+    compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+    is kept beside the library as ``<lib>.ptxas.txt``."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed ({r.returncode}) on {name}.cu:\n{r.stderr[-4000:]}")
+    out.with_suffix(".ptxas.txt").write_text(r.stdout + r.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` lines of the last build of ``name``."""
+    p = library_path(name).with_suffix(".ptxas.txt")
+    return p.read_text() if p.exists() else ""
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def dfs_chunk_lib() -> ctypes.CDLL:
+    """The built ``dfs_chunk`` library with its entry's signature set:
+    19 device pointers, 7 ints, the stream."""
+    lib = ctypes.CDLL(str(build("dfs_chunk")))
+    fn = lib.dfs_chunk_launch
+    fn.argtypes = [_P] * 19 + [_I] * 7 + [_P]
+    fn.restype = _I
+    return lib

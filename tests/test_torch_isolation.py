@@ -1,0 +1,49 @@
+"""The port stands alone: importing it (and its CLI) loads neither JAX nor
+any module of the JAX package, and no file of the port or
+``chip_smoke.py`` imports one."""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "qsm_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top == "jax" or top.startswith("jax") or top == "qsm_tpu"
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    code = ("import json, sys, qsm_tpu_torch, qsm_tpu_torch.utils.cli, "
+            "qsm_tpu_torch.ops.kernels\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    bad = [m for m in json.loads(out) if _forbidden(m)]
+    assert bad == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_file_imports_jax_or_the_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert bad == []
