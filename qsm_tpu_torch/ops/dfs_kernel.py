@@ -17,9 +17,10 @@ Its arrays keep that kernel's lane-minor layout, all int32:
                                 occupancy (CS = max(cache_slots, 1))
 
 with N <= 32 (one-word bitmasks) and S <= 64.  ``dfs_chunk`` launches the
-hand-written CUDA kernel (``csrc/dfs_chunk.cu``) for CUDA tensors and takes
-the plain PyTorch version ``dfs_chunk_plain`` only for CPU tensors.  Both
-return a new carry; the inputs are left as they were.
+hand-written CUDA kernel (``csrc/dfs_chunk.cu``) for CUDA tensors, with the
+shape of the launch from :func:`launch_plan`, and takes the plain PyTorch
+version ``dfs_chunk_plain`` only for CPU tensors.  Both return a new carry;
+the inputs are left as they were.
 """
 
 from __future__ import annotations
@@ -37,6 +38,60 @@ MAX_OPS = 32     # one-word taken / predecessor bitmasks
 MAX_STATES = 64  # packed postcondition rows per lane
 
 _M32 = 0xFFFFFFFF
+
+# The kernel's launch shape on an H100 (sm_90a).
+LANES_PER_BLOCK = 32        # one warp per block, one thread per lane
+SMEM_BLOCK_MAX = 232_448    # dynamic shared bytes a block may opt in to
+SMEM_SM = 233_472           # shared bytes of one SM
+SMEM_BLOCK_RESERVED = 1_024  # shared bytes the runtime keeps per block
+BLOCKS_SM_MAX = 32          # resident blocks per SM
+NXT_STAGE_CAP = 32 * 1024   # nxt is staged in shared memory up to this
+#                             many bytes a block (S*N rows of 128 B; the
+#                             headline's S=5, N=32 is 20,480), else read
+#                             from global memory, so that S=64 tables do
+#                             not cost the memo its room or the SM its
+#                             resident blocks
+
+MEMO_OFF, MEMO_SHARED, MEMO_GLOBAL = 0, 1, 2  # where the memo lives
+
+
+class LaunchPlan(NamedTuple):
+    lanes_per_block: int
+    grid: int
+    stage_nxt: bool    # nxt table in shared memory (else global)
+    memo: int          # MEMO_OFF, MEMO_SHARED or MEMO_GLOBAL
+    smem_bytes: int    # dynamic shared memory per block
+
+
+def launch_plan(B: int, N: int, S: int, cache_slots: int) -> LaunchPlan:
+    """How ``csrc/dfs_chunk.cu`` runs ``B`` lanes of ``N`` ops and ``S``
+    states: one warp per block; each lane's stacks, packed ok words,
+    successor words and (when they fit) memo and ``nxt`` table in shared
+    memory, one 32-bit word a lane per row (lane-minor).  The C entry
+    re-checks the same sum and refuses a plan it cannot launch."""
+    cs = max(cache_slots, 1)
+    rows = 2 * (N + 1) + S + N          # chosen, states, okw, succ
+    row_bytes = 4 * LANES_PER_BLOCK
+    memo = MEMO_OFF
+    if cache_slots > 0:
+        memo_rows = 2 * cs + -(-cs // 32)  # ck0, ck1, occupancy bits
+        if (rows + memo_rows) * row_bytes <= SMEM_BLOCK_MAX:
+            memo, rows = MEMO_SHARED, rows + memo_rows
+        else:
+            memo = MEMO_GLOBAL
+    nxt_bytes = S * N * row_bytes
+    stage_nxt = (nxt_bytes <= NXT_STAGE_CAP
+                 and rows * row_bytes + nxt_bytes <= SMEM_BLOCK_MAX)
+    if stage_nxt:
+        rows += S * N
+    return LaunchPlan(LANES_PER_BLOCK, -(-B // LANES_PER_BLOCK), stage_nxt,
+                      memo, rows * row_bytes)
+
+
+def blocks_per_sm(plan: LaunchPlan) -> int:
+    """Blocks of ``plan`` one SM holds at once, by shared memory."""
+    return min(BLOCKS_SM_MAX,
+               SMEM_SM // (plan.smem_bytes + SMEM_BLOCK_RESERVED))
 
 
 class Carry(NamedTuple):
@@ -101,13 +156,15 @@ def dfs_chunk(tables: Tables, carry: Carry, *, chunk: int, budget: int,
     from .kernels import KernelLaunchError, dfs_chunk_lib
 
     S, N, B = tables.nxt.shape
+    plan = launch_plan(B, N, S, cache_slots)
     out = Carry(*(torch.empty_like(t) for t in carry))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = dfs_chunk_lib().dfs_chunk_launch(
             *(t.data_ptr() for t in tables), *(t.data_ptr() for t in carry),
             *(t.data_ptr() for t in out),
-            B, N, S, carry.ck0.shape[0], cache_slots, chunk, budget, stream)
+            B, N, S, carry.ck0.shape[0], cache_slots, chunk, budget,
+            *(int(x) for x in plan), stream)
     if rc != 0:
         raise KernelLaunchError(f"dfs_chunk launch failed: CUDA error {rc}")
     dfs_chunk.launches += 1

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -44,25 +45,27 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
-    src = CSRC_DIR / f"{name}.cu"
+def library_path(name: str, src: Optional[Path] = None) -> Path:
+    """Where ``src`` (default ``csrc/<name>.cu``) builds to: keyed by
+    source and flags."""
+    src = src or CSRC_DIR / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{key}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library already exists.  The
-    compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
-    is kept beside the library as ``<lib>.ptxas.txt``."""
-    out = library_path(name)
+def build(name: str, src: Optional[Path] = None) -> Path:
+    """Compile ``src`` (default ``csrc/<name>.cu``) unless its library
+    already exists.  The compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills) is kept beside the library as
+    ``<lib>.ptxas.txt``."""
+    src = src or CSRC_DIR / f"{name}.cu"
+    out = library_path(name, src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -73,9 +76,9 @@ def build(name: str) -> Path:
     return out
 
 
-def ptxas_report(name: str) -> str:
+def ptxas_report(name: str, src: Optional[Path] = None) -> str:
     """The ``-Xptxas -v`` lines of the last build of ``name``."""
-    p = library_path(name).with_suffix(".ptxas.txt")
+    p = library_path(name, src).with_suffix(".ptxas.txt")
     return p.read_text() if p.exists() else ""
 
 
@@ -85,9 +88,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def dfs_chunk_lib() -> ctypes.CDLL:
     """The built ``dfs_chunk`` library with its entry's signature set:
-    19 device pointers, 7 ints, the stream."""
+    19 device pointers, 7 ints of shape and budget, the 5 ints of the
+    launch plan (``dfs_kernel.LaunchPlan``), the stream."""
     lib = ctypes.CDLL(str(build("dfs_chunk")))
     fn = lib.dfs_chunk_launch
-    fn.argtypes = [_P] * 19 + [_I] * 7 + [_P]
+    fn.argtypes = [_P] * 19 + [_I] * 12 + [_P]
     fn.restype = _I
     return lib
