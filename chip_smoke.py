@@ -8,10 +8,11 @@ Phases, in order; any failure exits non-zero and no result is printed:
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch
    device name and count;
-2. build: ``nvcc`` compiles every kernel from the sources in the checkout;
-   the ``-Xptxas -v`` register / stack / spill lines are printed (a spill
-   fails the run), beside the launch plans of phase 3 (lanes per block,
-   shared bytes, what is staged in shared memory);
+2. build: ``nvcc`` compiles every kernel from the sources in the checkout,
+   one process a source, all started together; the ``-Xptxas -v``
+   register / stack / spill lines are printed (a spill fails the run),
+   beside the launch plans of phase 3 (lanes per block, shared bytes,
+   what is staged in shared memory);
 3. kernel against plain: ``dfs_chunk`` on the headline CAS corpus' step
    tables (32 ops x 8 pids) with mid-search carries, at 4096 and 16384
    lanes, memo off and at 64 slots, and on random 64-state tables at 4096
@@ -24,20 +25,40 @@ Phases, in order; any failure exits non-zero and no result is printed:
    stream, without a launch plan), that kernel is built too and timed in
    turns with this one (old, new, new, old) on the same inputs, after
    both are checked equal;
-4. checker (main path): ``TorchGPU.check_histories`` on 512 unique
-   histories replicated to 4096 lanes; 0 verdict mismatches against the
-   memo oracle wherever both decided; witnesses replay through
-   ``verify_witness``; one more warm run under ``torch.profiler`` gives
-   the device's busy time and idle share;
-5. property (main path): ``prop_concurrent`` with ``TorchGPU`` at 8 pids x
+4. checker (main path of ``TorchGPU``): ``TorchGPU.check_histories`` on
+   512 unique histories replicated to 4096 lanes; 0 verdict mismatches
+   against the memo oracle wherever both decided; witnesses replay
+   through ``verify_witness``; one more warm run under ``torch.profiler``
+   gives the device's busy time and idle share;
+5. property (main path of ``TorchGPU``): ``prop_concurrent`` at 8 pids x
    32 ops, 100 trials, seed 0 — racy CAS convicted with a shrunk
    counterexample, atomic CAS passed — and the same racy run through the
-   CLI entry point.
+   CLI entry point;
+6. stepper kernels against plain: ``stepper_chunk`` on the queue
+   headline's tables (48 ops x 8 pids, 512 unique histories at 4096
+   lanes), memo off and at the port's slot count for that bucket, from a
+   fresh and from a mid-search carry, after 1 and 8 chunks of 2048
+   iterations, and on CAS histories of 64 and 128 ops at 1024 lanes after
+   1 and 2 chunks;
+   ``compact_carry`` from 4096 lanes to 256 with the memo growing, and out
+   of a carry without a memo; every plane bit-identical to the plain
+   version (tolerance 0).  Then each kernel is timed with CUDA events and
+   its plain version once;
+7. queue checker (main path of ``TorchStepper``): ``check_histories`` on
+   the 512 unique queue histories replicated to 4096 lanes, at the
+   default budget; 0 verdict mismatches against the memo oracle,
+   witnesses replayed, one warm run profiled (histories/s, device busy
+   time and idle share, rounds, compactions, launches of each kernel);
+8. queue property (main path of ``TorchStepper``): ``prop_concurrent`` at
+   8 pids x 48 ops, 100 trials — racy queue convicted with a shrunk
+   counterexample, atomic queue passed — and the racy run again through
+   ``python -m qsm_tpu_torch run --model queue --backend stepper``.
 
-The launch counts of the main path (phases 4 and 5) are reset just before
-it and read just after.  The second-to-last stdout line is the kernels
-record, the last the device record.  Every number is printed beside the
-card's name and power limit.
+Each main path's launch counts are reset just before it and read just
+after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
+``compact_carry`` over phases 7-8).  The second-to-last stdout line is the
+kernels record, the last the device record.  Every number is printed
+beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -55,14 +76,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from qsm_tpu_torch.core.history import encode_batch
 from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
 from qsm_tpu_torch.models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
+from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
+                                        RacyTwoPhaseQueueSUT)
 from qsm_tpu_torch.ops import kernels
 from qsm_tpu_torch.ops.backend import Verdict, verify_witness
 from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
                                           Carry, blocks_per_sm, dfs_chunk,
                                           dfs_chunk_plain, launch_plan)
 from qsm_tpu_torch.ops.gpu_backend import TorchGPU, fresh_carry, lane_tables
+from qsm_tpu_torch.ops.host_contracts import flatten
+from qsm_tpu_torch.ops.scalarize import scalar_shadow
+from qsm_tpu_torch.ops.stepper import TorchStepper, default_slots
+from qsm_tpu_torch.ops.stepper_kernel import (StepperCarry, compact_carry,
+                                              compact_carry_plain,
+                                              fresh_stepper_carry, key_words,
+                                              n_words, stepper_chunk,
+                                              stepper_chunk_plain,
+                                              stepper_tables)
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
 from qsm_tpu_torch.utils import cli
 from qsm_tpu_torch.utils.corpus import build_corpus, random_lane_tables
@@ -77,6 +110,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # published); a generous peak keeps the bound a lower bound
 SCALAR_OPS_PER_S = 67e12
 RANDOM_STATES = 64             # the global-table case: nxt is not staged
+Q_PIDS, Q_OPS = 8, 48          # the queue headline (the registry default)
+STEP_CHUNK = 2048              # stepper iterations a launch in phase 6
+COMPACT_TO = 256               # phase 6's compaction: 4096 lanes -> 256
 
 
 def ops_per_iteration(n_ops: int) -> int:
@@ -355,6 +391,316 @@ def phase_property(spec, tag):
     require(rc == 1, f"the CLI did not convict racy CAS (rc {rc})")
 
 
+def stepper_ops_per_iteration(n_ops: int, memo: bool) -> int:
+    """Integer ops of one stepper iteration, counted from
+    ``csrc/stepper_chunk.cu``: the blocked-op sweep costs 2W + 2 per op
+    (W ands, W ors, a compare, a clear), the candidate words and the
+    lowest one 3W + 4, the stack update, status and budget about 26; the
+    memo's two hashes and the key compare 6 kw + 5 more."""
+    w = n_words(n_ops)
+    ops = n_ops * (2 * w + 2) + 3 * w + 30
+    return ops + (6 * key_words(n_ops) + 5 if memo else 0)
+
+
+def _tensor_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def stepper_bound(tabs, c_in: StepperCarry, c_out: StepperCarry):
+    """(bound_ms, bound_by, bytes, ops) of one ``stepper_chunk`` launch:
+    every lane's stacks and counters read and written once, the
+    predecessor words of the lanes that ran read once (the table entries
+    an iteration reads are not counted: a lower bound), against the
+    iterations this run's data needed."""
+    ran = (c_out.dsi[2] - c_in.dsi[2]) > 0
+    iters = int((c_out.dsi[2].long() - c_in.dsi[2].long()).sum())
+    n = tabs.nxt.shape[2]
+    stacks = _tensor_bytes((c_in.taken, c_in.chosen, c_in.states, c_in.dsi,
+                            c_in.row))
+    nbytes = 2 * stacks + int(ran.sum()) * 4 * (
+        tabs.prec.shape[1] * n + tabs.prec.shape[1] + 1)
+    ops = iters * stepper_ops_per_iteration(n, c_in.occ.shape[1] > 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def compact_bound(c_in: StepperCarry, c_out: StepperCarry, m: int):
+    """(bound_ms, bytes) of one ``compact_carry``: the ``m`` surviving
+    lanes' planes and memo read once, the new carry written once; its few
+    operations a word are far below the byte side."""
+    B = c_in.row.shape[0]
+    per_lane_in = _tensor_bytes(c_in) // B
+    nbytes = m * (per_lane_in + 4) + _tensor_bytes(c_out)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def clone_carry(c: StepperCarry) -> StepperCarry:
+    return StepperCarry(*(t.clone() for t in c))
+
+
+def queue_corpus():
+    spec = QueueSpec()
+    return spec, build_corpus(spec, (AtomicQueueSUT, RacyTwoPhaseQueueSUT),
+                              n=N_UNIQUE, n_pids=Q_PIDS, max_ops=Q_OPS,
+                              seed_base=1000, seed_prefix="bench")
+
+
+def _replicate(corpus, B):
+    return (corpus * math.ceil(B / len(corpus)))[:B]
+
+
+def stepper_inputs(spec, histories, n_ops, dev):
+    kspec = scalar_shadow(spec) or spec
+    enc = encode_batch(histories, kspec.initial_state(), max_ops=n_ops)
+    tabs = stepper_tables(kspec, enc.ops[:, :, 1], enc.ops[:, :, 2],
+                          enc.ops[:, :, 3], enc.valid, enc.precedes(), dev)
+    return tabs, np.full(len(histories), int(enc.init_state[0]), np.int32)
+
+
+def stepper_cases(q_spec, q_corpus, dev):
+    """(name, B, tables, start states) of phase 6: the queue headline at
+    4096 lanes, and CAS histories of 64 and 128 ops at 1024."""
+    B = DEVICE_BATCH
+    tabs, starts = stepper_inputs(q_spec, _replicate(q_corpus, B), Q_OPS,
+                                  dev)
+    yield "queue48", B, tabs, starts
+    cas = CasSpec()
+    for n_ops in (64, 128):
+        hs = build_corpus(cas, (AtomicCasSUT, RacyCasSUT), n=256,
+                          n_pids=N_PIDS, max_ops=n_ops, seed_base=1000,
+                          seed_prefix="bench")
+        tabs, starts = stepper_inputs(cas, _replicate(hs, 1024), n_ops, dev)
+        yield f"cas{n_ops}", 1024, tabs, starts
+
+
+def _compare(name, got, want):
+    err = 0
+    for plane, a, b in zip(StepperCarry._fields, got, want):
+        e = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        err = max(err, e)
+        require(e == 0, f"{name}: {plane} differs from plain (max abs err "
+                f"{e})")
+    return err
+
+
+def time_launches(launch, inputs, reps: int) -> float:
+    """Mean ms per launch of ``launch(x)`` over ``inputs`` (one each),
+    CUDA events, after one warm launch on a spare input."""
+    launch(inputs[0])
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for x in inputs[1:reps + 1]:
+        launch(x)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def phase_stepper(q_spec, q_corpus, dev, tag):
+    """Phase 6: stepper_chunk and compact_carry against their plain
+    versions, then timings and bounds."""
+    max_err, rows, carries = 0, {}, {}
+    for name, B, tabs, starts in stepper_cases(q_spec, q_corpus, dev):
+        N = tabs.nxt.shape[2]
+        for slots in (0, default_slots(B)):
+            fresh = fresh_stepper_carry(tabs.nreq, np.arange(B), starts, B,
+                                        N, slots)
+            begins = {"fresh": fresh}
+            if name == "queue48":
+                # mid-search: 256 plain iterations in, the hard lanes
+                # still running
+                begins["mid"] = stepper_chunk_plain(
+                    tabs, clone_carry(fresh), chunk=256, budget=TOTAL_BUDGET)
+            # the plain version's loop is the phase's cost: the CAS
+            # shapes run 2 chunks, the queue headline all 8
+            n_chunks = 8 if name == "queue48" else 2
+            for start, c0 in begins.items():
+                ck, cp = clone_carry(c0), clone_carry(c0)
+                running = int((c0.dsi[1] == RUNNING).sum())
+                for i in range(n_chunks):
+                    stepper_chunk(tabs, ck, chunk=STEP_CHUNK,
+                                  budget=TOTAL_BUDGET)
+                    stepper_chunk_plain(tabs, cp, chunk=STEP_CHUNK,
+                                        budget=TOTAL_BUDGET)
+                    if i in (0, n_chunks - 1):
+                        torch.cuda.synchronize()
+                        max_err = max(max_err, _compare(
+                            f"stepper_chunk {name} B={B} slots={slots} "
+                            f"{start} chunk {i + 1}", ck, cp))
+                print(f"{tag} stepper_chunk == plain on {name} B={B} "
+                      f"slots={slots} from a {start} carry ({running} lanes "
+                      f"running): all 7 planes bit-identical after 1 and "
+                      f"{n_chunks} chunks of {STEP_CHUNK}; "
+                      f"{int((ck.dsi[1] == RUNNING).sum())} still running",
+                      flush=True)
+                carries[(name, slots, start)] = ck
+            if name != "queue48":
+                continue
+            # timing: a chunk from the mid-search carry, each launch on
+            # its own copy (the kernel updates the carry in place)
+            mid = begins["mid"]
+            reps = 5
+            copies = [clone_carry(mid) for _ in range(reps + 1)]
+            ms = time_launches(lambda c: stepper_chunk(
+                tabs, c, chunk=STEP_CHUNK, budget=TOTAL_BUDGET), copies, reps)
+            one = stepper_chunk(tabs, clone_carry(mid), chunk=STEP_CHUNK,
+                                budget=TOTAL_BUDGET)
+            bound_ms, bound_by, nbytes, ops = stepper_bound(tabs, mid, one)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stepper_chunk_plain(tabs, clone_carry(mid), chunk=STEP_CHUNK,
+                                budget=TOTAL_BUDGET)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            rows[slots] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+            print(f"{tag} stepper_chunk {name} B={B} slots={slots}: "
+                  f"{ms:.4f} ms/launch of {STEP_CHUNK} iterations from the "
+                  f"mid-search carry (bound {bound_ms:.6f} ms by {bound_by}: "
+                  f"{nbytes} B, {ops} ops; plain {plain_ms:.1f} ms)",
+                  flush=True)
+            del copies
+
+    # compact_carry: 4096 -> 256 lanes, memo grown; and out of slots = 0
+    big = default_slots(DEVICE_BATCH)
+    comp = {}
+    for old in (big, 0):
+        c = carries[("queue48", old, "mid")]
+        status = c.dsi[1].cpu().numpy()
+        order = np.argsort(status != RUNNING, kind="stable")  # running first
+        lanes = order[:COMPACT_TO]
+        slots = default_slots(COMPACT_TO)
+        got = compact_carry(c, lanes, COMPACT_TO, slots)
+        want = compact_carry_plain(c, lanes, COMPACT_TO, slots)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _compare(
+            f"compact_carry {old} -> {slots} slots", got, want))
+        filled = int((got.occ == 1).sum())
+        reps = 10
+        ms = time_launches(lambda x: compact_carry(c, lanes, COMPACT_TO,
+                                                   slots), [None] * (reps + 1),
+                           reps)
+        bound_ms, nbytes = compact_bound(c, got, len(lanes))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compact_carry_plain(c, lanes, COMPACT_TO, slots)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        comp[old] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by="bytes")
+        print(f"{tag} compact_carry == plain, {DEVICE_BATCH} -> "
+              f"{COMPACT_TO} lanes, {old} -> {slots} slots ({filled} memo "
+              f"entries after the re-hash): all 7 planes bit-identical; "
+              f"{ms:.4f} ms/launch (bound {bound_ms:.6f} ms by bytes: "
+              f"{nbytes} B; plain {plain_ms:.1f} ms)", flush=True)
+    return max_err, rows, comp
+
+
+def phase_queue_checker(spec, corpus, tag):
+    """Phase 7: TorchStepper on the queue headline corpus."""
+    t = TorchStepper(spec)
+    device_corpus = _replicate(corpus, DEVICE_BATCH)
+    t0 = time.perf_counter()
+    cold = t.check_histories(spec, device_corpus)
+    cold_s = time.perf_counter() - t0
+    before = (t.rounds_run, t.compactions, t.lockstep_cost,
+              stepper_chunk.launches, compact_carry.launches)
+    t0 = time.perf_counter()
+    v = t.check_histories(spec, device_corpus)
+    warm_s = time.perf_counter() - t0
+    rounds, compactions, cost, n_step, n_comp = (
+        a - b for a, b in zip((t.rounds_run, t.compactions, t.lockstep_cost,
+                               stepper_chunk.launches,
+                               compact_carry.launches), before))
+    require(v.tolist() == cold.tolist(), "verdicts differ between runs")
+    prof_wall, busy_s, top = profile_device(
+        lambda: t.check_histories(spec, device_corpus))
+    t0 = time.perf_counter()
+    ov = WingGongCPU(memo=True).check_histories(spec, corpus)
+    oracle_s = time.perf_counter() - t0
+    uv = v[:len(corpus)]
+    both = (uv != Verdict.BUDGET_EXCEEDED) & (ov != Verdict.BUDGET_EXCEEDED)
+    mismatches = int(((uv != ov) & both).sum())
+    require(mismatches == 0, f"{mismatches} queue verdict mismatches vs "
+            f"the oracle")
+    lin = [h for h, x in zip(corpus, uv) if x == Verdict.LINEARIZABLE][:32]
+    for h in lin:
+        wv, wit = t.check_witness(spec, h)
+        require(wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit),
+                "a LINEARIZABLE queue witness failed to replay")
+    undecided = int((v == Verdict.BUDGET_EXCEEDED).sum())
+    print(f"{tag} queue checker: {len(device_corpus)} histories "
+          f"({len(corpus)} unique, {Q_PIDS} pids x {Q_OPS} ops) warm "
+          f"{warm_s:.3f} s = {len(device_corpus) / warm_s:.1f} histories/s "
+          f"(cold {cold_s:.3f} s); rounds {rounds}, compactions "
+          f"{compactions}, stepper_chunk launches {n_step}, compact_carry "
+          f"launches {n_comp}, lockstep_cost {cost}, undecided {undecided}; "
+          f"vs memo oracle ({oracle_s:.2f} s on the host): 0 mismatches "
+          f"({int((uv == Verdict.LINEARIZABLE).sum())} linearizable, "
+          f"{int((uv == Verdict.VIOLATION).sum())} violations, "
+          f"{int(both.sum())} decided by both); {len(lin)} witnesses "
+          f"replayed", flush=True)
+    idle = f"{1 - busy_s / prof_wall:.3f}" if busy_s else "not measured"
+    print(f"{tag} queue checker profiled: wall {prof_wall:.3f} s, device "
+          f"busy {busy_s:.3f} s, idle share {idle}; top kernels {top}",
+          flush=True)
+    # the batch's set-up stages, timed alone on the same 4096 histories
+    t0 = time.perf_counter()
+    flatten(spec, device_corpus, None, t.max_expansions)
+    t_flat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = encode_batch(device_corpus, t.kspec.initial_state(), max_ops=Q_OPS)
+    prec = enc.precedes()
+    t_enc = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepper_tables(t.kspec, enc.ops[:, :, 1], enc.ops[:, :, 2],
+                   enc.ops[:, :, 3], enc.valid, prec, t.device)
+    torch.cuda.synchronize()
+    t_tab = time.perf_counter() - t0
+    print(f"{tag} queue batch set-up alone: host contracts (domain check, "
+          f"pending expansion) {t_flat:.3f} s, encoding and precedence "
+          f"{t_enc:.3f} s (host), step tables {t_tab:.3f} s (built on the "
+          f"card, synchronised)", flush=True)
+
+
+def phase_queue_property(spec, tag):
+    """Phase 8: the property loop on the queue, racy convicted, atomic
+    passed, then the CLI."""
+    for impl, sut_cls, want_ok in (("racy", RacyTwoPhaseQueueSUT, False),
+                                   ("atomic", AtomicQueueSUT, True)):
+        t = TorchStepper(spec)
+        cfg = PropertyConfig(n_trials=100, n_pids=Q_PIDS, max_ops=Q_OPS,
+                             seed=0)
+        t0 = time.perf_counter()
+        res = prop_concurrent(spec, sut_cls(spec), cfg, backend=t)
+        dt = time.perf_counter() - t0
+        require(res.ok == want_ok and res.undecided == 0,
+                f"{impl} queue: ok={res.ok} undecided={res.undecided}")
+        what = ""
+        if not want_ok:
+            cx = res.counterexample
+            require(cx is not None and cx.shrink_steps > 0
+                    and len(cx.program) < Q_OPS,
+                    "racy queue counterexample was not shrunk")
+            what = (f", counterexample {len(cx.program)} ops after "
+                    f"{cx.shrink_steps} shrink steps")
+        print(f"{tag} property {impl} queue {Q_PIDS} pids x {Q_OPS} ops: "
+              f"ok={res.ok} after {res.trials_run} trials, "
+              f"{res.histories_checked} histories, {dt:.2f} s, "
+              f"{t.rounds_run} chunk rounds{what}", flush=True)
+    rc = cli.main(["run", "--model", "queue", "--impl", "racy",
+                   "--backend", "stepper", "--trials", "100", "--pids",
+                   str(Q_PIDS), "--ops", str(Q_OPS)])
+    require(rc == 1, f"the CLI did not convict racy queue (rc {rc})")
+    print(f"{tag} CLI (the entry point of python -m qsm_tpu_torch run "
+          f"--model queue --backend stepper): racy queue rc 1", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -376,17 +722,21 @@ def main(argv=None) -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    lib = kernels.build("dfs_chunk")
-    print(f"{tag} build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in kernels.ptxas_report("dfs_chunk").splitlines():
-        if "Compiling entry" in line:
-            print(f"  ptxas: {line.split('dfs_chunk_kernel')[-1].strip()}")
-        elif any(k in line for k in ("registers", "stack frame")):
-            print(f"  ptxas: {line.strip()}")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        require(m is None or m.groups() == ("0", "0"),
-                f"the kernel spills: {line.strip()}")
+    libs = kernels.build_all()
+    print(f"{tag} build: {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in "
+          f"parallel)")
+    for name in libs:
+        for line in kernels.ptxas_report(name).splitlines():
+            if "Compiling entry" in line:
+                print(f"  ptxas {name}: "
+                      f"{line.split(name + '_kernel')[-1].strip()}")
+            elif any(k in line for k in ("registers", "stack frame")):
+                print(f"  ptxas {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            require(m is None or m.groups() == ("0", "0"),
+                    f"{name} spills: {line.strip()}")
     for B, S, cs in ((4096, 5, 64), (16384, 5, 64), (4096, 5, 0),
                      (4096, RANDOM_STATES, 64)):
         print(f"  plan: {plan_text(B, S, cs)}")
@@ -401,15 +751,36 @@ def main(argv=None) -> int:
     if args.against is not None:
         phase_against(args.against, timings, tag)
 
-    # the main path: launch counts from here to the end of phase 5
+    # TorchGPU's main path: launch counts from here to the end of phase 5
     dfs_chunk.launches = 0
     t0 = time.perf_counter()
     phase_checker(spec, corpus, tag)
     phase_property(spec, tag)
     launches = dfs_chunk.launches
-    print(f"{tag} main path: {launches} dfs_chunk launches, "
+    print(f"{tag} main path of TorchGPU: {launches} dfs_chunk launches, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     require(launches > 0, "the main path launched no dfs_chunk kernel")
+
+    q_spec, q_corpus = queue_corpus()
+    t0 = time.perf_counter()
+    step_err, step_rows, comp_rows = phase_stepper(q_spec, q_corpus, dev,
+                                                   tag)
+    print(f"{tag} phase stepper kernels vs plain: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # TorchStepper's main path: launch counts from here to the end of
+    # phase 8
+    stepper_chunk.launches = compact_carry.launches = 0
+    t0 = time.perf_counter()
+    phase_queue_checker(q_spec, q_corpus, tag)
+    phase_queue_property(q_spec, tag)
+    step_launches = stepper_chunk.launches
+    comp_launches = compact_carry.launches
+    print(f"{tag} main path of TorchStepper: {step_launches} stepper_chunk "
+          f"launches, {comp_launches} compact_carry launches, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(step_launches > 0, "the main path launched no stepper_chunk")
+    require(comp_launches > 0, "the main path launched no compact_carry")
 
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
@@ -421,6 +792,20 @@ def main(argv=None) -> int:
         "max_abs_err": max_err, "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None}]}
+    step = step_rows[default_slots(DEVICE_BATCH)]
+    comp = comp_rows[default_slots(DEVICE_BATCH)]
+    kernels_line["kernels"] += [{
+        "name": "stepper_chunk", "route": "cuda",
+        "source": "qsm_tpu_torch/csrc/stepper_chunk.cu",
+        "replaces": "qsm_tpu/ops/jax_kernel.py:255 (build_stepper -> "
+                    "run_one, table regime)",
+        "launches": step_launches, "matches_plain": step_err == 0,
+        "max_abs_err": step_err, **step, "library_ms": None}, {
+        "name": "compact_carry", "route": "cuda",
+        "source": "qsm_tpu_torch/csrc/compact_carry.cu",
+        "replaces": "qsm_tpu/ops/jax_kernel.py:736 (JaxTPU._compact_fn)",
+        "launches": comp_launches, "matches_plain": step_err == 0,
+        "max_abs_err": step_err, **comp, "library_ms": None}]
     print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line))

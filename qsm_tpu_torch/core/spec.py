@@ -10,10 +10,13 @@ transition with its postcondition.  It comes in two forms:
   batch shape, branchless, used to build the per-history step tables the
   device search gathers from.
 
-Model state is a fixed-length int32 vector (``STATE_DIM``); the specs of
-this package are scalar (``STATE_DIM == 1``) and declare a bound on their
-reachable states (``scalar_state_bound``), which is what lets the device
-tabulate them.
+Model state is a fixed-length int32 vector (``STATE_DIM``).  A scalar spec
+(``STATE_DIM == 1``) declares a bound on its reachable states
+(``scalar_state_bound``), which is what lets the device tabulate it; a
+vector spec declares per-element bounds (``state_elem_bounds``) and the
+device tabulates its packed scalar shadow (``ops/scalarize.py``).  For a
+vector spec ``step_torch`` takes and returns the state with its elements
+on a trailing axis.
 """
 
 from __future__ import annotations
@@ -56,9 +59,11 @@ class Spec:
         raise NotImplementedError
 
     def step_torch(self, state, cmd, arg, resp):
-        """``(next_state, ok)`` for int32 tensors that broadcast together;
-        ``state`` is the scalar state itself (``STATE_DIM == 1``).  Returns
-        int32 ``next_state`` and bool ``ok`` of the broadcast shape."""
+        """``(next_state, ok)`` for int32 tensors that broadcast together.
+        For a scalar spec ``state`` is the state itself and both outputs
+        have the broadcast shape; for a vector spec ``state`` is
+        ``[..., STATE_DIM]``, ``next_state`` likewise and ``ok`` drops the
+        trailing axis.  ``next_state`` is int32, ``ok`` bool."""
         raise NotImplementedError
 
     # -- generation -------------------------------------------------------
@@ -91,6 +96,17 @@ class Spec:
         """Exclusive upper bound on the scalar states reachable through ok
         steps whose ARGS lie in the declared domains (resps arbitrary), or
         None.  The device backend needs one to tabulate the spec."""
+        return None
+
+    def state_elem_bounds(self) -> Optional[Sequence[int]]:
+        """Per-element exclusive upper bounds on the state vector, or None.
+
+        The contract: the initial state is within bounds, and from any
+        state within bounds every ok step whose ARG is in the declared
+        command domains (resps arbitrary) yields a state within bounds.
+        Declaring it lets the device pack small vector states into one
+        scalar (``ops/scalarize.py``) and tabulate the packed spec; the
+        packing is a bijection, so verdicts are unchanged."""
         return None
 
     def resp_domain(self, cmd: int) -> range:

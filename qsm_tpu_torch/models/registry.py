@@ -8,6 +8,7 @@ import dataclasses
 from typing import Callable, Dict
 
 from .cas import AtomicCasSUT, CasSpec, RacyCasSUT
+from .queue import AtomicQueueSUT, QueueSpec, RacyTwoPhaseQueueSUT
 from .register import (AtomicRegisterSUT, RacyCachedRegisterSUT,
                        RegisterSpec, ReplicatedRegisterSUT)
 
@@ -35,6 +36,10 @@ MODELS: Dict[str, ModelEntry] = {
         make_spec=CasSpec,
         impls={"atomic": AtomicCasSUT, "racy": RacyCasSUT},
         default_pids=8, default_ops=32),
+    "queue": ModelEntry(
+        make_spec=QueueSpec,
+        impls={"atomic": AtomicQueueSUT, "racy": RacyTwoPhaseQueueSUT},
+        default_pids=8, default_ops=48),
 }
 
 

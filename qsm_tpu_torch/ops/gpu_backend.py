@@ -4,12 +4,8 @@ Host side (as the JAX package's device checker does it):
 
 * scope: scalar-state specs with a declared state bound <= 64, histories
   of <= 32 ops (one-word bitmasks); other specs are refused;
-* histories whose args fall outside the declared command domains are
-  deferred to the oracle (BUDGET_EXCEEDED), since the state bound only
-  holds for in-domain args;
-* pending ops are expanded host-side into every complete/prune variant
-  (at most ``max_expansions``, else deferred); a history is linearizable
-  iff some variant is;
+* the entry points, out-of-domain deferral and pending expansion:
+  ``ops/host_contracts.py``;
 * every lane gets its ``[S, N]`` step table from one vectorised
   ``spec.step_torch`` over ``[B, S, N]`` on the device, built from the
   history's actual resps.
@@ -22,18 +18,17 @@ total budget is BUDGET_EXCEEDED, never a guess.
 
 from __future__ import annotations
 
-import dataclasses
-import itertools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.history import History, bucket_for, encode_batch
 from ..core.spec import Spec
-from .backend import Verdict, resolve_device
-from .dfs_kernel import (BUDGET, FAILURE, MAX_OPS, MAX_STATES, RUNNING,
-                         SUCCESS, Carry, Tables, dfs_chunk)
+from .backend import resolve_device
+from .dfs_kernel import (BUDGET, MAX_OPS, MAX_STATES, RUNNING, SUCCESS, Carry,
+                         Tables, dfs_chunk)
+from .host_contracts import DeviceChecker
 
 
 def lane_tables(spec: Spec, histories: Sequence[History], n_ops: int,
@@ -83,7 +78,7 @@ def fresh_carry(nreq: torch.Tensor, init_states: np.ndarray, n_ops: int,
           for _ in range(3)))
 
 
-class TorchGPU:
+class TorchGPU(DeviceChecker):
     """Batched device backend implementing ``LineariseBackend``.
 
     ``device`` defaults to CUDA; without a CUDA device construction raises
@@ -123,110 +118,6 @@ class TorchGPU:
         # sum over chunk calls of CHUNK x padded lanes: what every lane
         # pays in lockstep, not what it needed
         self.lockstep_cost = 0
-
-    # -- host contracts ------------------------------------------------
-    def _args_in_domain(self, h: History) -> bool:
-        cmds = self.spec.CMDS
-        return all(0 <= o.cmd < len(cmds)
-                   and 0 <= o.arg < cmds[o.cmd].n_args for o in h.ops)
-
-    def _expand(self, h: History) -> Optional[List[History]]:
-        """All complete/prune variants of a history's pending ops, or
-        None past ``max_expansions``."""
-        if h.n_pending == 0:
-            return [h]
-        pend = [i for i, o in enumerate(h.ops) if o.is_pending]
-        n = 1
-        choices = []
-        for i in pend:
-            opts = [None] + list(self.spec.resp_domain(h.ops[i].cmd))
-            n *= len(opts)
-            if n > self.max_expansions:
-                return None
-            choices.append(opts)
-        pend_pos = {i: k for k, i in enumerate(pend)}
-        out = []
-        for combo in itertools.product(*choices):
-            ops = []
-            for i, o in enumerate(h.ops):
-                if i in pend_pos:
-                    c = combo[pend_pos[i]]
-                    if c is None:
-                        continue  # pruned: never took effect
-                    # completed: its response time stays the pending
-                    # sentinel (unconstrained on the right)
-                    ops.append(dataclasses.replace(o, resp=int(c)))
-                else:
-                    ops.append(o)
-            out.append(History(ops, seed=h.seed, program_id=h.program_id))
-        return out
-
-    def check_histories(self, spec: Spec, histories: Sequence[History],
-                        init_states: Optional[Sequence] = None
-                        ) -> np.ndarray:
-        if spec is not self.spec:
-            raise ValueError("TorchGPU is built per spec; construct one "
-                             "per spec")
-        if not histories:
-            return np.empty(0, np.int8)
-        if init_states is not None and len(init_states) != len(histories):
-            raise ValueError(
-                f"init_states has {len(init_states)} entries for "
-                f"{len(histories)} histories")
-        groups: List[Tuple[int, int]] = []  # (start, count) per input
-        flat: List[History] = []
-        flat_inits: List = []
-        for idx, h in enumerate(histories):
-            if not self._args_in_domain(h):
-                self.deferred_out_of_domain += 1
-                groups.append((len(flat), 0))
-                continue
-            exp = self._expand(h)
-            if exp is None:
-                groups.append((len(flat), 0))
-                continue
-            groups.append((len(flat), len(exp)))
-            flat.extend(exp)
-            if init_states is not None:
-                flat_inits.extend([init_states[idx]] * len(exp))
-        out = np.full(len(histories), int(Verdict.BUDGET_EXCEEDED), np.int8)
-        if flat:
-            statuses = self._run_device(
-                flat, flat_inits if init_states is not None else None)
-            for idx, (start, count) in enumerate(groups):
-                if count == 0:
-                    continue
-                sub = statuses[start:start + count]
-                if (sub == SUCCESS).any():
-                    out[idx] = int(Verdict.LINEARIZABLE)
-                elif (sub == BUDGET).any():
-                    out[idx] = int(Verdict.BUDGET_EXCEEDED)
-                else:
-                    out[idx] = int(Verdict.VIOLATION)
-        return out
-
-    def check_from(self, spec: Spec, history: History, init_state
-                   ) -> Verdict:
-        """Linearizability from an explicit model state."""
-        v = self.check_histories(spec, [history], init_states=[init_state])
-        return Verdict(int(v[0]))
-
-    def check_witness(self, spec: Spec, history: History):
-        """(verdict, witness): the kernel's ``chosen`` stack read back on
-        success, as ``(op_index, resp)`` pairs.  Pending-free, in-domain
-        histories only; others get (verdict, None)."""
-        if history.n_pending or not self._args_in_domain(history):
-            return Verdict(
-                int(self.check_histories(spec, [history])[0])), None
-        if not history.ops:
-            return Verdict.LINEARIZABLE, []
-        statuses, chosen = self._run_device([history], collect_chosen=True)
-        v = {SUCCESS: Verdict.LINEARIZABLE, FAILURE: Verdict.VIOLATION,
-             BUDGET: Verdict.BUDGET_EXCEEDED}[int(statuses[0])]
-        if v != Verdict.LINEARIZABLE:
-            return v, None
-        order = [int(j) for j in chosen[0][:len(history.ops)]]
-        return v, [(j, history.ops[j].resp) for j in order]
 
     # -- device loop ---------------------------------------------------
     def _run_device(self, flat: Sequence[History],

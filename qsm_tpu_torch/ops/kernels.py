@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -95,3 +96,37 @@ def dfs_chunk_lib() -> ctypes.CDLL:
     fn.argtypes = [_P] * 19 + [_I] * 12 + [_P]
     fn.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def stepper_chunk_lib() -> ctypes.CDLL:
+    """The built ``stepper_chunk`` library: 12 device pointers (the five
+    tables, the lane rows, the six carry planes updated in place), 8 ints
+    of shape and budget, the stream."""
+    lib = ctypes.CDLL(str(build("stepper_chunk")))
+    fn = lib.stepper_chunk_launch
+    fn.argtypes = [_P] * 12 + [_I] * 8 + [_P]
+    fn.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def compact_carry_lib() -> ctypes.CDLL:
+    """The built ``compact_carry`` library: 15 device pointers (the seven
+    old carry planes, the surviving lanes, the seven new planes), 7 ints of
+    shape, the stream."""
+    lib = ctypes.CDLL(str(build("compact_carry")))
+    fn = lib.compact_carry_launch
+    fn.argtypes = [_P] * 15 + [_I] * 7 + [_P]
+    fn.restype = _I
+    return lib
+
+
+KERNEL_SOURCES = ("dfs_chunk", "stepper_chunk", "compact_carry")
+
+
+def build_all(names=KERNEL_SOURCES) -> dict:
+    """Build every named source at once, one ``nvcc`` each, all started
+    together; ``{name: library path}``."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))

@@ -1,8 +1,11 @@
 """Command line: ``python -m qsm_tpu_torch run|bench``.
 
 Backends: ``gpu`` is :class:`~qsm_tpu_torch.ops.gpu_backend.TorchGPU`
-(the CUDA kernel; ``--device cpu`` runs its plain version instead), and
-``cpu`` is the memoised host oracle.
+(the ``dfs_chunk`` kernel), ``stepper`` is
+:class:`~qsm_tpu_torch.ops.stepper.TorchStepper` (the lane-compacting
+``stepper_chunk`` / ``compact_carry`` kernels, the counterpart of the
+reference CLI's ``--backend tpu``), ``--device cpu`` runs either one's
+plain versions instead; ``cpu`` is the memoised host oracle.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from ..core.property import PropertyConfig, prop_concurrent
 from ..models.registry import MODELS, make
 from ..ops.wing_gong_cpu import WingGongCPU
 
-BACKENDS = ("gpu", "cpu")
+BACKENDS = ("gpu", "stepper", "cpu")
 
 
 def make_backend(name: str, spec, device=None):
@@ -23,6 +26,10 @@ def make_backend(name: str, spec, device=None):
         from ..ops.gpu_backend import TorchGPU
 
         return TorchGPU(spec, device=device)
+    if name == "stepper":
+        from ..ops.stepper import TorchStepper
+
+        return TorchStepper(spec, device=device)
     if name == "cpu":
         return WingGongCPU(memo=True)
     raise SystemExit(f"unknown backend {name!r}")
@@ -45,10 +52,15 @@ def _add_common(p: argparse.ArgumentParser, backend_default: str) -> None:
     p.add_argument("--model", default="cas", choices=sorted(MODELS))
     p.add_argument("--pids", type=int, default=None)
     p.add_argument("--ops", type=int, default=None)
-    p.add_argument("--backend", default=backend_default, choices=BACKENDS)
+    p.add_argument("--backend", default=backend_default, choices=BACKENDS,
+                   help="gpu: the dfs_chunk kernel (scalar specs, <= 32 "
+                        "ops); stepper: the lane-compacting stepper, the "
+                        "counterpart of the reference's --backend tpu; "
+                        "cpu: the host memo oracle")
     p.add_argument("--device", default=None,
-                   help="torch device of the gpu backend (default cuda; "
-                        "cpu runs the kernel's plain version)")
+                   help="torch device of the gpu and stepper backends "
+                        "(default cuda; cpu runs the kernels' plain "
+                        "versions)")
 
 
 def cmd_run(args) -> int:

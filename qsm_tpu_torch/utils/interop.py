@@ -7,9 +7,16 @@ depends on the other side's types.
 
 * A history is a list of rows ``[pid, cmd, arg, resp, invoke, response]``
   (the ``check`` trace format; ``resp == -1`` marks a pending op).
-* A carry is a dict of the lane-minor int32 planes of
+* A ``dfs_chunk`` carry is a dict of the lane-minor int32 planes of
   :mod:`qsm_tpu_torch.ops.dfs_kernel` (``taken``, ``chosen``, ``states``,
   ``dsi``, ``ck0``, ``ck1``, ``occ``).
+* A stepper carry crosses in the layout of the JAX package's ``JaxTPU``
+  carry, a dict of lane-major numpy arrays: ``taken`` bool ``[B, N]``,
+  ``chosen`` ``[B, N+1]``, ``states`` ``[B, N+1, 1]``, ``d``, ``status``,
+  ``iters``, ``prunes``, ``inserts`` ``[B]``, and with a memo ``keys``
+  uint32 ``[B, slots, kw]`` and ``occ`` ``[B, slots]``.  A mid-search
+  carry of that backend resumes in :mod:`qsm_tpu_torch.ops.stepper_kernel`
+  and back.
 """
 
 from __future__ import annotations
@@ -21,6 +28,11 @@ import torch
 
 from ..core.history import History, Op
 from ..ops.dfs_kernel import Carry
+from ..ops.stepper_kernel import (D, INSERTS, ITERS, PRUNES, STATUS,
+                                  StepperCarry, key_words)
+
+_DSI_KEYS = {D: "d", STATUS: "status", ITERS: "iters", PRUNES: "prunes",
+             INSERTS: "inserts"}
 
 
 def history_from_rows(rows: Sequence[Sequence[int]], seed=None,
@@ -49,3 +61,45 @@ def carry_from_numpy(planes: Dict[str, np.ndarray], device) -> Carry:
 def carry_to_numpy(carry: Carry) -> Dict[str, np.ndarray]:
     return {k: t.detach().cpu().numpy()
             for k, t in zip(Carry._fields, carry)}
+
+
+def stepper_carry_from_jax(planes: Dict[str, np.ndarray], device,
+                           rows=None) -> StepperCarry:
+    """A :class:`StepperCarry` on ``device`` from a ``JaxTPU`` carry dict;
+    lane ``i`` reads table row ``rows[i]`` (default ``i``: that backend's
+    lanes are aligned with its argument rows)."""
+    taken = np.asarray(planes["taken"])
+    B, N = taken.shape
+    kw = key_words(N)
+    keys = planes.get("keys")
+    if keys is None:
+        keys = np.zeros((B, 0, kw), np.uint32)
+        occ = np.zeros((B, 0), np.int32)
+    else:
+        occ = planes["occ"]
+    dsi = np.stack([np.asarray(planes[_DSI_KEYS[k]], np.int32)
+                    for k in range(5)])
+    rows = np.arange(B) if rows is None else rows
+    host = (taken.T.astype(np.int32), np.asarray(planes["chosen"]).T,
+            np.asarray(planes["states"])[:, :, 0].T, dsi,
+            np.asarray(keys, np.uint32).view(np.int32), np.asarray(occ),
+            np.asarray(rows))
+    return StepperCarry(*(torch.from_numpy(np.array(a, np.int32, order="C"))
+                          .to(device) for a in host))
+
+
+def stepper_carry_to_jax(carry: StepperCarry) -> Dict[str, np.ndarray]:
+    """The ``JaxTPU`` carry dict of a :class:`StepperCarry` (without the
+    lanes' table rows, which that backend does not have); ``keys`` and
+    ``occ`` only when the carry has a memo."""
+    h = {k: t.detach().cpu().numpy() for k, t in
+         zip(StepperCarry._fields, carry)}
+    out = {"taken": h["taken"].T == 1,
+           "chosen": np.ascontiguousarray(h["chosen"].T),
+           "states": np.ascontiguousarray(h["states"].T[:, :, None])}
+    for k, name in _DSI_KEYS.items():
+        out[name] = h["dsi"][k].copy()
+    if h["occ"].shape[1]:
+        out["keys"] = h["keys"].view(np.uint32)
+        out["occ"] = h["occ"]
+    return out

@@ -1,11 +1,15 @@
 """On the card only (marker ``gpu``; run with ``pytest --noconftest -m gpu
-tests/test_torch_gpu.py`` on a machine with an H100): the CUDA kernel
-against its plain version, bit for bit on all seven carry planes, under
-every launch plan (``nxt`` staged or read from global memory, the memo off,
-in shared memory or in global memory, N = 12 and 32, a ragged last block,
-start states outside the table), over 8 consecutive chunks at the
-checker's 4096 lanes, and the checker at 256 lanes against the memo
-oracle.  Without CUDA each test skips in its fixture."""
+tests/test_torch_gpu.py`` on a machine with an H100): the ``dfs_chunk``
+kernel against its plain version, bit for bit on all seven carry planes,
+under every launch plan (``nxt`` staged or read from global memory, the
+memo off, in shared memory or in global memory, N = 12 and 32, a ragged
+last block, start states outside the table), over 8 consecutive chunks at
+the checker's 4096 lanes, and the checker at 256 lanes against the memo
+oracle; ``stepper_chunk`` and ``compact_carry`` against their plain
+versions on every carry plane (1 to 4 bitmask words, memo off, small and
+large; the memo kept, grown, shrunk, created and dropped), and
+``TorchStepper`` on a queue corpus against the memo oracle.  Without CUDA
+each test skips in its fixture."""
 
 from __future__ import annotations
 
@@ -210,3 +214,115 @@ def test_checker_matches_oracle_at_256_lanes(cuda, corpus):
     for h in lin:
         v, wit = g.check_witness(spec, h)
         assert v == Verdict.LINEARIZABLE and verify_witness(spec, h, wit)
+
+
+# ---------------------------------------------------------------------------
+# The lane-compacting stepper: stepper_chunk and compact_carry
+# ---------------------------------------------------------------------------
+
+def _stepper_inputs(model: str, n_ops: int, lanes: int, dev):
+    from qsm_tpu_torch.core.history import encode_batch
+    from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
+                                            RacyTwoPhaseQueueSUT)
+    from qsm_tpu_torch.ops.scalarize import scalar_shadow
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_tables
+
+    if model == "queue":
+        spec, suts = QueueSpec(), (AtomicQueueSUT, RacyTwoPhaseQueueSUT)
+    else:
+        spec, suts = CasSpec(), (AtomicCasSUT, RacyCasSUT)
+    hs = build_corpus(spec, suts, n=lanes, n_pids=8, max_ops=n_ops,
+                      seed_base=1000, seed_prefix="bench")
+    kspec = scalar_shadow(spec) or spec
+    enc = encode_batch(hs, kspec.initial_state(), max_ops=n_ops)
+    tabs = stepper_tables(kspec, enc.ops[:, :, 1], enc.ops[:, :, 2],
+                          enc.ops[:, :, 3], enc.valid, enc.precedes(), dev)
+    return tabs, int(enc.init_state[0])
+
+
+def _clone(carry):
+    return type(carry)(*(t.clone() for t in carry))
+
+
+def _assert_stepper_equal(got, want, what: str) -> None:
+    for name, a, b in zip(type(got)._fields, got, want):
+        assert torch.equal(a, b), f"{name} differs {what}"
+
+
+@pytest.mark.parametrize("slots", [0, 64, 8192])
+@pytest.mark.parametrize("model,n_ops", [("queue", 48), ("cas", 32),
+                                         ("cas", 64), ("cas", 96),
+                                         ("cas", 128)])
+def test_stepper_chunk_matches_plain_version(cuda, model, n_ops, slots):
+    from qsm_tpu_torch.ops.stepper_kernel import (
+        fresh_stepper_carry, stepper_chunk, stepper_chunk_plain)
+
+    B = 300  # a ragged last block
+    tabs, init = _stepper_inputs(model, n_ops, B, cuda)
+    starts = np.full(B, init, np.int32)
+    starts[::7] = tabs.nxt.shape[1] + 3  # outside the table
+    starts[3::11] = -2
+    rows = np.random.default_rng(3).permutation(B)
+    carry = fresh_stepper_carry(tabs.nreq, rows, starts[rows], B, n_ops,
+                                slots)
+    for k in range(3):
+        got, want = _clone(carry), _clone(carry)
+        before = stepper_chunk.launches
+        stepper_chunk(tabs, got, chunk=512, budget=552_000)
+        torch.cuda.synchronize()
+        assert stepper_chunk.launches == before + 1
+        stepper_chunk_plain(tabs, want, chunk=512, budget=552_000)
+        _assert_stepper_equal(got, want, f"after chunk {k + 1}")
+        carry = got
+    if slots:
+        assert int((carry.occ == 1).sum()) > 0
+
+
+@pytest.mark.parametrize("old_slots,slots", [(64, 64), (64, 8192),
+                                             (8192, 64), (0, 8192),
+                                             (64, 0)])
+def test_compact_carry_matches_plain_version(cuda, old_slots, slots):
+    from qsm_tpu_torch.ops.stepper_kernel import (
+        RUNNING, compact_carry, compact_carry_plain, fresh_stepper_carry,
+        stepper_chunk)
+
+    B = 1024
+    tabs, init = _stepper_inputs("queue", 48, B, cuda)
+    carry = fresh_stepper_carry(tabs.nreq, np.arange(B),
+                                np.full(B, init, np.int32), B, 48,
+                                old_slots)
+    stepper_chunk(tabs, carry, chunk=256, budget=552_000)
+    running = torch.nonzero(carry.dsi[1] == RUNNING)[:, 0].cpu().numpy()
+    lanes = np.random.default_rng(1).permutation(running)[:200]
+    assert lanes.size > 50
+    before = compact_carry.launches
+    got = compact_carry(carry, lanes, 256, slots)
+    torch.cuda.synchronize()
+    assert compact_carry.launches == before + 1
+    want = compact_carry_plain(carry, lanes, 256, slots)
+    _assert_stepper_equal(got, want, f"{old_slots} -> {slots} slots")
+
+
+def test_stepper_checker_matches_oracle(cuda):
+    from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
+                                            RacyTwoPhaseQueueSUT)
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.ops.stepper_kernel import compact_carry, stepper_chunk
+
+    spec = QueueSpec()
+    hs = build_corpus(spec, (AtomicQueueSUT, RacyTwoPhaseQueueSUT), n=600,
+                      n_pids=8, max_ops=48, seed_base=1000,
+                      seed_prefix="bench")
+    t = TorchStepper(spec)
+    before = stepper_chunk.launches, compact_carry.launches
+    v = t.check_histories(spec, hs)
+    assert stepper_chunk.launches > before[0]
+    assert compact_carry.launches > before[1] and t.compactions > 0
+    ov = WingGongCPU(memo=True).check_histories(spec, hs)
+    both = (v != 2) & (ov != 2)
+    assert int(both.sum()) > 500
+    assert int(((v != ov) & both).sum()) == 0
+    lin = [h for h, x in zip(hs, v) if x == Verdict.LINEARIZABLE][:16]
+    for h in lin:
+        wv, wit = t.check_witness(spec, h)
+        assert wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit)
