@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OLD.cu   # also time an earlier kernel
+    python3 chip_smoke.py --against-stepper OLD_DIR  # earlier stepper kernels
 
 Phases, in order; any failure exits non-zero and no result is printed:
 
@@ -34,16 +35,27 @@ Phases, in order; any failure exits non-zero and no result is printed:
    32 ops, 100 trials, seed 0 — racy CAS convicted with a shrunk
    counterexample, atomic CAS passed — and the same racy run through the
    CLI entry point;
-6. stepper kernels against plain: ``stepper_chunk`` on the queue
+6. stepper kernels against plain (each case's launch plan printed
+   first): ``stepper_chunk`` on the queue
    headline's tables (48 ops x 8 pids, 512 unique histories at 4096
-   lanes), memo off and at the port's slot count for that bucket, from a
-   fresh and from a mid-search carry, after 1 and 8 chunks of 2048
-   iterations, and on CAS histories of 64 and 128 ops at 1024 lanes after
-   1 and 2 chunks;
-   ``compact_carry`` from 4096 lanes to 256 with the memo growing, and out
-   of a carry without a memo; every plane bit-identical to the plain
-   version (tolerance 0).  Then each kernel is timed with CUDA events and
-   its plain version once;
+   lanes, one batch-shared op-vocabulary table staged in shared memory),
+   memo off and at the port's slot count for that bucket, from a fresh and
+   from a mid-search carry, after 1 and 8 chunks of 2048 iterations; on
+   CAS histories of 64 and 128 ops at 1024 lanes after 1 and 2 chunks; and
+   on CAS histories over 256 values (32 ops, 1024 lanes), whose table is
+   too large to stage and is read from device memory;
+   ``compact_carry`` with the memo grown (4096 -> 256 lanes), kept,
+   shrunk with collisions, from a carry without a memo and to one without;
+   every plane bit-identical to the plain version (tolerance 0).  Then
+   each kernel is timed with CUDA events and its plain version once.  With
+   ``--against-stepper DIR`` (a directory holding earlier
+   ``stepper_chunk.cu`` and ``compact_carry.cu`` whose C entries take the
+   per-history ``[R, S, N]`` tables: 12 pointers, 8 ints and the stream;
+   15 pointers, 7 ints and the stream), those kernels are built too and
+   timed in turns with these (old, new, new, old) on the same inputs, the
+   old stepper fed the per-history tables expanded from the vocabulary,
+   after both are checked equal; each compaction is also timed by its C
+   entry alone, outputs made beforehand, without the wrappers' host work;
 7. queue checker (main path of ``TorchStepper``): ``check_histories`` on
    the 512 unique queue histories replicated to 4096 lanes, at the
    default budget; 0 verdict mismatches against the memo oracle,
@@ -92,10 +104,14 @@ from qsm_tpu_torch.ops.scalarize import scalar_shadow
 from qsm_tpu_torch.ops.stepper import TorchStepper, default_slots
 from qsm_tpu_torch.ops.stepper_kernel import (StepperCarry, compact_carry,
                                               compact_carry_plain,
+                                              device_sms,
                                               fresh_stepper_carry, key_words,
-                                              n_words, stepper_chunk,
+                                              n_words, pack_words,
+                                              stepper_blocks_per_sm,
+                                              stepper_chunk,
                                               stepper_chunk_plain,
-                                              stepper_tables)
+                                              stepper_launch_plan,
+                                              stepper_tables, table_bytes)
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
 from qsm_tpu_torch.utils import cli
 from qsm_tpu_torch.utils.corpus import build_corpus, random_lane_tables
@@ -113,6 +129,7 @@ RANDOM_STATES = 64             # the global-table case: nxt is not staged
 Q_PIDS, Q_OPS = 8, 48          # the queue headline (the registry default)
 STEP_CHUNK = 2048              # stepper iterations a launch in phase 6
 COMPACT_TO = 256               # phase 6's compaction: 4096 lanes -> 256
+WIDE_CAS_VALUES = 256          # phase 6's table too large to stage
 
 
 def ops_per_iteration(n_ops: int) -> int:
@@ -414,7 +431,7 @@ def stepper_bound(tabs, c_in: StepperCarry, c_out: StepperCarry):
     iterations this run's data needed."""
     ran = (c_out.dsi[2] - c_in.dsi[2]) > 0
     iters = int((c_out.dsi[2].long() - c_in.dsi[2].long()).sum())
-    n = tabs.nxt.shape[2]
+    n = tabs.prec.shape[2]
     stacks = _tensor_bytes((c_in.taken, c_in.chosen, c_in.states, c_in.dsi,
                             c_in.row))
     nbytes = 2 * stacks + int(ran.sum()) * 4 * (
@@ -461,18 +478,32 @@ def stepper_inputs(spec, histories, n_ops, dev):
 
 def stepper_cases(q_spec, q_corpus, dev):
     """(name, B, tables, start states) of phase 6: the queue headline at
-    4096 lanes, and CAS histories of 64 and 128 ops at 1024."""
+    4096 lanes; CAS histories of 64 and 128 ops at 1024; CAS histories of
+    32 ops over 256 values at 1024, whose table is too large to stage."""
     B = DEVICE_BATCH
     tabs, starts = stepper_inputs(q_spec, _replicate(q_corpus, B), Q_OPS,
                                   dev)
     yield "queue48", B, tabs, starts
-    cas = CasSpec()
-    for n_ops in (64, 128):
+    for name, cas, n_ops in (
+            ("cas64", CasSpec(), 64), ("cas128", CasSpec(), 128),
+            (f"cas32v{WIDE_CAS_VALUES}", CasSpec(n_values=WIDE_CAS_VALUES),
+             32)):
         hs = build_corpus(cas, (AtomicCasSUT, RacyCasSUT), n=256,
                           n_pids=N_PIDS, max_ops=n_ops, seed_base=1000,
                           seed_prefix="bench")
         tabs, starts = stepper_inputs(cas, _replicate(hs, 1024), n_ops, dev)
-        yield f"cas{n_ops}", 1024, tabs, starts
+        yield name, 1024, tabs, starts
+
+
+def stepper_plan_text(name, B, tabs) -> str:
+    N = tabs.vocab.shape[1]
+    S, V = tabs.vnxt.shape
+    p = stepper_launch_plan(B, N, S, V, device_sms(tabs.vocab.device))
+    return (f"{name} B={B} N={N} S={S} V={V}: {p.warps_per_block} warps "
+            f"a block, grid {p.grid}, {p.smem_bytes} shared bytes a block, "
+            f"{stepper_blocks_per_sm(p)} blocks/SM; step table "
+            f"({table_bytes(S, V)} B) in "
+            f"{'shared' if p.stage_tables else 'device'} memory")
 
 
 def _compare(name, got, want):
@@ -500,12 +531,32 @@ def time_launches(launch, inputs, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def new_stepper(tabs, c):
+    return stepper_chunk(tabs, c, chunk=STEP_CHUNK, budget=TOTAL_BUDGET)
+
+
+def time_stepper(tabs, mid, launch=new_stepper, reps=5) -> float:
+    """ms per launch of a chunk from the mid-search carry, each launch on
+    its own copy (the kernel updates the carry in place)."""
+    copies = [clone_carry(mid) for _ in range(reps + 1)]
+    return time_launches(lambda c: launch(tabs, c), copies, reps)
+
+
 def phase_stepper(q_spec, q_corpus, dev, tag):
     """Phase 6: stepper_chunk and compact_carry against their plain
-    versions, then timings and bounds."""
+    versions, then timings and bounds.  Returns the largest error, the
+    timing rows, and what ``--against-stepper`` times again."""
     max_err, rows, carries = 0, {}, {}
     for name, B, tabs, starts in stepper_cases(q_spec, q_corpus, dev):
-        N = tabs.nxt.shape[2]
+        N = tabs.vocab.shape[1]
+        print(f"  plan: {stepper_plan_text(name, B, tabs)}", flush=True)
+        staged = stepper_launch_plan(B, N, *tabs.vnxt.shape,
+                                     device_sms(dev)).stage_tables
+        require(staged == (name != f"cas32v{WIDE_CAS_VALUES}"),
+                f"{name}: the step table is staged where it should not be, "
+                f"or the other way round")
+        if name == "queue48":
+            q_tabs = tabs
         for slots in (0, default_slots(B)):
             fresh = fresh_stepper_carry(tabs.nreq, np.arange(B), starts, B,
                                         N, slots)
@@ -522,8 +573,7 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                 ck, cp = clone_carry(c0), clone_carry(c0)
                 running = int((c0.dsi[1] == RUNNING).sum())
                 for i in range(n_chunks):
-                    stepper_chunk(tabs, ck, chunk=STEP_CHUNK,
-                                  budget=TOTAL_BUDGET)
+                    new_stepper(tabs, ck)
                     stepper_chunk_plain(tabs, cp, chunk=STEP_CHUNK,
                                         budget=TOTAL_BUDGET)
                     if i in (0, n_chunks - 1):
@@ -540,15 +590,9 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                 carries[(name, slots, start)] = ck
             if name != "queue48":
                 continue
-            # timing: a chunk from the mid-search carry, each launch on
-            # its own copy (the kernel updates the carry in place)
             mid = begins["mid"]
-            reps = 5
-            copies = [clone_carry(mid) for _ in range(reps + 1)]
-            ms = time_launches(lambda c: stepper_chunk(
-                tabs, c, chunk=STEP_CHUNK, budget=TOTAL_BUDGET), copies, reps)
-            one = stepper_chunk(tabs, clone_carry(mid), chunk=STEP_CHUNK,
-                                budget=TOTAL_BUDGET)
+            ms = time_stepper(tabs, mid)
+            one = new_stepper(tabs, clone_carry(mid))
             bound_ms, bound_by, nbytes, ops = stepper_bound(tabs, mid, one)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -557,47 +601,195 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
             rows[slots] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
+                               bound_by=bound_by, mid=mid)
             print(f"{tag} stepper_chunk {name} B={B} slots={slots}: "
                   f"{ms:.4f} ms/launch of {STEP_CHUNK} iterations from the "
                   f"mid-search carry (bound {bound_ms:.6f} ms by {bound_by}: "
                   f"{nbytes} B, {ops} ops; plain {plain_ms:.1f} ms)",
                   flush=True)
-            del copies
 
-    # compact_carry: 4096 -> 256 lanes, memo grown; and out of slots = 0
+    # compact_carry out of the queue headline's carries after 8 chunks,
+    # running lanes first: (label, old slots, new bucket, new slots)
     big = default_slots(DEVICE_BATCH)
     comp = {}
-    for old in (big, 0):
+    for label, old, to, slots in (
+            ("grown", big, COMPACT_TO, default_slots(COMPACT_TO)),
+            ("kept", big, DEVICE_BATCH // 4, big),
+            ("shrunk", big, COMPACT_TO, big // 32),
+            ("from no memo", 0, COMPACT_TO, default_slots(COMPACT_TO)),
+            ("to no memo", big, COMPACT_TO, 0)):
         c = carries[("queue48", old, "mid")]
         status = c.dsi[1].cpu().numpy()
         order = np.argsort(status != RUNNING, kind="stable")  # running first
-        lanes = order[:COMPACT_TO]
-        slots = default_slots(COMPACT_TO)
-        got = compact_carry(c, lanes, COMPACT_TO, slots)
-        want = compact_carry_plain(c, lanes, COMPACT_TO, slots)
+        lanes = order[:to]
+        got = compact_carry(c, lanes, to, slots)
+        want = compact_carry_plain(c, lanes, to, slots)
         torch.cuda.synchronize()
         max_err = max(max_err, _compare(
-            f"compact_carry {old} -> {slots} slots", got, want))
+            f"compact_carry {label}: {old} -> {slots} slots", got, want))
         filled = int((got.occ == 1).sum())
+        if label == "shrunk":
+            had = int((c.occ[torch.from_numpy(lanes).to(dev)] == 1).sum())
+            require(0 < filled < had, f"the shrunk memo kept {filled} of "
+                    f"{had} entries: no collision was exercised")
         reps = 10
-        ms = time_launches(lambda x: compact_carry(c, lanes, COMPACT_TO,
-                                                   slots), [None] * (reps + 1),
-                           reps)
+        ms = time_launches(lambda x: compact_carry(c, lanes, to, slots),
+                           [None] * (reps + 1), reps)
         bound_ms, nbytes = compact_bound(c, got, len(lanes))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        compact_carry_plain(c, lanes, COMPACT_TO, slots)
+        compact_carry_plain(c, lanes, to, slots)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        comp[old] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by="bytes")
-        print(f"{tag} compact_carry == plain, {DEVICE_BATCH} -> "
-              f"{COMPACT_TO} lanes, {old} -> {slots} slots ({filled} memo "
-              f"entries after the re-hash): all 7 planes bit-identical; "
+        comp[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes", args=(c, lanes, to, slots))
+        print(f"{tag} compact_carry == plain, memo {label}: "
+              f"{c.row.shape[0]} -> {to} lanes, {old} -> {slots} slots "
+              f"({filled} memo entries after): all 7 planes bit-identical; "
               f"{ms:.4f} ms/launch (bound {bound_ms:.6f} ms by bytes: "
               f"{nbytes} B; plain {plain_ms:.1f} ms)", flush=True)
-    return max_err, rows, comp
+    return max_err, rows, comp, q_tabs
+
+
+def per_history_tables(tabs):
+    """The per-history ``[R, S, N]`` next states and ``[R, S, W]`` packed
+    ok words that the earlier stepper kernel reads, expanded from the
+    vocabulary (op j of row r is entry ``vocab[r, j]``)."""
+    voc = tabs.vocab.long()
+    nxt = tabs.vnxt[:, voc].permute(1, 0, 2).contiguous()
+    bits = (tabs.vok[:, voc >> 5].to(torch.int64) >> (voc & 31)) & 1
+    words = pack_words(bits.permute(1, 0, 2) == 1)            # [R, S, W]
+    okw = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return nxt, okw.to(torch.int32).contiguous()
+
+
+def old_stepper_kernels(src_dir: Path):
+    """Launchers for the earlier ``stepper_chunk.cu`` and
+    ``compact_carry.cu`` in ``src_dir``, built like these."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    step = ctypes.CDLL(str(kernels.build(
+        "stepper_chunk_against", src=src_dir / "stepper_chunk.cu"))
+                       ).stepper_chunk_launch
+    step.argtypes = [P] * 12 + [I] * 8 + [P]
+    comp = ctypes.CDLL(str(kernels.build(
+        "compact_carry_against", src=src_dir / "compact_carry.cu"))
+                       ).compact_carry_launch
+    comp.argtypes = [P] * 15 + [I] * 7 + [P]
+
+    def old_step(rtabs, c):
+        R, S, N = rtabs[0].shape
+        rc = step(*(t.data_ptr() for t in rtabs), c.row.data_ptr(),
+                  *(t.data_ptr() for t in c[:6]), c.row.shape[0], R, N, S,
+                  n_words(N), c.occ.shape[1], STEP_CHUNK, TOTAL_BUDGET,
+                  torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"the earlier stepper_chunk failed ({rc})")
+        return c
+
+    def old_compact_raw(c, idx, out):
+        rc = comp(*(t.data_ptr() for t in c), idx.data_ptr(),
+                  *(t.data_ptr() for t in out), c.row.shape[0],
+                  out.row.shape[0], idx.shape[0], c.taken.shape[0],
+                  key_words(c.taken.shape[0]), c.occ.shape[1],
+                  out.occ.shape[1], torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"the earlier compact_carry failed ({rc})")
+        return out
+
+    def old_compact(c, lanes, to, slots):
+        idx = torch.from_numpy(np.asarray(lanes, np.int32)).to(c.row.device)
+        return old_compact_raw(c, idx, compact_outputs(c, to, slots))
+    return old_step, old_compact, old_compact_raw
+
+
+def compact_outputs(c: StepperCarry, to: int, slots: int) -> StepperCarry:
+    N, dev = c.taken.shape[0], c.row.device
+    return StepperCarry(*(torch.empty(s, dtype=torch.int32, device=dev)
+                          for s in ((N, to), (N + 1, to), (N + 1, to),
+                                    (5, to), (to, slots, key_words(N)),
+                                    (to, slots), (to,))))
+
+
+def new_compact_raw(c, idx, out, win):
+    """This ``compact_carry``'s C entry alone: the lanes on the card, the
+    outputs and the re-hash scratch made beforehand, no host checks."""
+    rc = kernels.compact_carry_lib().compact_carry_launch(
+        *(t.data_ptr() for t in c), idx.data_ptr(),
+        *(t.data_ptr() for t in out), win.data_ptr(), c.row.shape[0],
+        out.row.shape[0], idx.shape[0], c.taken.shape[0],
+        key_words(c.taken.shape[0]), c.occ.shape[1], out.occ.shape[1],
+        device_sms(c.row.device), torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"compact_carry's C entry failed ({rc})")
+    return out
+
+
+def phase_against_stepper(src_dir: Path, q_tabs, rows, comp, tag):
+    """The earlier stepper kernels and these in turns (old, new, new, old)
+    on phase 6's queue inputs, after checking them equal."""
+    old_step, old_compact, old_compact_raw = old_stepper_kernels(src_dir)
+    for name in ("stepper_chunk_against", "compact_carry_against"):
+        src = src_dir / f"{name.split('_against')[0]}.cu"
+        for line in kernels.ptxas_report(name, src).splitlines():
+            if any(k in line for k in ("registers", "stack frame")):
+                print(f"  ptxas (earlier {name}): {line.strip()}")
+    rtabs = (*per_history_tables(q_tabs), q_tabs.prec, q_tabs.valid,
+             q_tabs.nreq)
+    print(f"{tag} earlier stepper_chunk fed per-history tables of "
+          f"{sum(t.numel() * 4 for t in rtabs[:2])} B, expanded from a "
+          f"{q_tabs.vnxt.numel() * 4 + q_tabs.vok.numel() * 4} B "
+          f"vocabulary table", flush=True)
+    for slots, row in rows.items():
+        mid = row["mid"]
+        a = old_step(rtabs, clone_carry(mid))
+        b = new_stepper(q_tabs, clone_carry(mid))
+        torch.cuda.synchronize()
+        _compare(f"earlier stepper_chunk vs this, slots={slots}", a, b)
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            turns[who].append(time_stepper(
+                rtabs if who == "old" else q_tabs, mid,
+                launch=old_step if who == "old" else new_stepper))
+        o, n = (sum(turns[k]) / 2 for k in ("old", "new"))
+        print(f"{tag} earlier vs this stepper_chunk, queue48 B={DEVICE_BATCH}"
+              f" slots={slots} (old, new, new, old): old "
+              f"{turns['old'][0]:.4f}/{turns['old'][1]:.4f} ms, new "
+              f"{turns['new'][0]:.4f}/{turns['new'][1]:.4f} ms per launch; "
+              f"old/new {o / n:.2f}x", flush=True)
+    del rtabs
+    for label, row in comp.items():
+        c, lanes, to, slots = row["args"]
+        a = old_compact(c, lanes, to, slots)
+        b = compact_carry(c, lanes, to, slots)
+        torch.cuda.synchronize()
+        _compare(f"earlier compact_carry vs this, memo {label}", a, b)
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            fn = old_compact if who == "old" else compact_carry
+            turns[who].append(time_launches(
+                lambda x: fn(c, lanes, to, slots), [None] * 11, 10))
+        o, n = (sum(turns[k]) / 2 for k in ("old", "new"))
+        print(f"{tag} earlier vs this compact_carry, memo {label} "
+              f"({c.row.shape[0]} -> {to} lanes, {c.occ.shape[1]} -> "
+              f"{slots} slots) (old, new, new, old): old "
+              f"{turns['old'][0]:.4f}/{turns['old'][1]:.4f} ms, new "
+              f"{turns['new'][0]:.4f}/{turns['new'][1]:.4f} ms per launch; "
+              f"old/new {o / n:.2f}x", flush=True)
+        # the C entries alone: the wrappers' host work (argument checks,
+        # the lanes' copy to the card, allocations) left out
+        idx = torch.from_numpy(np.asarray(lanes, np.int32)).to(c.row.device)
+        out = compact_outputs(c, to, slots)
+        win = torch.empty(max(len(lanes) * slots, 1), dtype=torch.int32,
+                          device=c.row.device)
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            turns[who].append(time_launches(
+                (lambda x: old_compact_raw(c, idx, out)) if who == "old"
+                else (lambda x: new_compact_raw(c, idx, out, win)),
+                [None] * 11, 10))
+        o, n = (sum(turns[k]) / 2 for k in ("old", "new"))
+        print(f"{tag} earlier vs this compact_carry's C entry alone, memo "
+              f"{label} (old, new, new, old): old "
+              f"{turns['old'][0]:.4f}/{turns['old'][1]:.4f} ms, new "
+              f"{turns['new'][0]:.4f}/{turns['new'][1]:.4f} ms per launch; "
+              f"old/new {o / n:.2f}x", flush=True)
 
 
 def phase_queue_checker(spec, corpus, tag):
@@ -706,6 +898,9 @@ def main(argv=None) -> int:
     ap.add_argument("--against", type=Path, default=None,
                     help="an earlier dfs_chunk.cu to time in turns with "
                          "this one")
+    ap.add_argument("--against-stepper", type=Path, default=None,
+                    help="a directory with an earlier stepper_chunk.cu and "
+                         "compact_carry.cu to time in turns with these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -763,10 +958,17 @@ def main(argv=None) -> int:
 
     q_spec, q_corpus = queue_corpus()
     t0 = time.perf_counter()
-    step_err, step_rows, comp_rows = phase_stepper(q_spec, q_corpus, dev,
-                                                   tag)
+    step_err, step_rows, comp_rows, q_tabs = phase_stepper(
+        q_spec, q_corpus, dev, tag)
     print(f"{tag} phase stepper kernels vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if args.against_stepper is not None:
+        phase_against_stepper(args.against_stepper, q_tabs, step_rows,
+                              comp_rows, tag)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    step = {k: step_rows[default_slots(DEVICE_BATCH)][k] for k in keys}
+    comp = {k: comp_rows["grown"][k] for k in keys}
+    del step_rows, comp_rows, q_tabs  # their carries: free the memory
 
     # TorchStepper's main path: launch counts from here to the end of
     # phase 8
@@ -792,8 +994,6 @@ def main(argv=None) -> int:
         "max_abs_err": max_err, "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None}]}
-    step = step_rows[default_slots(DEVICE_BATCH)]
-    comp = comp_rows[default_slots(DEVICE_BATCH)]
     kernels_line["kernels"] += [{
         "name": "stepper_chunk", "route": "cuda",
         "source": "qsm_tpu_torch/csrc/stepper_chunk.cu",

@@ -45,6 +45,9 @@ SMEM_BLOCK_MAX = 232_448    # dynamic shared bytes a block may opt in to
 SMEM_SM = 233_472           # shared bytes of one SM
 SMEM_BLOCK_RESERVED = 1_024  # shared bytes the runtime keeps per block
 BLOCKS_SM_MAX = 32          # resident blocks per SM
+H100_SMS = 132              # SMs of an H100 SXM: plans made without a card
+#                             (the tests) use it; a wrapper reads its own
+#                             card's count (stepper_kernel.device_sms)
 NXT_STAGE_CAP = 32 * 1024   # nxt is staged in shared memory up to this
 #                             many bytes a block (S*N rows of 128 B; the
 #                             headline's S=5, N=32 is 20,480), else read

@@ -100,24 +100,25 @@ def dfs_chunk_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def stepper_chunk_lib() -> ctypes.CDLL:
-    """The built ``stepper_chunk`` library: 12 device pointers (the five
-    tables, the lane rows, the six carry planes updated in place), 8 ints
-    of shape and budget, the stream."""
+    """The built ``stepper_chunk`` library: 13 device pointers (the six
+    tables, the lane rows, the six carry planes updated in place), 9 ints
+    of shape and budget, the 4 ints of the launch plan
+    (``stepper_kernel.StepperPlan``), the stream."""
     lib = ctypes.CDLL(str(build("stepper_chunk")))
     fn = lib.stepper_chunk_launch
-    fn.argtypes = [_P] * 12 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 13 + [_I] * 13 + [_P]
     fn.restype = _I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def compact_carry_lib() -> ctypes.CDLL:
-    """The built ``compact_carry`` library: 15 device pointers (the seven
-    old carry planes, the surviving lanes, the seven new planes), 7 ints of
-    shape, the stream."""
+    """The built ``compact_carry`` library: 16 device pointers (the seven
+    old carry planes, the surviving lanes, the seven new planes, the
+    re-hash scratch), 7 ints of shape, the card's SM count, the stream."""
     lib = ctypes.CDLL(str(build("compact_carry")))
     fn = lib.compact_carry_launch
-    fn.argtypes = [_P] * 15 + [_I] * 7 + [_P]
+    fn.argtypes = [_P] * 16 + [_I] * 8 + [_P]
     fn.restype = _I
     return lib
 

@@ -12,8 +12,10 @@ histories and out-of-bounds start states deferred to the oracle, pending
 ops expanded), split at
 ``MAX_BATCH``, then per device batch:
 
-1. every history's step table is built once on the device
-   (``stepper_tables``), at its own row;
+1. the batch's step table is built once on the device over its
+   vocabulary of distinct ``(cmd, arg, resp)`` ops, beside each history's
+   predecessor words and vocabulary indices at its own row
+   (``stepper_tables``);
 2. ``stepper_chunk`` runs a chunk of the schedule on every lane, and one
    status read per chunk tells the host which lanes decided;
 3. decided lanes leave; when the survivors fit a smaller bucket of the

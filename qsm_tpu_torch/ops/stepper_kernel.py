@@ -4,12 +4,17 @@ two kernels.
 The counterparts of the JAX package's ``build_stepper`` (``run_one`` with a
 static chunk, in its table regime) and ``JaxTPU._compact_fn`` in
 ``qsm_tpu/ops/jax_kernel.py``.  One lane is one history's resumable
-Wing–Gong DFS.  The tables are read-only and stay at the rows they were
-built at; a lane reads them through its ``row`` (so a compaction never
-moves a table).  All arrays int32:
+Wing–Gong DFS.  The tables are read-only.  The step table is shared by the
+whole device batch: a step depends only on the state and the op's
+``(cmd, arg, resp)``, so it is built once over the batch's vocabulary of
+distinct triples, and each op carries its index into that vocabulary.  The
+per-history tables stay at the rows they were built at; a lane reads them
+through its ``row`` (so a compaction never moves a table).  All arrays
+int32:
 
-    tables  nxt    [R, S, N]   next state of op j from state s
-            okw    [R, S, W]   packed postconditions (bit j%32 of word j//32)
+    tables  vocab  [R, N]      vocabulary index of op j (padding ops: 0)
+            vnxt   [S, V]      next state of vocabulary entry v from state s
+            vok    [S, VW]     packed postconditions (bit v%32 of word v//32)
             prec   [R, W, N]   packed predecessors of op j (bit i%32 of word
                                i//32: op i must be linearized before op j)
             valid  [R, W]      packed: op exists
@@ -25,37 +30,44 @@ moves a table).  All arrays int32:
             occ    [B, C]      1 = slot occupied
             row    [B]         the lane's table row
 
-with ``W = ceil(N / 32)`` and N <= 128.  The stacks are lane-minor (row k of
-a plane is ``plane[k]``), the memo lane-major (one lane's slot is one
-contiguous key).  A carry made by :func:`fresh_stepper_carry`,
-:func:`compact_carry` or :func:`stepper_chunk` keeps ``0 <= depth <= N``,
-``taken`` in {0, 1} and every ``row`` inside the tables (the kernel reads
-them unchecked).
+with ``W = ceil(N / 32)``, N <= 128 and ``VW = ceil(V / 32)``.  So op j of
+row r steps from state s to ``vnxt[s, vocab[r, j]]``: the JAX package's
+per-row ``[S, N]`` table is ``vnxt[:, vocab[r]]``.  The stacks are
+lane-minor (row k of a plane is ``plane[k]``), the memo lane-major (one
+lane's slot is one contiguous key).  A carry made by
+:func:`fresh_stepper_carry`, :func:`compact_carry` or :func:`stepper_chunk`
+keeps ``0 <= depth <= N``, ``taken`` in {0, 1} and every ``row`` inside the
+tables (the kernel reads them unchecked).
 
-``stepper_chunk`` launches ``csrc/stepper_chunk.cu`` for CUDA tensors and
-takes :func:`stepper_chunk_plain` only for CPU tensors; likewise
+``stepper_chunk`` launches ``csrc/stepper_chunk.cu`` for CUDA tensors, with
+the shape of the launch from :func:`stepper_launch_plan`, and takes
+:func:`stepper_chunk_plain` only for CPU tensors; likewise
 ``compact_carry`` (``csrc/compact_carry.cu``, :func:`compact_carry_plain`).
 Each CUDA wrapper counts its launches (``.launches``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from .dfs_kernel import BUDGET, FAILURE, RUNNING, SUCCESS, _as_i32, _mul32
+from .dfs_kernel import (BLOCKS_SM_MAX, BUDGET, FAILURE, RUNNING,
+                         SMEM_BLOCK_MAX, SMEM_BLOCK_RESERVED, SMEM_SM,
+                         SUCCESS, _as_i32, _mul32)
 
 MAX_OPS = 128   # four-word bitmasks
 D, STATUS, ITERS, PRUNES, INSERTS = range(5)   # rows of ``dsi``
 
 _M32 = 0xFFFFFFFF
 _HASH_SEED = 0x9E3779B9
-# the lanes whose step tables are built by one ``step_torch`` call: bounds
-# the temporaries to ~2**22 elements a call (the queue's vector state makes
-# five of them per element), whatever the batch
-TABLE_SLICE_ELEMS = 1 << 22
+
+# The stepper kernel's launch shape on an H100 (sm_90a): one warp a lane,
+# up to MAX_WARPS_PER_BLOCK warps a block sharing one staged table.
+MAX_WARPS_PER_BLOCK = 16    # the kernel's __launch_bounds__ is 512 threads
+WARPS_SM_MAX = 64           # resident warps per SM (2048 threads)
 
 
 def n_words(n_ops: int) -> int:
@@ -68,8 +80,9 @@ def key_words(n_ops: int) -> int:
 
 
 class StepperTables(NamedTuple):
-    nxt: torch.Tensor
-    okw: torch.Tensor
+    vocab: torch.Tensor
+    vnxt: torch.Tensor
+    vok: torch.Tensor
     prec: torch.Tensor
     valid: torch.Tensor
     nreq: torch.Tensor
@@ -136,13 +149,40 @@ def _pack_np(bits: np.ndarray, axis_len: int) -> np.ndarray:
     """bool ``[..., N, X]`` -> int32 ``[..., W, X]`` packed along the N
     axis (bit i%32 of word i//32)."""
     w = n_words(axis_len)
-    pad = np.zeros((*bits.shape[:-2], w * 32 - axis_len, bits.shape[-1]),
-                   bool)
-    full = np.concatenate([bits, pad], axis=-2).reshape(
-        *bits.shape[:-2], w, 32, bits.shape[-1])
-    words = (full.astype(np.uint64)
-             << np.arange(32, dtype=np.uint64)[:, None]).sum(axis=-2)
-    return words.astype(np.uint32).view(np.int32)
+    b = np.moveaxis(np.asarray(bits, bool), -2, -1)           # [..., X, N]
+    if w * 32 != axis_len:
+        b = np.concatenate([b, np.zeros((*b.shape[:-1], w * 32 - axis_len),
+                                        bool)], axis=-1)
+    words = np.ascontiguousarray(
+        np.packbits(b, axis=-1, bitorder="little")).view("<u4")
+    return np.ascontiguousarray(np.moveaxis(words, -1, -2)).view(np.int32)
+
+
+def op_vocabulary(cmd: np.ndarray, arg: np.ndarray, resp: np.ndarray,
+                  valid: np.ndarray):
+    """The batch's distinct ``(cmd, arg, resp)`` triples over its valid
+    ops (int32 ``[V, 3]``, sorted, at least one) and each op's index into
+    them (int32 ``[R, N]``; padding ops get 0).  Each triple becomes one
+    int64 key, offset by the columns' minima, in mixed radix of their
+    spans; a batch whose key space does not fit 63 bits is refused."""
+    ops = np.stack([np.asarray(x, np.int64) for x in (cmd, arg, resp)], -1)
+    valid = np.asarray(valid, bool)
+    vocab = np.zeros(valid.shape, np.int32)
+    trip = ops[valid]
+    if not len(trip):
+        return np.zeros((1, 3), np.int32), vocab
+    lo = trip.min(0)
+    span = [int(x) for x in trip.max(0) - lo + 1]
+    if span[0] * span[1] * span[2] >= 1 << 63:
+        raise ValueError(f"op_vocabulary: (cmd, arg, resp) spans {span} "
+                         f"make more than 2**63 keys")
+    t = trip - lo
+    keys, inv = np.unique((t[:, 0] * span[1] + t[:, 1]) * span[2] + t[:, 2],
+                          return_inverse=True)
+    uniq = np.stack([keys // (span[1] * span[2]), keys // span[2] % span[1],
+                     keys % span[2]], -1) + lo
+    vocab[valid] = inv.reshape(-1)
+    return uniq.astype(np.int32), vocab
 
 
 def stepper_tables(spec, cmd: np.ndarray, arg: np.ndarray, resp: np.ndarray,
@@ -151,29 +191,24 @@ def stepper_tables(spec, cmd: np.ndarray, arg: np.ndarray, resp: np.ndarray,
     """The read-only inputs for ``R`` histories of ``N`` (bucketed) ops:
     ``cmd``/``arg``/``resp`` int ``[R, N]``, ``valid`` bool ``[R, N]``,
     ``prec`` bool ``[R, N, N]`` (``prec[r, i, j]``: op i precedes op j).
-    Each row's ``[S, N]`` table is the scalar spec's ``step_torch`` over
-    every state and the row's own ops, built on ``device`` a slice of rows
-    at a time."""
-    R, N = cmd.shape
+    The step table is one ``step_torch`` call of the scalar spec over
+    every state and the batch's op vocabulary (:func:`op_vocabulary`),
+    built on ``device``."""
+    R, N = np.shape(cmd)
     S = spec.scalar_state_bound(N)
-    W = n_words(N)
-    nxt = torch.empty((R, S, N), dtype=torch.int32, device=device)
-    okw = torch.empty((R, S, W), dtype=torch.int32, device=device)
-    st = torch.arange(S, dtype=torch.int32, device=device)[None, :, None]
-    step = max(1, TABLE_SLICE_ELEMS // (S * N))
-    ops = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-           for a in (cmd, arg, resp)]
-    for lo in range(0, R, step):
-        c, a, r = (t[lo:lo + step, None, :] for t in ops)
-        n_t, ok_t = spec.step_torch(st, c, a, r)              # [bs, S, N]
-        nxt[lo:lo + step] = n_t
-        okw[lo:lo + step] = _as_i32(pack_words(ok_t))
+    uniq, vocab = op_vocabulary(cmd, arg, resp, valid)
+    st = torch.arange(S, dtype=torch.int32, device=device)[:, None]
+    c, a, r = (torch.from_numpy(np.ascontiguousarray(uniq[:, k]))
+               .to(device)[None, :] for k in range(3))
+    vnxt, ok = spec.step_torch(st, c, a, r)                    # [S, V]
     prec_w = _pack_np(np.asarray(prec, bool), N)              # [R, W, N]
     valid_w = _pack_np(np.asarray(valid, bool)[..., None], N)[..., 0]
     nreq = np.asarray(valid, bool).sum(axis=1).astype(np.int32)
-    return StepperTables(nxt, okw, *(
-        torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in (prec_w, valid_w, nreq)))
+    return StepperTables(
+        torch.from_numpy(vocab).to(device), vnxt.to(torch.int32).contiguous(),
+        _as_i32(pack_words(ok)).contiguous(), *(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (prec_w, valid_w, nreq)))
 
 
 def fresh_stepper_carry(nreq: torch.Tensor, rows: np.ndarray,
@@ -235,16 +270,73 @@ def _check_carry(what: str, carry: StepperCarry, n_ops: int, dev) -> None:
 
 
 def _check_chunk_args(tables: StepperTables, carry: StepperCarry) -> None:
-    R, S, N = tables.nxt.shape
-    if not 1 <= N <= MAX_OPS or S < 1:
+    R, N = tables.vocab.shape
+    S, V = tables.vnxt.shape
+    if not 1 <= N <= MAX_OPS or S < 1 or V < 1:
         raise ValueError(f"stepper_chunk covers 1 <= N <= {MAX_OPS} ops; "
-                         f"got N={N}, S={S}")
+                         f"got N={N}, S={S}, V={V}")
     W = n_words(N)
-    dev = tables.nxt.device
+    dev = tables.vocab.device
     _check_planes("stepper_chunk", tables._asdict().items(), dict(
-        nxt=(R, S, N), okw=(R, S, W), prec=(R, W, N), valid=(R, W),
-        nreq=(R,)), dev)
+        vocab=(R, N), vnxt=(S, V), vok=(S, n_words(V)), prec=(R, W, N),
+        valid=(R, W), nreq=(R,)), dev)
     _check_carry("stepper_chunk", carry, N, dev)
+
+
+# ---------------------------------------------------------------------------
+# Launch plan
+# ---------------------------------------------------------------------------
+
+class StepperPlan(NamedTuple):
+    warps_per_block: int
+    grid: int
+    stage_tables: bool  # vnxt/vok in shared memory (else device memory)
+    smem_bytes: int     # dynamic shared memory per block
+
+
+def table_bytes(n_states: int, vocab_size: int) -> int:
+    """Bytes of the shared step table: ``vnxt`` and the packed ``vok``."""
+    return 4 * n_states * (vocab_size + n_words(vocab_size))
+
+
+def warp_stack_bytes(n_ops: int) -> int:
+    """Shared bytes of one warp's ``chosen`` and ``states`` stacks."""
+    return 8 * (n_ops + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(dev) -> int:
+    """The SM count of the CUDA device ``dev``."""
+    return torch.cuda.get_device_properties(
+        torch.device(dev)).multi_processor_count
+
+
+def stepper_launch_plan(B: int, N: int, S: int, V: int, sms: int
+                        ) -> StepperPlan:
+    """How ``csrc/stepper_chunk.cu`` runs ``B`` lanes of ``N`` ops over an
+    ``S x V`` step table on a card of ``sms`` SMs: one warp a lane; a
+    block's warps share one copy of the table in shared memory when it
+    fits beside their stacks (else the kernel reads it from device memory,
+    where the one batch-wide table mostly stays in L2).  Warps per block:
+    enough to put the lanes on every SM (``ceil(B / sms)``), at most 16
+    and what shared memory holds.
+    The C entry re-checks the bytes and refuses a plan it cannot launch;
+    it launches any plan whose bytes add up, staged or not."""
+    per_warp = warp_stack_bytes(N)
+    tab = table_bytes(S, V)
+    stage = tab + per_warp <= SMEM_BLOCK_MAX
+    room = SMEM_BLOCK_MAX - (tab if stage else 0)
+    wpb = max(1, min(MAX_WARPS_PER_BLOCK, room // per_warp,
+                     -(-B // sms)))
+    return StepperPlan(wpb, -(-B // wpb), stage,
+                       (tab if stage else 0) + wpb * per_warp)
+
+
+def stepper_blocks_per_sm(plan: StepperPlan) -> int:
+    """Blocks of ``plan`` one SM holds at once, by shared memory and
+    resident warps (registers aside)."""
+    return min(BLOCKS_SM_MAX, WARPS_SM_MAX // plan.warps_per_block,
+               SMEM_SM // (plan.smem_bytes + SMEM_BLOCK_RESERVED))
 
 
 # ---------------------------------------------------------------------------
@@ -262,21 +354,25 @@ def stepper_chunk(tables: StepperTables, carry: StepperCarry, *, chunk: int,
     each launch); CPU tensors to :func:`stepper_chunk_plain`.  A failed
     build or launch raises; there is no fallback."""
     _check_chunk_args(tables, carry)
-    dev = tables.nxt.device
+    dev = tables.vocab.device
     if dev.type == "cpu":
         return stepper_chunk_plain(tables, carry, chunk=chunk, budget=budget)
     if dev.type != "cuda":
         raise ValueError(f"stepper_chunk runs on cuda or cpu, not {dev}")
     from .kernels import KernelLaunchError, stepper_chunk_lib
 
-    R, S, N = tables.nxt.shape
+    R, N = tables.vocab.shape
+    S, V = tables.vnxt.shape
     B, slots = carry.row.shape[0], carry.occ.shape[1]
+    plan = stepper_launch_plan(B, N, S, V, device_sms(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = stepper_chunk_lib().stepper_chunk_launch(
             *(t.data_ptr() for t in tables), carry.row.data_ptr(),
             *(t.data_ptr() for t in carry[:6]),
-            B, R, N, S, n_words(N), slots, chunk, budget, stream)
+            B, R, N, S, V, n_words(N), slots, chunk, budget,
+            *(int(x) for x in plan),
+            stream)
     if rc != 0:
         raise KernelLaunchError(
             f"stepper_chunk launch failed: CUDA error {rc}")
@@ -300,16 +396,18 @@ def stepper_chunk_plain(tables: StepperTables, carry: StepperCarry, *,
     ``run_one`` body (``jax_kernel.py:281-401``) line for line.  Updates
     the carry in place and returns it."""
     _check_chunk_args(tables, carry)
-    nxt, okw, prec, valid, nreq = tables
-    R, S, N = nxt.shape
+    vocab, vnxt, vok, prec, valid, nreq = tables
+    N = vocab.shape[1]
+    S = vnxt.shape[0]
     B, slots = carry.row.shape[0], carry.occ.shape[1]
     use_cache = slots > 0
-    dev = nxt.device
+    dev = vocab.device
     i32, i64 = torch.int32, torch.int64
     lane = torch.arange(B, device=dev)
     iota = torch.arange(N, device=dev)
     kio = torch.arange(N + 1, device=dev)
     row = carry.row.long()
+    voc = vocab[row].long()                                    # [B, N]
     prec_l = prec[row].to(i64) & _M32                          # [B, W, N]
     valid_l = _unpack_bits(valid[row], N)                      # [B, N]
     nreq_l = nreq[row]
@@ -334,12 +432,12 @@ def stepper_chunk_plain(tables: StepperTables, carry: StepperCarry, *,
         blocked = ((prec_l & uw[:, :, None]) != 0).any(1)      # [B, N]
         oob = (state < 0) | (state >= S)
         s0 = state.clamp(0, S - 1).long()
-        ok = _unpack_bits(okw[row, s0], N)
+        ok = ((vok[s0[:, None], voc >> 5].to(i64) >> (voc & 31)) & 1) == 1
         cand = untaken & ~blocked & ok & (iota > cur[:, None])
         has = cand.any(1)
         j = torch.where(cand, iota, N).amin(1)
         j = torch.where(has, j, torch.zeros_like(j))
-        child = nxt[row, s0, j]
+        child = vnxt[s0, voc[lane, j]]
         success = has & (d + 1 == nreq_l)
         tw = pack_words(tk)
         if use_cache:
@@ -404,15 +502,17 @@ def stepper_chunk_plain(tables: StepperTables, carry: StepperCarry, *,
 # ---------------------------------------------------------------------------
 
 def _lanes_tensor(lanes, bucket: int, old_b: int, dev) -> torch.Tensor:
-    if not isinstance(lanes, torch.Tensor):
-        lanes = torch.from_numpy(np.asarray(lanes, np.int64))
-    idx = lanes.to(device=dev, dtype=torch.int32)
-    if idx.dim() != 1 or idx.shape[0] > bucket:
-        raise ValueError(f"compact_carry: {idx.shape[0]} lanes do not fit "
+    """``lanes`` as int32 on ``dev``, checked on the host (a tensor on the
+    device is read back for it)."""
+    if isinstance(lanes, torch.Tensor):
+        lanes = lanes.cpu().numpy()
+    idx = np.asarray(lanes, np.int64)
+    if idx.ndim != 1 or idx.shape[0] > bucket:
+        raise ValueError(f"compact_carry: {idx.size} lanes do not fit "
                          f"a bucket of {bucket}")
-    if idx.numel() and not 0 <= int(idx.min()) <= int(idx.max()) < old_b:
+    if idx.size and not 0 <= idx.min() <= idx.max() < old_b:
         raise ValueError(f"compact_carry: lanes outside [0, {old_b})")
-    return idx.contiguous()
+    return torch.from_numpy(idx.astype(np.int32)).to(dev)
 
 
 def compact_carry(carry: StepperCarry, lanes, bucket: int, slots: int
@@ -442,13 +542,18 @@ def compact_carry(carry: StepperCarry, lanes, bucket: int, slots: int
 
     out = _empty_carry(N, bucket, slots, dev)
     old_b, old_slots = carry.row.shape[0], carry.occ.shape[1]
+    m = idx.shape[0]
+    # scratch of the re-hash: the winning old slot of each new slot
+    rehash = m > 0 and old_slots > 0 and slots > 0 and old_slots != slots
+    win = torch.empty((m, slots) if rehash else (1,), dtype=torch.int32,
+                      device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = compact_carry_lib().compact_carry_launch(
             *(t.data_ptr() for t in carry), idx.data_ptr(),
-            *(t.data_ptr() for t in out),
-            old_b, bucket, idx.shape[0], N, key_words(N), old_slots, slots,
-            stream)
+            *(t.data_ptr() for t in out), win.data_ptr(),
+            old_b, bucket, m, N, key_words(N), old_slots, slots,
+            device_sms(dev), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"compact_carry launch failed: CUDA error {rc}")

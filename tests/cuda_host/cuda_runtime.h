@@ -1,11 +1,13 @@
-// A host stand-in for the few CUDA runtime pieces that
-// qsm_tpu_torch/csrc/dfs_chunk.cu uses, so that its source compiles with
-// a plain C++ compiler and runs on the CPU (tests/test_torch_dfs_host.py).
-// A launch runs every block's threads one after another over a fresh
-// shared-memory buffer: the kernel shares nothing between threads, so any
-// order gives the card's result.  The test rewrites the two CUDA-only
-// lines of the source (the `extern __shared__` declaration and the
-// `<<<...>>>` launch) to use `host_smem` and `host_launch`.
+// A host stand-in for the few CUDA runtime pieces that the sources under
+// qsm_tpu_torch/csrc/ use, so that they compile with a plain C++ compiler
+// and run on the CPU (tests/test_torch_dfs_host.py,
+// tests/test_torch_stepper_host.py).  `host_launch` runs every block's
+// threads one after another over a fresh shared-memory buffer: right for
+// a kernel whose threads share nothing (dfs_chunk.cu, compact_carry.cu);
+// a kernel whose threads meet at warp votes or barriers runs under
+// cuda_warp.h's `host_launch_threads` instead.  The tests rewrite the
+// CUDA-only lines of a source (an `extern __shared__` declaration, the
+// `<<<...>>>` launch) to use `host_smem` and a host launch.
 #pragma once
 #include <algorithm>
 #include <cstdint>
@@ -38,10 +40,15 @@ cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 struct Dim3 {
-  int x;
+  int x, y;
 };
-inline Dim3 threadIdx, blockIdx;
-inline int32_t* host_smem;
+struct dim3 {
+  dim3(unsigned x = 1, unsigned y = 1, unsigned z = 1) : x(x), y(y), z(z) {}
+  unsigned x, y, z;
+};
+// per host thread, as each CUDA thread has its own
+inline thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline thread_local int32_t* host_smem;
 
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -51,22 +58,35 @@ inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned shift) {
   const unsigned long long w = static_cast<unsigned long long>(hi) << 32 | lo;
   return static_cast<unsigned>((w << s) >> 32);
 }
+// the launches that use it run one thread at a time
+inline int atomicMax(int* p, int v) {
+  const int old = *p;
+  *p = std::max(old, v);
+  return old;
+}
 using std::max;
 using std::min;
 
-// kernel<<<grid, threads, smem_bytes>>>(args), one thread at a time; the
-// shared buffer starts as garbage, as on the card
+// kernel<<<grid, threads, smem_bytes>>>(args) over a 1-D or 2-D grid,
+// one thread at a time; the shared buffer starts as garbage, as on the
+// card
 template <class K, class A>
-void host_launch(K kernel, int grid, int threads, int smem_bytes,
+void host_launch(K kernel, dim3 grid, int threads, int smem_bytes,
                  const A& args) {
   std::vector<int32_t> buf(smem_bytes / 4 + 1);
-  for (int bx = 0; bx < grid; ++bx) {
-    std::fill(buf.begin(), buf.end(), 0x5A5A5A5A);
-    host_smem = buf.data();
-    blockIdx.x = bx;
-    for (int t = 0; t < threads; ++t) {
-      threadIdx.x = t;
-      kernel(args);
+  gridDim.x = static_cast<int>(grid.x);
+  gridDim.y = static_cast<int>(grid.y);
+  blockDim.x = threads;
+  for (int by = 0; by < gridDim.y; ++by) {
+    for (int bx = 0; bx < gridDim.x; ++bx) {
+      std::fill(buf.begin(), buf.end(), 0x5A5A5A5A);
+      host_smem = buf.data();
+      blockIdx.x = bx;
+      blockIdx.y = by;
+      for (int t = 0; t < threads; ++t) {
+        threadIdx.x = t;
+        kernel(args);
+      }
     }
   }
 }

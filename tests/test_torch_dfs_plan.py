@@ -14,12 +14,11 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from qsm_tpu_torch.ops.dfs_kernel import (LANES_PER_BLOCK, MEMO_GLOBAL,
-                                          MEMO_OFF, MEMO_SHARED,
+from qsm_tpu_torch.ops.dfs_kernel import (H100_SMS, LANES_PER_BLOCK,
+                                          MEMO_GLOBAL, MEMO_OFF, MEMO_SHARED,
                                           SMEM_BLOCK_MAX, blocks_per_sm,
                                           launch_plan)
 
-H100_SMS = 132
 ROW = 4 * LANES_PER_BLOCK  # bytes of one lane-minor row of a block
 
 

@@ -7,7 +7,9 @@ last block, start states outside the table), over 8 consecutive chunks at
 the checker's 4096 lanes, and the checker at 256 lanes against the memo
 oracle; ``stepper_chunk`` and ``compact_carry`` against their plain
 versions on every carry plane (1 to 4 bitmask words, memo off, small and
-large; the memo kept, grown, shrunk, created and dropped), and
+large, the step table staged in shared memory or too large for it, and
+under plans fixed by hand; the memo kept, grown, shrunk, created and
+dropped), the stepper's C entry refusing plans it cannot launch, and
 ``TorchStepper`` on a queue corpus against the memo oracle.  Without CUDA
 each test skips in its fixture."""
 
@@ -229,6 +231,8 @@ def _stepper_inputs(model: str, n_ops: int, lanes: int, dev):
 
     if model == "queue":
         spec, suts = QueueSpec(), (AtomicQueueSUT, RacyTwoPhaseQueueSUT)
+    elif model == "cas256":  # 256 values: a table too large to stage
+        spec, suts = CasSpec(n_values=256), (AtomicCasSUT, RacyCasSUT)
     else:
         spec, suts = CasSpec(), (AtomicCasSUT, RacyCasSUT)
     hs = build_corpus(spec, suts, n=lanes, n_pids=8, max_ops=n_ops,
@@ -249,23 +253,68 @@ def _assert_stepper_equal(got, want, what: str) -> None:
         assert torch.equal(a, b), f"{name} differs {what}"
 
 
+def _stepper_start(tabs, init, B, slots):
+    from qsm_tpu_torch.ops.stepper_kernel import fresh_stepper_carry
+
+    starts = np.full(B, init, np.int32)
+    starts[::7] = tabs.vnxt.shape[0] + 3  # outside the table
+    starts[3::11] = -2
+    rows = np.random.default_rng(3).permutation(B)
+    return fresh_stepper_carry(tabs.nreq, rows, starts[rows], B,
+                               tabs.vocab.shape[1], slots)
+
+
+def _scramble_stepper_memo(carry):
+    """Occupancy words other than 1 on every other filled slot (a probe
+    must miss it though its key is where its hash puts it), garbage keys
+    in the empty slots."""
+    g = np.random.default_rng(4)
+    occ = carry.occ.cpu().numpy().copy()
+    keys = carry.keys.cpu().numpy().copy()
+    filled = np.argwhere(occ == 1)[::2]
+    occ[filled[:, 0], filled[:, 1]] = g.choice(np.array([0, 2, -1], np.int32),
+                                               len(filled))
+    empty = occ == 0
+    keys[empty] = g.integers(-2**31, 2**31, (int(empty.sum()), keys.shape[2]),
+                             dtype=np.int64).astype(np.int32)
+    dev = carry.occ.device
+    return carry._replace(occ=torch.from_numpy(occ).to(dev),
+                          keys=torch.from_numpy(keys).to(dev))
+
+
+def _stepper_launch(tabs, carry, chunk, plan) -> int:
+    """The stepper's C entry called directly with ``plan``: its return
+    code."""
+    from qsm_tpu_torch.ops.kernels import stepper_chunk_lib
+    from qsm_tpu_torch.ops.stepper_kernel import n_words
+
+    R, N = tabs.vocab.shape
+    S, V = tabs.vnxt.shape
+    B = carry.row.shape[0]
+    stream = torch.cuda.current_stream(tabs.vocab.device).cuda_stream
+    return stepper_chunk_lib().stepper_chunk_launch(
+        *(t.data_ptr() for t in tabs), carry.row.data_ptr(),
+        *(t.data_ptr() for t in carry[:6]), B, R, N, S, V, n_words(N),
+        carry.occ.shape[1], chunk, 552_000, *(int(x) for x in plan), stream)
+
+
 @pytest.mark.parametrize("slots", [0, 64, 8192])
 @pytest.mark.parametrize("model,n_ops", [("queue", 48), ("cas", 32),
                                          ("cas", 64), ("cas", 96),
-                                         ("cas", 128)])
+                                         ("cas", 128), ("cas256", 32)])
 def test_stepper_chunk_matches_plain_version(cuda, model, n_ops, slots):
     from qsm_tpu_torch.ops.stepper_kernel import (
-        fresh_stepper_carry, stepper_chunk, stepper_chunk_plain)
+        device_sms, stepper_chunk, stepper_chunk_plain, stepper_launch_plan)
 
     B = 300  # a ragged last block
     tabs, init = _stepper_inputs(model, n_ops, B, cuda)
-    starts = np.full(B, init, np.int32)
-    starts[::7] = tabs.nxt.shape[1] + 3  # outside the table
-    starts[3::11] = -2
-    rows = np.random.default_rng(3).permutation(B)
-    carry = fresh_stepper_carry(tabs.nreq, rows, starts[rows], B, n_ops,
-                                slots)
+    plan = stepper_launch_plan(B, n_ops, *tabs.vnxt.shape,
+                               device_sms(tabs.vocab.device))
+    assert plan.stage_tables == (model != "cas256")
+    carry = _stepper_start(tabs, init, B, slots)
     for k in range(3):
+        if k == 1 and slots:
+            carry = _scramble_stepper_memo(carry)
         got, want = _clone(carry), _clone(carry)
         before = stepper_chunk.launches
         stepper_chunk(tabs, got, chunk=512, budget=552_000)
@@ -276,6 +325,58 @@ def test_stepper_chunk_matches_plain_version(cuda, model, n_ops, slots):
         carry = got
     if slots:
         assert int((carry.occ == 1).sum()) > 0
+
+
+@pytest.mark.parametrize("slots", [0, 8192])
+@pytest.mark.parametrize("warps,stage", [(1, True), (3, True), (16, True),
+                                         (5, False), (16, False)])
+def test_stepper_chunk_matches_plain_under_fixed_plans(cuda, warps, stage,
+                                                       slots):
+    from qsm_tpu_torch.ops.stepper_kernel import (StepperPlan,
+                                                  stepper_chunk_plain,
+                                                  table_bytes,
+                                                  warp_stack_bytes)
+
+    B = 300
+    tabs, init = _stepper_inputs("queue", 48, B, cuda)
+    smem = ((table_bytes(*tabs.vnxt.shape) if stage else 0)
+            + warps * warp_stack_bytes(48))
+    plan = StepperPlan(warps, -(-B // warps), stage, smem)
+    carry = _stepper_start(tabs, init, B, slots)
+    for k in range(2):
+        if k and slots:
+            carry = _scramble_stepper_memo(carry)
+        got, want = _clone(carry), _clone(carry)
+        assert _stepper_launch(tabs, got, 512, plan) == 0
+        torch.cuda.synchronize()
+        stepper_chunk_plain(tabs, want, chunk=512, budget=552_000)
+        _assert_stepper_equal(got, want, f"after chunk {k + 1} under {plan}")
+        carry = got
+
+
+def test_stepper_c_entry_refuses_a_plan_it_cannot_launch(cuda):
+    from qsm_tpu_torch.ops.stepper_kernel import (device_sms,
+                                                  stepper_launch_plan)
+
+    B = 300
+    tabs, init = _stepper_inputs("queue", 48, B, cuda)
+    carry = _stepper_start(tabs, init, B, 64)
+    plan = stepper_launch_plan(B, 48, *tabs.vnxt.shape,
+                               device_sms(tabs.vocab.device))
+    for bad in (plan._replace(smem_bytes=plan.smem_bytes - 4),
+                plan._replace(grid=plan.grid + 1),
+                plan._replace(warps_per_block=plan.warps_per_block + 1),
+                plan._replace(stage_tables=False)):
+        assert _stepper_launch(tabs, carry, 16, bad) == 1, bad  # invalid
+    big, init = _stepper_inputs("cas256", 32, B, cuda)
+    carry = _stepper_start(big, init, B, 64)
+    plan = stepper_launch_plan(B, 32, *big.vnxt.shape,
+                               device_sms(big.vocab.device))
+    S, V = big.vnxt.shape
+    over = plan._replace(stage_tables=True, smem_bytes=plan.smem_bytes
+                         + 4 * S * (V + -(-V // 32)))
+    assert over.smem_bytes > 232_448
+    assert _stepper_launch(big, carry, 16, over) == 1
 
 
 @pytest.mark.parametrize("old_slots,slots", [(64, 64), (64, 8192),

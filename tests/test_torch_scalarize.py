@@ -80,8 +80,8 @@ def test_scalarized_step_torch_equals_step_jax_and_step_py(cap, nv):
 
 
 def test_step_torch_broadcasts_as_the_step_tables_use_it():
-    """``[1, S, 1]`` states against ``[B, 1, N]`` ops, as
-    ``stepper_tables`` calls it."""
+    """``[1, S, 1]`` states against ``[B, 1, N]`` ops, and ``[S, 1]``
+    states against ``[1, V]`` ops as ``stepper_tables`` calls it."""
     t = tsc.Scalarized(QueueSpec())
     g = np.random.default_rng(0)
     cmd = g.integers(0, 2, (3, 1, 7)).astype(np.int32)
@@ -95,6 +95,9 @@ def test_step_torch_broadcasts_as_the_step_tables_use_it():
         want_s, want_ok = t.step_py([s], int(cmd[b, 0, k]), int(arg[b, 0, k]),
                                     int(resp[b, 0, k]))
         assert (int(n[b, s, k]), bool(ok[b, s, k])) == (want_s[0], want_ok)
+    n2, ok2 = t.step_torch(st[0], *(torch.from_numpy(x[0])
+                                    for x in (cmd, arg, resp)))
+    assert torch.equal(n2, n[0]) and torch.equal(ok2, ok[0])
 
 
 def _bounded(base, dim, bounds):
