@@ -40,7 +40,7 @@ Phases, in order; any failure exits non-zero and no result is printed:
    headline's tables (48 ops x 8 pids, 512 unique histories at 4096
    lanes, one batch-shared op-vocabulary table staged in shared memory),
    memo off and at the port's slot count for that bucket, from a fresh and
-   from a mid-search carry, after 1 and 8 chunks of 2048 iterations; on
+   from a mid-search carry, after 1 and 3 chunks of 2048 iterations; on
    CAS histories of 64 and 128 ops at 1024 lanes after 1 and 2 chunks; and
    on CAS histories over 256 values (32 ops, 1024 lanes), whose table is
    too large to stage and is read from device memory;
@@ -64,11 +64,32 @@ Phases, in order; any failure exits non-zero and no result is printed:
 8. queue property (main path of ``TorchStepper``): ``prop_concurrent`` at
    8 pids x 48 ops, 100 trials — racy queue convicted with a shrunk
    counterexample, atomic queue passed — and the racy run again through
-   ``python -m qsm_tpu_torch run --model queue --backend stepper``.
+   ``python -m qsm_tpu_torch run --model queue --backend stepper``;
+9. sweep kernel against plain: ``stepper_sweep`` on a KV map of 16 keys
+   (64 ops x 16 pids, 512 unique histories at 4096 lanes) memo off and at
+   the port's slot count, and on queue and stack of capacity 8, txn(8, 8)
+   and a random vector spec of 9 elements at 1024 lanes, each from a
+   mid-search carry, after 1 and 2 chunks of 1024 iterations (KV) or 1
+   (the others): every plane bit-identical to ``stepper_sweep_plain``;
+   each case's plan, time per launch, plain time and bound;
+   ``compact_carry`` on the KV carry;
+10. kv16 checker (main path of the sweep regime): ``TorchStepper`` on the
+   512 unique KV histories at 4096 lanes, cold, warm and profiled; 0
+   verdict mismatches against the port's memo oracle run on each key's
+   register sub-history (``KvKeyOracle``), witnesses replayed;
+11. kv16 property: ``prop_concurrent`` at 16 pids x 64 ops, racy
+   convicted, atomic passed;
+12. milestones: KV at its default size (16 pids x 64 ops, a 256-state
+   shadow) through ``TorchStepper``'s table regime, and the ticket
+   dispenser (4 pids x 24 ops) through ``TorchGPU`` and ``TorchStepper``:
+   each checker against its oracle and ``prop_concurrent`` racy and
+   atomic.
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
-``compact_carry`` over phases 7-8).  The second-to-last stdout line is the
+``compact_carry`` over phases 7-8, ``stepper_sweep`` and
+``compact_carry`` over phases 10-11, each milestone's kernels over its
+own path).  The second-to-last stdout line is the
 kernels record, the last the device record.  Every number is printed
 beside the card's name and power limit.
 """
@@ -79,6 +100,7 @@ import argparse
 import ctypes
 import json
 import math
+import random
 import re
 import subprocess
 import sys
@@ -88,11 +110,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from qsm_tpu_torch.core.history import encode_batch
+from qsm_tpu_torch.core.history import History, Op, encode_batch
 from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
 from qsm_tpu_torch.models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
+from qsm_tpu_torch.models.counter import (AtomicTicketSUT, RacyTicketSUT,
+                                          TicketSpec)
+from qsm_tpu_torch.models.kv import GET as KV_GET
+from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
 from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
                                         RacyTwoPhaseQueueSUT)
+from qsm_tpu_torch.models.register import RegisterSpec
+from qsm_tpu_torch.models.stack import (AtomicStackSUT, RacyTwoPhaseStackSUT,
+                                        StackSpec)
+from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
+                                      TxnRegisterSpec)
 from qsm_tpu_torch.ops import kernels
 from qsm_tpu_torch.ops.backend import Verdict, verify_witness
 from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
@@ -112,9 +143,14 @@ from qsm_tpu_torch.ops.stepper_kernel import (StepperCarry, compact_carry,
                                               stepper_chunk_plain,
                                               stepper_launch_plan,
                                               stepper_tables, table_bytes)
+from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry, stepper_sweep,
+                                            stepper_sweep_plain,
+                                            sweep_launch_plan, sweep_model,
+                                            sweep_tables)
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
 from qsm_tpu_torch.utils import cli
 from qsm_tpu_torch.utils.corpus import build_corpus, random_lane_tables
+from qsm_tpu_torch.utils.fuzz import RandomVectorSpec, random_history
 
 N_PIDS, N_OPS = 8, 32          # the headline configuration
 N_UNIQUE, DEVICE_BATCH = 512, 4096
@@ -130,6 +166,10 @@ Q_PIDS, Q_OPS = 8, 48          # the queue headline (the registry default)
 STEP_CHUNK = 2048              # stepper iterations a launch in phase 6
 COMPACT_TO = 256               # phase 6's compaction: 4096 lanes -> 256
 WIDE_CAS_VALUES = 256          # phase 6's table too large to stage
+KV_KEYS, KV_PIDS, KV_OPS = 16, 16, 64   # the sweep regime's KV headline
+SWEEP_CHUNK = 1024             # stepper_sweep iterations a launch, phase 9
+SWEEP_MID = 256                # plain iterations before phase 9's carries
+TICKET_PIDS, TICKET_OPS = 4, 24          # the ticket milestone
 
 
 def ops_per_iteration(n_ops: int) -> int:
@@ -567,8 +607,9 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                 begins["mid"] = stepper_chunk_plain(
                     tabs, clone_carry(fresh), chunk=256, budget=TOTAL_BUDGET)
             # the plain version's loop is the phase's cost: the CAS
-            # shapes run 2 chunks, the queue headline all 8
-            n_chunks = 8 if name == "queue48" else 2
+            # shapes run 2 chunks, the queue headline 3 (not 8, so that
+            # the script's time limit also holds phases 9-12)
+            n_chunks = 3 if name == "queue48" else 2
             for start, c0 in begins.items():
                 ck, cp = clone_carry(c0), clone_carry(c0)
                 running = int((c0.dsi[1] == RUNNING).sum())
@@ -608,7 +649,7 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                   f"{nbytes} B, {ops} ops; plain {plain_ms:.1f} ms)",
                   flush=True)
 
-    # compact_carry out of the queue headline's carries after 8 chunks,
+    # compact_carry out of the queue headline's carries after 3 chunks,
     # running lanes first: (label, old slots, new bucket, new slots)
     big = default_slots(DEVICE_BATCH)
     comp = {}
@@ -714,7 +755,7 @@ def new_compact_raw(c, idx, out, win):
     rc = kernels.compact_carry_lib().compact_carry_launch(
         *(t.data_ptr() for t in c), idx.data_ptr(),
         *(t.data_ptr() for t in out), win.data_ptr(), c.row.shape[0],
-        out.row.shape[0], idx.shape[0], c.taken.shape[0],
+        out.row.shape[0], idx.shape[0], c.taken.shape[0], 0,
         key_words(c.taken.shape[0]), c.occ.shape[1], out.occ.shape[1],
         device_sms(c.row.device), torch.cuda.current_stream().cuda_stream)
     require(rc == 0, f"compact_carry's C entry failed ({rc})")
@@ -893,6 +934,346 @@ def phase_queue_property(spec, tag):
           f"--model queue --backend stepper): racy queue rc 1", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The sweep regime (stepper_sweep) and the registry's milestones
+# ---------------------------------------------------------------------------
+
+class KvKeyOracle:
+    """The port's memo oracle on each key's register sub-history of a KV
+    history: exact, since the keys of a KV map are independent (a history
+    is linearizable iff every key's sub-history is), and fast where the
+    whole-history search over a 16-word state is not.  GET(k) projects to
+    READ, PUT(k, v) to WRITE(v)."""
+
+    def __init__(self, spec):
+        self.reg = RegisterSpec(n_values=spec.n_values)
+        self.memo = WingGongCPU(memo=True)
+        self.n_values = spec.n_values
+
+    def check_histories(self, spec, histories):
+        out = np.empty(len(histories), np.int8)
+        for i, h in enumerate(histories):
+            keys = {}
+            for o in h.ops:
+                key, val = ((o.arg, 0) if o.cmd == KV_GET
+                            else divmod(o.arg, self.n_values))
+                keys.setdefault(key, []).append(Op(
+                    o.pid, o.cmd, val, o.resp, o.invoke_time,
+                    o.response_time))
+            sub = self.memo.check_histories(
+                self.reg, [History(ops) for ops in keys.values()])
+            out[i] = (Verdict.VIOLATION if (sub == Verdict.VIOLATION).any()
+                      else Verdict.BUDGET_EXCEEDED
+                      if (sub == Verdict.BUDGET_EXCEEDED).any()
+                      else Verdict.LINEARIZABLE)
+        return out
+
+
+def sweep_ops_per_iteration(n_ops: int, dim: int, memo: bool) -> int:
+    """Integer ops of one sweep iteration, counted from
+    ``csrc/stepper_sweep.cu``: the blocked-op sweep 2W + 2 an op and the
+    postcondition about 8 (the kind's branch, a clamped index, a load, a
+    compare), the candidate words and the lowest one 3W + 4, the child 3
+    a state word, the stack update, status and budget about 26; with the
+    memo the two hashes and the key compare 6 kw + 5 more."""
+    w = n_words(n_ops)
+    ops = n_ops * (2 * w + 10) + 3 * w + 30 + 3 * dim
+    return ops + (6 * (w + dim) + 5 if memo else 0)
+
+
+def sweep_bound(tabs, c_in: StepperCarry, c_out: StepperCarry):
+    """(bound_ms, bound_by, bytes, ops) of one ``stepper_sweep`` launch:
+    every lane's stacks and counters read and written once, the ops and
+    predecessor words of the lanes that ran read once, against the
+    iterations this run's data needed."""
+    ran = (c_out.dsi[2] - c_in.dsi[2]) > 0
+    iters = int((c_out.dsi[2].long() - c_in.dsi[2].long()).sum())
+    n = tabs.cmd.shape[1]
+    w = tabs.prec.shape[1]
+    stacks = _tensor_bytes((c_in.taken, c_in.chosen, c_in.states, c_in.dsi,
+                            c_in.row))
+    nbytes = 2 * stacks + int(ran.sum()) * 4 * (3 * n + w * n + w + 1)
+    ops = iters * sweep_ops_per_iteration(n, c_in.states.shape[2],
+                                          c_in.occ.shape[1] > 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def kv16_corpus():
+    spec = KvSpec(n_keys=KV_KEYS, n_values=4)
+    return spec, build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT),
+                              n=N_UNIQUE, n_pids=KV_PIDS, max_ops=KV_OPS,
+                              seed_base=1000, seed_prefix="bench")
+
+
+def sweep_inputs(spec, histories, n_ops, dev):
+    enc = encode_batch(histories, spec.initial_state(), max_ops=n_ops)
+    tabs = sweep_tables(enc.ops[:, :, 1], enc.ops[:, :, 2],
+                        enc.ops[:, :, 3], enc.valid, enc.precedes(), dev)
+    return tabs, np.tile(np.asarray(enc.init_state, np.int32),
+                         (len(histories), 1))
+
+
+def sweep_cases(kv_spec, kv_corpus, dev):
+    """(name, spec, B, N, tables, start states) of the sweep phase: KV of
+    16 keys at 4096 lanes of 64 ops; queue and stack of capacity 8, txn(8,
+    8) and a random vector spec of 9 elements at 1024 lanes."""
+    tabs, starts = sweep_inputs(kv_spec, _replicate(kv_corpus, DEVICE_BATCH),
+                                KV_OPS, dev)
+    yield "kv16", kv_spec, DEVICE_BATCH, KV_OPS, tabs, starts
+    for name, spec, suts, n_ops in (
+            ("queue8", QueueSpec(capacity=8),
+             (AtomicQueueSUT, RacyTwoPhaseQueueSUT), 48),
+            ("stack8", StackSpec(capacity=8),
+             (AtomicStackSUT, RacyTwoPhaseStackSUT), 48),
+            ("txn8", TxnRegisterSpec(8, 8), (AtomicTxnSUT, TornCopyTxnSUT),
+             32),
+            ("random9", RandomVectorSpec(5, bounds=(4,) * 9), None, 48)):
+        if suts is None:
+            rng = random.Random("chip-smoke")
+            hs = [random_history(spec, rng, 6, 40) for _ in range(256)]
+        else:
+            hs = build_corpus(spec, suts, n=256, n_pids=N_PIDS,
+                              max_ops=n_ops, seed_base=1000,
+                              seed_prefix="bench")
+        tabs, starts = sweep_inputs(spec, _replicate(hs, 1024), n_ops, dev)
+        yield name, spec, 1024, n_ops, tabs, starts
+
+
+def new_sweep(model, tabs, c):
+    return stepper_sweep(model, tabs, c, chunk=SWEEP_CHUNK,
+                         budget=TOTAL_BUDGET)
+
+
+def phase_sweep(kv_spec, kv_corpus, dev, tag):
+    """Phase 9: stepper_sweep against stepper_sweep_plain on every case,
+    then timings and bounds; compact_carry on the KV carry.  Returns the
+    largest error of each kernel and the headline row."""
+    max_err, comp_err, head = 0, 0, None
+    for name, spec, B, N, tabs, starts in sweep_cases(kv_spec, kv_corpus,
+                                                      dev):
+        D = spec.STATE_DIM
+        model = sweep_model(spec, dev)
+        p = sweep_launch_plan(B, N, D, device_sms(dev))
+        print(f"  plan: {name} B={B} N={N} D={D} kind {model.kind}: "
+              f"{p.warps_per_block} warps a block, grid {p.grid}, "
+              f"{p.smem_bytes} shared bytes a block", flush=True)
+        for slots in ((0, default_slots(B, D)) if name == "kv16"
+                      else (default_slots(B, D),)):
+            fresh = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, N,
+                                      slots)
+            # mid-search: SWEEP_MID plain iterations in
+            mid = stepper_sweep_plain(spec, tabs, clone_carry(fresh),
+                                      chunk=SWEEP_MID, budget=TOTAL_BUDGET)
+            running = int((mid.dsi[1] == RUNNING).sum())
+            require(running > 0, f"{name}: no lane running mid-search")
+            # the plain version's loop is the phase's cost: the KV
+            # headline runs 2 chunks, the other models 1; the first plain
+            # chunk is the plain version's time
+            n_chunks = 2 if name == "kv16" else 1
+            ck, cp = clone_carry(mid), clone_carry(mid)
+            for i in range(n_chunks):
+                new_sweep(model, tabs, ck)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stepper_sweep_plain(spec, tabs, cp, chunk=SWEEP_CHUNK,
+                                    budget=TOTAL_BUDGET)
+                torch.cuda.synchronize()
+                if i == 0:
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                max_err = max(max_err, _compare(
+                    f"stepper_sweep {name} B={B} slots={slots} chunk "
+                    f"{i + 1}", ck, cp))
+            ms = time_launches(lambda c: new_sweep(model, tabs, c),
+                               [clone_carry(mid) for _ in range(6)], 5)
+            one = new_sweep(model, tabs, clone_carry(mid))
+            bound_ms, bound_by, nbytes, ops = sweep_bound(tabs, mid, one)
+            print(f"{tag} stepper_sweep == plain on {name} B={B} N={N} D={D}"
+                  f" slots={slots} from a mid-search carry ({running} lanes "
+                  f"running): all 7 planes bit-identical after "
+                  f"{' and '.join(str(k + 1) for k in range(n_chunks))} "
+                  f"chunk(s) of {SWEEP_CHUNK}; {ms:.4f} ms/launch (bound "
+                  f"{bound_ms:.6f} ms by {bound_by}: {nbytes} B, {ops} ops; "
+                  f"plain {plain_ms:.1f} ms); "
+                  f"{int((ck.dsi[1] == RUNNING).sum())} still running",
+                  flush=True)
+            if name == "kv16" and slots:
+                head = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+                kv_carry = ck
+    # compact_carry on the KV carry: 4096 -> 256 lanes, the memo grown
+    status = kv_carry.dsi[1].cpu().numpy()
+    lanes = np.argsort(status != RUNNING, kind="stable")[:COMPACT_TO]
+    slots = default_slots(COMPACT_TO, KV_KEYS)
+    got = compact_carry(kv_carry, lanes, COMPACT_TO, slots)
+    want = compact_carry_plain(kv_carry, lanes, COMPACT_TO, slots)
+    torch.cuda.synchronize()
+    comp_err = _compare("compact_carry of the kv16 sweep carry", got, want)
+    ms = time_launches(lambda x: compact_carry(kv_carry, lanes, COMPACT_TO,
+                                               slots), [None] * 11, 10)
+    print(f"{tag} compact_carry == plain on the kv16 sweep carry: "
+          f"{DEVICE_BATCH} -> {COMPACT_TO} lanes, "
+          f"{kv_carry.occ.shape[1]} -> {slots} slots "
+          f"({int((got.occ == 1).sum())} memo entries after): all 7 planes "
+          f"bit-identical; {ms:.4f} ms/launch", flush=True)
+    return max_err, comp_err, head
+
+
+def check_corpus(name, backend, spec, corpus, oracle, tag):
+    """``backend.check_histories`` on ``corpus`` replicated to 4096 lanes,
+    cold and warm, then profiled; 0 verdict mismatches against ``oracle``
+    wherever both decided; LINEARIZABLE witnesses replayed.  Returns the
+    warm verdicts."""
+    device_corpus = _replicate(corpus, DEVICE_BATCH)
+    t0 = time.perf_counter()
+    cold = backend.check_histories(spec, device_corpus)
+    cold_s = time.perf_counter() - t0
+    counters = [k for k in ("rounds_run", "compactions", "chunk_launches")
+                if hasattr(backend, k)]
+    before = {k: getattr(backend, k) for k in counters}
+    t0 = time.perf_counter()
+    v = backend.check_histories(spec, device_corpus)
+    warm_s = time.perf_counter() - t0
+    after = ", ".join(f"{k} {getattr(backend, k) - before[k]}"
+                      for k in counters)
+    require(v.tolist() == cold.tolist(), f"{name}: verdicts differ between "
+            f"runs")
+    prof_wall, busy_s, top = profile_device(
+        lambda: backend.check_histories(spec, device_corpus))
+    t0 = time.perf_counter()
+    ov = oracle.check_histories(spec, corpus)
+    oracle_s = time.perf_counter() - t0
+    uv = v[:len(corpus)]
+    both = (uv != Verdict.BUDGET_EXCEEDED) & (ov != Verdict.BUDGET_EXCEEDED)
+    mismatches = int(((uv != ov) & both).sum())
+    require(mismatches == 0, f"{name}: {mismatches} verdict mismatches vs "
+            f"the oracle")
+    lin = [h for h, x in zip(corpus, uv) if x == Verdict.LINEARIZABLE][:32]
+    for h in lin:
+        wv, wit = backend.check_witness(spec, h)
+        require(wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit),
+                f"{name}: a LINEARIZABLE witness failed to replay")
+    idle = f"{1 - busy_s / prof_wall:.3f}" if busy_s else "not measured"
+    print(f"{tag} {name} checker: {len(device_corpus)} histories "
+          f"({len(corpus)} unique) warm {warm_s:.3f} s = "
+          f"{len(device_corpus) / warm_s:.1f} histories/s (cold "
+          f"{cold_s:.3f} s); {after}; undecided "
+          f"{int((v == Verdict.BUDGET_EXCEEDED).sum())}; vs oracle "
+          f"({oracle_s:.2f} s on the host): 0 mismatches "
+          f"({int((uv == Verdict.LINEARIZABLE).sum())} linearizable, "
+          f"{int((uv == Verdict.VIOLATION).sum())} violations, "
+          f"{int(both.sum())} decided by both; the oracle: "
+          f"{int((ov == Verdict.VIOLATION).sum())} violations); {len(lin)} "
+          f"witnesses replayed; profiled: wall {prof_wall:.3f} s, device "
+          f"busy {busy_s:.3f} s, idle share {idle}; top kernels {top}",
+          flush=True)
+    return v
+
+
+def check_property(name, make_backend, spec, suts, cfg, tag, oracle=None):
+    """``prop_concurrent``: the racy SUT convicted, the atomic one
+    passed, nothing undecided on the atomic run."""
+    for impl, sut, want_ok in (("racy", suts[1], False),
+                               ("atomic", suts[0], True)):
+        backend = make_backend()
+        t0 = time.perf_counter()
+        res = prop_concurrent(spec, sut, PropertyConfig(**cfg),
+                              backend=backend, oracle=oracle)
+        dt = time.perf_counter() - t0
+        require(res.ok == want_ok, f"{name} {impl}: ok={res.ok}")
+        require(not want_ok or res.undecided == 0,
+                f"{name} {impl}: {res.undecided} undecided")
+        what = ""
+        if not want_ok:
+            cx = res.counterexample
+            what = (f", counterexample {len(cx.program)} ops after "
+                    f"{cx.shrink_steps} shrink steps")
+        print(f"{tag} property {impl} {name} {cfg['n_pids']} pids x "
+              f"{cfg['max_ops']} ops ({type(backend).__name__}): "
+              f"ok={res.ok} after {res.trials_run} trials, "
+              f"{res.histories_checked} histories, undecided "
+              f"{res.undecided}, {dt:.2f} s{what}", flush=True)
+
+
+def phase_kv16(spec, corpus, tag):
+    """Phases 10-11 (main path of the sweep regime): TorchStepper on the
+    kv16 corpus, then prop_concurrent on kv16."""
+    t = TorchStepper(spec)
+    require(t.regime == "sweep", f"kv16 took the {t.regime} regime")
+    oracle = KvKeyOracle(spec)
+    check_corpus("kv16", t, spec, corpus, oracle, tag)
+    # the batch's set-up stages, timed alone on the same 4096 histories
+    device_corpus = _replicate(corpus, DEVICE_BATCH)
+    t0 = time.perf_counter()
+    flatten(spec, device_corpus, None, t.max_expansions, uses_table=False)
+    t_flat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = encode_batch(device_corpus, spec.initial_state(), max_ops=KV_OPS)
+    prec = enc.precedes()
+    t_enc = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep_tables(enc.ops[:, :, 1], enc.ops[:, :, 2], enc.ops[:, :, 3],
+                 enc.valid, prec, t.device)
+    torch.cuda.synchronize()
+    t_tab = time.perf_counter() - t0
+    print(f"{tag} kv16 batch set-up alone: host contracts {t_flat:.3f} s, "
+          f"encoding and precedence {t_enc:.3f} s (host), sweep tables "
+          f"{t_tab:.3f} s (to the card, synchronised)", flush=True)
+    check_property("kv16", lambda: TorchStepper(spec), spec,
+                   (AtomicKvSUT(spec), StaleCacheKvSUT(spec)),
+                   dict(n_trials=30, n_pids=KV_PIDS, max_ops=KV_OPS, seed=0),
+                   tag, oracle=oracle)
+
+
+def phase_milestones(tag):
+    """Phase 12: the two milestone configurations the port could not
+    check before: KV at its default size (4 keys, a 256-state shadow)
+    through TorchStepper's table regime; the ticket dispenser through
+    TorchGPU and TorchStepper.  Each kernel's launches are counted over
+    its path alone."""
+    spec = KvSpec()
+    corpus = build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT), n=N_UNIQUE,
+                          n_pids=KV_PIDS, max_ops=KV_OPS, seed_base=1000,
+                          seed_prefix="bench")
+    oracle = KvKeyOracle(spec)
+    stepper_chunk.launches = compact_carry.launches = 0
+    t = TorchStepper(spec)
+    require(t.regime == "table" and t.kspec.n_packed == 256,
+            "KV at its default size is not on the table regime's shadow")
+    check_corpus("kv (4 keys)", t, spec, corpus, oracle, tag)
+    check_property("kv (4 keys)", lambda: TorchStepper(spec), spec,
+                   (AtomicKvSUT(spec), StaleCacheKvSUT(spec)),
+                   dict(n_trials=40, n_pids=KV_PIDS, max_ops=KV_OPS,
+                        seed=13), tag, oracle=oracle)
+    print(f"{tag} path of the KV milestone: {stepper_chunk.launches} "
+          f"stepper_chunk, {compact_carry.launches} compact_carry launches",
+          flush=True)
+    require(stepper_chunk.launches > 0, "the KV milestone launched no "
+            "stepper_chunk")
+    tspec = TicketSpec()
+    corpus = build_corpus(tspec, (lambda s: AtomicTicketSUT(),
+                                  lambda s: RacyTicketSUT()), n=N_UNIQUE,
+                          n_pids=TICKET_PIDS, max_ops=TICKET_OPS,
+                          seed_base=1000, seed_prefix="bench")
+    suts = (AtomicTicketSUT(), RacyTicketSUT())
+    cfg = dict(n_trials=60, n_pids=TICKET_PIDS, max_ops=TICKET_OPS, seed=99)
+    for label, make, counter in (("TorchGPU", TorchGPU, dfs_chunk),
+                                 ("TorchStepper", TorchStepper,
+                                  stepper_chunk)):
+        counter.launches = 0
+        check_corpus(f"ticket via {label}", make(tspec), tspec, corpus,
+                     WingGongCPU(memo=True), tag)
+        check_property(f"ticket via {label}", lambda: make(tspec), tspec,
+                       suts, cfg, tag)
+        print(f"{tag} path of the ticket milestone through {label}: "
+              f"{counter.launches} {counter.__name__} launches", flush=True)
+        require(counter.launches > 0, f"the ticket milestone launched no "
+                f"{counter.__name__} through {label}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -984,6 +1365,28 @@ def main(argv=None) -> int:
     require(step_launches > 0, "the main path launched no stepper_chunk")
     require(comp_launches > 0, "the main path launched no compact_carry")
 
+    kv_spec, kv_corpus = kv16_corpus()
+    t0 = time.perf_counter()
+    sweep_err, sweep_comp_err, sweep = phase_sweep(kv_spec, kv_corpus, dev,
+                                                   tag)
+    print(f"{tag} phase stepper_sweep vs plain: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the sweep regime's main path: launch counts over phases 10-11
+    stepper_sweep.launches = compact_carry.launches = 0
+    t0 = time.perf_counter()
+    phase_kv16(kv_spec, kv_corpus, tag)
+    sweep_launches = stepper_sweep.launches
+    print(f"{tag} main path of TorchStepper's sweep regime: "
+          f"{sweep_launches} stepper_sweep launches, "
+          f"{compact_carry.launches} compact_carry launches, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(sweep_launches > 0, "the sweep regime's main path launched no "
+            "stepper_sweep")
+    t0 = time.perf_counter()
+    phase_milestones(tag)
+    print(f"{tag} phase milestones: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     kernels_line = {"kernels": [{
@@ -1004,8 +1407,16 @@ def main(argv=None) -> int:
         "name": "compact_carry", "route": "cuda",
         "source": "qsm_tpu_torch/csrc/compact_carry.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:736 (JaxTPU._compact_fn)",
-        "launches": comp_launches, "matches_plain": step_err == 0,
-        "max_abs_err": step_err, **comp, "library_ms": None}]
+        "launches": comp_launches,
+        "matches_plain": max(step_err, sweep_comp_err) == 0,
+        "max_abs_err": max(step_err, sweep_comp_err), **comp,
+        "library_ms": None}, {
+        "name": "stepper_sweep", "route": "cuda",
+        "source": "qsm_tpu_torch/csrc/stepper_sweep.cu",
+        "replaces": "qsm_tpu/ops/jax_kernel.py:303 (build_stepper -> "
+                    "run_one, sweep regime)",
+        "launches": sweep_launches, "matches_plain": sweep_err == 0,
+        "max_abs_err": sweep_err, **sweep, "library_ms": None}]
     print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line))

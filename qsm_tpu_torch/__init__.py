@@ -5,7 +5,9 @@ The device search runs in hand-written CUDA kernels: ``csrc/dfs_chunk.cu``
 driven by :class:`TorchGPU` (scalar specs, up to 32 ops), and
 ``csrc/stepper_chunk.cu`` with ``csrc/compact_carry.cu`` driven by the
 chunked, lane-compacting :class:`TorchStepper` (scalar and scalarizable
-vector specs such as the FIFO queue, up to 128 ops).  Every entry point
+vector specs such as the FIFO queue, up to 128 ops), and
+``csrc/stepper_sweep.cu`` for its sweep regime (vector specs too large
+for a table, such as a KV map of 16 keys).  Every entry point
 runs on CUDA unless the caller passes ``device="cpu"``, which runs the
 kernels' plain PyTorch versions.
 """

@@ -25,6 +25,7 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,3 +112,43 @@ class Spec:
 
     def resp_domain(self, cmd: int) -> range:
         return range(self.CMDS[cmd].n_resps)
+
+    def sweep_kernel(self):
+        """``(kind, params, data)`` selecting the model's step code inside
+        the ``stepper_sweep`` kernel (``csrc/stepper_sweep.cu``), or None.
+        ``params`` is a tuple of at most three ints, ``data`` None or an
+        int32 array the kernel reads from device memory.  A spec without
+        one runs the sweep regime only through the plain version, on the
+        CPU."""
+        return None
+
+    # -- persistence ------------------------------------------------------
+    def spec_kwargs(self) -> dict:
+        """Constructor kwargs that reproduce this spec exactly."""
+        return {}
+
+
+def broadcast_vector(state, *ops):
+    """``state`` ``[..., D]`` and the op tensors broadcast together:
+    ``(state [..., D], op [...], ...)``, expanded views."""
+    shape = torch.broadcast_shapes(state.shape[:-1], *(o.shape for o in ops))
+    return (state.expand(*shape, state.shape[-1]),
+            *(o.expand(shape) for o in ops))
+
+
+def jax_index(idx, n: int):
+    """The element a dynamic index reads in an axis of ``n``, as the JAX
+    package's array indexing reads it: a negative index counts from the
+    end, then the index is clamped into ``[0, n)``."""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def take_elem(state, idx):
+    """``state[..., idx]`` per batch element, ``idx`` shaped as
+    ``state[..., 0]``, read as :func:`jax_index` reads it."""
+    i = jax_index(idx, state.shape[-1]).long()
+    return torch.gather(state, -1, i[..., None]).squeeze(-1)
+
+
+def floor_div(x, d: int):
+    return torch.div(x, d, rounding_mode="floor")

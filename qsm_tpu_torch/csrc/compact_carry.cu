@@ -10,7 +10,10 @@
 // count is unchanged, else every occupied old entry (occ == 1) is
 // re-hashed into an empty table, a later old slot winning a collision;
 // from a carry without a memo (old_slots = 0) the survivors get an empty
-// table.
+// table.  A table-regime carry holds its states lane-minor ([N+1][B],
+// D = 0 here); a sweep-regime carry (ops/sweep_kernel.py) holds each
+// lane's state stack lane-major ([B][N+1][D], D >= 1) and keys of
+// W + D words.
 //
 // What bounds it on an H100: bytes.  It reads the surviving lanes' stacks
 // and memo once and writes the new carry once, tens to hundreds of MB when
@@ -18,7 +21,9 @@
 // grid-stride loops, one thread an element, at most BLOCKS_PER_SM blocks
 // an SM of the card (its SM count comes from the caller):
 //   1. planes: one thread a (plane row, new lane), a coalesced write, the
-//      lane along x and the row along y of the grid;
+//      lane along x and the row along y of the grid; a lane-major state
+//      stack: one thread a (new lane, state word), the word along x and
+//      the lane along y;
 //   2. re-hash only: win[i][s] = -1, then one thread a (surviving lane,
 //      old slot) hashes each occupied entry and atomicMax-es its old slot
 //      into win[i][dest], so the later old slot wins (the plain version's
@@ -43,7 +48,7 @@ struct Args {
   const int32_t* lanes;
   int32_t *taken_o, *chosen_o, *states_o, *dsi_o, *keys_o, *occ_o, *row_o;
   int32_t* win;  // [m][slots] winning old slot of each new slot (re-hash)
-  int B_old, B_new, m, N, kw, old_slots, slots;
+  int B_old, B_new, m, N, D, kw, old_slots, slots;
   int log_old, log_slots;  // log2 of old_slots and slots (when not 0)
 };
 
@@ -69,13 +74,15 @@ __device__ __forceinline__ size_t grid_stride() {
   return static_cast<size_t>(gridDim.x) * THREADS;
 }
 
-// rows: taken N, chosen N + 1, states N + 1, dsi 5, row 1; a thread's
-// row is its grid row (y), its lane its column (x)
+// rows: taken N, chosen N + 1, states N + 1 (lane-minor states only),
+// dsi 5, row 1; a thread's row is its grid row (y), its lane its column
+// (x)
 __global__ void __launch_bounds__(THREADS) planes_kernel(const Args a) {
   const int N = a.N;
   const size_t LN = static_cast<size_t>(a.B_new);
   const size_t LO = static_cast<size_t>(a.B_old);
   for (int k = blockIdx.y; k < 3 * N + 8; k += gridDim.y) {
+    if (a.D > 0 && k >= 2 * N + 1 && k < 3 * N + 2) continue;
     const int32_t* in = a.row;
     int32_t* out = a.row_o;
     int rk = 0, pad = 0;
@@ -94,6 +101,20 @@ __global__ void __launch_bounds__(THREADS) planes_kernel(const Args a) {
       out[rk * LN + i] =
           live ? in[rk * LO + static_cast<size_t>(a.lanes[i])] : pad;
     }
+  }
+}
+
+// lane-major state stacks: new lane i (grid row y) gets the (N+1) * D
+// words of old lane lanes[i], one thread a word (x); padding lanes 0
+__global__ void __launch_bounds__(THREADS) states_kernel(const Args a) {
+  const size_t E = static_cast<size_t>(a.N + 1) * a.D;
+  for (int i = blockIdx.y; i < a.B_new; i += gridDim.y) {
+    const bool live = i < a.m;
+    const int32_t* in =
+        live ? a.states + static_cast<size_t>(a.lanes[i]) * E : nullptr;
+    int32_t* out = a.states_o + static_cast<size_t>(i) * E;
+    for (size_t e = first_index(); e < E; e += grid_stride())
+      out[e] = live ? in[e] : 0;
   }
 }
 
@@ -164,7 +185,8 @@ int log2_of(int pow2) { return pow2 > 0 ? __builtin_ctz(pow2) : 0; }
 }  // namespace
 
 // Launches one compaction on `stream` into the output planes (`win` is
-// scratch of m * slots ints, read only when the memo is re-hashed), each
+// scratch of m * slots ints, read only when the memo is re-hashed; D = 0
+// for a table-regime carry, else its state width), each
 // pass in at most BLOCKS_PER_SM * sms blocks (sms: the card's SM count).
 // Returns cudaErrorInvalidValue for arguments it does not take (nothing is
 // launched), else the first cudaGetLastError() that is not 0 (0 = every
@@ -175,21 +197,27 @@ extern "C" int compact_carry_launch(
     const int32_t* row, const int32_t* lanes, int32_t* taken_o,
     int32_t* chosen_o, int32_t* states_o, int32_t* dsi_o, int32_t* keys_o,
     int32_t* occ_o, int32_t* row_o, int32_t* win, int B_old, int B_new,
-    int m, int N, int kw, int old_slots, int slots, int sms, void* stream) {
+    int m, int N, int D, int kw, int old_slots, int slots, int sms,
+    void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (B_old < 0 || B_new < 0 || m < 0 || m > B_new || N < 1 || kw < 2 ||
-      old_slots < 0 || (old_slots & (old_slots - 1)) != 0 || slots < 0 ||
+  if (B_old < 0 || B_new < 0 || m < 0 || m > B_new || N < 1 || D < 0 ||
+      kw != (N + 31) / 32 + (D > 0 ? D : 1) || old_slots < 0 ||
+      (old_slots & (old_slots - 1)) != 0 || slots < 0 ||
       (slots & (slots - 1)) != 0 || sms < 1)
     return invalid;
   if (B_new == 0) return 0;
   const Args a{taken,   chosen,   states,   dsi,   keys,   occ,    row,
                lanes,   taken_o,  chosen_o, states_o, dsi_o, keys_o, occ_o,
-               row_o,   win,      B_old,    B_new, m,      N,      kw,
-               old_slots, slots,   log2_of(old_slots), log2_of(slots)};
+               row_o,   win,      B_old,    B_new, m,      N,      D,
+               kw,      old_slots, slots,   log2_of(old_slots),
+               log2_of(slots)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t LN = static_cast<size_t>(B_new);
   const size_t cap = static_cast<size_t>(BLOCKS_PER_SM) * sms;
   int err = launch(planes_kernel, LN, 3 * N + 8, cap, a, s);
+  if (err == 0 && D > 0)
+    err = launch(states_kernel, static_cast<size_t>(N + 1) * D, B_new, cap,
+                 a, s);
   if (err != 0 || slots == 0) return err;
   if (m > 0 && old_slots > 0 && old_slots != slots) {
     err = launch(win_fill_kernel, static_cast<size_t>(m) * slots, 1, cap, a,

@@ -36,6 +36,9 @@ class CasSpec(Spec):
     def initial_state(self) -> np.ndarray:
         return np.zeros(1, np.int32)
 
+    def spec_kwargs(self):
+        return {"n_values": self.n_values}
+
     def cas_arg(self, old: int, new: int) -> int:
         return old * self.n_values + new
 

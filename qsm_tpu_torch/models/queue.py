@@ -49,6 +49,12 @@ class QueueSpec(Spec):
     def initial_state(self) -> np.ndarray:
         return np.zeros(self.STATE_DIM, np.int32)
 
+    def spec_kwargs(self):
+        return {"capacity": self.capacity, "n_values": self.n_values}
+
+    def sweep_kernel(self):
+        return 1, (self.capacity, self.n_values), None
+
     def state_elem_bounds(self):
         # length in [0, capacity]; slots in [0, n_values), vacated slots
         # zeroed

@@ -31,6 +31,9 @@ class RegisterSpec(Spec):
     def initial_state(self) -> np.ndarray:
         return np.zeros(1, np.int32)
 
+    def spec_kwargs(self):
+        return {"n_values": self.n_values}
+
     def scalar_state_bound(self, n_ops):
         return self.n_values  # state is always a stored value
 

@@ -2,9 +2,12 @@
 
 Before a batch reaches the device:
 
-* a history whose args fall outside the declared command domains is
-  deferred to the oracle (BUDGET_EXCEEDED): a spec's state bound only holds
-  for in-domain args, so its table could be wrong for it;
+* in a backend that tabulates the spec (every regime but the stepper's
+  sweep), a history whose args fall outside the declared command domains
+  is deferred to the oracle (BUDGET_EXCEEDED): a spec's state bound only
+  holds for in-domain args, so its table could be wrong for it.  The
+  sweep regime steps the spec itself and decides such a history on the
+  device, as the JAX package's ``JaxTPU`` does;
 * so is a history whose explicit start state the caller's ``in_bounds``
   refuses (a vector state outside its element bounds would pack onto
   another, valid state);
@@ -71,12 +74,13 @@ def expand_pending(spec: Spec, h: History, max_expansions: int
 
 def flatten(spec: Spec, histories: Sequence[History],
             init_states: Optional[Sequence], max_expansions: int,
-            in_bounds: Optional[Callable] = None):
+            in_bounds: Optional[Callable] = None,
+            uses_table: bool = True):
     """``(groups, flat, flat_inits, deferred)``: the device lanes of
     ``histories`` (``groups[i] = (start, count)``, count 0 = decided on the
     host as BUDGET_EXCEEDED), their start states (None without
     ``init_states``) and how many histories were deferred as out of
-    domain."""
+    domain (only when ``uses_table``)."""
     if init_states is not None and len(init_states) != len(histories):
         raise ValueError(
             f"init_states has {len(init_states)} entries for "
@@ -86,7 +90,7 @@ def flatten(spec: Spec, histories: Sequence[History],
     flat_inits: List = []
     deferred = 0
     for idx, h in enumerate(histories):
-        if not args_in_domain(spec, h) or (
+        if (uses_table and not args_in_domain(spec, h)) or (
                 in_bounds is not None and init_states is not None
                 and not in_bounds(init_states[idx])):
             deferred += 1
@@ -128,10 +132,12 @@ class DeviceChecker:
     subclass sets ``spec``, ``max_expansions`` and
     ``deferred_out_of_domain``, provides ``_run_device(flat, flat_inits,
     collect_chosen)`` (lane statuses, and with ``collect_chosen`` each
-    lane's final ``chosen`` stack) and may refuse explicit start states
-    with ``_start_in_bounds``."""
+    lane's final ``chosen`` stack), may refuse explicit start states with
+    ``_start_in_bounds``, and sets ``_uses_table`` False when it steps the
+    spec itself (then out-of-domain histories reach the device)."""
 
     _start_in_bounds: Optional[Callable] = None
+    _uses_table: bool = True
 
     def check_histories(self, spec: Spec, histories: Sequence[History],
                         init_states: Optional[Sequence] = None
@@ -143,7 +149,7 @@ class DeviceChecker:
             return np.empty(0, np.int8)
         groups, flat, flat_inits, deferred = flatten(
             spec, histories, init_states, self.max_expansions,
-            self._start_in_bounds)
+            self._start_in_bounds, self._uses_table)
         self.deferred_out_of_domain += deferred
         statuses = self._run_device(flat, flat_inits) if flat else None
         return fold_statuses(groups, statuses)
@@ -157,9 +163,11 @@ class DeviceChecker:
 
     def check_witness(self, spec: Spec, history: History):
         """(verdict, witness): the ``chosen`` stack of the same search,
-        read back on success, as ``(op_index, resp)`` pairs.  Pending-free,
-        in-domain histories only; others get (verdict, None)."""
-        if history.n_pending or not args_in_domain(spec, history):
+        read back on success, as ``(op_index, resp)`` pairs.  Pending-free
+        histories only, in-domain ones where the backend tabulates; others
+        get (verdict, None)."""
+        if history.n_pending or (self._uses_table
+                                 and not args_in_domain(spec, history)):
             return Verdict(
                 int(self.check_histories(spec, [history])[0])), None
         if not history.ops:

@@ -115,15 +115,31 @@ def stepper_chunk_lib() -> ctypes.CDLL:
 def compact_carry_lib() -> ctypes.CDLL:
     """The built ``compact_carry`` library: 16 device pointers (the seven
     old carry planes, the surviving lanes, the seven new planes, the
-    re-hash scratch), 7 ints of shape, the card's SM count, the stream."""
+    re-hash scratch), 8 ints of shape (the state width D, 0 for a
+    table-regime carry, among them), the card's SM count, the stream."""
     lib = ctypes.CDLL(str(build("compact_carry")))
     fn = lib.compact_carry_launch
-    fn.argtypes = [_P] * 16 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 16 + [_I] * 9 + [_P]
     fn.restype = _I
     return lib
 
 
-KERNEL_SOURCES = ("dfs_chunk", "stepper_chunk", "compact_carry")
+@functools.lru_cache(maxsize=None)
+def stepper_sweep_lib() -> ctypes.CDLL:
+    """The built ``stepper_sweep`` library: 14 device pointers (the six
+    tables, the model's data, the lane rows, the six carry planes updated
+    in place), 8 ints of shape and budget, the model's kind and 3
+    parameters, the 3 ints of the launch plan
+    (``sweep_kernel.SweepPlan``), the stream."""
+    lib = ctypes.CDLL(str(build("stepper_sweep")))
+    fn = lib.stepper_sweep_launch
+    fn.argtypes = [_P] * 14 + [_I] * 15 + [_P]
+    fn.restype = _I
+    return lib
+
+
+KERNEL_SOURCES = ("dfs_chunk", "stepper_chunk", "compact_carry",
+                  "stepper_sweep")
 
 
 def build_all(names=KERNEL_SOURCES) -> dict:

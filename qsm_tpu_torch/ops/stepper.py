@@ -1,23 +1,31 @@
 """``TorchStepper``: the chunked, lane-compacting device checker.
 
 The counterpart of the JAX package's ``JaxTPU`` (``qsm_tpu/ops/
-jax_kernel.py``) in its table regime: scalar specs with a state bound, and
-vector specs with a scalarized shadow (``ops/scalarize.py``), histories of
-up to 128 ops.  Vector specs whose packed domain is too large for a table
-take the reference's sweep regime, which the port does not have yet: they
-are refused.
+jax_kernel.py``), histories of up to 128 ops, in its two regimes, chosen
+as ``JaxTPU`` chooses them (``jax_kernel.py:596-611``):
+
+* the table regime: a scalar spec with a state bound, or a vector spec
+  with a scalarized shadow (``ops/scalarize.py``), searched by
+  ``stepper_chunk`` over a step table;
+* the sweep regime: any other spec (a vector spec whose packed domain is
+  too large for a table, such as a KV map of 16 keys), searched by
+  ``stepper_sweep`` (``ops/sweep_kernel.py``), which steps the model
+  itself every iteration.  On CUDA the spec must have a kernel model
+  (``Spec.sweep_kernel``); construction raises otherwise.
 
 Host side: ``ops/host_contracts.py`` (the entry points; out-of-domain
-histories and out-of-bounds start states deferred to the oracle, pending
-ops expanded), split at
+histories deferred to the oracle in the table regime, out-of-bounds start
+states of a shadow deferred, pending ops expanded), split at
 ``MAX_BATCH``, then per device batch:
 
-1. the batch's step table is built once on the device over its
-   vocabulary of distinct ``(cmd, arg, resp)`` ops, beside each history's
-   predecessor words and vocabulary indices at its own row
-   (``stepper_tables``);
-2. ``stepper_chunk`` runs a chunk of the schedule on every lane, and one
-   status read per chunk tells the host which lanes decided;
+1. the batch's tables are built once: in the table regime the step table
+   on the device over the batch's vocabulary of distinct ``(cmd, arg,
+   resp)`` ops, beside each history's predecessor words and vocabulary
+   indices at its own row (``stepper_tables``); in the sweep regime each
+   history's ops and predecessor words (``sweep_tables``);
+2. ``stepper_chunk`` (or ``stepper_sweep``) runs a chunk of the schedule
+   on every lane, and one status read per chunk tells the host which
+   lanes decided;
 3. decided lanes leave; when the survivors fit a smaller bucket of the
    ladder, or the bucket's memo size differs, ``compact_carry`` moves them
    into the new width and re-hashes their memo entries into the new table;
@@ -27,6 +35,7 @@ ops expanded), split at
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +50,8 @@ from .stepper_kernel import (BUDGET, INSERTS, ITERS, MAX_OPS, PRUNES,
                              RUNNING, STATUS, compact_carry,
                              fresh_stepper_carry, key_words, stepper_chunk,
                              stepper_tables)
+from .sweep_kernel import (fresh_sweep_carry, stepper_sweep, sweep_model,
+                           sweep_tables)
 
 # The port's defaults, chosen for one H100 (80 GB).
 #
@@ -52,20 +63,27 @@ from .stepper_kernel import (BUDGET, INSERTS, ITERS, MAX_OPS, PRUNES,
 CHUNK_SCHEDULE = (1024, 8192, 65536)
 # Bucket ladder: warp multiples (one warp a block), 4096 the widest batch.
 BATCH_BUCKETS = (32, 256, 1024, 4096)
-# Memo size per bucket, from device memory: a slot costs 4 * (kw + 1)
-# bytes, at most 24 with N = 128 (kw = 5); a batch's memo may take
-# MEMO_BYTES = 1 GiB (1.25 % of the card), so a bucket of B lanes gets the
-# largest power of two <= 2**30 / (24 * B) slots a lane, at most 2**16:
-#   4096 lanes -> 8192 slots, 1024 -> 32768, 256 and 32 -> 65536.
+# Memo size per bucket, from device memory: a slot is its key of kw words
+# and its occupancy word, 4 * (kw + 1) bytes, with kw = W + D (W taken
+# words, D state words: 1 in the table regime).  A batch's memo may take
+# MEMO_BYTES = 1 GiB (1.25 % of the card) at the widest key the spec can
+# have (N = 128, W = 4), so a bucket of B lanes gets the largest power of
+# two <= 2**30 / (4 * (5 + D) * B) slots a lane, at most 2**16:
+#   D = 1 (24 B a slot):  4096 lanes -> 8192, 1024 -> 32768, 256 and 32
+#                         -> 65536;
+#   D = 16 (84 B, a KV map of 16 keys):  4096 -> 2048, 1024 -> 8192,
+#                         256 -> 32768, 32 -> 65536.
 # The memo grows as the bucket shrinks, so each compaction re-hashes.
 MEMO_BYTES = 1 << 30
-MAX_SLOT_BYTES = 4 * (key_words(MAX_OPS) + 1)
 MAX_SLOTS_PER_LANE = 1 << 16
 
 
-def default_slots(bucket: int) -> int:
+def default_slots(bucket: int, state_dim: int = 1) -> int:
+    """Memo slots a lane for a bucket of ``bucket`` lanes whose keys carry
+    ``state_dim`` state words (module comment)."""
+    slot_bytes = 4 * (key_words(MAX_OPS, state_dim) + 1)
     slots = MAX_SLOTS_PER_LANE
-    while slots > 1 and bucket * slots * MAX_SLOT_BYTES > MEMO_BYTES:
+    while slots > 1 and bucket * slots * slot_bytes > MEMO_BYTES:
         slots //= 2
     return slots
 
@@ -85,11 +103,16 @@ class TorchStepper(DeviceChecker):
     unless ``device="cpu"`` is asked for, which runs the kernels' plain
     versions (the tests do).  ``chunk_schedule``, ``batch_buckets`` and
     ``slots_for_batch`` (bucket -> memo slots a lane) replace the port's
-    defaults, so that a test can hand it the JAX package's plan."""
+    defaults, so that a test can hand it the JAX package's plan.
+    ``regime`` says which search a spec takes: "table" or "sweep"."""
 
     name = "torch_stepper"
 
     MAX_BATCH = 4096     # larger batches run as consecutive device batches
+
+    @property
+    def regime(self) -> str:
+        return "table" if self._uses_table else "sweep"
 
     def __init__(self, spec: Spec, budget: int = 2_000,
                  max_expansions: int = 128, rescue_budget: int = 500_000,
@@ -105,17 +128,17 @@ class TorchStepper(DeviceChecker):
             # a vector start state outside its element bounds would pack
             # onto another, valid state: defer it to the oracle
             self._start_in_bounds = self._shadow.in_bounds
-        if (self.kspec.STATE_DIM != 1
-                or self.kspec.scalar_state_bound(1) is None):
-            raise ValueError(
-                f"TorchStepper covers the table regime (a scalar state "
-                f"bound or a scalarizable vector state); {spec.name} has "
-                f"neither")
+        self._uses_table = (self.kspec.STATE_DIM == 1
+                            and self.kspec.scalar_state_bound(1) is not None)
+        # the sweep regime's model on the card (refused there without one)
+        self._sweep = (None if self._uses_table
+                       else sweep_model(spec, self.device))
         self.chunk_schedule = tuple(chunk_schedule or CHUNK_SCHEDULE)
         self.batch_buckets = tuple(batch_buckets or BATCH_BUCKETS)
         self.slots_for_batch = dict(
             slots_for_batch if slots_for_batch is not None
-            else {b: default_slots(b) for b in self.batch_buckets})
+            else {b: default_slots(b, self.kspec.STATE_DIM)
+                  for b in self.batch_buckets})
         for b in self.batch_buckets:
             s = self.slots_for_batch[b]
             if s < 0 or s & (s - 1):
@@ -164,16 +187,28 @@ class TorchStepper(DeviceChecker):
             raise ValueError(f"TorchStepper covers <= {MAX_OPS} ops")
         b = len(flat)
         enc = encode_batch(flat, self.kspec.initial_state(), max_ops=n_ops)
-        inits = np.full(b, int(enc.init_state[0]), np.int32)
-        if flat_inits is not None:
-            # caller states are in the spec's representation; the kernel
-            # runs the shadow's (validated by host_contracts.flatten)
-            inits[:] = [self._shadow.pack(s) if self._shadow is not None
-                        else int(np.asarray(s).reshape(-1)[0])
-                        for s in flat_inits]
-        tables = stepper_tables(
-            self.kspec, enc.ops[:, :, 1], enc.ops[:, :, 2],
-            enc.ops[:, :, 3], enc.valid, enc.precedes(), self.device)
+        ops = (enc.ops[:, :, 1], enc.ops[:, :, 2], enc.ops[:, :, 3],
+               enc.valid, enc.precedes())
+        if self._uses_table:
+            inits = np.full(b, int(enc.init_state[0]), np.int32)
+            if flat_inits is not None:
+                # caller states are in the spec's representation; the
+                # kernel runs the shadow's (validated by
+                # host_contracts.flatten)
+                inits[:] = [self._shadow.pack(s) if self._shadow is not None
+                            else int(np.asarray(s).reshape(-1)[0])
+                            for s in flat_inits]
+            tables = stepper_tables(self.kspec, *ops, self.device)
+            fresh, step = fresh_stepper_carry, stepper_chunk
+        else:
+            D = self.spec.STATE_DIM
+            inits = np.tile(np.asarray(enc.init_state, np.int32), (b, 1))
+            if flat_inits is not None:
+                inits[:] = [np.asarray(s, np.int32).reshape(D)
+                            for s in flat_inits]
+            tables = sweep_tables(*ops, self.device)
+            fresh = fresh_sweep_carry
+            step = functools.partial(stepper_sweep, self._sweep)
 
         out_status = np.full(b, BUDGET, np.int32)
         out_chosen = (np.full((b, n_ops + 1), -1, np.int32)
@@ -190,15 +225,15 @@ class TorchStepper(DeviceChecker):
             slots = self.slots_for_batch[bucket]
             chunk = self.chunk_schedule[min(round_i, last)]
             if carry is None:
-                carry = fresh_stepper_carry(tables.nreq, active, inits,
-                                            bucket, n_ops, slots)
+                carry = fresh(tables.nreq, active, inits, bucket, n_ops,
+                              slots)
             elif (bucket, slots) != cur:
                 carry = compact_carry(carry, lanes, bucket, slots)
                 lanes = np.arange(active.size)
                 self.compactions += 1
             cur = (bucket, slots)
-            carry = stepper_chunk(tables, carry, chunk=chunk,
-                                  budget=self.total_budget)
+            carry = step(tables, carry, chunk=chunk,
+                         budget=self.total_budget)
             # the one host sync of the round: every lane's counters
             dsi = carry.dsi.cpu().numpy()
             status = dsi[STATUS][lanes]

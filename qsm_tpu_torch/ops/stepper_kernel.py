@@ -74,9 +74,16 @@ def n_words(n_ops: int) -> int:
     return (n_ops + 31) // 32
 
 
-def key_words(n_ops: int) -> int:
-    """Memo key width: the packed taken words and one state word."""
-    return n_words(n_ops) + 1
+def key_words(n_ops: int, state_dim: int = 1) -> int:
+    """Memo key width: the packed taken words, then the state's words
+    (one in the table regime, ``STATE_DIM`` in the sweep regime)."""
+    return n_words(n_ops) + state_dim
+
+
+def sweep_dim(carry) -> int:
+    """0 for a table-regime carry (``states [N+1, B]``), else the state
+    width D of a sweep-regime carry (``states [B, N+1, D]``)."""
+    return carry.states.shape[2] if carry.states.dim() == 3 else 0
 
 
 class StepperTables(NamedTuple):
@@ -259,14 +266,20 @@ def _check_planes(what: str, planes: Sequence, want: dict, dev) -> None:
 
 
 def _check_carry(what: str, carry: StepperCarry, n_ops: int, dev) -> None:
+    """The carry's planes: the table regime's ``states [N+1, B]`` and
+    keys of ``W + 1`` words, or the sweep regime's ``states [B, N+1, D]``
+    and keys of ``W + D`` words."""
     N, B = n_ops, carry.row.shape[0]
     slots = carry.occ.shape[1] if carry.occ.dim() == 2 else -1
     if slots < 0 or slots & (slots - 1):
         raise ValueError(f"{what}: memo slots must be 0 or a power of two, "
                          f"got {slots}")
+    sd = sweep_dim(carry)
     _check_planes(what, carry._asdict().items(), dict(
-        taken=(N, B), chosen=(N + 1, B), states=(N + 1, B), dsi=(5, B),
-        keys=(B, slots, key_words(N)), occ=(B, slots), row=(B,)), dev)
+        taken=(N, B), chosen=(N + 1, B),
+        states=(B, N + 1, sd) if sd else (N + 1, B), dsi=(5, B),
+        keys=(B, slots, key_words(N, max(sd, 1))), occ=(B, slots),
+        row=(B,)), dev)
 
 
 def _check_chunk_args(tables: StepperTables, carry: StepperCarry) -> None:
@@ -354,6 +367,9 @@ def stepper_chunk(tables: StepperTables, carry: StepperCarry, *, chunk: int,
     each launch); CPU tensors to :func:`stepper_chunk_plain`.  A failed
     build or launch raises; there is no fallback."""
     _check_chunk_args(tables, carry)
+    if sweep_dim(carry):
+        raise ValueError("stepper_chunk runs table-regime carries; a "
+                         "sweep-regime carry goes to stepper_sweep")
     dev = tables.vocab.device
     if dev.type == "cpu":
         return stepper_chunk_plain(tables, carry, chunk=chunk, budget=budget)
@@ -396,6 +412,8 @@ def stepper_chunk_plain(tables: StepperTables, carry: StepperCarry, *,
     ``run_one`` body (``jax_kernel.py:281-401``) line for line.  Updates
     the carry in place and returns it."""
     _check_chunk_args(tables, carry)
+    if sweep_dim(carry):
+        raise ValueError("stepper_chunk_plain runs table-regime carries")
     vocab, vnxt, vok, prec, valid, nreq = tables
     N = vocab.shape[1]
     S = vnxt.shape[0]
@@ -540,7 +558,8 @@ def compact_carry(carry: StepperCarry, lanes, bucket: int, slots: int
         raise ValueError(f"compact_carry runs on cuda or cpu, not {dev}")
     from .kernels import KernelLaunchError, compact_carry_lib
 
-    out = _empty_carry(N, bucket, slots, dev)
+    sd = sweep_dim(carry)
+    out = _empty_carry(N, bucket, slots, dev, sd)
     old_b, old_slots = carry.row.shape[0], carry.occ.shape[1]
     m = idx.shape[0]
     # scratch of the re-hash: the winning old slot of each new slot
@@ -552,8 +571,8 @@ def compact_carry(carry: StepperCarry, lanes, bucket: int, slots: int
         rc = compact_carry_lib().compact_carry_launch(
             *(t.data_ptr() for t in carry), idx.data_ptr(),
             *(t.data_ptr() for t in out), win.data_ptr(),
-            old_b, bucket, m, N, key_words(N), old_slots, slots,
-            device_sms(dev), stream)
+            old_b, bucket, m, N, sd, key_words(N, max(sd, 1)), old_slots,
+            slots, device_sms(dev), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"compact_carry launch failed: CUDA error {rc}")
@@ -564,12 +583,16 @@ def compact_carry(carry: StepperCarry, lanes, bucket: int, slots: int
 compact_carry.launches = 0
 
 
-def _empty_carry(n_ops: int, bucket: int, slots: int, dev) -> StepperCarry:
+def _empty_carry(n_ops: int, bucket: int, slots: int, dev,
+                 sweep: int = 0) -> StepperCarry:
+    """Uninitialised planes of a carry: the table regime's layout, or with
+    ``sweep = D`` the sweep regime's."""
     N, B = n_ops, bucket
+    states = (B, N + 1, sweep) if sweep else (N + 1, B)
     return StepperCarry(*(torch.empty(s, dtype=torch.int32, device=dev)
-                          for s in ((N, B), (N + 1, B), (N + 1, B), (5, B),
-                                    (B, slots, key_words(N)), (B, slots),
-                                    (B,))))
+                          for s in ((N, B), (N + 1, B), states, (5, B),
+                                    (B, slots, key_words(N, max(sweep, 1))),
+                                    (B, slots), (B,))))
 
 
 def compact_carry_plain(carry: StepperCarry, lanes, bucket: int, slots: int
@@ -580,11 +603,15 @@ def compact_carry_plain(carry: StepperCarry, lanes, bucket: int, slots: int
     _check_carry("compact_carry", carry, N, dev)
     idx = _lanes_tensor(lanes, bucket, carry.row.shape[0], dev).long()
     m = idx.shape[0]
-    out = _empty_carry(N, bucket, slots, dev)
+    sd = sweep_dim(carry)
+    out = _empty_carry(N, bucket, slots, dev, sd)
     for name in ("taken", "chosen", "states", "dsi"):
         o, v = getattr(out, name), getattr(carry, name)
         o.zero_()
-        o[:, :m] = v[:, idx]
+        if name == "states" and sd:
+            o[:m] = v[idx]          # lane-major
+        else:
+            o[:, :m] = v[:, idx]
     out.dsi[STATUS, m:] = SUCCESS
     out.row.zero_()
     out.row[:m] = carry.row[idx]

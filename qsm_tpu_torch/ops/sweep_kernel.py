@@ -1,0 +1,362 @@
+"""``stepper_sweep``: the lane-compacting stepper's sweep regime.
+
+The counterpart of the JAX package's ``build_stepper`` → ``run_one`` when
+the spec has no state bound (``qsm_tpu/ops/jax_kernel.py:190-193``,
+``:303-309``): a vector spec whose packed domain is too large for a step
+table (a KV map of 16 keys: 4**16 states).  Every iteration evaluates
+every op's ``(next_state, ok)`` from the lane's current state vector, and
+the memo key is the taken words followed by all D state words.  Chunk,
+budget, memo and status semantics are those of the table regime
+(``ops/stepper_kernel.py``); a state is never out of bounds here.
+
+Inputs, all int32:
+
+    tables  cmd, arg, resp [R, N]   each history's ops (padding ops: 0)
+            prec   [R, W, N]        packed predecessors (as the table regime)
+            valid  [R, W]           packed: op exists
+            nreq   [R]              ops to linearize
+    carry   taken  [N, B], chosen [N+1, B], dsi [5, B], row [B]: as the
+            table regime;
+            states [B, N+1, D]      each lane's state stack, lane-major
+            keys   [B, C, W+D]      memo keys: W taken words, D state words
+            occ    [B, C]
+
+On the card the model's step is code inside the kernel, chosen by a kind
+and up to three integer parameters that the spec gives
+(``Spec.sweep_kernel``): 1 queue, 2 kv and multireg, 3 stack, 4 multicas,
+5 txn, 6 a random vector spec whose tables ride a device buffer.  A spec
+without a kind runs only on the CPU, through :func:`stepper_sweep_plain`,
+which steps with ``spec.step_torch``.  The kernel takes ``D <=
+MAX_SWEEP_DIM``: the key's W + D words are compared one a thread of a
+warp, W <= 4.
+
+``stepper_sweep`` launches ``csrc/stepper_sweep.cu`` for CUDA tensors with
+the shape from :func:`sweep_launch_plan`, and takes
+:func:`stepper_sweep_plain` only for CPU tensors.  It counts its launches
+(``stepper_sweep.launches``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .dfs_kernel import (BUDGET, FAILURE, RUNNING, SMEM_BLOCK_MAX, SUCCESS,
+                         _as_i32)
+from .stepper_kernel import (MAX_OPS, MAX_WARPS_PER_BLOCK, StepperCarry, _M32,
+                             _check_carry, _check_planes, _pack_np,
+                             _unpack_bits, device_sms, hash_slot, key_words,
+                             n_words, pack_words, sweep_dim)
+
+# A memo key of W + D words is compared one word a thread of a warp, and
+# W is up to 4 (N <= 128): the kernel takes state vectors of up to 28
+# words.
+MAX_SWEEP_DIM = 32 - n_words(MAX_OPS)
+
+
+class SweepTables(NamedTuple):
+    cmd: torch.Tensor
+    arg: torch.Tensor
+    resp: torch.Tensor
+    prec: torch.Tensor
+    valid: torch.Tensor
+    nreq: torch.Tensor
+
+
+class SweepModel(NamedTuple):
+    """A spec and its step code on the card: ``kind`` (0 = none),
+    ``params`` (three ints), ``data`` (int32, at least one element)."""
+
+    spec: object
+    kind: int
+    params: tuple
+    data: torch.Tensor
+
+
+def sweep_model(spec, device) -> SweepModel:
+    """The spec's kernel model on ``device``.  On CUDA a spec without a
+    kind, or wider than ``MAX_SWEEP_DIM``, is refused (``ValueError``):
+    the sweep regime has no other path there."""
+    device = torch.device(device)
+    found = spec.sweep_kernel()
+    if device.type == "cuda":
+        if found is None:
+            raise ValueError(
+                f"{spec.name}: no step code for the stepper_sweep kernel "
+                f"(Spec.sweep_kernel); its sweep regime runs only with "
+                f"device='cpu'")
+        if not 1 <= spec.STATE_DIM <= MAX_SWEEP_DIM:
+            raise ValueError(
+                f"{spec.name}: the stepper_sweep kernel takes state vectors "
+                f"of 1..{MAX_SWEEP_DIM} words, not {spec.STATE_DIM}")
+    kind, params, data = found or (0, (), None)
+    params = tuple(int(p) for p in params) + (0,) * (3 - len(params))
+    data = np.zeros(1, np.int32) if data is None else np.asarray(data,
+                                                                 np.int32)
+    if kind == 6:
+        # the kernel reads the bounds, then tables of their sizes
+        D, car = spec.STATE_DIM, params[0] * params[1] * params[2]
+        bounds = data[:D]
+        if (car < 1 or len(bounds) != D or (bounds < 1).any()
+                or data.size != D + (bounds[0] + bounds.sum()) * car):
+            raise ValueError(f"{spec.name}: kind 6 data of {data.size} "
+                             f"words does not hold its bounds and tables")
+    return SweepModel(spec, int(kind), params,
+                      torch.from_numpy(np.ascontiguousarray(data)).to(device))
+
+
+def sweep_tables(cmd: np.ndarray, arg: np.ndarray, resp: np.ndarray,
+                 valid: np.ndarray, prec: np.ndarray, device) -> SweepTables:
+    """The read-only inputs for ``R`` histories of ``N`` (bucketed) ops:
+    ``cmd``/``arg``/``resp`` int ``[R, N]``, ``valid`` bool ``[R, N]``,
+    ``prec`` bool ``[R, N, N]`` (``prec[r, i, j]``: op i precedes op j)."""
+    N = np.shape(cmd)[1]
+    valid = np.asarray(valid, bool)
+    host = [np.asarray(x, np.int32) for x in (cmd, arg, resp)]
+    host += [_pack_np(np.asarray(prec, bool), N),
+             _pack_np(valid[..., None], N)[..., 0],
+             valid.sum(axis=1).astype(np.int32)]
+    return SweepTables(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in host))
+
+
+def fresh_sweep_carry(nreq: torch.Tensor, rows: np.ndarray,
+                      init_states: np.ndarray, bucket: int, n_ops: int,
+                      slots: int) -> StepperCarry:
+    """The carry of searches not yet begun (``init_one``): lane ``i <
+    len(rows)`` reads table row ``rows[i]`` and starts at depth 0 in the
+    state vector ``init_states[i]``; lanes past them are padding,
+    SUCCESS, row 0."""
+    init = np.asarray(init_states, np.int32)
+    N, B, D, dev = n_ops, bucket, init.shape[1], nreq.device
+    m = len(rows)
+    if m > B or len(init) != m or (
+            m and not 0 <= min(rows) <= max(rows) < nreq.shape[0]):
+        raise ValueError(f"fresh_sweep_carry: {m} rows and {len(init)} "
+                         f"states in a bucket of {B} must index the "
+                         f"{nreq.shape[0]} table rows")
+    row = torch.zeros(B, dtype=torch.int32, device=dev)
+    row[:m] = torch.from_numpy(np.asarray(rows, np.int32)).to(dev)
+    states = torch.zeros((B, N + 1, D), dtype=torch.int32, device=dev)
+    states[:m, 0] = torch.from_numpy(init).to(dev)
+    dsi = torch.zeros((5, B), dtype=torch.int32, device=dev)
+    dsi[1] = SUCCESS
+    dsi[1, :m] = torch.where(nreq[row[:m].long()] == 0, SUCCESS,
+                             RUNNING).to(torch.int32)
+    return StepperCarry(
+        torch.zeros((N, B), dtype=torch.int32, device=dev),
+        torch.full((N + 1, B), -1, dtype=torch.int32, device=dev),
+        states, dsi,
+        torch.zeros((B, slots, key_words(N, D)), dtype=torch.int32,
+                    device=dev),
+        torch.zeros((B, slots), dtype=torch.int32, device=dev), row)
+
+
+def _check_sweep_args(tables: SweepTables, carry: StepperCarry) -> None:
+    R, N = tables.cmd.shape
+    if not 1 <= N <= MAX_OPS:
+        raise ValueError(f"stepper_sweep covers 1 <= N <= {MAX_OPS} ops; "
+                         f"got N={N}")
+    if not sweep_dim(carry):
+        raise ValueError("stepper_sweep runs sweep-regime carries (states "
+                         "[B, N+1, D])")
+    dev = tables.cmd.device
+    W = n_words(N)
+    _check_planes("stepper_sweep", tables._asdict().items(), dict(
+        cmd=(R, N), arg=(R, N), resp=(R, N), prec=(R, W, N), valid=(R, W),
+        nreq=(R,)), dev)
+    _check_carry("stepper_sweep", carry, N, dev)
+
+
+# ---------------------------------------------------------------------------
+# Launch plan
+# ---------------------------------------------------------------------------
+
+class SweepPlan(NamedTuple):
+    warps_per_block: int
+    grid: int
+    smem_bytes: int     # dynamic shared memory per block
+
+
+def sweep_warp_bytes(n_ops: int, state_dim: int) -> int:
+    """Shared bytes of one warp: its lane's ``[N+1, D]`` state stack, its
+    ``chosen`` stack, the D-word child of the chosen op and its threads'
+    ops, ``[W, W + 3, 32]`` words (each op's predecessor words, cmd, arg,
+    resp)."""
+    w = n_words(n_ops)
+    return 4 * ((n_ops + 1) * (state_dim + 1) + state_dim
+                + w * (w + 3) * 32)
+
+
+def sweep_launch_plan(B: int, N: int, D: int, sms: int) -> SweepPlan:
+    """How ``csrc/stepper_sweep.cu`` runs ``B`` lanes of ``N`` ops over a
+    D-word state on a card of ``sms`` SMs: one warp a lane; warps a block
+    enough to put the lanes on every SM (``ceil(B / sms)``), at most 16
+    and what shared memory holds.  The C entry re-checks it."""
+    per_warp = sweep_warp_bytes(N, D)
+    wpb = max(1, min(MAX_WARPS_PER_BLOCK, SMEM_BLOCK_MAX // per_warp,
+                     -(-B // sms)))
+    return SweepPlan(wpb, -(-B // wpb), wpb * per_warp)
+
+
+# ---------------------------------------------------------------------------
+# stepper_sweep
+# ---------------------------------------------------------------------------
+
+def stepper_sweep(model: SweepModel, tables: SweepTables,
+                  carry: StepperCarry, *, chunk: int, budget: int
+                  ) -> StepperCarry:
+    """Advance every RUNNING lane by at most ``chunk`` DFS iterations (it
+    stops earlier when it decides or its cumulative iterations reach
+    ``budget``).  The carry is updated in place and returned.
+
+    CUDA tensors go to the CUDA kernel (``stepper_sweep.launches`` counts
+    each launch); CPU tensors to :func:`stepper_sweep_plain`.  A failed
+    build or launch raises; there is no fallback."""
+    _check_sweep_args(tables, carry)
+    dev = tables.cmd.device
+    if dev.type == "cpu":
+        return stepper_sweep_plain(model.spec, tables, carry, chunk=chunk,
+                                   budget=budget)
+    if dev.type != "cuda":
+        raise ValueError(f"stepper_sweep runs on cuda or cpu, not {dev}")
+    D = sweep_dim(carry)
+    if not 1 <= model.kind <= 6 or D > MAX_SWEEP_DIM:
+        raise ValueError(f"stepper_sweep: kind {model.kind} with D={D} is "
+                         f"not a kernel model (sweep_model refuses it)")
+    if model.data.device != dev:
+        raise ValueError(f"stepper_sweep: model data on {model.data.device}"
+                         f", not {dev}")
+    from .kernels import KernelLaunchError, stepper_sweep_lib
+
+    R, N = tables.cmd.shape
+    B, slots = carry.row.shape[0], carry.occ.shape[1]
+    plan = sweep_launch_plan(B, N, D, device_sms(dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = stepper_sweep_lib().stepper_sweep_launch(
+            *(t.data_ptr() for t in tables), model.data.data_ptr(),
+            carry.row.data_ptr(), *(t.data_ptr() for t in carry[:6]),
+            B, R, N, n_words(N), D, slots, chunk, budget, model.kind,
+            *model.params, *(int(x) for x in plan), stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"stepper_sweep launch failed: CUDA error {rc}")
+    stepper_sweep.launches += 1
+    return carry
+
+
+stepper_sweep.launches = 0
+
+
+def _step_all(spec, state: torch.Tensor, cmd, arg, resp):
+    """``spec.step_torch`` of every op from each lane's state: ``state``
+    ``[B, D]``, ops ``[B, N]`` -> next states ``[B, N, D]``, ok ``[B, N]``
+    (a scalar spec steps the state itself)."""
+    if spec.STATE_DIM == 1:
+        nxt, ok = spec.step_torch(state[:, :1], cmd, arg, resp)
+        return nxt.expand(cmd.shape)[..., None], ok.expand(cmd.shape)
+    nxt, ok = spec.step_torch(state[:, None, :], cmd, arg, resp)
+    return nxt, ok
+
+
+def stepper_sweep_plain(spec, tables: SweepTables, carry: StepperCarry, *,
+                        chunk: int, budget: int) -> StepperCarry:
+    """The same function as the CUDA kernel, in plain PyTorch, vectorised
+    over lanes: one loop trip per DFS iteration, the JAX package's
+    ``run_one`` body in its sweep regime line for line, stepping with
+    ``spec.step_torch``.  Updates the carry in place and returns it."""
+    _check_sweep_args(tables, carry)
+    cmd, arg, resp, prec, valid, nreq = tables
+    N = cmd.shape[1]
+    B, slots = carry.row.shape[0], carry.occ.shape[1]
+    use_cache = slots > 0
+    dev = cmd.device
+    i32, i64 = torch.int32, torch.int64
+    lane = torch.arange(B, device=dev)
+    iota = torch.arange(N, device=dev)
+    kio = torch.arange(N + 1, device=dev)
+    row = carry.row.long()
+    c_l, a_l, r_l = cmd[row], arg[row], resp[row]              # [B, N]
+    prec_l = prec[row].to(i64) & _M32                          # [B, W, N]
+    valid_l = _unpack_bits(valid[row], N)                      # [B, N]
+    nreq_l = nreq[row]
+    tk = carry.taken.T == 1                                    # [B, N]
+    ch = carry.chosen.T.clone()                                # [B, N+1]
+    st = carry.states.clone()                                  # [B, N+1, D]
+    keys, occ = carry.keys, carry.occ
+    d, status, iters, prunes, inserts = (carry.dsi[k].clone()
+                                         for k in range(5))
+    for it in range(chunk):
+        # checked every 64 trips: each check syncs
+        if it % 64 == 0 and not bool((status == RUNNING).any()):
+            break
+        act = status == RUNNING
+        dl = d.long()
+        state = st[lane, dl]                                   # [B, D]
+        cur = ch[lane, dl]
+        untaken = valid_l & ~tk
+        uw = pack_words(untaken)                               # [B, W]
+        blocked = ((prec_l & uw[:, :, None]) != 0).any(1)      # [B, N]
+        nxt, ok = _step_all(spec, state, c_l, a_l, r_l)
+        cand = untaken & ~blocked & ok & (iota > cur[:, None])
+        has = cand.any(1)
+        j = torch.where(cand, iota, N).amin(1)
+        j = torch.where(has, j, torch.zeros_like(j))
+        child = nxt[lane, j].to(i32)                           # [B, D]
+        success = has & (d + 1 == nreq_l)
+        tw = pack_words(tk)
+        if use_cache:
+            jbit = torch.zeros_like(tw).scatter_(
+                1, (j >> 5)[:, None], (1 << (j & 31))[:, None])
+            key_child = torch.cat([tw | jbit, child.to(i64) & _M32], dim=1)
+            slot_c = hash_slot(key_child, slots)
+            hit = ((occ[lane, slot_c] == 1)
+                   & ((keys[lane, slot_c].to(i64) & _M32)
+                      == key_child).all(1))
+            prune = has & hit & ~success
+        else:
+            prune = torch.zeros_like(has)
+        descend = has & ~prune
+        d_back = (d - 1).clamp(min=0)
+        prev = ch[lane, d_back.long()].clamp(min=0)
+
+        desc, pru, exh = act & descend, act & prune, act & ~has
+        if use_cache:
+            # exhausted: the current configuration is proven
+            # non-linearizable-from
+            key_cur = torch.cat([tw, state.to(i64) & _M32], dim=1)
+            slot_cur = hash_slot(key_cur, slots)
+            keys[lane, slot_cur] = torch.where(
+                exh[:, None], _as_i32(key_cur), keys[lane, slot_cur])
+            occ[lane, slot_cur] = torch.where(exh, 1, occ[lane, slot_cur])
+        untake = exh & (d > 0) & (prev < N)
+        tk = torch.where(desc[:, None] & (iota == j[:, None]), True, tk)
+        tk = torch.where(untake[:, None] & (iota == prev[:, None]), False,
+                         tk)
+        at_d = kio == dl[:, None]
+        at_next = kio == dl[:, None] + 1     # never true past depth N
+        ch = torch.where((desc | pru)[:, None] & at_d, j[:, None].to(i32), ch)
+        ch = torch.where(desc[:, None] & at_next, -1, ch)
+        st = torch.where((desc[:, None] & at_next)[:, :, None],
+                         child[:, None, :], st)
+
+        d_new = torch.where(descend, d + 1, torch.where(prune, d, d_back))
+        iters_new = iters + 1
+        s_new = torch.where(success, SUCCESS, torch.where(
+            ~has & (d == 0), FAILURE, RUNNING))
+        s_new = torch.where((s_new == RUNNING) & (iters_new >= budget),
+                            BUDGET, s_new)
+        d = torch.where(act, d_new, d).to(i32)
+        iters = torch.where(act, iters_new, iters).to(i32)
+        status = torch.where(act, s_new, status).to(i32)
+        prunes = prunes + pru.to(i32)
+        if use_cache:
+            inserts = inserts + exh.to(i32)
+    carry.taken.copy_(tk.T.to(i32))
+    carry.chosen.copy_(ch.T)
+    carry.states.copy_(st)
+    carry.dsi.copy_(torch.stack([d, status, iters, prunes, inserts]))
+    return carry

@@ -3,8 +3,9 @@
 Backends: ``gpu`` is :class:`~qsm_tpu_torch.ops.gpu_backend.TorchGPU`
 (the ``dfs_chunk`` kernel), ``stepper`` is
 :class:`~qsm_tpu_torch.ops.stepper.TorchStepper` (the lane-compacting
-``stepper_chunk`` / ``compact_carry`` kernels, the counterpart of the
-reference CLI's ``--backend tpu``), ``--device cpu`` runs either one's
+``stepper_chunk`` / ``compact_carry`` kernels, and ``stepper_sweep`` for a
+spec too large for a table; the counterpart of the reference CLI's
+``--backend tpu``), ``--device cpu`` runs either one's
 plain versions instead; ``cpu`` is the memoised host oracle.
 """
 

@@ -14,9 +14,12 @@ depends on the other side's types.
   carry, a dict of lane-major numpy arrays: ``taken`` bool ``[B, N]``,
   ``chosen`` ``[B, N+1]``, ``states`` ``[B, N+1, 1]``, ``d``, ``status``,
   ``iters``, ``prunes``, ``inserts`` ``[B]``, and with a memo ``keys``
-  uint32 ``[B, slots, kw]`` and ``occ`` ``[B, slots]``.  A mid-search
-  carry of that backend resumes in :mod:`qsm_tpu_torch.ops.stepper_kernel`
-  and back.
+  uint32 ``[B, slots, kw]`` and ``occ`` ``[B, slots]``.  In the table
+  regime ``states`` is ``[B, N+1, 1]`` and ``kw = W + 1``; in the sweep
+  regime (a vector spec without a state bound) ``states`` is ``[B, N+1,
+  D]`` and ``kw = W + D``.  A mid-search carry of that backend resumes in
+  :mod:`qsm_tpu_torch.ops.stepper_kernel` (or ``sweep_kernel``) and
+  back.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from ..core.history import History, Op
 from ..ops.dfs_kernel import Carry
 from ..ops.stepper_kernel import (D, INSERTS, ITERS, PRUNES, STATUS,
-                                  StepperCarry, key_words)
+                                  StepperCarry, key_words, sweep_dim)
 
 _DSI_KEYS = {D: "d", STATUS: "status", ITERS: "iters", PRUNES: "prunes",
              INSERTS: "inserts"}
@@ -67,10 +70,14 @@ def stepper_carry_from_jax(planes: Dict[str, np.ndarray], device,
                            rows=None) -> StepperCarry:
     """A :class:`StepperCarry` on ``device`` from a ``JaxTPU`` carry dict;
     lane ``i`` reads table row ``rows[i]`` (default ``i``: that backend's
-    lanes are aligned with its argument rows)."""
+    lanes are aligned with its argument rows).  A state of more than one
+    word gives the sweep regime's layout."""
     taken = np.asarray(planes["taken"])
     B, N = taken.shape
-    kw = key_words(N)
+    states = np.asarray(planes["states"])
+    dim = states.shape[2]
+    sweep = dim > 1
+    kw = key_words(N, dim)
     keys = planes.get("keys")
     if keys is None:
         keys = np.zeros((B, 0, kw), np.uint32)
@@ -81,7 +88,7 @@ def stepper_carry_from_jax(planes: Dict[str, np.ndarray], device,
                     for k in range(5)])
     rows = np.arange(B) if rows is None else rows
     host = (taken.T.astype(np.int32), np.asarray(planes["chosen"]).T,
-            np.asarray(planes["states"])[:, :, 0].T, dsi,
+            states if sweep else states[:, :, 0].T, dsi,
             np.asarray(keys, np.uint32).view(np.int32), np.asarray(occ),
             np.asarray(rows))
     return StepperCarry(*(torch.from_numpy(np.array(a, np.int32, order="C"))
@@ -94,9 +101,10 @@ def stepper_carry_to_jax(carry: StepperCarry) -> Dict[str, np.ndarray]:
     ``occ`` only when the carry has a memo."""
     h = {k: t.detach().cpu().numpy() for k, t in
          zip(StepperCarry._fields, carry)}
+    states = h["states"] if sweep_dim(carry) else h["states"].T[:, :, None]
     out = {"taken": h["taken"].T == 1,
            "chosen": np.ascontiguousarray(h["chosen"].T),
-           "states": np.ascontiguousarray(h["states"].T[:, :, None])}
+           "states": np.ascontiguousarray(states)}
     for k, name in _DSI_KEYS.items():
         out[name] = h["dsi"][k].copy()
     if h["occ"].shape[1]:

@@ -10,8 +10,13 @@ versions on every carry plane (1 to 4 bitmask words, memo off, small and
 large, the step table staged in shared memory or too large for it, and
 under plans fixed by hand; the memo kept, grown, shrunk, created and
 dropped), the stepper's C entry refusing plans it cannot launch, and
-``TorchStepper`` on a queue corpus against the memo oracle.  Without CUDA
-each test skips in its fixture."""
+``TorchStepper`` on a queue corpus against the memo oracle; and
+``stepper_sweep`` against its plain version (KV of 16 keys at 24, 64 and
+96 ops, queue, stack, txn and a random vector spec, memo off, small and at
+the checker's slot count, args and start states off the domains, plans
+fixed by hand, plans refused), the compaction of sweep-regime carries,
+and ``TorchStepper``'s sweep regime on KV histories against the memo
+oracle per key.  Without CUDA each test skips in its fixture."""
 
 from __future__ import annotations
 
@@ -424,6 +429,179 @@ def test_stepper_checker_matches_oracle(cuda):
     assert int(both.sum()) > 500
     assert int(((v != ov) & both).sum()) == 0
     lin = [h for h, x in zip(hs, v) if x == Verdict.LINEARIZABLE][:16]
+    for h in lin:
+        wv, wit = t.check_witness(spec, h)
+        assert wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit)
+
+
+# -- the stepper's sweep regime (stepper_sweep) ----------------------------
+
+def _sweep_inputs(name: str, n_ops: int, B: int, cuda, odd: bool = False):
+    """(spec, model, tables, start states) for B lanes of ``name``: the
+    KV map of 16 keys, queue and stack of capacity 8, txn(8, 8), a random
+    vector spec of 9 elements; with ``odd`` args and start states outside
+    the declared domains."""
+    import random
+
+    from qsm_tpu_torch.core.history import encode_batch
+    from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
+    from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
+                                            RacyTwoPhaseQueueSUT)
+    from qsm_tpu_torch.models.stack import (AtomicStackSUT,
+                                            RacyTwoPhaseStackSUT, StackSpec)
+    from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
+                                          TxnRegisterSpec)
+    from qsm_tpu_torch.ops.sweep_kernel import sweep_model, sweep_tables
+    from qsm_tpu_torch.utils.fuzz import RandomVectorSpec, random_history
+
+    specs = {"kv16": (KvSpec(n_keys=16), (AtomicKvSUT, StaleCacheKvSUT)),
+             "queue8": (QueueSpec(capacity=8),
+                        (AtomicQueueSUT, RacyTwoPhaseQueueSUT)),
+             "stack8": (StackSpec(capacity=8),
+                        (AtomicStackSUT, RacyTwoPhaseStackSUT)),
+             "txn8": (TxnRegisterSpec(8, 8), (AtomicTxnSUT, TornCopyTxnSUT)),
+             "random9": (RandomVectorSpec(5, bounds=(4,) * 9), None)}
+    spec, suts = specs[name]
+    if suts is None:
+        rng = random.Random("gpu-sweep")
+        hs = [random_history(spec, rng, 6, n_ops) for _ in range(128)]
+    else:
+        hs = build_corpus(spec, suts, n=128, n_pids=8, max_ops=n_ops,
+                          seed_base=1000, seed_prefix="bench")
+    hs = (hs * (-(-B // len(hs))))[:B]
+    enc = encode_batch(hs, spec.initial_state(), max_ops=n_ops)
+    cmd, arg, resp = (enc.ops[:, :, k].copy() for k in (1, 2, 3))
+    starts = np.tile(np.asarray(enc.init_state, np.int32), (B, 1))
+    if odd:
+        g = np.random.default_rng(8)
+        wild = g.random(arg.shape) < 0.05
+        arg[wild] = g.integers(-40, 80, int(wild.sum()))
+        starts[::7] = g.integers(-3, 12, starts[::7].shape)
+    tabs = sweep_tables(cmd, arg, resp, enc.valid, enc.precedes(), cuda)
+    return spec, sweep_model(spec, cuda), tabs, starts
+
+
+@pytest.mark.parametrize("slots", [0, 64, 2048])
+@pytest.mark.parametrize("name,n_ops,odd", [
+    ("kv16", 64, False), ("kv16", 24, True), ("kv16", 96, False),
+    ("queue8", 48, False), ("stack8", 48, True), ("txn8", 32, True),
+    ("random9", 48, False)])
+def test_stepper_sweep_matches_plain_version(cuda, name, n_ops, odd, slots):
+    from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry,
+                                                stepper_sweep,
+                                                stepper_sweep_plain)
+
+    B = 300  # a ragged last block
+    spec, model, tabs, starts = _sweep_inputs(name, n_ops, B, cuda, odd)
+    rows = np.random.default_rng(3).permutation(B)
+    carry = fresh_sweep_carry(tabs.nreq, rows, starts[rows], B, n_ops, slots)
+    for k in range(3):
+        got, want = _clone(carry), _clone(carry)
+        before = stepper_sweep.launches
+        stepper_sweep(model, tabs, got, chunk=384, budget=552_000)
+        torch.cuda.synchronize()
+        assert stepper_sweep.launches == before + 1
+        stepper_sweep_plain(spec, tabs, want, chunk=384, budget=552_000)
+        _assert_stepper_equal(got, want, f"after chunk {k + 1}")
+        carry = got
+    if slots:
+        assert int((carry.occ == 1).sum()) > 0
+
+
+@pytest.mark.parametrize("warps", [1, 5, 16])
+def test_stepper_sweep_matches_plain_under_fixed_plans(cuda, warps):
+    from qsm_tpu_torch.ops.kernels import stepper_sweep_lib
+    from qsm_tpu_torch.ops.stepper_kernel import n_words
+    from qsm_tpu_torch.ops.sweep_kernel import (SweepPlan, fresh_sweep_carry,
+                                                stepper_sweep_plain,
+                                                sweep_launch_plan,
+                                                sweep_warp_bytes)
+
+    B, N = 300, 64
+    spec, model, tabs, starts = _sweep_inputs("kv16", N, B, cuda)
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, N, 2048)
+    plan = SweepPlan(warps, -(-B // warps), warps * sweep_warp_bytes(N, 16))
+
+    def launch(c, p):
+        stream = torch.cuda.current_stream(cuda).cuda_stream
+        return stepper_sweep_lib().stepper_sweep_launch(
+            *(t.data_ptr() for t in tabs), model.data.data_ptr(),
+            c.row.data_ptr(), *(t.data_ptr() for t in c[:6]), B, B, N,
+            n_words(N), 16, c.occ.shape[1], 384, 552_000, model.kind,
+            *model.params, *(int(x) for x in p), stream)
+
+    got, want = _clone(carry), _clone(carry)
+    assert launch(got, plan) == 0
+    torch.cuda.synchronize()
+    stepper_sweep_plain(spec, tabs, want, chunk=384, budget=552_000)
+    _assert_stepper_equal(got, want, f"under {plan}")
+    good = sweep_launch_plan(B, N, 16, 132)
+    for bad in (good._replace(smem_bytes=good.smem_bytes - 4),
+                good._replace(grid=good.grid + 1),
+                good._replace(warps_per_block=17)):
+        assert launch(_clone(carry), bad) == 1, bad
+
+
+@pytest.mark.parametrize("old_slots,slots", [(2048, 32768), (2048, 2048),
+                                             (2048, 64), (0, 2048),
+                                             (2048, 0)])
+def test_compact_carry_of_a_sweep_carry_matches_plain(cuda, old_slots,
+                                                      slots):
+    from qsm_tpu_torch.ops.stepper_kernel import (RUNNING, compact_carry,
+                                                  compact_carry_plain)
+    from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry,
+                                                stepper_sweep)
+
+    B = 1024
+    spec, model, tabs, starts = _sweep_inputs("kv16", 64, B, cuda)
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, 64,
+                              old_slots)
+    stepper_sweep(model, tabs, carry, chunk=256, budget=552_000)
+    running = torch.nonzero(carry.dsi[1] == RUNNING)[:, 0].cpu().numpy()
+    lanes = np.random.default_rng(1).permutation(running)[:200]
+    assert lanes.size > 50
+    got = compact_carry(carry, lanes, 256, slots)
+    torch.cuda.synchronize()
+    want = compact_carry_plain(carry, lanes, 256, slots)
+    _assert_stepper_equal(got, want, f"{old_slots} -> {slots} slots")
+
+
+def test_sweep_checker_matches_per_key_oracle(cuda):
+    """``TorchStepper`` in its sweep regime on KV histories of 16 keys:
+    every verdict it decides is the port's memo oracle's on each key's
+    register sub-history (the keys of a KV map are independent)."""
+    from qsm_tpu_torch.core.history import History, Op
+    from qsm_tpu_torch.models.kv import (GET, AtomicKvSUT, KvSpec,
+                                         StaleCacheKvSUT)
+    from qsm_tpu_torch.models.register import RegisterSpec
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.ops.sweep_kernel import stepper_sweep
+
+    spec = KvSpec(n_keys=16)
+    hs = build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT), n=300,
+                      n_pids=16, max_ops=48, seed_base=7,
+                      seed_prefix="bench")
+    t = TorchStepper(spec, budget=20_000, mid_budget=0, rescue_budget=0)
+    assert t.regime == "sweep"
+    before = stepper_sweep.launches
+    v = t.check_histories(spec, hs)
+    assert stepper_sweep.launches > before
+    reg, oracle = RegisterSpec(n_values=4), WingGongCPU(memo=True)
+    for h, got in zip(hs, v):
+        keys = {}
+        for o in h.ops:
+            key, val = (o.arg, 0) if o.cmd == GET else divmod(o.arg, 4)
+            keys.setdefault(key, []).append(Op(
+                o.pid, o.cmd, val, o.resp, o.invoke_time, o.response_time))
+        sub = oracle.check_histories(reg, [History(ops)
+                                           for ops in keys.values()])
+        assert (sub != Verdict.BUDGET_EXCEEDED).all()
+        want = (Verdict.VIOLATION if (sub == Verdict.VIOLATION).any()
+                else Verdict.LINEARIZABLE)
+        if got != Verdict.BUDGET_EXCEEDED:
+            assert int(got) == int(want)
+    assert int((v == Verdict.LINEARIZABLE).sum()) > 100
+    lin = [h for h, x in zip(hs, v) if x == Verdict.LINEARIZABLE][:8]
     for h in lin:
         wv, wit = t.check_witness(spec, h)
         assert wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit)

@@ -25,7 +25,9 @@ def _forbidden(name: str) -> bool:
 
 def test_import_loads_no_jax_and_no_reference_module():
     code = ("import json, sys, qsm_tpu_torch, qsm_tpu_torch.utils.cli, "
-            "qsm_tpu_torch.ops.kernels, qsm_tpu_torch.ops.stepper\n"
+            "qsm_tpu_torch.ops.kernels, qsm_tpu_torch.ops.stepper, "
+            "qsm_tpu_torch.ops.sweep_kernel, qsm_tpu_torch.utils.fuzz, "
+            "qsm_tpu_torch.models.registry, qsm_tpu_torch.models.failover\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -197,8 +197,12 @@ def test_no_silent_cpu_and_no_sweep_regime(monkeypatch):
         STATE_DIM = 3
         CMDS = (CmdSig("noop", 1, 1),)
 
-    with pytest.raises(ValueError, match="table regime"):
-        TorchStepper(Wide(), device="cpu")
+    # it takes the sweep regime, which on CUDA needs a kernel model: the
+    # plain version never stands in for it there
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="no step code"):
+        TorchStepper(Wide(), device="cuda")
+    assert TorchStepper(Wide(), device="cpu").regime == "sweep"
 
 
 def test_default_memo_grows_as_the_bucket_shrinks():

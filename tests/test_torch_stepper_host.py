@@ -81,7 +81,7 @@ def _host_lib(name: str, tmp: Path, src: str = None):
 def _bind(name: str, lib):
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = ([_P] * 13 + [_I] * 13 + [_P] if name == "stepper_chunk"
-                   else [_P] * 16 + [_I] * 8 + [_P])
+                   else [_P] * 16 + [_I] * 9 + [_P])
     fn.restype = _I
     return fn
 
@@ -266,7 +266,7 @@ def _compact(fn, carry: StepperCarry, lanes: np.ndarray, bucket: int,
     win = torch.full((max(len(lanes) * slots, 1),), 777, dtype=torch.int32)
     rc = fn(*(t.data_ptr() for t in carry), idx.data_ptr(),
             *(t.data_ptr() for t in out), win.data_ptr(),
-            carry.row.shape[0], bucket, len(lanes), N, key_words(N),
+            carry.row.shape[0], bucket, len(lanes), N, 0, key_words(N),
             carry.occ.shape[1], slots, sms, None)
     return rc, out
 
@@ -332,10 +332,10 @@ def test_compact_entry_refuses_bad_arguments(host_libs):
     win = torch.zeros(8 * 64, dtype=torch.int32)
     ptrs = [*(t.data_ptr() for t in carry), lanes.data_ptr(),
             *(t.data_ptr() for t in out), win.data_ptr()]
-    for bad in ((LANES, 8, 9, N, kw, 64, 64, 1),    # more lanes than bucket
-                (LANES, 8, 8, N, kw, 48, 64, 1),    # old slots not 2**k
-                (LANES, 8, 8, N, kw, 64, 96, 1),    # new slots not 2**k
-                (LANES, 8, 8, N, 1, 64, 64, 1),     # no state word
-                (LANES, 8, 8, N, kw, 64, 64, 0)):   # no SM
+    for bad in ((LANES, 8, 9, N, 0, kw, 64, 64, 1),  # more lanes than bucket
+                (LANES, 8, 8, N, 0, kw, 48, 64, 1),  # old slots not 2**k
+                (LANES, 8, 8, N, 0, kw, 64, 96, 1),  # new slots not 2**k
+                (LANES, 8, 8, N, 0, 1, 64, 64, 1),   # no state word
+                (LANES, 8, 8, N, 0, kw, 64, 64, 0)):  # no SM
         assert comp(*ptrs, *bad, None) == 1, bad
-    assert comp(*ptrs, LANES, 8, 8, N, kw, 64, 64, 1, None) == 0
+    assert comp(*ptrs, LANES, 8, 8, N, 0, kw, 64, 64, 1, None) == 0
