@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --against OLD.cu   # also time an earlier kernel
     python3 chip_smoke.py --against-stepper OLD_DIR  # earlier stepper kernels
+    python3 chip_smoke.py --against-sweep OLD.cu     # an earlier stepper_sweep
+    python3 chip_smoke.py --ablate-sweep   # where a kv16 iteration's cycles go
 
 Phases, in order; any failure exits non-zero and no result is printed:
 
@@ -40,7 +42,11 @@ Phases, in order; any failure exits non-zero and no result is printed:
    headline's tables (48 ops x 8 pids, 512 unique histories at 4096
    lanes, one batch-shared op-vocabulary table staged in shared memory),
    memo off and at the port's slot count for that bucket, from a fresh and
-   from a mid-search carry, after 1 and 3 chunks of 2048 iterations; on
+   from a mid-search carry, after 1 and 3 chunks of 2048 iterations at
+   full width, and from the mid-search carry after each of 8 on a lane
+   sample (one lane of every unique history still running, carried to the
+   CPU by ``compact_carry_plain`` and advanced there by the plain
+   version); on
    CAS histories of 64 and 128 ops at 1024 lanes after 1 and 2 chunks; and
    on CAS histories over 256 values (32 ops, 1024 lanes), whose table is
    too large to stage and is read from device memory;
@@ -69,10 +75,24 @@ Phases, in order; any failure exits non-zero and no result is printed:
    (64 ops x 16 pids, 512 unique histories at 4096 lanes) memo off and at
    the port's slot count, and on queue and stack of capacity 8, txn(8, 8)
    and a random vector spec of 9 elements at 1024 lanes, each from a
-   mid-search carry, after 1 and 2 chunks of 1024 iterations (KV) or 1
-   (the others): every plane bit-identical to ``stepper_sweep_plain``;
-   each case's plan, time per launch, plain time and bound;
-   ``compact_carry`` on the KV carry;
+   mid-search carry: launched as the main path launches it (the running
+   lanes alone) and over every lane, every plane bit-identical to
+   ``stepper_sweep_plain`` at full width after 1 and 2 chunks of 1024
+   iterations (KV) or 1 (the others), and on a lane sample (as in phase
+   6) after each of 8 chunks (KV) or 2; each case's plan and how its
+   running lanes fall on blocks and SMs, time per launch in turns (every
+   lane, the running lanes alone), cycles an iteration of the longest
+   lane at the SM clock, plain time and bound, and with the memo the
+   probes whose filter tag matched; ``compact_carry`` on the KV carry with
+   its bound.  With ``--against-sweep OLD.cu`` (an earlier
+   ``stepper_sweep.cu`` whose C entry takes 14 pointers, 15 ints and the
+   stream, without a lane list), that kernel
+   is built too, checked equal, and timed in turns with this one (old,
+   new, new, old) on every case's mid-search carry.  With
+   ``--ablate-sweep`` the kv16 kernel is also timed against the number of
+   running lanes launched and, in turns, against ablation builds of its
+   source (``SWEEP_ABLATIONS``), each checked to leave the search as it
+   is;
 10. kv16 checker (main path of the sweep regime): ``TorchStepper`` on the
    512 unique KV histories at 4096 lanes, cold, warm and profiled; 0
    verdict mismatches against the port's memo oracle run on each key's
@@ -98,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import random
@@ -105,6 +126,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -127,6 +149,7 @@ from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
 from qsm_tpu_torch.ops import kernels
 from qsm_tpu_torch.ops.backend import Verdict, verify_witness
 from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
+                                          SMEM_BLOCK_MAX,
                                           Carry, blocks_per_sm, dfs_chunk,
                                           dfs_chunk_plain, launch_plan)
 from qsm_tpu_torch.ops.gpu_backend import TorchGPU, fresh_carry, lane_tables
@@ -169,6 +192,7 @@ WIDE_CAS_VALUES = 256          # phase 6's table too large to stage
 KV_KEYS, KV_PIDS, KV_OPS = 16, 16, 64   # the sweep regime's KV headline
 SWEEP_CHUNK = 1024             # stepper_sweep iterations a launch, phase 9
 SWEEP_MID = 256                # plain iterations before phase 9's carries
+SAMPLE_LANES = 192             # lanes of a sample held on the CPU
 TICKET_PIDS, TICKET_OPS = 4, 24          # the ticket milestone
 
 
@@ -597,6 +621,7 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                 f"or the other way round")
         if name == "queue48":
             q_tabs = tabs
+            cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
         for slots in (0, default_slots(B)):
             fresh = fresh_stepper_carry(tabs.nreq, np.arange(B), starts, B,
                                         N, slots)
@@ -606,26 +631,40 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                 # still running
                 begins["mid"] = stepper_chunk_plain(
                     tabs, clone_carry(fresh), chunk=256, budget=TOTAL_BUDGET)
-            # the plain version's loop is the phase's cost: the CAS
-            # shapes run 2 chunks, the queue headline 3 (not 8, so that
-            # the script's time limit also holds phases 9-12)
-            n_chunks = 3 if name == "queue48" else 2
+            # the plain version's loop on the card is the phase's cost: the
+            # CAS shapes run 2 chunks at full width, the queue headline 3,
+            # and from its mid-search carry 8 on a lane sample carried on
+            # the CPU
+            n_full = 3 if name == "queue48" else 2
             for start, c0 in begins.items():
+                n_sample = 8 if start == "mid" else 0
                 ck, cp = clone_carry(c0), clone_carry(c0)
                 running = int((c0.dsi[1] == RUNNING).sum())
-                for i in range(n_chunks):
+                if n_sample:
+                    sample = LaneSample(c0, len(q_corpus), functools.partial(
+                        stepper_chunk_plain, cpu_tabs, chunk=STEP_CHUNK,
+                        budget=TOTAL_BUDGET))
+                for i in range(max(n_full, n_sample)):
                     new_stepper(tabs, ck)
-                    stepper_chunk_plain(tabs, cp, chunk=STEP_CHUNK,
-                                        budget=TOTAL_BUDGET)
-                    if i in (0, n_chunks - 1):
+                    if i < n_full:
+                        stepper_chunk_plain(tabs, cp, chunk=STEP_CHUNK,
+                                            budget=TOTAL_BUDGET)
+                    if i in (0, n_full - 1):
                         torch.cuda.synchronize()
                         max_err = max(max_err, _compare(
                             f"stepper_chunk {name} B={B} slots={slots} "
                             f"{start} chunk {i + 1}", ck, cp))
+                    if i < n_sample:
+                        max_err = max(max_err, sample.step_and_check(
+                            ck, f"stepper_chunk {name} slots={slots} {start}"
+                            f" lane sample chunk {i + 1}"))
+                what = (f"; on a sample of {len(sample.lanes)} lanes "
+                        f"({sample.unique} unique histories) after each of "
+                        f"{n_sample}" if n_sample else "")
                 print(f"{tag} stepper_chunk == plain on {name} B={B} "
                       f"slots={slots} from a {start} carry ({running} lanes "
                       f"running): all 7 planes bit-identical after 1 and "
-                      f"{n_chunks} chunks of {STEP_CHUNK}; "
+                      f"{n_full} chunks of {STEP_CHUNK} at full width{what}; "
                       f"{int((ck.dsi[1] == RUNNING).sum())} still running",
                       flush=True)
                 carries[(name, slots, start)] = ck
@@ -969,13 +1008,77 @@ class KvKeyOracle:
         return out
 
 
+def sweep_cases(kv_spec, kv_corpus, dev):
+    """(name, spec, B, N, tables, start states, unique histories) of the
+    sweep phase: KV of 16 keys at 4096 lanes of 64 ops; queue and stack of
+    capacity 8, txn(8, 8) and a random vector spec of 9 elements at 1024
+    lanes.  Lane i holds unique history i % unique."""
+    tabs, starts = sweep_inputs(kv_spec, _replicate(kv_corpus, DEVICE_BATCH),
+                                KV_OPS, dev)
+    yield "kv16", kv_spec, DEVICE_BATCH, KV_OPS, tabs, starts, len(kv_corpus)
+    for name, spec, suts, n_ops in (
+            ("queue8", QueueSpec(capacity=8),
+             (AtomicQueueSUT, RacyTwoPhaseQueueSUT), 48),
+            ("stack8", StackSpec(capacity=8),
+             (AtomicStackSUT, RacyTwoPhaseStackSUT), 48),
+            ("txn8", TxnRegisterSpec(8, 8), (AtomicTxnSUT, TornCopyTxnSUT),
+             32),
+            ("random9", RandomVectorSpec(5, bounds=(4,) * 9), None, 48)):
+        if suts is None:
+            rng = random.Random("chip-smoke")
+            hs = [random_history(spec, rng, 6, 40) for _ in range(256)]
+        else:
+            hs = build_corpus(spec, suts, n=256, n_pids=N_PIDS,
+                              max_ops=n_ops, seed_base=1000,
+                              seed_prefix="bench")
+        tabs, starts = sweep_inputs(spec, _replicate(hs, 1024), n_ops, dev)
+        yield name, spec, 1024, n_ops, tabs, starts, len(hs)
+
+
+class LaneSample:
+    """A seeded sample of a card carry's RUNNING lanes, held on the CPU:
+    one lane of every unique history still running (``row % n_unique``
+    names it), then others up to ``SAMPLE_LANES``.  Lanes are independent
+    (each has its own stacks, counters and memo), so the sample, moved by
+    ``compact_carry_plain`` at the same slot count and advanced by the
+    plain version on the CPU, evolves exactly as those lanes do in the
+    card's carry."""
+
+    def __init__(self, carry: StepperCarry, n_unique: int, plain, seed=0):
+        rng = np.random.default_rng(seed)
+        status = carry.dsi[1].cpu().numpy()
+        rows = carry.row.cpu().numpy()
+        order = rng.permutation(np.flatnonzero(status == RUNNING))
+        _, first = np.unique(rows[order] % n_unique, return_index=True)
+        rest = rng.permutation(np.setdiff1d(order, order[first]))
+        self.unique = len(first)
+        self.lanes = np.sort(np.concatenate(
+            [order[first], rest[:max(SAMPLE_LANES - len(first), 0)]]))
+        self.plain = plain
+        self.carry = self._cut(carry)
+
+    def _cut(self, carry: StepperCarry) -> StepperCarry:
+        c = compact_carry_plain(carry, self.lanes, len(self.lanes),
+                                carry.occ.shape[1])
+        return StepperCarry(*(t.cpu() for t in c))
+
+    def step_and_check(self, carry: StepperCarry, what: str) -> int:
+        """One chunk of the plain version on the sample, then the sampled
+        lanes of ``carry`` (the card's, after the same chunk) compared
+        plane by plane; the largest error (0, or this raises)."""
+        self.plain(self.carry)
+        torch.cuda.synchronize()
+        return _compare(what, self._cut(carry), self.carry)
+
+
 def sweep_ops_per_iteration(n_ops: int, dim: int, memo: bool) -> int:
-    """Integer ops of one sweep iteration, counted from
-    ``csrc/stepper_sweep.cu``: the blocked-op sweep 2W + 2 an op and the
-    postcondition about 8 (the kind's branch, a clamped index, a load, a
-    compare), the candidate words and the lowest one 3W + 4, the child 3
-    a state word, the stack update, status and budget about 26; with the
-    memo the two hashes and the key compare 6 kw + 5 more."""
+    """Integer ops of one sweep iteration, as counted from the first
+    version of ``csrc/stepper_sweep.cu`` and kept, so that every version
+    divides by one yardstick: the blocked-op sweep 2W + 2 an op and the postcondition
+    about 8 (the kind's branch, a clamped index, a load, a compare), the
+    candidate words and the lowest one 3W + 4, the child 3 a state word,
+    the stack update, status and budget about 26; with the memo the two
+    hashes and the key compare 6 kw + 5 more."""
     w = n_words(n_ops)
     ops = n_ops * (2 * w + 10) + 3 * w + 30 + 3 * dim
     return ops + (6 * (w + dim) + 5 if memo else 0)
@@ -1016,93 +1119,233 @@ def sweep_inputs(spec, histories, n_ops, dev):
                          (len(histories), 1))
 
 
-def sweep_cases(kv_spec, kv_corpus, dev):
-    """(name, spec, B, N, tables, start states) of the sweep phase: KV of
-    16 keys at 4096 lanes of 64 ops; queue and stack of capacity 8, txn(8,
-    8) and a random vector spec of 9 elements at 1024 lanes."""
-    tabs, starts = sweep_inputs(kv_spec, _replicate(kv_corpus, DEVICE_BATCH),
-                                KV_OPS, dev)
-    yield "kv16", kv_spec, DEVICE_BATCH, KV_OPS, tabs, starts
-    for name, spec, suts, n_ops in (
-            ("queue8", QueueSpec(capacity=8),
-             (AtomicQueueSUT, RacyTwoPhaseQueueSUT), 48),
-            ("stack8", StackSpec(capacity=8),
-             (AtomicStackSUT, RacyTwoPhaseStackSUT), 48),
-            ("txn8", TxnRegisterSpec(8, 8), (AtomicTxnSUT, TornCopyTxnSUT),
-             32),
-            ("random9", RandomVectorSpec(5, bounds=(4,) * 9), None, 48)):
-        if suts is None:
-            rng = random.Random("chip-smoke")
-            hs = [random_history(spec, rng, 6, 40) for _ in range(256)]
-        else:
-            hs = build_corpus(spec, suts, n=256, n_pids=N_PIDS,
-                              max_ops=n_ops, seed_base=1000,
-                              seed_prefix="bench")
-        tabs, starts = sweep_inputs(spec, _replicate(hs, 1024), n_ops, dev)
-        yield name, spec, 1024, n_ops, tabs, starts
+def running_lanes(c: StepperCarry) -> np.ndarray:
+    return np.flatnonzero(c.dsi[1].cpu().numpy() == RUNNING)
 
 
-def new_sweep(model, tabs, c):
+def new_sweep(model, tabs, c, lanes=None):
     return stepper_sweep(model, tabs, c, chunk=SWEEP_CHUNK,
-                         budget=TOTAL_BUDGET)
+                         budget=TOTAL_BUDGET, lanes=lanes)
 
 
-def phase_sweep(kv_spec, kv_corpus, dev, tag):
+def main_sweep(model, tabs, c):
+    """A launch as the sweep regime's main path makes it
+    (``TorchStepper._run_device``): the running lanes alone."""
+    return new_sweep(model, tabs, c, lanes=running_lanes(c))
+
+
+def sweep_raw(model, tabs, c, lanes=None, stats=None, fn=None):
+    """This ``stepper_sweep``'s C entry alone (``lanes`` an int32 tensor on
+    the card, or None for every lane), for timing: no host checks, no
+    host sync between launches; ``fn`` another build's entry."""
+    R, N = tabs.cmd.shape
+    B, D, slots = c.row.shape[0], c.states.shape[2], c.occ.shape[1]
+    L = B if lanes is None else lanes.numel()
+    plan = sweep_launch_plan(L, N, D, slots, device_sms(c.row.device))
+    fn = fn or kernels.stepper_sweep_lib().stepper_sweep_launch
+    rc = fn(
+        *(t.data_ptr() for t in tabs), model.data.data_ptr(),
+        c.row.data_ptr(), *(t.data_ptr() for t in c[:6]),
+        None if lanes is None else lanes.data_ptr(),
+        None if stats is None else stats.data_ptr(), B, R, N, n_words(N), D,
+        slots, SWEEP_CHUNK, TOTAL_BUDGET, model.kind, *model.params, L,
+        *(int(x) for x in plan), torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"stepper_sweep's C entry failed ({rc})")
+    return c
+
+
+def old_sweep_kernel(src: Path):
+    """A launcher for an earlier ``stepper_sweep.cu`` (the first version's
+    C entry: 14 pointers, 15 ints with its own launch plan, the stream),
+    built like this one."""
+    fn = ctypes.CDLL(str(kernels.build("stepper_sweep_against", src=src))
+                     ).stepper_sweep_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(model, tabs, c):
+        R, N = tabs.cmd.shape
+        B, D, slots = c.row.shape[0], c.states.shape[2], c.occ.shape[1]
+        W = n_words(N)
+        per_warp = 4 * ((N + 1) * (D + 1) + D + W * (W + 3) * 32)
+        wpb = max(1, min(16, SMEM_BLOCK_MAX // per_warp,
+                         -(-B // device_sms(c.row.device))))
+        rc = fn(*(t.data_ptr() for t in tabs), model.data.data_ptr(),
+                c.row.data_ptr(), *(t.data_ptr() for t in c[:6]), B, R, N,
+                W, D, slots, SWEEP_CHUNK, TOTAL_BUDGET, model.kind,
+                *model.params, wpb, -(-B // wpb), wpb * per_warp,
+                torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"the earlier stepper_sweep failed ({rc})")
+        return c
+    return launch
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock now (``nvidia-smi --query-gpu=clocks.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()
+    return float(out[0])
+
+
+def load_text(mid: StepperCarry, N: int, D: int, slots: int, sms: int,
+              listed: bool) -> str:
+    """How the running lanes fall on blocks and SMs under the launch plan
+    (all B lanes, or the running lanes alone), per SM as if block i runs
+    on SM i mod sms in the first wave (the order in which blocks are
+    handed out is the hardware's; this reads the plan, not the card)."""
+    run = (mid.dsi[1] == RUNNING).cpu().numpy().astype(np.int64)
+    if listed:
+        run = np.ones(int(run.sum()), np.int64)
+    p = sweep_launch_plan(len(run), N, D, slots, sms)
+    blocks = np.add.reduceat(run, np.arange(0, len(run), p.warps_per_block))
+    per_sm = np.bincount(np.arange(len(blocks)) % sms, weights=blocks,
+                         minlength=sms)
+    return (f"{'running lanes alone' if listed else 'all lanes'}: "
+            f"{p.warps_per_block} warps a block, grid {p.grid}; running "
+            f"warps a block mean {blocks.mean():.2f}, max {blocks.max()}; "
+            f"an SM mean {per_sm.mean():.2f}, max {per_sm.max():.0f}, min "
+            f"{per_sm.min():.0f}")
+
+
+def time_sweep(launch, mid, reps=5) -> float:
+    """ms per launch of ``launch(c)`` from the mid-search carry, each
+    launch on its own copy (the kernels update the carry in place)."""
+    return time_launches(launch, [clone_carry(mid) for _ in range(reps + 1)],
+                         reps)
+
+
+def phase_sweep(kv_spec, kv_corpus, dev, tag, against=None):
     """Phase 9: stepper_sweep against stepper_sweep_plain on every case,
-    then timings and bounds; compact_carry on the KV carry.  Returns the
-    largest error of each kernel and the headline row."""
+    at full width after the first chunks and on a lane sample after every
+    chunk, then timings, bounds, cycles an iteration; compact_carry on the
+    KV carry.  With ``against`` (an earlier stepper_sweep.cu) that kernel
+    is checked equal and timed in turns.  Returns the largest error of
+    each kernel and the headline row."""
     max_err, comp_err, head = 0, 0, None
-    for name, spec, B, N, tabs, starts in sweep_cases(kv_spec, kv_corpus,
-                                                      dev):
+    sms = device_sms(dev)
+    old = old_sweep_kernel(against) if against is not None else None
+    if old is not None:
+        for line in kernels.ptxas_report("stepper_sweep_against",
+                                         against).splitlines():
+            if any(k in line for k in ("registers", "stack frame")):
+                print(f"  ptxas (earlier stepper_sweep): {line.strip()}")
+    for name, spec, B, N, tabs, starts, n_unique in sweep_cases(
+            kv_spec, kv_corpus, dev):
+        t_case = time.perf_counter()
         D = spec.STATE_DIM
         model = sweep_model(spec, dev)
-        p = sweep_launch_plan(B, N, D, device_sms(dev))
-        print(f"  plan: {name} B={B} N={N} D={D} kind {model.kind}: "
-              f"{p.warps_per_block} warps a block, grid {p.grid}, "
-              f"{p.smem_bytes} shared bytes a block", flush=True)
+        cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
         for slots in ((0, default_slots(B, D)) if name == "kv16"
                       else (default_slots(B, D),)):
+            p = sweep_launch_plan(B, N, D, slots, sms)
+            print(f"  plan: {name} B={B} N={N} D={D} slots={slots} kind "
+                  f"{model.kind}: {p.warps_per_block} warps a block, grid "
+                  f"{p.grid}, {p.smem_bytes} shared bytes a block",
+                  flush=True)
             fresh = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, N,
                                       slots)
             # mid-search: SWEEP_MID plain iterations in
             mid = stepper_sweep_plain(spec, tabs, clone_carry(fresh),
                                       chunk=SWEEP_MID, budget=TOTAL_BUDGET)
-            running = int((mid.dsi[1] == RUNNING).sum())
+            run_mid = running_lanes(mid)
+            running = len(run_mid)
             require(running > 0, f"{name}: no lane running mid-search")
-            # the plain version's loop is the phase's cost: the KV
-            # headline runs 2 chunks, the other models 1; the first plain
-            # chunk is the plain version's time
-            n_chunks = 2 if name == "kv16" else 1
-            ck, cp = clone_carry(mid), clone_carry(mid)
-            for i in range(n_chunks):
-                new_sweep(model, tabs, ck)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                stepper_sweep_plain(spec, tabs, cp, chunk=SWEEP_CHUNK,
-                                    budget=TOTAL_BUDGET)
-                torch.cuda.synchronize()
-                if i == 0:
-                    plain_ms = (time.perf_counter() - t0) * 1e3
-                max_err = max(max_err, _compare(
-                    f"stepper_sweep {name} B={B} slots={slots} chunk "
-                    f"{i + 1}", ck, cp))
-            ms = time_launches(lambda c: new_sweep(model, tabs, c),
-                               [clone_carry(mid) for _ in range(6)], 5)
-            one = new_sweep(model, tabs, clone_carry(mid))
+            for listed in (False, True):
+                print(f"  load of the {name} slots={slots} mid-search carry, "
+                      f"{load_text(mid, N, D, slots, sms, listed)}",
+                      flush=True)
+            # full width: the kernel as the main path launches it (the
+            # running lanes alone) and over every lane, against the plain
+            # version on the card; the first plain chunk is its time
+            n_full = 2 if name == "kv16" else 1
+            ck, cf, cp = (clone_carry(mid) for _ in range(3))
+            sample = LaneSample(mid, n_unique, lambda c: stepper_sweep_plain(
+                spec, cpu_tabs, c, chunk=SWEEP_CHUNK, budget=TOTAL_BUDGET))
+            n_sample = 8 if name == "kv16" else 2
+            for i in range(max(n_full, n_sample)):
+                main_sweep(model, tabs, ck)
+                if i < n_full:
+                    new_sweep(model, tabs, cf)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    stepper_sweep_plain(spec, tabs, cp, chunk=SWEEP_CHUNK,
+                                        budget=TOTAL_BUDGET)
+                    torch.cuda.synchronize()
+                    if i == 0:
+                        plain_ms = (time.perf_counter() - t0) * 1e3
+                    for label, c in (("running lanes", ck), ("all lanes",
+                                                             cf)):
+                        max_err = max(max_err, _compare(
+                            f"stepper_sweep {name} B={B} slots={slots} "
+                            f"{label} chunk {i + 1}", c, cp))
+                if i < n_sample:
+                    max_err = max(max_err, sample.step_and_check(
+                        ck, f"stepper_sweep {name} slots={slots} lane "
+                        f"sample chunk {i + 1}"))
+            # timings through the C entry, in turns: every lane, the
+            # running lanes alone
+            lanes_t = torch.from_numpy(run_mid.astype(np.int32)).to(dev)
+            turns = {"all": [], "running": []}
+            for who in ("all", "running", "running", "all"):
+                turns[who].append(time_sweep(
+                    lambda c: sweep_raw(model, tabs, c,
+                                        lanes_t if who == "running"
+                                        else None), mid))
+            mhz = sm_clock_mhz()
+            ms = sum(turns["running"]) / 2
+            ms_all = sum(turns["all"]) / 2
+            one = sweep_raw(model, tabs, clone_carry(mid), lanes_t)
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            sweep_raw(model, tabs, clone_carry(mid), lanes_t, stats)
+            probes, passes = (int(x) for x in stats.cpu())
+            hits = int((one.dsi[3] - mid.dsi[3]).sum())
+            longest = int((one.dsi[2] - mid.dsi[2]).max())
             bound_ms, bound_by, nbytes, ops = sweep_bound(tabs, mid, one)
+            cycles = ms * 1e-3 * mhz * 1e6 / max(longest, 1)
+            filt = (f"; memo probes {probes}, tag matched {passes} "
+                    f"({passes / max(probes, 1):.4f}), hits {hits}"
+                    if slots else "")
             print(f"{tag} stepper_sweep == plain on {name} B={B} N={N} D={D}"
                   f" slots={slots} from a mid-search carry ({running} lanes "
                   f"running): all 7 planes bit-identical after "
-                  f"{' and '.join(str(k + 1) for k in range(n_chunks))} "
-                  f"chunk(s) of {SWEEP_CHUNK}; {ms:.4f} ms/launch (bound "
-                  f"{bound_ms:.6f} ms by {bound_by}: {nbytes} B, {ops} ops; "
-                  f"plain {plain_ms:.1f} ms); "
-                  f"{int((ck.dsi[1] == RUNNING).sum())} still running",
+                  f"{' and '.join(str(k + 1) for k in range(n_full))} "
+                  f"chunk(s) of {SWEEP_CHUNK} at full width (running lanes "
+                  f"alone and all lanes), and on a sample of "
+                  f"{len(sample.lanes)} lanes ({sample.unique} unique "
+                  f"histories) after each of {n_sample}; {ms:.4f} ms/launch "
+                  f"running lanes alone, {ms_all:.4f} all lanes (in turns: "
+                  f"all {turns['all'][0]:.4f}/{turns['all'][1]:.4f}, running"
+                  f" {turns['running'][0]:.4f}/{turns['running'][1]:.4f}); "
+                  f"longest lane {longest} iterations, {cycles:.0f} cycles an"
+                  f" iteration at {mhz:.0f} MHz (bound {bound_ms:.6f} ms by "
+                  f"{bound_by}: {nbytes} B, {ops} ops; plain {plain_ms:.1f} "
+                  f"ms){filt}; {int((ck.dsi[1] == RUNNING).sum())} still "
+                  f"running; case {time.perf_counter() - t_case:.1f} s",
                   flush=True)
+            if old is not None:
+                a = old(model, tabs, clone_carry(mid))
+                b = sweep_raw(model, tabs, clone_carry(mid), lanes_t)
+                torch.cuda.synchronize()
+                _compare(f"earlier stepper_sweep vs this, {name} "
+                         f"slots={slots}", a, b)
+                turns = {"old": [], "new": []}
+                for who in ("old", "new", "new", "old"):
+                    turns[who].append(time_sweep(
+                        (lambda c: old(model, tabs, c)) if who == "old" else
+                        (lambda c: sweep_raw(model, tabs, c, lanes_t)), mid))
+                o, n = (sum(turns[k]) / 2 for k in ("old", "new"))
+                print(f"{tag} earlier vs this stepper_sweep, {name} B={B} "
+                      f"slots={slots} (old, new, new, old): old "
+                      f"{turns['old'][0]:.4f}/{turns['old'][1]:.4f} ms, new "
+                      f"{turns['new'][0]:.4f}/{turns['new'][1]:.4f} ms per "
+                      f"launch; old/new {o / n:.2f}x", flush=True)
             if name == "kv16" and slots:
                 head = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
-                kv_carry = ck
+                kv_carry = cf
     # compact_carry on the KV carry: 4096 -> 256 lanes, the memo grown
     status = kv_carry.dsi[1].cpu().numpy()
     lanes = np.argsort(status != RUNNING, kind="stable")[:COMPACT_TO]
@@ -1113,12 +1356,110 @@ def phase_sweep(kv_spec, kv_corpus, dev, tag):
     comp_err = _compare("compact_carry of the kv16 sweep carry", got, want)
     ms = time_launches(lambda x: compact_carry(kv_carry, lanes, COMPACT_TO,
                                                slots), [None] * 11, 10)
+    bound_ms, nbytes = compact_bound(kv_carry, got, len(lanes))
     print(f"{tag} compact_carry == plain on the kv16 sweep carry: "
           f"{DEVICE_BATCH} -> {COMPACT_TO} lanes, "
           f"{kv_carry.occ.shape[1]} -> {slots} slots "
           f"({int((got.occ == 1).sum())} memo entries after): all 7 planes "
-          f"bit-identical; {ms:.4f} ms/launch", flush=True)
+          f"bit-identical; {ms:.4f} ms/launch (bound {bound_ms:.6f} ms by "
+          f"bytes: {nbytes} B)", flush=True)
     return max_err, comp_err, head
+
+
+# Ablation builds of stepper_sweep.cu: (name, text replaced, replacement).
+# Each keeps the search exactly as it is (the same carries), so a time
+# difference is the cost of what the variant adds or takes away.
+SWEEP_ABLATIONS = (
+    # one more dependent hash on every probe (p2 is 0 for KV: the hash
+    # result is unchanged, the compiler cannot know)
+    ("extra hash", "        h = mix_words<DH>(h, child, D);\n",
+     "        h = mix_words<DH>(h, child, D);\n"
+     "        h ^= mix_words<DH>(h, child, D) & static_cast<uint32_t>(a.p2);\n"),
+    # one more dependent device-memory load before every key compare
+    # (occupancy is 0 or 1: the offset is 0, the compiler cannot know)
+    ("extra load",
+     "          const int32_t* key = keys + static_cast<size_t>(sl) * kw;\n"
+     "          bool eq",
+     "          const int32_t* key = keys + static_cast<size_t>(sl) * kw +\n"
+     "                               (occ[sl] & 0x40000000);\n"
+     "          bool eq"),
+    # the hash loop of a width without its own instantiation, at D = 16
+    ("hash loop", "    case 16: return stepper_sweep_kernel<W, true, K, 16>;\n",
+     ""),
+)
+
+
+def phase_sweep_ablation(kv_spec, kv_corpus, dev, tag):
+    """``--ablate-sweep``: where a kv16 iteration's cycles go.  The
+    kernel's time against the number of running lanes launched (1 to ~16
+    warps an SM: a chain's latency, then the SM's issue), and each
+    ablation build in turns with this one (this, variant, variant, this)
+    at 1 warp an SM and at every running lane, memo off and on."""
+    src = kernels.CSRC_DIR / "stepper_sweep.cu"
+    text = src.read_text()
+    out = kernels.BUILD_DIR / "ablation"
+    out.mkdir(parents=True, exist_ok=True)
+    launchers = {}
+    for name, old, new in SWEEP_ABLATIONS:
+        require(text.count(old) == 1, f"ablation '{name}': the source no "
+                f"longer has its text")
+        path = out / f"stepper_sweep_{name.replace(' ', '_')}.cu"
+        path.write_text(text.replace(old, new))
+        launchers[name] = path
+    with ThreadPoolExecutor(len(launchers)) as pool:
+        libs = dict(zip(launchers, pool.map(
+            lambda kv: kernels.build(f"sweep_{kv[0].replace(' ', '_')}",
+                                     src=kv[1]), launchers.items())))
+    fns = {}
+    for name, lib in libs.items():
+        fn = ctypes.CDLL(str(lib)).stepper_sweep_launch
+        fn.argtypes = list(kernels.stepper_sweep_lib(
+        ).stepper_sweep_launch.argtypes)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    fns["this"] = kernels.stepper_sweep_lib().stepper_sweep_launch
+    tabs, starts = sweep_inputs(kv_spec, _replicate(kv_corpus, DEVICE_BATCH),
+                                KV_OPS, dev)
+    model = sweep_model(kv_spec, dev)
+    for slots in (0, default_slots(DEVICE_BATCH, KV_KEYS)):
+        fresh = fresh_sweep_carry(tabs.nreq, np.arange(DEVICE_BATCH), starts,
+                                  DEVICE_BATCH, KV_OPS, slots)
+        mid = stepper_sweep_plain(kv_spec, tabs, fresh, chunk=SWEEP_MID,
+                                  budget=TOTAL_BUDGET)
+        run = running_lanes(mid)
+        sms = device_sms(dev)
+        for L in sorted({sms, 4 * sms, 8 * sms, len(run)}):
+            lanes_t = torch.from_numpy(np.sort(np.random.default_rng(
+                0).permutation(run)[:L]).astype(np.int32)).to(dev)
+            ms = time_sweep(lambda c: sweep_raw(model, tabs, c, lanes_t),
+                            mid)
+            mhz = sm_clock_mhz()
+            print(f"{tag} ablation kv16 slots={slots}: {L} running lanes "
+                  f"({L / sms:.2f} warps an SM): {ms:.4f} ms/launch, "
+                  f"{ms * 1e-3 * mhz * 1e6 / SWEEP_CHUNK:.0f} cycles an "
+                  f"iteration at {mhz:.0f} MHz", flush=True)
+            if L not in (sms, len(run)):
+                continue
+            want = sweep_raw(model, tabs, clone_carry(mid), lanes_t)
+            for name in fns:
+                if name == "this" or (not slots and name != "hash loop"):
+                    continue
+                got = sweep_raw(model, tabs, clone_carry(mid), lanes_t,
+                                fn=fns[name])
+                require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                        f"ablation '{name}' changed the search")
+                turns = {"this": [], name: []}
+                for who in ("this", name, name, "this"):
+                    turns[who].append(time_sweep(
+                        lambda c: sweep_raw(model, tabs, c, lanes_t,
+                                            fn=fns[who]), mid))
+                a, b = (sum(turns[k]) / 2 for k in ("this", name))
+                mhz = sm_clock_mhz()
+                cyc = (b - a) * 1e-3 * mhz * 1e6 / SWEEP_CHUNK
+                print(f"{tag} ablation kv16 slots={slots} L={L}, '{name}' "
+                      f"(this, variant, variant, this): this {a:.4f} ms, "
+                      f"variant {b:.4f} ms: {cyc:+.0f} cycles an iteration "
+                      f"at {mhz:.0f} MHz", flush=True)
 
 
 def check_corpus(name, backend, spec, corpus, oracle, tag):
@@ -1282,6 +1623,14 @@ def main(argv=None) -> int:
     ap.add_argument("--against-stepper", type=Path, default=None,
                     help="a directory with an earlier stepper_chunk.cu and "
                          "compact_carry.cu to time in turns with these")
+    ap.add_argument("--against-sweep", type=Path, default=None,
+                    help="an earlier stepper_sweep.cu (a C entry of 14 "
+                         "pointers, no lane list) to time in turns with "
+                         "this one")
+    ap.add_argument("--ablate-sweep", action="store_true",
+                    help="after phase 9, time stepper_sweep against the "
+                         "running lanes launched and against ablation "
+                         "builds of its source (kv16)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1368,9 +1717,11 @@ def main(argv=None) -> int:
     kv_spec, kv_corpus = kv16_corpus()
     t0 = time.perf_counter()
     sweep_err, sweep_comp_err, sweep = phase_sweep(kv_spec, kv_corpus, dev,
-                                                   tag)
+                                                   tag, args.against_sweep)
     print(f"{tag} phase stepper_sweep vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if args.ablate_sweep:
+        phase_sweep_ablation(kv_spec, kv_corpus, dev, tag)
     # the sweep regime's main path: launch counts over phases 10-11
     stepper_sweep.launches = compact_carry.launches = 0
     t0 = time.perf_counter()

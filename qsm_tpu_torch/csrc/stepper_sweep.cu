@@ -10,8 +10,8 @@
 // configuration (the taken words with the op's bit, then the D child
 // words), and descends, prunes or backtracks; on exhaustion it inserts the
 // current configuration.  There is no out-of-bounds state here (run_one's
-// oob is false in this regime).  As in run_one, the child of op 0 is
-// computed even when no op is a candidate; it never acts.
+// oob is false in this regime).  As in run_one, when no op is a candidate
+// the child of op 0 is computed and never acts; here it is not computed.
 //
 // The model's step is code in this file, a template instantiation a kind
 // (so an iteration carries no branch on the kind), with up to three
@@ -30,31 +30,63 @@
 // Layouts: cmd/arg/resp [R][N], prec [R][W][N], valid [R][W], nreq [R],
 // read through the lane's `row`; taken [N][B], chosen [N+1][B], dsi [5][B]
 // lane-minor; states [B][N+1][D] and the memo ([B][slots][W+D] keys,
-// [B][slots] occupancy) lane-major.  The carry is updated in place.
+// [B][slots] occupancy) lane-major.  The carry is updated in place.  An
+// optional list of L lanes (`lanes`, each at most once) names the lanes
+// the launch runs, warp w running lane lanes[w]; without it warp w runs
+// lane w of all B.  Lanes not RUNNING are left as they are either way.
 //
-// The design: one warp owns one lane.  Thread t owns ops t, t+32, t+64,
-// t+96; their predecessor words and (cmd, arg, resp) sit in column t of
-// the warp's shared memory ([W][W+3][32], loaded once a launch, read only
-// by thread t: registers are left to the model's step, so that no
-// instantiation spills); the taken words, depth and counters are
-// warp-uniform and kept by every thread.  Each warp also keeps its lane's
-// state stack [N+1][D], its chosen stack and a D-word child in shared
-// memory for the whole chunk.  An iteration: every thread evaluates its
-// ops' postconditions against the shared current state, one ballot a
-// bitmask word finds the candidates, the thread that owns the chosen op
-// writes the child into the shared child words, and after a warp barrier
-// every thread hashes the key.  A memo probe compares word t of the key
-// in thread t (kw = W + D <= 32), thread 0 also the occupancy; an insert
-// writes each word from the thread that compares it, so a probe sees the
-// lane's earlier inserts without a fence.  A descent copies the child
-// into the stack, word i by thread i, and a warp barrier ends the
-// iteration.  Stack entries of `chosen` are written by every thread with
-// the same value.
+// The design: one warp owns one lane, and the lane's current state lives
+// in the warp's registers, thread i < D holding word i.  Thread t owns ops
+// t, t+32, t+64, t+96 and keeps in registers, from launch entry, their
+// predecessor words and what the kind makes of each op's (cmd, arg, resp)
+// once: the lane that holds the state word it reads, what its
+// postcondition compares, and the element and value it writes (every
+// division by a run-time parameter happens here, once an op).  An
+// iteration:
+//  - each thread fetches its ops' state words with one __shfl_sync each
+//    (a source lane per thread; the queue and stack fetch the length and
+//    the top slot, the random spec word 0, as broadcasts), evaluates their
+//    postconditions, and one ballot a bitmask word finds the candidates;
+//  - the chosen op's write is broadcast from its owner by __shfl_sync and
+//    thread i computes child word i itself (the queue's pop takes its
+//    neighbour's word by __shfl_down_sync);
+//  - the memo hash is make_hash_slot's chain round for round: the taken
+//    words from registers, state word i by a broadcast __shfl_sync from
+//    thread i, each group of four fetched while the previous four rounds
+//    run.  The kernel is instantiated for the state widths of the
+//    registry's sweep models (8, 9, 16), where the rounds unroll into one
+//    straight chain; any other width hashes in a loop over the groups;
+//  - the probe first reads a one-byte tag of the slot from shared memory
+//    (bits of the hash that the slot index does not use; 0 = empty), built
+//    at launch entry from the lane's keys and occupancy and updated on
+//    every insert.  A tag that differs is a certain miss and skips device
+//    memory; a tag that matches compares the key in device memory, key
+//    word W + t in thread t, word t too in thread t < W.  The memo in
+//    device memory stays the single truth (same slots, same overwrite);
+//  - the hash of each level's configuration is kept in shared memory when
+//    the level is entered (it is the probe's), so the insert on
+//    exhaustion reuses it instead of hashing again (0: not known, as at
+//    launch entry: hash);
+//  - a descent stores thread i's child word in the lane's state stack in
+//    shared memory and a backtrack loads it back (fetched at the top of
+//    the iteration, off the chain).
+// Thread t alone reads and writes state word t of the stack and key words
+// t and W + t of the memo; every thread writes the same value to an entry
+// of the chosen stack, a level's hash and a tag, and reads only its own
+// write.  So the loop has no warp barrier, only the shuffles and ballots.
+// The launch takes the running lanes alone when the caller lists them,
+// spread evenly over the SMs (ops/sweep_kernel.py::sweep_launch_plan).
 //
-// What bounds it on an H100: each lane is one serial chain of dependent
-// steps, so latency, not bytes or operations: the shared-memory reads of
-// the state per op, the ballots, the owner's serial child of D words, two
-// warp barriers, and with the memo one probe in device memory.
+// What bounds it on an H100 (chip_smoke.py --ablate-sweep, kv16): the
+// latency of one lane's chain, an iteration of ≈ 460 cycles memo off and
+// ≈ 1,430 with the memo at one warp an SM.  The memo's part is the hash:
+// W + D dependent rounds of multiply-xorshift that no layout shortens
+// (one more hash a probe costs ≈ 430 cycles an iteration, the loop in
+// place of the unrolled chain ≈ 170); a key compare in device memory
+// after a matching tag costs little (one more dependent load ≈ 40: the
+// keys a lane probes are mostly in L2).  With ≈ 15–16 running warps an
+// SM the issue of those instructions binds as well (≈ 2,040 cycles an
+// iteration with the memo, ≈ 930 without).
 //
 // All word arithmetic is uint32; words are stored as int32.
 
@@ -69,7 +101,7 @@ constexpr int FAILURE = 2;
 constexpr int BUDGET = 3;
 constexpr int MAX_W = 4;       // N <= 128
 constexpr int WARP = 32;
-constexpr int MAX_KW = 32;     // W + D key words, one a thread
+constexpr int MAX_KW = 32;     // W + D key words: state word i in thread i
 constexpr int MAX_WARPS = 16;  // warps a block (sweep_kernel.py)
 constexpr int STATIC_SMEM_MAX = 48 * 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -78,9 +110,11 @@ constexpr uint32_t HASH_SEED = 0x9E3779B9u;
 enum Kind { QUEUE = 1, KV = 2, STACK = 3, MULTICAS = 4, TXN = 5, RANDOM = 6 };
 
 struct Args {
-  const int32_t *cmd, *arg, *resp, *prec, *valid, *nreq, *data, *row;
+  const int32_t *cmd, *arg, *resp, *prec, *valid, *nreq, *data, *row,
+      *lanes;
   int32_t *taken, *chosen, *states, *dsi, *keys, *occ;
-  int B, N, D, slots, chunk, budget, p0, p1, p2, warps;
+  unsigned long long* stats;
+  int B, L, N, D, slots, chunk, budget, p0, p1, p2, warps, warp_words;
 };
 
 // one round of the memo hash's word mixer (jax_kernel.py::make_hash_slot)
@@ -91,6 +125,13 @@ __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t k) {
   h *= 0xC2B2AE35u;
   h ^= h >> 13;
   return h;
+}
+
+// the memo filter's tag of a key of hash h: its top byte, 0 kept for an
+// empty slot (the slot index takes the low bits)
+__device__ __forceinline__ uint8_t tag_of(uint32_t h) {
+  const uint32_t t = h >> 24;
+  return static_cast<uint8_t>(t != 0 ? t : 1);
 }
 
 // x[i] of an array held in registers, without indexing it at run time
@@ -119,168 +160,271 @@ __device__ __forceinline__ int floor_mod(int x, int d) {
   return (r != 0 && ((r < 0) != (d < 0))) ? r + d : r;
 }
 
-// entry (s, c, a, r) of the random-vector table of `b` states that
-// starts at word `at` of `data`
-__device__ __forceinline__ int table_at(const Args& m, int at, int b, int s,
-                                        int c, int a, int r) {
-  return m.data[at + ((jidx(s, b) * m.p0 + jidx(c, m.p0)) * m.p1 +
-                      jidx(a, m.p1)) * m.p2 + jidx(r, m.p2)];
-}
-
-// the postcondition of op (c, a, r) from the state `st` of D words, for
-// the model kind K
-template <int K>
-__device__ __forceinline__ bool op_ok(const Args& m, const int32_t* st,
-                                      int c, int a, int r) {
-  const int D = m.D;
-  if constexpr (K == QUEUE || K == STACK) {
-    const int cap = m.p0, len = st[0];
-    if (c == 0) return len == cap ? r == 1 : r == 0;
-    if (len == 0) return r == m.p1;
-    const int top = K == QUEUE ? 0 : jidx(len - 1 > 0 ? len - 1 : 0, cap);
-    return r == st[1 + top];
-  } else if constexpr (K == KV || K == TXN) {
-    return c == 0 ? r == st[jidx(a, D)] : r == 0;
-  } else if constexpr (K == MULTICAS) {
-    const int nv = m.p1;
-    const int cell = c == 0 ? a : floor_div(a, c == 1 ? nv : nv * nv);
-    const int cur = st[jidx(cell, D)];
-    if (c == 0) return r == cur;
-    if (c == 1) return r == 0;
-    return r == (cur == floor_mod(floor_div(a, nv), nv) ? 1 : 0);
-  } else {  // RANDOM
-    return table_at(m, D, m.data[0], st[0], c, a, r) != 0;
-  }
-}
-
-// the child state of op (c, a, r) from `st`, written to `out` (D words)
-template <int K>
-__device__ __forceinline__ void op_child(const Args& m, const int32_t* st,
-                                         int c, int a, int r, int32_t* out) {
-  const int D = m.D;
-  if constexpr (K == QUEUE || K == STACK) {
-    const int cap = m.p0, len = st[0];
-    const bool full = len == cap, empty = len == 0;
-    if (c == 0) {
-      out[0] = len + (full ? 0 : 1);
-      for (int i = 0; i < cap; ++i)
-        out[1 + i] = i == len && !full ? a : st[1 + i];
-    } else if (K == QUEUE) {
-      out[0] = len - (empty ? 0 : 1);
-      for (int i = 0; i < cap; ++i)
-        out[1 + i] = empty ? st[1 + i] : (i == cap - 1 ? 0 : st[2 + i]);
-    } else {
-      out[0] = len - (empty ? 0 : 1);
-      for (int i = 0; i < cap; ++i)
-        out[1 + i] = i == len - 1 && !empty ? 0 : st[1 + i];
+// The hash chain continued over the D state words that the warp holds one
+// a thread (`x` in thread i is word i), each fetched by a broadcast
+// shuffle: the shuffles of a group of four words are issued, whatever the
+// group, while the previous group's four rounds run; the last D % 4 words
+// come after the groups.  DH > 0: the kernel was instantiated for D = DH,
+// and the rounds unroll into one straight chain; DH = 0: a loop over the
+// groups.
+template <int DH>
+__device__ __forceinline__ uint32_t mix_words(uint32_t h, int32_t x, int D) {
+  if constexpr (DH > 0) D = DH;
+  const uint32_t u = static_cast<uint32_t>(x);
+  uint32_t nx[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) nx[q] = __shfl_sync(FULL, u, q);
+  int i = 0;
+  for (; i + 4 <= D; i += 4) {
+    uint32_t cw[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      cw[q] = nx[q];
+      nx[q] = __shfl_sync(FULL, u, (i + 4 + q) & (WARP - 1));
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h = mix(h, cw[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    if (i + q < D) h = mix(h, nx[q]);
+  return h;
+}
+
+// What the kind makes of one op at launch entry.  `rd`: the lane whose
+// state word the op reads (KV, MULTICAS, TXN); `r`: its response; `mode`:
+// which case of the step it is; `x`, `y`, `e`: what it writes or compares
+// (by kind, below).
+struct Op {
+  int rd, r, mode, x, y, e;
+};
+
+// What every thread reads of the state in an iteration, the same for all
+// ops: the length and the top slot (QUEUE, STACK), word 0 (RANDOM).
+struct Uni {
+  int len, top;
+};
+
+template <int K>
+__device__ __forceinline__ Op make_op(const Args& m, int c, int a, int r) {
+  const int D = m.D;
+  Op o{0, r, c == 0 ? 0 : (c == 1 ? 1 : 2), -1, 0, 0};
+  if constexpr (K == QUEUE || K == STACK) {
+    o.x = c;  // the write is the command and the argument
+    o.y = a;
   } else if constexpr (K == KV) {
-    const int key = c == 0 ? a : floor_div(a, m.p1);
-    const int value = floor_mod(a, m.p1);
-    for (int i = 0; i < D; ++i) out[i] = c != 0 && i == key ? value : st[i];
+    // GET reads its key; PUT writes floor_mod(a, p1) to floor_div(a, p1)
+    o.rd = c == 0 ? jidx(a, D) : 0;
+    o.x = c == 0 ? -1 : floor_div(a, m.p1);
+    o.y = floor_mod(a, m.p1);
   } else if constexpr (K == MULTICAS) {
+    // read, write (cell a // nv), cas (cell a // nv**2, expecting
+    // (a // nv) % nv): the cell is read by every case
     const int nv = m.p1;
     const int cell = c == 0 ? a : floor_div(a, c == 1 ? nv : nv * nv);
-    const int cur = st[jidx(cell, D)], val = floor_mod(a, nv);
-    const bool succ = cur == floor_mod(floor_div(a, nv), nv);
-    const bool write = c != 0 && (c == 1 || succ);
-    const int target = c == 1 ? val : (succ ? val : cur);
-    for (int i = 0; i < D; ++i) out[i] = write && i == cell ? target : st[i];
+    o.rd = jidx(cell, D);
+    o.x = cell;
+    o.y = floor_mod(a, nv);
+    o.e = floor_mod(floor_div(a, nv), nv);
   } else if constexpr (K == TXN) {
+    // read a; write (a // nv) := a % nv; copy src := dst, the value read
     const int nv = m.p1, nc = D - 1;
     const int src = floor_div(a, nc), off = floor_mod(a, nc);
     const int dst = off >= src ? off + 1 : off;
-    const int cell = c == 0 ? a : (c == 1 ? floor_div(a, nv) : dst);
-    const int value = c == 1 ? floor_mod(a, nv) : st[jidx(src, D)];
-    for (int i = 0; i < D; ++i) out[i] = c != 0 && i == cell ? value : st[i];
-  } else {  // RANDOM: element i by its own table
-    const int car = m.p0 * m.p1 * m.p2;
-    int at = D + m.data[0] * car;
-    for (int i = 0; i < D; ++i) {
-      const int b = m.data[i];
-      out[i] = table_at(m, at, b, st[i], c, a, r);
-      at += b * car;
-    }
+    o.rd = c == 0 ? jidx(a, D) : (c == 1 ? 0 : jidx(src, D));
+    o.x = c == 0 ? -1 : (c == 1 ? floor_div(a, nv) : dst);
+    o.y = floor_mod(a, nv);
+  } else {  // RANDOM: the offset of (c, a, r) in a table over one element
+    o.x = (jidx(c, m.p0) * m.p1 + jidx(a, m.p1)) * m.p2 + jidx(r, m.p2);
+  }
+  return o;
+}
+
+// the uniform reads of the state `s` (word i in thread i)
+template <int K>
+__device__ __forceinline__ Uni uniform_reads(const Args& m, int32_t s) {
+  Uni u{0, 0};
+  if constexpr (K == QUEUE || K == STACK || K == RANDOM)
+    u.len = __shfl_sync(FULL, s, 0);
+  if constexpr (K == QUEUE) {
+    u.top = __shfl_sync(FULL, s, 1);
+  } else if constexpr (K == STACK) {
+    const int len = u.len;
+    u.top = __shfl_sync(FULL, s, 1 + jidx(len - 1 > 0 ? len - 1 : 0, m.p0));
+  }
+  return u;
+}
+
+// the postcondition of op `o`, `v` the state word it read
+template <int K>
+__device__ __forceinline__ bool op_ok(const Args& m, const Op& o, int v,
+                                      const Uni& u) {
+  if constexpr (K == QUEUE || K == STACK) {
+    if (o.mode == 0) return u.len == m.p0 ? o.r == 1 : o.r == 0;
+    return u.len == 0 ? o.r == m.p1 : o.r == u.top;
+  } else if constexpr (K == KV || K == TXN) {
+    return o.mode == 0 ? o.r == v : o.r == 0;
+  } else if constexpr (K == MULTICAS) {
+    if (o.mode == 0) return o.r == v;
+    if (o.mode == 1) return o.r == 0;
+    return o.r == (v == o.e ? 1 : 0);
+  } else {  // RANDOM: the ok table over (element 0, op)
+    return m.data[m.D + jidx(u.len, m.data[0]) * (m.p0 * m.p1 * m.p2) +
+                  o.x] != 0;
   }
 }
 
-template <int W, bool kMemo, int K>
-__global__ void __launch_bounds__(MAX_WARPS* WARP)
+// the write of op `o` that its owner broadcasts: (x, y) = (element,
+// value), -1 = none; QUEUE, STACK: (command, argument); RANDOM: x alone
+template <int K>
+__device__ __forceinline__ void op_write(const Op& o, int v, int& x,
+                                         int& y) {
+  x = o.x;
+  y = o.y;
+  if constexpr (K == MULTICAS) {
+    // a write always, a cas when the cell holds what it expects
+    x = o.mode == 1 || (o.mode == 2 && v == o.e) ? o.x : -1;
+  } else if constexpr (K == TXN) {
+    if (o.mode == 2) y = v;  // the copy's value, read from src
+  }
+}
+
+// child word `i` of state word `s` (and its neighbour `s_next`, word
+// i + 1) under the chosen op's write (x, y)
+template <int K>
+__device__ __forceinline__ int32_t child_word(const Args& m, int i,
+                                              int32_t s, int32_t s_next,
+                                              const Uni& u, int x, int y,
+                                              int at, int bound) {
+  if constexpr (K == QUEUE || K == STACK) {
+    const int cap = m.p0, len = u.len;
+    const bool full = len == cap, empty = len == 0;
+    if (x == 0) {  // push
+      if (i == 0) return len + (full ? 0 : 1);
+      return i - 1 == len && !full ? y : s;
+    }
+    if (i == 0) return len - (empty ? 0 : 1);
+    if (K == QUEUE) return empty ? s : (i - 1 == cap - 1 ? 0 : s_next);
+    return i - 1 == len - 1 && !empty ? 0 : s;
+  } else if constexpr (K == RANDOM) {
+    // element i by its own table, which starts at word `at` of `data`
+    return m.data[at + jidx(s, bound) * (m.p0 * m.p1 * m.p2) + x];
+  } else {
+    return i == x ? y : s;
+  }
+}
+
+template <int W, bool kMemo, int K, int DH>
+__global__ void __launch_bounds__(MAX_WARPS* WARP, W <= 2 ? 2 : 1)
     stepper_sweep_kernel(const Args a) {
   extern __shared__ int32_t smem[];
   const int N = a.N, D = a.D, kw = W + D;
   const int lane = threadIdx.x % WARP;
   const int warp = threadIdx.x / WARP;
-  const int b = blockIdx.x * a.warps + warp;
-  if (b >= a.B) return;
+  const int w_id = blockIdx.x * a.warps + warp;
+  if (w_id >= a.L) return;
+  const int b = a.lanes != nullptr ? a.lanes[w_id] : w_id;
   const size_t LB = static_cast<size_t>(a.B);
   if (a.dsi[LB + b] != RUNNING) return;  // decided: nothing to do
   const size_t r = static_cast<size_t>(a.row[b]);
   const uint32_t lbit = 1u << lane;
+  const bool holds = lane < D;  // this thread holds a state word
 
-  // this lane's stacks and child, and this thread's ops j = lane + 32 k
-  // (their predecessor words, cmd, arg and resp, F words an op) in the
-  // thread's own column of the warp's shared memory, on chip for the
-  // whole chunk
-  constexpr int F = W + 3;
-  const size_t stack_words = static_cast<size_t>(N + 1) * D;
-  int32_t* states = smem + warp * ((N + 1) * (D + 1) + D + W * F * WARP);
+  // this lane's state stack, chosen stack, and with the memo the hash of
+  // each level's configuration and the memo tags, in the warp's shared
+  // memory for the whole chunk
+  const int stack_words = (N + 1) * D;
+  int32_t* states = smem + warp * a.warp_words;
   int32_t* chosen = states + stack_words;
-  int32_t* child = chosen + (N + 1);
-  int32_t* mine = child + D + lane;  // word f of op k: mine[(k*F + f)*WARP]
-  int32_t* gstates = a.states + b * stack_words;
-  for (int k = lane; k < static_cast<int>(stack_words); k += WARP)
-    states[k] = gstates[k];
+  uint32_t* hlev = reinterpret_cast<uint32_t*>(chosen + N + 1);
+  uint8_t* tags = reinterpret_cast<uint8_t*>(hlev + N + 1);
+  int32_t* gstates = a.states + static_cast<size_t>(b) * stack_words;
+  for (int k = lane; k < stack_words; k += WARP) states[k] = gstates[k];
   for (int k = lane; k <= N; k += WARP) chosen[k] = a.chosen[k * LB + b];
-  uint32_t valid[W], tw[W];
+
+  // this thread's ops j = lane + 32 k, in registers
+  uint32_t pre[W][W], valid[W], tw[W];
+  Op op[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     const int j = lane + WARP * k;
     const bool in = j < N;
-    int32_t* op = mine + k * F * WARP;
 #pragma unroll
     for (int w = 0; w < W; ++w)
-      op[w * WARP] = in ? a.prec[(r * W + w) * N + j] : 0;
-    op[W * WARP] = in ? a.cmd[r * N + j] : 0;
-    op[(W + 1) * WARP] = in ? a.arg[r * N + j] : 0;
-    op[(W + 2) * WARP] = in ? a.resp[r * N + j] : 0;
+      pre[k][w] = in ? static_cast<uint32_t>(a.prec[(r * W + w) * N + j]) : 0;
+    op[k] = make_op<K>(a, in ? a.cmd[r * N + j] : 0,
+                       in ? a.arg[r * N + j] : 0, in ? a.resp[r * N + j] : 0);
     valid[k] = static_cast<uint32_t>(a.valid[r * W + k]);
     tw[k] = __ballot_sync(FULL, in && a.taken[j * LB + b] != 0);
   }
-  __syncwarp();
+  // RANDOM: where this thread's element's table starts, and its bound
+  int at = 0, bound = 1;
+  if constexpr (K == RANDOM) {
+    const int car = a.p0 * a.p1 * a.p2;
+    at = D + a.data[0] * car;
+    for (int i = 0; i < lane && i < D; ++i) at += a.data[i] * car;
+    bound = holds ? a.data[lane] : 1;
+  }
 
   int32_t* keys =
       kMemo ? a.keys + static_cast<size_t>(b) * a.slots * kw : nullptr;
   int32_t* occ = kMemo ? a.occ + static_cast<size_t>(b) * a.slots : nullptr;
   const uint32_t mask = static_cast<uint32_t>(a.slots - 1);
+  if constexpr (kMemo) {
+    // no level's hash known yet (0: compute it)
+    for (int k = lane; k <= N; k += WARP) hlev[k] = 0;
+    // the filter of the memo as it enters: each occupied slot's tag
+    for (int sl = lane; sl < a.slots; sl += WARP) {
+      uint8_t t = 0;
+      if (occ[sl] == 1) {
+        const int32_t* key = keys + static_cast<size_t>(sl) * kw;
+        uint32_t h = HASH_SEED;
+        for (int w = 0; w < kw; ++w)
+          h = mix(h, static_cast<uint32_t>(key[w]));
+        t = tag_of(h);
+      }
+      tags[sl] = t;
+    }
+  }
+  __syncwarp();
+
   const int n_req = a.nreq[r];
   int d = a.dsi[b];
   int status = RUNNING;
   int iters = a.dsi[2 * LB + b];
   int prunes = a.dsi[3 * LB + b];
   int inserts = a.dsi[4 * LB + b];
+  unsigned long long probes = 0, passes = 0;
   const int start = iters;
+  // the current state (a thread past D holds a copy of word D - 1)
+  int32_t s = states[d * D + min(lane, D - 1)];
+  int cur = chosen[d];  // the sibling cursor
   while (status == RUNNING && iters - start < a.chunk) {
-    const int32_t* st = states + d * D;
-    const int cur = chosen[d];
+    // what a backtrack restores, fetched ahead
+    const int d_back = d > 0 ? d - 1 : 0;
+    const int32_t s_back = states[d_back * D + min(lane, D - 1)];
+    const int ch_back = chosen[d_back];
+    const uint32_t h_cur = kMemo ? hlev[d] : 0u;
+
+    const Uni u = uniform_reads<K>(a, s);
     uint32_t uw[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) uw[w] = valid[w] & ~tw[w];
     // candidates: untaken, no untaken op precedes them, ok from the
     // current state, after the cursor; one ballot a word
+    int v[W];
     uint32_t cw[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      const int32_t* op = mine + k * F * WARP;
-      uint32_t pre = 0;
+      v[k] = 0;
+      if constexpr (K == KV || K == MULTICAS || K == TXN)
+        v[k] = __shfl_sync(FULL, s, op[k].rd);
+      uint32_t blocked = 0;
 #pragma unroll
-      for (int w = 0; w < W; ++w)
-        pre |= static_cast<uint32_t>(op[w * WARP]) & uw[w];
-      const bool live = (uw[k] & lbit) != 0 && pre == 0 &&
+      for (int w = 0; w < W; ++w) blocked |= pre[k][w] & uw[w];
+      const bool live = (uw[k] & lbit) != 0 && blocked == 0 &&
                         lane + WARP * k > cur;
-      cw[k] = __ballot_sync(
-          FULL, live && op_ok<K>(a, st, op[W * WARP], op[(W + 1) * WARP],
-                                 op[(W + 2) * WARP]));
+      cw[k] = __ballot_sync(FULL, live && op_ok<K>(a, op[k], v[k], u));
     }
     int j = -1;
 #pragma unroll
@@ -291,79 +435,96 @@ __global__ void __launch_bounds__(MAX_WARPS* WARP)
     if (!has) j = 0;
     const int jw = j >> 5;
     const uint32_t jbit = 1u << (j & 31);
-    // the owner of op j writes its child, from its own column
-    if (lane == (j & 31)) {
-      const int32_t* op = mine + jw * F * WARP;
-      op_child<K>(a, st, op[W * WARP], op[(W + 1) * WARP],
-                  op[(W + 2) * WARP], child);
-    }
-    __syncwarp();
     const bool success = has && d + 1 == n_req;
 
+    int32_t child = s;
     bool prune = false;
-    if (kMemo && has && !success) {
-      // the child configuration already proven failed?  Thread t < kw
-      // compares key word t, thread 0 also the occupancy
-      uint32_t h = HASH_SEED;
+    uint32_t h_child = 0;  // the child configuration's hash, if probed
+    if (has) {
+      // the chosen op's write from its owner; child word i in thread i
+      int x, y;
+      op_write<K>(pick(op, jw), pick(v, jw), x, y);
+      x = __shfl_sync(FULL, x, j & 31);
+      if constexpr (K != RANDOM) y = __shfl_sync(FULL, y, j & 31);
+      int32_t s_next = s;
+      if constexpr (K == QUEUE) s_next = __shfl_down_sync(FULL, s, 1);
+      if (holds)
+        child = child_word<K>(a, lane, s, s_next, u, x, y, at, bound);
+      if (kMemo && !success) {
+        // the child configuration already proven failed?
+        uint32_t h = HASH_SEED;
 #pragma unroll
-      for (int w = 0; w < W; ++w) h = mix(h, tw[w] | (w == jw ? jbit : 0u));
-      for (int i = 0; i < D; ++i) h = mix(h, static_cast<uint32_t>(child[i]));
-      const uint32_t sl = h & mask;
-      bool eq = true;
-      if (lane < kw) {
-        const uint32_t want =
-            lane < W ? (pick(tw, lane) | (lane == jw ? jbit : 0u))
-                     : static_cast<uint32_t>(child[lane - W]);
-        eq = static_cast<uint32_t>(keys[sl * kw + lane]) == want;
+        for (int w = 0; w < W; ++w)
+          h = mix(h, tw[w] | (w == jw ? jbit : 0u));
+        h = mix_words<DH>(h, child, D);
+        h_child = h;
+        const uint32_t sl = h & mask;
+        probes += 1;
+        if (tags[sl] == tag_of(h)) {
+          passes += 1;
+          const int32_t* key = keys + static_cast<size_t>(sl) * kw;
+          bool eq = !holds || key[W + lane] == child;
+          if (lane < W)
+            eq = eq && static_cast<uint32_t>(key[lane]) ==
+                           (pick(tw, lane) | (lane == jw ? jbit : 0u));
+          prune = __ballot_sync(FULL, eq) == FULL;
+        }
       }
-      if (lane == 0) eq = eq && occ[sl] == 1;
-      prune = __ballot_sync(FULL, eq) == FULL;
-    }
-    const bool descend = has && !prune;
-    const int d_back = d > 0 ? d - 1 : 0;
-    const int prev = max(chosen[d_back], 0);
-
-    if (kMemo && !has) {
+    } else if (kMemo) {
       // exhausted: the current configuration (taken before this step, the
-      // state as it is) is proven non-linearizable-from
-      uint32_t h = HASH_SEED;
+      // state as it is) is proven non-linearizable-from; its hash is the
+      // probe's when this level was entered in this launch
+      uint32_t h = h_cur;
+      if (h == 0) {
+        h = HASH_SEED;
 #pragma unroll
-      for (int w = 0; w < W; ++w) h = mix(h, tw[w]);
-      for (int i = 0; i < D; ++i) h = mix(h, static_cast<uint32_t>(st[i]));
+        for (int w = 0; w < W; ++w) h = mix(h, tw[w]);
+        h = mix_words<DH>(h, s, D);
+      }
       const uint32_t sl = h & mask;
-      if (lane < kw)
-        keys[sl * kw + lane] = lane < W ? static_cast<int32_t>(pick(tw, lane))
-                                        : st[lane - W];
+      int32_t* key = keys + static_cast<size_t>(sl) * kw;
+      if (holds) key[W + lane] = s;
+      if (lane < W) key[lane] = static_cast<int32_t>(pick(tw, lane));
       if (lane == 0) occ[sl] = 1;
+      tags[sl] = tag_of(h);
       inserts += 1;
     }
+    const bool descend = has && !prune;
     if (descend) {
       chosen[d] = j;
       if (d + 1 <= N) {
         chosen[d + 1] = -1;
-        for (int i = lane; i < D; i += WARP) states[(d + 1) * D + i] = child[i];
+        if (holds) states[(d + 1) * D + lane] = child;
+        if (kMemo) hlev[d + 1] = h_child;
       }
 #pragma unroll
       for (int w = 0; w < W; ++w) tw[w] |= w == jw ? jbit : 0u;
+      s = child;
+      cur = -1;
     } else if (prune) {
       chosen[d] = j;
       prunes += 1;
-    } else if (d > 0 && prev < N) {
+      cur = j;
+    } else {
+      const int prev = max(ch_back, 0);
+      if (d > 0 && prev < N) {
 #pragma unroll
-      for (int w = 0; w < W; ++w)
-        tw[w] &= w == (prev >> 5) ? ~(1u << (prev & 31)) : FULL;
+        for (int w = 0; w < W; ++w)
+          tw[w] &= w == (prev >> 5) ? ~(1u << (prev & 31)) : FULL;
+      }
+      s = s_back;
+      cur = ch_back;
     }
     const int d_old = d;
     d = descend ? d + 1 : (prune ? d : d_back);
     iters += 1;
-    int s = success ? SUCCESS : (!has && d_old == 0 ? FAILURE : RUNNING);
-    if (s == RUNNING && iters >= a.budget) s = BUDGET;
-    status = s;
-    __syncwarp();  // the child and the stack, before the next reads
+    int st = success ? SUCCESS : (!has && d_old == 0 ? FAILURE : RUNNING);
+    if (st == RUNNING && iters >= a.budget) st = BUDGET;
+    status = st;
   }
 
-  for (int k = lane; k < static_cast<int>(stack_words); k += WARP)
-    gstates[k] = states[k];
+  __syncwarp();  // the stacks, before other threads copy them out
+  for (int k = lane; k < stack_words; k += WARP) gstates[k] = states[k];
   for (int k = lane; k <= N; k += WARP) a.chosen[k * LB + b] = chosen[k];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
@@ -376,35 +537,50 @@ __global__ void __launch_bounds__(MAX_WARPS* WARP)
     a.dsi[2 * LB + b] = iters;
     a.dsi[3 * LB + b] = prunes;
     a.dsi[4 * LB + b] = inserts;
+    if (a.stats != nullptr) {
+      atomicAdd(a.stats, probes);
+      atomicAdd(a.stats + 1, passes);
+    }
   }
 }
 
 using Kernel = void (*)(Args);
 
-template <int W, bool kMemo>
-Kernel pick_kind(int kind) {
-  switch (kind) {
-    case QUEUE: return stepper_sweep_kernel<W, kMemo, QUEUE>;
-    case KV: return stepper_sweep_kernel<W, kMemo, KV>;
-    case STACK: return stepper_sweep_kernel<W, kMemo, STACK>;
-    case MULTICAS: return stepper_sweep_kernel<W, kMemo, MULTICAS>;
-    case TXN: return stepper_sweep_kernel<W, kMemo, TXN>;
-    default: return stepper_sweep_kernel<W, kMemo, RANDOM>;
+// the state widths whose memo hash gets its own instantiation (the
+// registry's sweep-regime models: txn(8, 8); queue, stack, multicas and
+// a random spec of 8 or 9 elements; KV of 9 and 16 keys); any other D
+// hashes in a loop
+template <int W, int K>
+Kernel pick_width(bool memo, int D) {
+  if (!memo) return stepper_sweep_kernel<W, false, K, 0>;
+  switch (D) {
+    case 8: return stepper_sweep_kernel<W, true, K, 8>;
+    case 9: return stepper_sweep_kernel<W, true, K, 9>;
+    case 16: return stepper_sweep_kernel<W, true, K, 16>;
+    default: return stepper_sweep_kernel<W, true, K, 0>;
   }
 }
 
 template <int W>
-Kernel pick_memo(bool memo, int kind) {
-  return memo ? pick_kind<W, true>(kind) : pick_kind<W, false>(kind);
+Kernel pick_kind(bool memo, int kind, int D) {
+  switch (kind) {
+    case QUEUE: return pick_width<W, QUEUE>(memo, D);
+    case KV: return pick_width<W, KV>(memo, D);
+    case STACK: return pick_width<W, STACK>(memo, D);
+    case MULTICAS: return pick_width<W, MULTICAS>(memo, D);
+    case TXN: return pick_width<W, TXN>(memo, D);
+    default: return pick_width<W, RANDOM>(memo, D);
+  }
 }
 
-// one instantiation a (taken words, memo on or off, model kind)
-Kernel pick_kernel(int W, bool memo, int kind) {
+// one instantiation a (taken words, model kind, memo off / on at a state
+// width of its own / on at any other)
+Kernel pick_kernel(int W, bool memo, int kind, int D) {
   switch (W) {
-    case 1: return pick_memo<1>(memo, kind);
-    case 2: return pick_memo<2>(memo, kind);
-    case 3: return pick_memo<3>(memo, kind);
-    default: return pick_memo<4>(memo, kind);
+    case 1: return pick_kind<1>(memo, kind, D);
+    case 2: return pick_kind<2>(memo, kind, D);
+    case 3: return pick_kind<3>(memo, kind, D);
+    default: return pick_kind<4>(memo, kind, D);
   }
 }
 
@@ -426,28 +602,35 @@ bool model_ok(int kind, int D, int p0, int p1, int p2) {
 // Launches one chunk on `stream` with the plan of
 // ops/sweep_kernel.py::sweep_launch_plan (warps a block, grid, shared
 // bytes), updating the carry in place.  `data` is the random-vector
-// model's tables (read only for kind 6).  Returns cudaErrorInvalidValue
+// model's tables (read only for kind 6).  `lanes` (L distinct lanes in
+// [0, B), checked by the caller) or null (L == B: every lane) names the
+// lanes run; `stats`, when not null, gains the launch's memo probes and
+// the probes whose tag matched (two uint64).  Returns cudaErrorInvalidValue
 // for arguments or a plan it does not take (nothing is launched), else
 // cudaGetLastError() (0 = the launch was accepted).
 extern "C" int stepper_sweep_launch(
     const int32_t* cmd, const int32_t* arg, const int32_t* resp,
     const int32_t* prec, const int32_t* valid, const int32_t* nreq,
     const int32_t* data, const int32_t* row, int32_t* taken, int32_t* chosen,
-    int32_t* states, int32_t* dsi, int32_t* keys, int32_t* occ, int B, int R,
-    int N, int W, int D, int slots, int chunk, int budget, int kind, int p0,
-    int p1, int p2, int warps, int grid, int smem_bytes, void* stream) {
+    int32_t* states, int32_t* dsi, int32_t* keys, int32_t* occ,
+    const int32_t* lanes, unsigned long long* stats, int B, int R, int N,
+    int W, int D, int slots, int chunk, int budget, int kind, int p0, int p1,
+    int p2, int L, int warps, int grid, int smem_bytes, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (N < 1 || N > 32 * MAX_W || W != (N + 31) / 32 || D < 1 ||
       W + D > MAX_KW || B < 0 || R < 1 || slots < 0 ||
-      (slots & (slots - 1)) != 0 || chunk < 0 || !model_ok(kind, D, p0, p1, p2))
+      (slots & (slots - 1)) != 0 || chunk < 0 ||
+      !model_ok(kind, D, p0, p1, p2) ||
+      (lanes == nullptr ? L != B : (L < 0 || L > B)))
     return invalid;
-  // the plan: a grid of `warps`-warp blocks over every lane, each warp's
-  // state stack, chosen stack and child in shared memory, within what the
-  // device grants a block
-  const long long want =
-      4LL * warps * ((N + 1LL) * (D + 1) + D + W * (W + 3) * WARP);
-  if (warps < 1 || warps > MAX_WARPS || grid != (B + warps - 1) / warps ||
-      smem_bytes != want)
+  // the plan: a grid of `warps`-warp blocks over the L lanes run, each
+  // warp's state stack and chosen stack, and with the memo a hash a level
+  // and one tag byte a slot, in shared memory, within what the device
+  // grants a block
+  const long long warp_words =
+      (N + 1LL) * (D + 1) + (slots > 0 ? N + 1LL + (slots + 3) / 4 : 0);
+  if (warps < 1 || warps > MAX_WARPS || grid != (L + warps - 1) / warps ||
+      smem_bytes != 4LL * warps * warp_words)
     return invalid;
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -456,17 +639,18 @@ extern "C" int stepper_sweep_launch(
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem_bytes > limit) return invalid;
-  if (B == 0) return 0;
-  const Kernel kern = pick_kernel(W, slots > 0, kind);
+  if (L == 0) return 0;
+  const Kernel kern = pick_kernel(W, slots > 0, kind, D);
   if (smem_bytes > STATIC_SMEM_MAX) {
     err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const Args a{cmd,   arg,   resp,  prec,  valid, nreq,  data, row,
-               taken, chosen, states, dsi, keys,  occ,   B,    N,
-               D,     slots, chunk, budget, p0,   p1,    p2,   warps};
+  const Args a{cmd,   arg,    resp,   prec, valid, nreq,  data,  row,
+               lanes, taken,  chosen, states, dsi, keys,  occ,   stats,
+               B,     L,      N,      D,    slots, chunk, budget, p0,
+               p1,    p2,     warps,  static_cast<int>(warp_words)};
   kern<<<grid, warps * WARP, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -126,14 +126,15 @@ def compact_carry_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def stepper_sweep_lib() -> ctypes.CDLL:
-    """The built ``stepper_sweep`` library: 14 device pointers (the six
+    """The built ``stepper_sweep`` library: 16 device pointers (the six
     tables, the model's data, the lane rows, the six carry planes updated
-    in place), 8 ints of shape and budget, the model's kind and 3
-    parameters, the 3 ints of the launch plan
-    (``sweep_kernel.SweepPlan``), the stream."""
+    in place, the lane list or null, the probe counters or null), 8 ints
+    of shape and budget, the model's kind and 3 parameters, the count of
+    lanes run, the 3 ints of the launch plan (``sweep_kernel.SweepPlan``),
+    the stream."""
     lib = ctypes.CDLL(str(build("stepper_sweep")))
     fn = lib.stepper_sweep_launch
-    fn.argtypes = [_P] * 14 + [_I] * 15 + [_P]
+    fn.argtypes = [_P] * 16 + [_I] * 16 + [_P]
     fn.restype = _I
     return lib
 

@@ -232,8 +232,11 @@ class TorchStepper(DeviceChecker):
                 lanes = np.arange(active.size)
                 self.compactions += 1
             cur = (bucket, slots)
+            # the sweep kernel runs the active lanes alone, spread evenly
+            # over the SMs
             carry = step(tables, carry, chunk=chunk,
-                         budget=self.total_budget)
+                         budget=self.total_budget,
+                         **({} if self._uses_table else {"lanes": lanes}))
             # the one host sync of the round: every lane's counters
             dsi = carry.dsi.cpu().numpy()
             status = dsi[STATUS][lanes]

@@ -27,13 +27,14 @@ and up to three integer parameters that the spec gives
 5 txn, 6 a random vector spec whose tables ride a device buffer.  A spec
 without a kind runs only on the CPU, through :func:`stepper_sweep_plain`,
 which steps with ``spec.step_torch``.  The kernel takes ``D <=
-MAX_SWEEP_DIM``: the key's W + D words are compared one a thread of a
-warp, W <= 4.
+MAX_SWEEP_DIM``: state word i lives in thread i of a warp, and a memo key
+holds W + D <= 32 words, W <= 4.
 
 ``stepper_sweep`` launches ``csrc/stepper_sweep.cu`` for CUDA tensors with
-the shape from :func:`sweep_launch_plan`, and takes
-:func:`stepper_sweep_plain` only for CPU tensors.  It counts its launches
-(``stepper_sweep.launches``).
+the shape from :func:`sweep_launch_plan` (over every lane, or over a list
+of lanes that holds every RUNNING one, spread evenly over the SMs), and
+takes :func:`stepper_sweep_plain` only for CPU tensors.  It counts its
+launches (``stepper_sweep.launches``).
 """
 
 from __future__ import annotations
@@ -50,9 +51,9 @@ from .stepper_kernel import (MAX_OPS, MAX_WARPS_PER_BLOCK, StepperCarry, _M32,
                              _unpack_bits, device_sms, hash_slot, key_words,
                              n_words, pack_words, sweep_dim)
 
-# A memo key of W + D words is compared one word a thread of a warp, and
-# W is up to 4 (N <= 128): the kernel takes state vectors of up to 28
-# words.
+# State word i lives in thread i of a warp and a memo key of W + D words
+# stays within 32, W up to 4 (N <= 128): the kernel takes state vectors of
+# up to 28 words.
 MAX_SWEEP_DIM = 32 - n_words(MAX_OPS)
 
 
@@ -180,42 +181,73 @@ class SweepPlan(NamedTuple):
     smem_bytes: int     # dynamic shared memory per block
 
 
-def sweep_warp_bytes(n_ops: int, state_dim: int) -> int:
-    """Shared bytes of one warp: its lane's ``[N+1, D]`` state stack, its
-    ``chosen`` stack, the D-word child of the chosen op and its threads'
-    ops, ``[W, W + 3, 32]`` words (each op's predecessor words, cmd, arg,
-    resp)."""
-    w = n_words(n_ops)
-    return 4 * ((n_ops + 1) * (state_dim + 1) + state_dim
-                + w * (w + 3) * 32)
+def sweep_warp_bytes(n_ops: int, state_dim: int, slots: int) -> int:
+    """Shared bytes of one warp: its lane's ``[N+1, D]`` state stack and
+    ``chosen`` stack and, with the memo, the hash of each level's
+    configuration (N + 1 words) and one tag byte a slot (rounded up to a
+    word)."""
+    memo = n_ops + 1 + -(-slots // 4) if slots else 0
+    return 4 * ((n_ops + 1) * (state_dim + 1) + memo)
 
 
-def sweep_launch_plan(B: int, N: int, D: int, sms: int) -> SweepPlan:
-    """How ``csrc/stepper_sweep.cu`` runs ``B`` lanes of ``N`` ops over a
-    D-word state on a card of ``sms`` SMs: one warp a lane; warps a block
-    enough to put the lanes on every SM (``ceil(B / sms)``), at most 16
-    and what shared memory holds.  The C entry re-checks it."""
-    per_warp = sweep_warp_bytes(N, D)
-    wpb = max(1, min(MAX_WARPS_PER_BLOCK, SMEM_BLOCK_MAX // per_warp,
-                     -(-B // sms)))
-    return SweepPlan(wpb, -(-B // wpb), wpb * per_warp)
+def sweep_launch_plan(L: int, N: int, D: int, slots: int,
+                      sms: int) -> SweepPlan:
+    """How ``csrc/stepper_sweep.cu`` runs ``L`` lanes of ``N`` ops over a
+    D-word state with ``slots`` memo slots a lane on a card of ``sms``
+    SMs: one warp a lane, the lanes spread evenly over every SM.  Each SM
+    takes ``ceil(L / sms)`` warps in as few blocks as the cap of a block
+    allows (16 warps, and what shared memory holds), and the blocks are
+    made equal, so that no SM is handed a block more than another.  The C
+    entry re-checks it."""
+    per_warp = sweep_warp_bytes(N, D, slots)
+    cap = max(1, min(MAX_WARPS_PER_BLOCK, SMEM_BLOCK_MAX // per_warp))
+    need = max(1, -(-L // sms))        # warps an SM
+    wpb = -(-need // -(-need // cap))  # over ceil(need / cap) blocks
+    return SweepPlan(wpb, -(-L // wpb), wpb * per_warp)
 
 
 # ---------------------------------------------------------------------------
 # stepper_sweep
 # ---------------------------------------------------------------------------
 
+def _check_lanes(carry: StepperCarry, lanes) -> torch.Tensor:
+    """``lanes`` as an int32 tensor on the carry's device, after checking
+    that they are distinct lanes of the carry and that every RUNNING lane
+    is among them (one read of the status plane)."""
+    B, dev = carry.row.shape[0], carry.row.device
+    idx = torch.from_numpy(np.array(lanes, np.int64).reshape(-1))
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= B
+                        or idx.unique().numel() != idx.numel()):
+        raise ValueError(f"stepper_sweep: the lane list must hold distinct "
+                         f"lanes of [0, {B})")
+    idx = idx.to(dev)
+    missing = carry.dsi[1] == RUNNING
+    missing[idx] = False
+    if bool(missing.any()):
+        raise ValueError(
+            f"stepper_sweep: the lane list leaves out "
+            f"{int(missing.sum())} RUNNING lane(s)")
+    return idx.to(torch.int32)
+
+
 def stepper_sweep(model: SweepModel, tables: SweepTables,
-                  carry: StepperCarry, *, chunk: int, budget: int
-                  ) -> StepperCarry:
+                  carry: StepperCarry, *, chunk: int, budget: int,
+                  lanes=None, stats: torch.Tensor = None) -> StepperCarry:
     """Advance every RUNNING lane by at most ``chunk`` DFS iterations (it
     stops earlier when it decides or its cumulative iterations reach
     ``budget``).  The carry is updated in place and returned.
+
+    ``lanes`` (optional) lists the carry lanes to run, every RUNNING lane
+    among them (checked; a list that leaves one out raises): the kernel
+    spreads exactly those over the SMs.  The result does not depend on it.
+    ``stats`` (optional, int64 ``[2]`` on the card) gains the launch's
+    memo probes and the probes whose filter tag matched.
 
     CUDA tensors go to the CUDA kernel (``stepper_sweep.launches`` counts
     each launch); CPU tensors to :func:`stepper_sweep_plain`.  A failed
     build or launch raises; there is no fallback."""
     _check_sweep_args(tables, carry)
+    idx = _check_lanes(carry, lanes) if lanes is not None else None
     dev = tables.cmd.device
     if dev.type == "cpu":
         return stepper_sweep_plain(model.spec, tables, carry, chunk=chunk,
@@ -229,18 +261,25 @@ def stepper_sweep(model: SweepModel, tables: SweepTables,
     if model.data.device != dev:
         raise ValueError(f"stepper_sweep: model data on {model.data.device}"
                          f", not {dev}")
+    if stats is not None and (stats.device != dev or stats.dtype !=
+                              torch.int64 or stats.shape != (2,)):
+        raise ValueError("stepper_sweep: stats must be int64 [2] on the "
+                         "carry's device")
     from .kernels import KernelLaunchError, stepper_sweep_lib
 
     R, N = tables.cmd.shape
     B, slots = carry.row.shape[0], carry.occ.shape[1]
-    plan = sweep_launch_plan(B, N, D, device_sms(dev))
+    L = B if idx is None else idx.numel()
+    plan = sweep_launch_plan(L, N, D, slots, device_sms(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = stepper_sweep_lib().stepper_sweep_launch(
             *(t.data_ptr() for t in tables), model.data.data_ptr(),
             carry.row.data_ptr(), *(t.data_ptr() for t in carry[:6]),
+            None if idx is None else idx.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             B, R, N, n_words(N), D, slots, chunk, budget, model.kind,
-            *model.params, *(int(x) for x in plan), stream)
+            *model.params, L, *(int(x) for x in plan), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"stepper_sweep launch failed: CUDA error {rc}")

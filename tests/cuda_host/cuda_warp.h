@@ -1,7 +1,9 @@
 // Warp votes, shuffles and barriers on the host, for the sources whose
-// threads cooperate (qsm_tpu_torch/csrc/stepper_chunk.cu): a launch runs
+// threads cooperate (qsm_tpu_torch/csrc/stepper_chunk.cu,
+// stepper_sweep.cu): a launch runs
 // each block's threads as std::threads over one shared-memory buffer, and
-// every __ballot_sync, __shfl_sync and __syncwarp of a warp, and every
+// every __ballot_sync, __shfl_sync (a source lane per thread),
+// __shfl_down_sync and __syncwarp of a warp, and every
 // __syncthreads of a block, meets at a barrier of its threads, so that
 // between two barriers the threads run in any order and interleaving, as
 // on the card.  Blocks run one after another.  The test compiles a source
@@ -79,6 +81,20 @@ inline int __shfl_sync(unsigned, int v, int src) {
 
 inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
   return host_exchange(v)[src & 31];
+}
+
+// the value of lane + delta; a lane past the warp keeps its own
+inline int __shfl_down_sync(unsigned, int v, unsigned delta) {
+  const int lane = threadIdx.x % 32;
+  const int src = lane + static_cast<int>(delta);
+  return static_cast<int>(
+      host_exchange(static_cast<uint32_t>(v))[src < 32 ? src : lane]);
+}
+
+// threads of several warps run at once: an atomic add of the host
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
 
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) {

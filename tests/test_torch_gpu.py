@@ -13,8 +13,9 @@ dropped), the stepper's C entry refusing plans it cannot launch, and
 ``TorchStepper`` on a queue corpus against the memo oracle; and
 ``stepper_sweep`` against its plain version (KV of 16 keys at 24, 64 and
 96 ops, queue, stack, txn and a random vector spec, memo off, small and at
-the checker's slot count, args and start states off the domains, plans
-fixed by hand, plans refused), the compaction of sweep-regime carries,
+the checker's slot count, a 16-slot memo on every kind, args and start
+states off the domains, plans fixed by hand, plans refused, a lane list
+that leaves out a running lane refused), the compaction of sweep-regime carries,
 and ``TorchStepper``'s sweep regime on KV histories against the memo
 oracle per key.  Without CUDA each test skips in its fixture."""
 
@@ -438,9 +439,9 @@ def test_stepper_checker_matches_oracle(cuda):
 
 def _sweep_inputs(name: str, n_ops: int, B: int, cuda, odd: bool = False):
     """(spec, model, tables, start states) for B lanes of ``name``: the
-    KV map of 16 keys, queue and stack of capacity 8, txn(8, 8), a random
-    vector spec of 9 elements; with ``odd`` args and start states outside
-    the declared domains."""
+    KV map of 16 and of 5 keys, queue and stack of capacity 8, txn(8, 8), a
+    random vector spec of 9 elements; with ``odd`` args and start states
+    outside the declared domains."""
     import random
 
     from qsm_tpu_torch.core.history import encode_batch
@@ -455,6 +456,8 @@ def _sweep_inputs(name: str, n_ops: int, B: int, cuda, odd: bool = False):
     from qsm_tpu_torch.utils.fuzz import RandomVectorSpec, random_history
 
     specs = {"kv16": (KvSpec(n_keys=16), (AtomicKvSUT, StaleCacheKvSUT)),
+             # a state width without a hash instantiation of its own
+             "kv5": (KvSpec(n_keys=5), (AtomicKvSUT, StaleCacheKvSUT)),
              "queue8": (QueueSpec(capacity=8),
                         (AtomicQueueSUT, RacyTwoPhaseQueueSUT)),
              "stack8": (StackSpec(capacity=8),
@@ -485,7 +488,7 @@ def _sweep_inputs(name: str, n_ops: int, B: int, cuda, odd: bool = False):
 @pytest.mark.parametrize("name,n_ops,odd", [
     ("kv16", 64, False), ("kv16", 24, True), ("kv16", 96, False),
     ("queue8", 48, False), ("stack8", 48, True), ("txn8", 32, True),
-    ("random9", 48, False)])
+    ("random9", 48, False), ("kv5", 40, True)])
 def test_stepper_sweep_matches_plain_version(cuda, name, n_ops, odd, slots):
     from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry,
                                                 stepper_sweep,
@@ -508,10 +511,26 @@ def test_stepper_sweep_matches_plain_version(cuda, name, n_ops, odd, slots):
         assert int((carry.occ == 1).sum()) > 0
 
 
-@pytest.mark.parametrize("warps", [1, 5, 16])
-def test_stepper_sweep_matches_plain_under_fixed_plans(cuda, warps):
+def _sweep_launch(cuda, model, tabs, c, p, lanes=None, stats=None):
+    """``stepper_sweep``'s C entry under the plan ``p``: 384 iterations;
+    ``lanes`` an int32 tensor on the card or None for every lane."""
     from qsm_tpu_torch.ops.kernels import stepper_sweep_lib
     from qsm_tpu_torch.ops.stepper_kernel import n_words
+
+    R, N = tabs.cmd.shape
+    B, D = c.row.shape[0], c.states.shape[2]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    return stepper_sweep_lib().stepper_sweep_launch(
+        *(t.data_ptr() for t in tabs), model.data.data_ptr(),
+        c.row.data_ptr(), *(t.data_ptr() for t in c[:6]),
+        None if lanes is None else lanes.data_ptr(),
+        None if stats is None else stats.data_ptr(), B, R, N, n_words(N), D,
+        c.occ.shape[1], 384, 552_000, model.kind, *model.params,
+        B if lanes is None else lanes.numel(), *(int(x) for x in p), stream)
+
+
+@pytest.mark.parametrize("warps", [1, 5, 16])
+def test_stepper_sweep_matches_plain_under_fixed_plans(cuda, warps):
     from qsm_tpu_torch.ops.sweep_kernel import (SweepPlan, fresh_sweep_carry,
                                                 stepper_sweep_plain,
                                                 sweep_launch_plan,
@@ -520,26 +539,66 @@ def test_stepper_sweep_matches_plain_under_fixed_plans(cuda, warps):
     B, N = 300, 64
     spec, model, tabs, starts = _sweep_inputs("kv16", N, B, cuda)
     carry = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, N, 2048)
-    plan = SweepPlan(warps, -(-B // warps), warps * sweep_warp_bytes(N, 16))
-
-    def launch(c, p):
-        stream = torch.cuda.current_stream(cuda).cuda_stream
-        return stepper_sweep_lib().stepper_sweep_launch(
-            *(t.data_ptr() for t in tabs), model.data.data_ptr(),
-            c.row.data_ptr(), *(t.data_ptr() for t in c[:6]), B, B, N,
-            n_words(N), 16, c.occ.shape[1], 384, 552_000, model.kind,
-            *model.params, *(int(x) for x in p), stream)
-
+    plan = SweepPlan(warps, -(-B // warps),
+                     warps * sweep_warp_bytes(N, 16, 2048))
     got, want = _clone(carry), _clone(carry)
-    assert launch(got, plan) == 0
+    assert _sweep_launch(cuda, model, tabs, got, plan) == 0
     torch.cuda.synchronize()
     stepper_sweep_plain(spec, tabs, want, chunk=384, budget=552_000)
     _assert_stepper_equal(got, want, f"under {plan}")
-    good = sweep_launch_plan(B, N, 16, 132)
+    good = sweep_launch_plan(B, N, 16, 2048, 132)
     for bad in (good._replace(smem_bytes=good.smem_bytes - 4),
                 good._replace(grid=good.grid + 1),
                 good._replace(warps_per_block=17)):
-        assert launch(_clone(carry), bad) == 1, bad
+        assert _sweep_launch(cuda, model, tabs, _clone(carry), bad) == 1, bad
+
+
+@pytest.mark.parametrize("name,n_ops", [("kv16", 48), ("queue8", 48),
+                                        ("stack8", 48), ("txn8", 32),
+                                        ("random9", 48), ("kv5", 40)])
+def test_stepper_sweep_matches_plain_with_a_16_slot_memo(cuda, name, n_ops):
+    """Every kind, a few chunks at a small width with 16 memo slots a
+    lane: slots overwritten and filter tags colliding, the filter rebuilt
+    from the carry's memo at every launch; the running lanes alone, as the
+    main path launches them."""
+    from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry,
+                                                stepper_sweep,
+                                                stepper_sweep_plain)
+
+    B = 160
+    spec, model, tabs, starts = _sweep_inputs(name, n_ops, B, cuda)
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, n_ops, 16)
+    for k in range(4):
+        got, want = _clone(carry), _clone(carry)
+        run = torch.nonzero(got.dsi[1] == RUNNING)[:, 0].cpu().numpy()
+        stepper_sweep(model, tabs, got, chunk=384, budget=552_000,
+                      lanes=run)
+        torch.cuda.synchronize()
+        stepper_sweep_plain(spec, tabs, want, chunk=384, budget=552_000)
+        _assert_stepper_equal(got, want, f"after chunk {k + 1}")
+        carry = got
+    assert int(carry.dsi[4].sum()) > int((carry.occ == 1).sum())
+
+
+def test_stepper_sweep_refuses_a_lane_list_without_a_running_lane(cuda):
+    """A lane list that leaves out a RUNNING lane is refused before any
+    launch (the carry is left as it was); the full list launches."""
+    from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry,
+                                                stepper_sweep)
+
+    B = 128
+    spec, model, tabs, starts = _sweep_inputs("kv16", 48, B, cuda)
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, 48, 64)
+    run = torch.nonzero(carry.dsi[1] == RUNNING)[:, 0].cpu().numpy()
+    assert run.size > 2
+    before, launches = _clone(carry), stepper_sweep.launches
+    with pytest.raises(ValueError, match="leaves out 1 RUNNING"):
+        stepper_sweep(model, tabs, carry, chunk=384, budget=552_000,
+                      lanes=run[1:])
+    assert stepper_sweep.launches == launches
+    _assert_stepper_equal(carry, before, "after a refused launch")
+    stepper_sweep(model, tabs, carry, chunk=384, budget=552_000, lanes=run)
+    assert stepper_sweep.launches == launches + 1
 
 
 @pytest.mark.parametrize("old_slots,slots", [(2048, 32768), (2048, 2048),

@@ -12,10 +12,16 @@ kernel steps each model by its own code (a kind and parameters), the plain
 version by ``spec.step_torch``, so the two are independent
 implementations of each model: queue, stack, KV, multicas, txn and a
 random vector spec, at one to four taken words, memo off and on, several
-warps a block, start states and args outside the declared domains.
-Mutants of the source that must fail: a state word left out of the memo
-key, a put writing the wrong element, the queue length off by one, a copy
-with src and dst swapped, the child written by the wrong thread."""
+warps a block, start states and args outside the declared domains, memos
+of 4 and 16 slots (slots overwritten, filter tags colliding), a carry that
+enters with a populated memo (the filter built at entry), a lane list.
+State widths with a hash instantiation of their own (8, 9, 16) and without
+(4, 5, 12: the hash loop).  Mutants of the source that must fail: a state
+word left out of the memo key, the hash loop skipping the last state word
+of a width without its own instantiation, a put writing the wrong element, the queue length off by one, a copy
+with src and dst swapped, thread i computing child word i + 1, a filter
+tag left stale after an overwrite, a filter that misses an occupied
+matching slot."""
 
 from __future__ import annotations
 
@@ -74,21 +80,32 @@ MUTANTS = [
      "const int N = a.N, D = a.D, kw = W + D;",
      "const int N = a.N, D = a.D, kw = W + D - 1;", ("kv9",)),
     ("put writes the wrong element",
-     "for (int i = 0; i < D; ++i) out[i] = c != 0 && i == key ? value : "
-     "st[i];",
-     "for (int i = 0; i < D; ++i) out[i] = c != 0 && i == (key + 1) % D "
-     "? value : st[i];", ("kv9",)),
+     "o.x = c == 0 ? -1 : floor_div(a, m.p1);",
+     "o.x = c == 0 ? -1 : (floor_div(a, m.p1) + 1) % D;", ("kv9",)),
     ("queue length off by one",
-     "out[0] = len + (full ? 0 : 1);", "out[0] = len + (full ? 0 : 2);",
+     "return len + (full ? 0 : 1);", "return len + (full ? 0 : 2);",
      ("queue8",)),
     ("copy with src and dst swapped",
-     "const int cell = c == 0 ? a : (c == 1 ? floor_div(a, nv) : dst);\n"
-     "    const int value = c == 1 ? floor_mod(a, nv) : st[jidx(src, D)];",
-     "const int cell = c == 0 ? a : (c == 1 ? floor_div(a, nv) : src);\n"
-     "    const int value = c == 1 ? floor_mod(a, nv) : st[jidx(dst, D)];",
+     "o.rd = c == 0 ? jidx(a, D) : (c == 1 ? 0 : jidx(src, D));\n"
+     "    o.x = c == 0 ? -1 : (c == 1 ? floor_div(a, nv) : dst);",
+     "o.rd = c == 0 ? jidx(a, D) : (c == 1 ? 0 : jidx(dst, D));\n"
+     "    o.x = c == 0 ? -1 : (c == 1 ? floor_div(a, nv) : src);",
      ("txn8",)),
-    ("child written by the wrong thread",
-     "if (lane == (j & 31))", "if (lane == ((j + 1) & 31))",
+    ("thread i computes child word i + 1",
+     "child = child_word<K>(a, lane, s,",
+     "child = child_word<K>(a, lane + 1, s,",
+     ("kv9", "queue8")),
+    ("filter tag left stale after an overwrite",
+     "tags[sl] = tag_of(h);\n      inserts += 1;",
+     "if (tags[sl] == 0) tags[sl] = tag_of(h);\n      inserts += 1;",
+     ("kv9", "queue8")),
+    ("hash loop skips the last state word",
+     "  for (int q = 0; q < 3; ++q)\n    if (i + q < D) h = mix(h, nx[q]);",
+     "  for (int q = 0; q < 3; ++q)\n    if (i + q < D - 1) h = mix(h, nx[q]);",
+     ("kv5", "queue3")),
+    ("filter misses an occupied matching slot",
+     "for (int w = 0; w < kw; ++w)\n",
+     "for (int w = W; w < kw; ++w)\n",
      ("kv9", "queue8")),
 ]
 
@@ -105,7 +122,9 @@ def _host_lib(name: str, tmp: Path, src: str = None, tag: str = ""):
     cpp = tmp / f"{name}{tag}.cpp"
     cpp.write_text(src)
     lib = tmp / f"{name}{tag}.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
+    # -O0: the kernel's many instantiations build several times faster than
+    # optimized, and a run is bound by its threads' meeting points anyway
+    subprocess.run([cxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-pthread",
                     f"-I{SHIM}", "-include", "cuda_warp.h", "-o", str(lib),
                     str(cpp)], check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
@@ -113,7 +132,7 @@ def _host_lib(name: str, tmp: Path, src: str = None, tag: str = ""):
 
 def _bind(name: str, lib):
     fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = ([_P] * 14 + [_I] * 15 + [_P] if name == "stepper_sweep"
+    fn.argtypes = ([_P] * 16 + [_I] * 16 + [_P] if name == "stepper_sweep"
                    else [_P] * 16 + [_I] * 9 + [_P])
     fn.restype = _I
     return fn
@@ -138,6 +157,11 @@ SPECS = {
     "txn8": (lambda: TxnRegisterSpec(8, 8), (AtomicTxnSUT, TornCopyTxnSUT)),
     "random9": (lambda: RandomVectorSpec(5, bounds=(4, 3, 5, 4, 4, 3, 4, 4,
                                                     6)), None),
+    # state widths without an instantiation of their own: the hash loop
+    "kv5": (lambda: KvSpec(n_keys=5), (AtomicKvSUT, StaleCacheKvSUT)),
+    "queue3": (lambda: QueueSpec(capacity=3),
+               (AtomicQueueSUT, RacyTwoPhaseQueueSUT)),
+    "kv12": (lambda: KvSpec(n_keys=12), (AtomicKvSUT, StaleCacheKvSUT)),
 }
 
 
@@ -164,19 +188,27 @@ def _inputs(name: str, n_ops: int, pids: int = 6, odd: bool = False):
     return spec, tabs, starts
 
 
-def _plan(B: int, N: int, D: int, warps: int = 0) -> SweepPlan:
+def _plan(L: int, N: int, D: int, slots: int, warps: int = 0) -> SweepPlan:
     if not warps:
-        return sweep_launch_plan(B, N, D, H100_SMS)
-    return SweepPlan(warps, -(-B // warps), warps * sweep_warp_bytes(N, D))
+        return sweep_launch_plan(L, N, D, slots, H100_SMS)
+    return SweepPlan(warps, -(-L // warps),
+                     warps * sweep_warp_bytes(N, D, slots))
 
 
-def _step(fn, model, tabs, carry, plan, chunk=CHUNK) -> int:
+def _step(fn, model, tabs, carry, plan, chunk=CHUNK, lanes=None,
+          stats=None) -> int:
+    """One launch through the C entry; ``lanes`` an int32 tensor or None,
+    ``stats`` an int64 ``[2]`` tensor or None."""
     R, N = tabs.cmd.shape
     B, D = carry.row.shape[0], carry.states.shape[2]
     return fn(*(t.data_ptr() for t in tabs), model.data.data_ptr(),
               carry.row.data_ptr(), *(t.data_ptr() for t in carry[:6]),
+              None if lanes is None else lanes.data_ptr(),
+              None if stats is None else stats.data_ptr(),
               B, R, N, n_words(N), D, carry.occ.shape[1], chunk, BUDGET,
-              model.kind, *model.params, *(int(x) for x in plan), None)
+              model.kind, *model.params,
+              B if lanes is None else lanes.numel(),
+              *(int(x) for x in plan), None)
 
 
 def _clone(c: StepperCarry) -> StepperCarry:
@@ -196,7 +228,7 @@ def _run_both(step, name, n_ops, slots, warps=0, chunks=2, odd=False):
     N = tabs.cmd.shape[1]
     rows = np.random.default_rng(3).permutation(LANES)  # lanes != rows
     carry = fresh_sweep_carry(tabs.nreq, rows, starts[rows], LANES, N, slots)
-    plan = _plan(LANES, N, spec.STATE_DIM, warps)
+    plan = _plan(LANES, N, spec.STATE_DIM, slots, warps)
     for k in range(chunks):
         got, want = _clone(carry), _clone(carry)
         assert _step(step, model, tabs, got, plan) == 0
@@ -212,7 +244,7 @@ def _run_both(step, name, n_ops, slots, warps=0, chunks=2, odd=False):
 @pytest.mark.parametrize("name,n_ops", [
     ("kv9", 24), ("kv16", 64), ("queue8", 24), ("stack8", 48),
     ("multicas9", 48), ("txn8", 24), ("random9", 40), ("kv9", 96),
-    ("kv9", 128)])
+    ("kv9", 128), ("kv5", 24), ("queue3", 24), ("kv12", 40)])
 def test_sweep_source_matches_plain(host_libs, name, n_ops, slots):
     step, _ = host_libs
     bad, carry = _run_both(step, name, n_ops, slots)
@@ -241,6 +273,89 @@ def test_sweep_source_matches_plain_with_warps_sharing_a_block(host_libs,
     assert bad == [], f"{bad} differ"
 
 
+@pytest.mark.parametrize("slots", [4, 16])
+@pytest.mark.parametrize("name,n_ops", [("kv9", 40), ("queue8", 24),
+                                        ("txn8", 24), ("random9", 40),
+                                        ("kv5", 24)])
+def test_sweep_source_matches_plain_with_a_tiny_memo(host_libs, name, n_ops,
+                                                     slots):
+    """A memo of 4 or 16 slots a lane: slots are overwritten all the time
+    and the filter's tags collide (a matching tag over another key, which
+    the compare in device memory must reject)."""
+    step, _ = host_libs
+    spec, tabs, starts = _inputs(name, n_ops)
+    model = sweep_model(spec, "cpu")
+    N = tabs.cmd.shape[1]
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(LANES), starts, LANES, N,
+                              slots)
+    plan = _plan(LANES, N, spec.STATE_DIM, slots)
+    stats = torch.zeros(2, dtype=torch.int64)
+    for _ in range(3):
+        got, want = _clone(carry), _clone(carry)
+        assert _step(step, model, tabs, got, plan, stats=stats) == 0
+        stepper_sweep_plain(spec, tabs, want, chunk=CHUNK, budget=BUDGET)
+        assert _diff(got, want) == []
+        carry = got
+    probes, passes = (int(x) for x in stats)
+    # more inserts than occupied slots: slots were overwritten
+    assert int(carry.dsi[4].sum()) > int((carry.occ == 1).sum())
+    assert 0 < passes < probes            # the filter skipped probes
+
+
+def test_sweep_source_matches_plain_from_a_populated_memo(host_libs):
+    """The carry enters with a memo that the plain version filled (and
+    empty slots holding junk keys and occupancy words other than 1): the
+    kernel builds its filter from it at entry and prunes where the plain
+    version does."""
+    step, _ = host_libs
+    spec, tabs, starts = _inputs("kv9", 40)
+    model = sweep_model(spec, "cpu")
+    N = tabs.cmd.shape[1]
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(LANES), starts, LANES, N,
+                              16)
+    stepper_sweep_plain(spec, tabs, carry, chunk=3 * CHUNK, budget=BUDGET)
+    g = torch.Generator().manual_seed(4)
+    empty = carry.occ != 1
+    carry.keys[empty] = torch.randint(-9, 9, carry.keys[empty].shape,
+                                      generator=g, dtype=torch.int32)
+    carry.occ[empty] = torch.randint(-3, 1, carry.occ[empty].shape,
+                                     generator=g, dtype=torch.int32) * 2
+    assert int((carry.occ == 1).sum()) > LANES
+    running = int((carry.dsi[STATUS] == RUNNING).sum())
+    assert running > 0
+    got, want = _clone(carry), _clone(carry)
+    assert _step(step, model, tabs, got, _plan(LANES, N, 9, 16)) == 0
+    stepper_sweep_plain(spec, tabs, want, chunk=CHUNK, budget=BUDGET)
+    assert _diff(got, want) == []
+    # memo hits on configurations inserted before this launch
+    assert int((got.dsi[3] - carry.dsi[3]).sum()) > 0
+
+
+def test_sweep_source_runs_only_the_listed_lanes(host_libs):
+    """A lane list (every running lane, in another order, beside some
+    decided ones) gives the plain version's carry; the lanes left off it
+    are not touched."""
+    step, _ = host_libs
+    spec, tabs, starts = _inputs("kv9", 40)
+    model = sweep_model(spec, "cpu")
+    N = tabs.cmd.shape[1]
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(LANES), starts, LANES, N,
+                              64)
+    stepper_sweep_plain(spec, tabs, carry, chunk=CHUNK, budget=BUDGET)
+    status = carry.dsi[STATUS].numpy()
+    run = np.flatnonzero(status == RUNNING)
+    done = np.flatnonzero(status != RUNNING)
+    assert len(run) > 1 and len(done) > 1
+    order = np.random.default_rng(9).permutation(
+        np.concatenate([run, done[:1]]))
+    lanes = torch.from_numpy(order.astype(np.int32))
+    got, want = _clone(carry), _clone(carry)
+    plan = _plan(len(order), N, 9, 64)
+    assert _step(step, model, tabs, got, plan, lanes=lanes) == 0
+    stepper_sweep_plain(spec, tabs, want, chunk=CHUNK, budget=BUDGET)
+    assert _diff(got, want) == []
+
+
 def test_sweep_entry_refuses_bad_arguments(host_libs):
     step, _ = host_libs
     spec, tabs, starts = _inputs("kv9", 24)
@@ -249,18 +364,20 @@ def test_sweep_entry_refuses_bad_arguments(host_libs):
     carry = fresh_sweep_carry(tabs.nreq, np.arange(LANES), starts, LANES, N,
                               64)
     ptrs = [*(t.data_ptr() for t in tabs), model.data.data_ptr(),
-            carry.row.data_ptr(), *(t.data_ptr() for t in carry[:6])]
-    plan = [int(x) for x in _plan(LANES, N, 9)]
-    good = [LANES, R, N, 1, 9, 64, CHUNK, BUDGET, 2, 9, 4, 0]
+            carry.row.data_ptr(), *(t.data_ptr() for t in carry[:6]), None,
+            None]
+    plan = [int(x) for x in _plan(LANES, N, 9, 64)]
+    good = [LANES, R, N, 1, 9, 64, CHUNK, BUDGET, 2, 9, 4, 0, LANES]
     assert step(*ptrs, *good, *plan, None) == 0
     # (argument index, value) pairs: B, R, N, W, D, slots, chunk, budget,
-    # kind, p0, p1, p2
+    # kind, p0, p1, p2, L
     for change in (((3, 2),),            # W does not fit N
                    ((4, 8),),            # D is not the model's key count
                    ((4, 32), (9, 32)),   # W + D past 32 words
                    ((5, 48),),           # slots not a power of two
                    ((8, 7),),            # no such kind
-                   ((10, 0),)):          # no values
+                   ((10, 0),),           # no values
+                   ((12, LANES - 1),)):  # L != B without a lane list
         bad = list(good)
         for at, value in change:
             bad[at] = value
@@ -268,8 +385,13 @@ def test_sweep_entry_refuses_bad_arguments(host_libs):
     warps, grid, smem = plan
     for p in ((warps + 1, grid, smem), (warps, grid + 1, smem),
               (warps, grid, smem - 4), (17, -(-LANES // 17),
-                                        17 * sweep_warp_bytes(N, 9))):
+                                        17 * sweep_warp_bytes(N, 9, 64))):
         assert step(*ptrs, *good, *p, None) == 1, p
+    # a lane list longer than the carry
+    lanes = torch.arange(LANES, dtype=torch.int32)
+    ptrs[14] = lanes.data_ptr()
+    long_plan = [int(x) for x in _plan(LANES + 1, N, 9, 64)]
+    assert step(*ptrs, *good[:12], LANES + 1, *long_plan, None) == 1
 
 
 @pytest.mark.parametrize("mutant", MUTANTS, ids=[m[0] for m in MUTANTS])
@@ -279,8 +401,8 @@ def test_mutants_of_the_source_fail(tmp_path, mutant):
     assert src.count(cuda) == 1, f"the source no longer has: {cuda}"
     step = _bind("stepper_sweep", _host_lib(
         "stepper_sweep", tmp_path, src.replace(cuda, bad), tag="_mutant"))
-    caught = [name for name in cases
-              for slots in (64,) if _run_both(step, name, 24, slots)[0]]
+    caught = any(_run_both(step, name, 24, slots)[0]
+                 for name in cases for slots in (64, 8))
     assert caught, f"the mutant '{label}' was not caught"
 
 

@@ -4,9 +4,9 @@ the same numpy inputs: every carry plane equal (tolerance 0, all integer)
 after chunks run in a row, and resumed from the reference's own
 mid-search carry carried across by ``utils/interop.py``; memo off and on;
 on KV, queue, stack, multicas, txn and random vector specs too large for a
-table, at one and two taken words.  Also the launch plan, ``sweep_model``
-and the compaction of sweep-regime carries against
-``JaxTPU._compact_carry_host``."""
+table, at one and two taken words.  Also the launch plan, ``sweep_model``,
+the wrapper's check of a lane list, and the compaction of sweep-regime
+carries against ``JaxTPU._compact_carry_host``."""
 
 from __future__ import annotations
 
@@ -39,9 +39,10 @@ from qsm_tpu_torch.models.multi import MultiCasSpec
 from qsm_tpu_torch.models.queue import QueueSpec
 from qsm_tpu_torch.models.stack import StackSpec
 from qsm_tpu_torch.models.txn import TxnRegisterSpec
-from qsm_tpu_torch.ops.dfs_kernel import H100_SMS, SMEM_BLOCK_MAX
+from qsm_tpu_torch.ops.dfs_kernel import (H100_SMS, SMEM_BLOCK_MAX,
+                                          SMEM_BLOCK_RESERVED, SMEM_SM)
 from qsm_tpu_torch.ops.scalarize import scalar_shadow
-from qsm_tpu_torch.ops.stepper_kernel import compact_carry_plain
+from qsm_tpu_torch.ops.stepper_kernel import StepperCarry, compact_carry_plain
 from qsm_tpu_torch.ops.sweep_kernel import (
     MAX_SWEEP_DIM, fresh_sweep_carry, stepper_sweep, stepper_sweep_plain,
     sweep_launch_plan, sweep_model, sweep_tables, sweep_warp_bytes)
@@ -187,18 +188,58 @@ def test_compact_plain_of_a_sweep_carry_equals_host_reference(old_slots,
 
 
 def test_sweep_launch_plan():
-    # kv16 at 64 ops: 5764 shared bytes a warp (the threads' ops: 2 x 5 x
-    # 32 words), 16 warps a block at 4096 lanes
-    assert sweep_warp_bytes(64, 16) == 4 * (65 * 17 + 16 + 2 * 5 * 32)
-    p = sweep_launch_plan(4096, 64, 16, H100_SMS)
-    assert p == (16, 256, 16 * 5764)
+    # kv16 at 64 ops, 2048 memo slots: 6728 shared bytes a warp (the
+    # stacks, 65 x 17 words; a hash a level, 65 words; one tag byte a
+    # slot), 16 warps a block at 4096 lanes, two blocks an SM: one wave
+    assert sweep_warp_bytes(64, 16, 2048) == 4 * (65 * 17 + 65) + 2048
+    assert sweep_warp_bytes(64, 16, 0) == 4 * (65 * 17)
+    assert sweep_warp_bytes(24, 9, 5) == 4 * (25 * 10 + 25 + 2)
+    p = sweep_launch_plan(4096, 64, 16, 2048, H100_SMS)
+    assert p == (16, 256, 16 * 6728)
+    assert 2 * (p.smem_bytes + SMEM_BLOCK_RESERVED) <= SMEM_SM
     # few lanes: spread over the SMs, one warp a block
-    assert sweep_launch_plan(100, 64, 16, H100_SMS) == (1, 100, 5764)
-    # the widest state at 128 ops: shared memory caps the warps a block
-    p = sweep_launch_plan(4096, 128, MAX_SWEEP_DIM, H100_SMS)
-    per = sweep_warp_bytes(128, MAX_SWEEP_DIM)
-    assert p.warps_per_block == SMEM_BLOCK_MAX // per < 16
-    assert p.smem_bytes <= SMEM_BLOCK_MAX
+    assert sweep_launch_plan(100, 64, 16, 2048, H100_SMS) == (1, 100, 6728)
+    # the running lanes alone: 1160 -> 9 warps a block, one block an SM;
+    # 2144 -> 17 warps an SM, as two blocks of 9 (not 16 + 1)
+    assert sweep_launch_plan(1160, 64, 16, 2048, H100_SMS)[:2] == (9, 129)
+    assert sweep_launch_plan(2144, 64, 16, 2048, H100_SMS)[:2] == (9, 239)
+    # the widest state at 128 ops, or the largest memo: shared memory caps
+    # the warps a block, and the blocks an SM are made equal
+    for D, slots in ((MAX_SWEEP_DIM, 0), (16, 1 << 16)):
+        per = sweep_warp_bytes(128, D, slots)
+        cap = SMEM_BLOCK_MAX // per
+        p = sweep_launch_plan(4096, 128, D, slots, H100_SMS)
+        need = -(-4096 // H100_SMS)
+        blocks = -(-need // cap)
+        assert cap < 16 and p.warps_per_block == -(-need // blocks) <= cap
+        assert p.smem_bytes <= SMEM_BLOCK_MAX
+
+
+def test_sweep_wrapper_checks_the_lane_list():
+    """``stepper_sweep(lanes=...)``: a list holding every RUNNING lane
+    gives what the full launch gives; one that leaves a RUNNING lane out,
+    names a lane twice or past the carry is refused (on the CPU as on the
+    card)."""
+    _, spec, N, arrays, starts = _inputs("kv9", 24, 6)
+    m = sweep_model(spec, "cpu")
+    tabs = sweep_tables(*arrays, "cpu")
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(LANES), starts, LANES, N,
+                              64)
+    stepper_sweep(m, tabs, carry, chunk=8, budget=BUDGET)
+    running = np.flatnonzero(carry.dsi[1].numpy() == 0)
+    assert 1 < running.size < LANES
+    full, listed = (StepperCarry(*(t.clone() for t in carry))
+                    for _ in range(2))
+    stepper_sweep(m, tabs, full, chunk=CHUNK, budget=BUDGET)
+    stepper_sweep(m, tabs, listed, chunk=CHUNK, budget=BUDGET,
+                  lanes=running[::-1])
+    assert all(torch.equal(x, y) for x, y in zip(full, listed))
+    for bad, what in ((running[1:], "leaves out 1 RUNNING"),
+                      (np.r_[running, running[:1]], "distinct"),
+                      (np.r_[running, LANES], "distinct")):
+        with pytest.raises(ValueError, match=what):
+            stepper_sweep(m, tabs, carry, chunk=CHUNK, budget=BUDGET,
+                          lanes=bad)
 
 
 def test_sweep_model_refuses_what_the_kernel_cannot_run():
