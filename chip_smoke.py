@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    one process a source, all started together; the ``-Xptxas -v``
    register / stack / spill lines are printed (a spill fails the run),
    beside the launch plans of phase 3 (lanes per block, shared bytes,
-   what is staged in shared memory);
+   what is staged in shared memory); then ``g++`` builds the native host
+   oracle (``native/wg.cpp``), which must build: its status and build
+   time are printed;
 3. kernel against plain: ``dfs_chunk`` on the headline CAS corpus' step
    tables (32 ops x 8 pids) with mid-search carries, at 4096 and 16384
    lanes, memo off and at 64 slots, and on random 64-state tables at 4096
@@ -96,20 +98,46 @@ Phases, in order; any failure exits non-zero and no result is printed:
 10. kv16 checker (main path of the sweep regime): ``TorchStepper`` on the
    512 unique KV histories at 4096 lanes, cold, warm and profiled; 0
    verdict mismatches against the port's memo oracle run on each key's
-   register sub-history (``KvKeyOracle``), witnesses replayed;
+   register sub-history (``PComp(spec)``), witnesses replayed;
 11. kv16 property: ``prop_concurrent`` at 16 pids x 64 ops, racy
    convicted, atomic passed;
 12. milestones: KV at its default size (16 pids x 64 ops, a 256-state
    shadow) through ``TorchStepper``'s table regime, and the ticket
    dispenser (4 pids x 24 ops) through ``TorchGPU`` and ``TorchStepper``:
    each checker against its oracle and ``prop_concurrent`` racy and
-   atomic.
+   atomic;
+13. per-key decomposition (main path of ``PComp`` over ``TorchStepper``):
+   the kv16 corpus, the KV milestone's, and the registry defaults of
+   multireg and multicas (16 pids x 64 ops), each at 4096 lanes, cold,
+   warm and profiled: no lane undecided, 0 mismatches against the memo
+   oracle per key, the whole-history checker's verdicts wherever it
+   decided (phases 10 and 12; for multireg and multicas ``TorchStepper``
+   on the unique corpus, run before the path), 8 stitched witnesses
+   replayed; the split timed alone, sub-histories, device batches,
+   launches; then ``prop_concurrent`` on kv16 through it, racy
+   convicted, atomic passed, nothing undecided;
+14. hybrid plan (main path of ``HybridDevice``): the CAS and queue
+   headlines at 4096 lanes, budget 2000, the native oracle as the tail:
+   verdicts equal to the memo oracle's, nothing undecided, no degrade,
+   the device deciding some; then ``CppOracle`` against the memo oracle
+   on each headline's 512 unique histories, verdicts equal, both timed.
+
+   After each case of phases 13 and 14 its launches are read, then its
+   kernels are held against their plain versions on the path's own
+   inputs, recorded as the path ran (``FirstInputs``): one chunk of
+   ``stepper_chunk`` from its first batch's fresh carry (its tables,
+   bucket, op count, slots, chunk and budget) at full width on the card
+   against the plain version on a lane sample on the CPU, and its first
+   compaction against ``compact_carry_plain`` at full width (tolerance
+   0).
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 ``compact_carry`` over phases 7-8, ``stepper_sweep`` and
 ``compact_carry`` over phases 10-11, each milestone's kernels over its
-own path).  The second-to-last stdout line is the
+own path, and each case of phases 13 and 14 over its own; the kernels
+record lists those of phases 7-8 under ``launches`` and every path's
+under ``launches_by_path``).  The second-to-last stdout line is the
 kernels record, the last the device record.  Every number is printed
 beside the card's name and power limit.
 """
@@ -132,21 +160,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from qsm_tpu_torch.core.history import History, Op, encode_batch
+from qsm_tpu_torch import native
+from qsm_tpu_torch.core.history import encode_batch
 from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
 from qsm_tpu_torch.models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
 from qsm_tpu_torch.models.counter import (AtomicTicketSUT, RacyTicketSUT,
                                           TicketSpec)
-from qsm_tpu_torch.models.kv import GET as KV_GET
 from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
 from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
                                         RacyTwoPhaseQueueSUT)
-from qsm_tpu_torch.models.register import RegisterSpec
+from qsm_tpu_torch.models.registry import MODELS
 from qsm_tpu_torch.models.stack import (AtomicStackSUT, RacyTwoPhaseStackSUT,
                                         StackSpec)
 from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
                                       TxnRegisterSpec)
 from qsm_tpu_torch.ops import kernels
+from qsm_tpu_torch.ops import stepper as stepper_module
 from qsm_tpu_torch.ops.backend import Verdict, verify_witness
 from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
                                           SMEM_BLOCK_MAX,
@@ -154,6 +183,8 @@ from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
                                           dfs_chunk_plain, launch_plan)
 from qsm_tpu_torch.ops.gpu_backend import TorchGPU, fresh_carry, lane_tables
 from qsm_tpu_torch.ops.host_contracts import flatten
+from qsm_tpu_torch.ops.hybrid import HybridDevice
+from qsm_tpu_torch.ops.pcomp import PComp, split_history
 from qsm_tpu_torch.ops.scalarize import scalar_shadow
 from qsm_tpu_torch.ops.stepper import TorchStepper, default_slots
 from qsm_tpu_torch.ops.stepper_kernel import (StepperCarry, compact_carry,
@@ -440,6 +471,7 @@ def phase_checker(spec, corpus, tag):
     print(f"{tag} checker profiled: wall {prof_wall:.3f} s, device busy "
           f"{busy_s:.3f} s, idle share {idle}; top kernels {top}",
           flush=True)
+    return warm_s
 
 
 def phase_property(spec, tag):
@@ -938,6 +970,7 @@ def phase_queue_checker(spec, corpus, tag):
           f"pending expansion) {t_flat:.3f} s, encoding and precedence "
           f"{t_enc:.3f} s (host), step tables {t_tab:.3f} s (built on the "
           f"card, synchronised)", flush=True)
+    return warm_s
 
 
 def phase_queue_property(spec, tag):
@@ -976,37 +1009,6 @@ def phase_queue_property(spec, tag):
 # ---------------------------------------------------------------------------
 # The sweep regime (stepper_sweep) and the registry's milestones
 # ---------------------------------------------------------------------------
-
-class KvKeyOracle:
-    """The port's memo oracle on each key's register sub-history of a KV
-    history: exact, since the keys of a KV map are independent (a history
-    is linearizable iff every key's sub-history is), and fast where the
-    whole-history search over a 16-word state is not.  GET(k) projects to
-    READ, PUT(k, v) to WRITE(v)."""
-
-    def __init__(self, spec):
-        self.reg = RegisterSpec(n_values=spec.n_values)
-        self.memo = WingGongCPU(memo=True)
-        self.n_values = spec.n_values
-
-    def check_histories(self, spec, histories):
-        out = np.empty(len(histories), np.int8)
-        for i, h in enumerate(histories):
-            keys = {}
-            for o in h.ops:
-                key, val = ((o.arg, 0) if o.cmd == KV_GET
-                            else divmod(o.arg, self.n_values))
-                keys.setdefault(key, []).append(Op(
-                    o.pid, o.cmd, val, o.resp, o.invoke_time,
-                    o.response_time))
-            sub = self.memo.check_histories(
-                self.reg, [History(ops) for ops in keys.values()])
-            out[i] = (Verdict.VIOLATION if (sub == Verdict.VIOLATION).any()
-                      else Verdict.BUDGET_EXCEEDED
-                      if (sub == Verdict.BUDGET_EXCEEDED).any()
-                      else Verdict.LINEARIZABLE)
-        return out
-
 
 def sweep_cases(kv_spec, kv_corpus, dev):
     """(name, spec, B, N, tables, start states, unique histories) of the
@@ -1462,23 +1464,49 @@ def phase_sweep_ablation(kv_spec, kv_corpus, dev, tag):
                       f"at {mhz:.0f} MHz", flush=True)
 
 
-def check_corpus(name, backend, spec, corpus, oracle, tag):
+# what check_corpus reports of a warm run, where a backend or the device
+# engine inside it keeps the counter: the device driver's rounds; the
+# stepper's device batches (each its own encoding and tables); the
+# per-key split (sub-histories, the longest, host time of split, fold and
+# stitch); the hybrid plan's division of the work
+RUN_COUNTERS = ("rounds_run", "compactions", "chunk_launches",
+                "device_batches", "subs_produced", "max_sub_len",
+                "recombine_s", "device_decided", "tail_histories",
+                "degradations")
+
+
+def engine_of(backend):
+    """The device engine inside a combinator (the per-key split's inner
+    backend, the hybrid plan's device), or the backend itself."""
+    if isinstance(backend, PComp):
+        return backend.inner
+    if isinstance(backend, HybridDevice):
+        return backend.device
+    return backend
+
+
+def check_corpus(name, backend, spec, corpus, oracle, tag, witnesses=32):
     """``backend.check_histories`` on ``corpus`` replicated to 4096 lanes,
     cold and warm, then profiled; 0 verdict mismatches against ``oracle``
-    wherever both decided; LINEARIZABLE witnesses replayed.  Returns the
-    warm verdicts."""
+    wherever both decided; up to ``witnesses`` LINEARIZABLE witnesses
+    replayed.  Returns the warm verdicts, the oracle's and both times."""
     device_corpus = _replicate(corpus, DEVICE_BATCH)
     t0 = time.perf_counter()
     cold = backend.check_histories(spec, device_corpus)
     cold_s = time.perf_counter() - t0
-    counters = [k for k in ("rounds_run", "compactions", "chunk_launches")
-                if hasattr(backend, k)]
-    before = {k: getattr(backend, k) for k in counters}
+    objs = [backend] + ([engine_of(backend)]
+                        if engine_of(backend) is not backend else [])
+    counters = [(o, k) for o in objs for k in RUN_COUNTERS
+                if hasattr(o, k)]
+    before = [getattr(o, k) for o, k in counters]
     t0 = time.perf_counter()
     v = backend.check_histories(spec, device_corpus)
     warm_s = time.perf_counter() - t0
-    after = ", ".join(f"{k} {getattr(backend, k) - before[k]}"
-                      for k in counters)
+    after = ", ".join(
+        f"{k} {getattr(o, k)}" if k == "max_sub_len"
+        else f"{k} {getattr(o, k) - b:.3f}" if k == "recombine_s"
+        else f"{k} {getattr(o, k) - b}"
+        for (o, k), b in zip(counters, before))
     require(v.tolist() == cold.tolist(), f"{name}: verdicts differ between "
             f"runs")
     prof_wall, busy_s, top = profile_device(
@@ -1491,7 +1519,8 @@ def check_corpus(name, backend, spec, corpus, oracle, tag):
     mismatches = int(((uv != ov) & both).sum())
     require(mismatches == 0, f"{name}: {mismatches} verdict mismatches vs "
             f"the oracle")
-    lin = [h for h, x in zip(corpus, uv) if x == Verdict.LINEARIZABLE][:32]
+    lin = [h for h, x in zip(corpus, uv)
+           if x == Verdict.LINEARIZABLE][:witnesses]
     for h in lin:
         wv, wit = backend.check_witness(spec, h)
         require(wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit),
@@ -1510,12 +1539,14 @@ def check_corpus(name, backend, spec, corpus, oracle, tag):
           f"witnesses replayed; profiled: wall {prof_wall:.3f} s, device "
           f"busy {busy_s:.3f} s, idle share {idle}; top kernels {top}",
           flush=True)
-    return v
+    return dict(v=v, ov=ov, warm_s=warm_s, oracle_s=oracle_s)
 
 
-def check_property(name, make_backend, spec, suts, cfg, tag, oracle=None):
+def check_property(name, make_backend, spec, suts, cfg, tag, oracle=None,
+                   all_decided=False):
     """``prop_concurrent``: the racy SUT convicted, the atomic one
-    passed, nothing undecided on the atomic run."""
+    passed, nothing undecided on the atomic run (on both with
+    ``all_decided``)."""
     for impl, sut, want_ok in (("racy", suts[1], False),
                                ("atomic", suts[0], True)):
         backend = make_backend()
@@ -1524,7 +1555,7 @@ def check_property(name, make_backend, spec, suts, cfg, tag, oracle=None):
                               backend=backend, oracle=oracle)
         dt = time.perf_counter() - t0
         require(res.ok == want_ok, f"{name} {impl}: ok={res.ok}")
-        require(not want_ok or res.undecided == 0,
+        require((not want_ok and not all_decided) or res.undecided == 0,
                 f"{name} {impl}: {res.undecided} undecided")
         what = ""
         if not want_ok:
@@ -1540,11 +1571,12 @@ def check_property(name, make_backend, spec, suts, cfg, tag, oracle=None):
 
 def phase_kv16(spec, corpus, tag):
     """Phases 10-11 (main path of the sweep regime): TorchStepper on the
-    kv16 corpus, then prop_concurrent on kv16."""
+    kv16 corpus, then prop_concurrent on kv16.  Returns the checker's
+    verdicts."""
     t = TorchStepper(spec)
     require(t.regime == "sweep", f"kv16 took the {t.regime} regime")
-    oracle = KvKeyOracle(spec)
-    check_corpus("kv16", t, spec, corpus, oracle, tag)
+    oracle = PComp(spec)  # the memo oracle on each key's sub-history
+    v = check_corpus("kv16", t, spec, corpus, oracle, tag)["v"]
     # the batch's set-up stages, timed alone on the same 4096 histories
     device_corpus = _replicate(corpus, DEVICE_BATCH)
     t0 = time.perf_counter()
@@ -1567,6 +1599,15 @@ def phase_kv16(spec, corpus, tag):
                    (AtomicKvSUT(spec), StaleCacheKvSUT(spec)),
                    dict(n_trials=30, n_pids=KV_PIDS, max_ops=KV_OPS, seed=0),
                    tag, oracle=oracle)
+    return v
+
+
+def kv4_corpus():
+    """The KV milestone: the registry's KV default, 4 keys."""
+    spec = KvSpec()
+    return spec, build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT),
+                              n=N_UNIQUE, n_pids=KV_PIDS, max_ops=KV_OPS,
+                              seed_base=1000, seed_prefix="bench")
 
 
 def phase_milestones(tag):
@@ -1574,17 +1615,14 @@ def phase_milestones(tag):
     check before: KV at its default size (4 keys, a 256-state shadow)
     through TorchStepper's table regime; the ticket dispenser through
     TorchGPU and TorchStepper.  Each kernel's launches are counted over
-    its path alone."""
-    spec = KvSpec()
-    corpus = build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT), n=N_UNIQUE,
-                          n_pids=KV_PIDS, max_ops=KV_OPS, seed_base=1000,
-                          seed_prefix="bench")
-    oracle = KvKeyOracle(spec)
+    its path alone.  Returns the KV milestone checker's verdicts."""
+    spec, corpus = kv4_corpus()
+    oracle = PComp(spec)
     stepper_chunk.launches = compact_carry.launches = 0
     t = TorchStepper(spec)
     require(t.regime == "table" and t.kspec.n_packed == 256,
             "KV at its default size is not on the table regime's shadow")
-    check_corpus("kv (4 keys)", t, spec, corpus, oracle, tag)
+    kv4_v = check_corpus("kv (4 keys)", t, spec, corpus, oracle, tag)["v"]
     check_property("kv (4 keys)", lambda: TorchStepper(spec), spec,
                    (AtomicKvSUT(spec), StaleCacheKvSUT(spec)),
                    dict(n_trials=40, n_pids=KV_PIDS, max_ops=KV_OPS,
@@ -1613,6 +1651,208 @@ def phase_milestones(tag):
               f"{counter.launches} {counter.__name__} launches", flush=True)
         require(counter.launches > 0, f"the ticket milestone launched no "
                 f"{counter.__name__} through {label}")
+    return kv4_v
+
+
+def registry_corpus(model):
+    """A registry model at its default spec and size."""
+    entry = MODELS[model]
+    spec = entry.make_spec()
+    return spec, build_corpus(
+        spec, (entry.impls["atomic"], entry.impls["racy"]), n=N_UNIQUE,
+        n_pids=entry.default_pids, max_ops=entry.default_ops,
+        seed_base=1000, seed_prefix="bench")
+
+
+def path_launches(name, tag, counters):
+    """Print the launches of each kernel in ``counters`` since they were
+    set to 0, and require one of the first."""
+    print(f"{tag} path of {name}: " + ", ".join(
+        f"{c.launches} {c.__name__}" for c in counters) + " launches",
+        flush=True)
+    require(counters[0].launches > 0,
+            f"{name} launched no {counters[0].__name__}")
+    return {c.__name__: c.launches for c in counters}
+
+
+class FirstInputs:
+    """Inside ``with``: the inputs of the first ``stepper_chunk`` and the
+    first ``compact_carry`` that ``TorchStepper`` runs, cloned before the
+    launch, so that a path's own shapes (its tables, bucket, op count,
+    slots and chunk) can be held against the plain versions after the
+    path's launches are read.  ``TorchStepper``'s module names are
+    swapped for pass-through functions: each launch is still counted
+    once, by the wrapper it reaches."""
+
+    def __init__(self):
+        self.step = self.comp = None
+
+    def _step(self, tabs, carry, **kw):
+        if self.step is None:
+            self.step = (tabs, clone_carry(carry), kw)
+        return stepper_chunk(tabs, carry, **kw)
+
+    def _comp(self, carry, lanes, bucket, slots):
+        if self.comp is None:
+            self.comp = (clone_carry(carry), np.array(lanes), bucket, slots)
+        return compact_carry(carry, lanes, bucket, slots)
+
+    def __enter__(self):
+        stepper_module.stepper_chunk = self._step
+        stepper_module.compact_carry = self._comp
+        return self
+
+    def __exit__(self, *exc):
+        stepper_module.stepper_chunk = stepper_chunk
+        stepper_module.compact_carry = compact_carry
+
+
+def hold_path_kernels(name, first, tag):
+    """The kernels of a path against their plain versions, on the path's
+    own inputs (``first``, a :class:`FirstInputs`): one chunk of
+    ``stepper_chunk`` from the first batch's fresh carry at full width
+    on the card, the plain version on a lane sample on the CPU (as in
+    phase 6), all 7 planes of the sample compared; the path's first
+    compaction against ``compact_carry_plain`` at full width.  Called
+    after the path's launches are read.  Returns the largest error."""
+    tabs, c0, kw = first.step
+    B, N, slots = c0.row.shape[0], tabs.vocab.shape[1], c0.occ.shape[1]
+    cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
+    sample = LaneSample(c0, min(SAMPLE_LANES, B), functools.partial(
+        stepper_chunk_plain, cpu_tabs, **kw))
+    ck = clone_carry(c0)
+    stepper_chunk(tabs, ck, **kw)
+    err = sample.step_and_check(ck, f"stepper_chunk on the path of {name}")
+    print(f"{tag} stepper_chunk == plain on the path of {name}: its first "
+          f"batch, B={B} N={N} slots={slots}, from the fresh carry, one "
+          f"chunk of {kw['chunk']} at budget {kw['budget']}: all 7 planes "
+          f"bit-identical on a sample of {len(sample.lanes)} lanes; "
+          f"{int((ck.dsi[1] == RUNNING).sum())} of {B} still running",
+          flush=True)
+    if first.comp is None:
+        print(f"{tag} compact_carry on the path of {name}: the path made "
+              f"no compaction", flush=True)
+        return err
+    c, lanes, to, new_slots = first.comp
+    got = compact_carry(c, lanes, to, new_slots)
+    want = compact_carry_plain(c, lanes, to, new_slots)
+    torch.cuda.synchronize()
+    err = max(err, _compare(f"compact_carry on the path of {name}", got,
+                            want))
+    print(f"{tag} compact_carry == plain on the path of {name}: its first "
+          f"compaction, {c.row.shape[0]} -> {to} lanes, "
+          f"{c.occ.shape[1]} -> {new_slots} slots: all 7 planes "
+          f"bit-identical at full width", flush=True)
+    return err
+
+
+def phase_pcomp(cases, tag):
+    """Phase 13: per-key decomposition on the card.  ``cases``: (name,
+    spec, unique corpus, the whole-history checker's verdicts from an
+    earlier phase, or None: then ``TorchStepper``'s on the unique corpus,
+    run before the path's counts are reset).  Each corpus goes through
+    ``PComp(spec, TorchStepper)`` at 4096 lanes: no lane undecided, 0
+    mismatches against the memo oracle per key, the whole-history
+    verdicts wherever that checker decided (it shares no split or fold
+    with the path), a sample of stitched witnesses replayed; the first
+    case's property run too.  Each case is its own main path; its
+    kernels are then held against their plain versions on its own first
+    inputs.  Returns the launches of each and the largest error."""
+    launches, err = {}, 0
+    for i, (name, spec, corpus, whole) in enumerate(cases):
+        if whole is None:
+            whole = TorchStepper(spec).check_histories(spec, corpus)
+        stepper_chunk.launches = compact_carry.launches = 0
+        pc = PComp(spec, lambda p: TorchStepper(p))
+        require(pc.inner.regime == "table",
+                f"{name}: the sub-histories are not on the table regime")
+        with FirstInputs() as first:
+            r = check_corpus(f"{name} per key", pc, spec, corpus,
+                             PComp(spec), tag, witnesses=8)
+        v = r["v"]
+        und = int((v == Verdict.BUDGET_EXCEEDED).sum())
+        require(und == 0, f"{name} per key: {und} lanes undecided")
+        decided = whole != Verdict.BUDGET_EXCEEDED
+        require(decided.any(), f"{name}: the whole-history checker "
+                f"decided nothing to compare with")
+        require((v[:len(whole)][decided] == whole[decided]).all(),
+                f"{name} per key: verdicts differ from the whole-history "
+                f"checker's")
+        agree = (f"; equal to the whole-history checker's on its "
+                 f"{int(decided.sum())} decided of {len(whole)} lanes, "
+                 f"decides its {int((~decided).sum())} undecided ones")
+        device_corpus = _replicate(corpus, DEVICE_BATCH)
+        t0 = time.perf_counter()
+        subs = [split_history(spec, h) for h in device_corpus]
+        split_s = time.perf_counter() - t0
+        print(f"{tag} {name} per key: {len(v)} lanes, 0 undecided{agree}; "
+              f"a batch splits into {sum(map(len, subs))} sub-histories "
+              f"(the longest {max(len(x) for d in subs for x in d.values())}"
+              f" ops) in {split_s:.3f} s on the host, split alone; over all "
+              f"runs {pc.subs_produced} sub-histories, "
+              f"{pc.inner.device_batches} device batches of the inner "
+              f"TorchStepper", flush=True)
+        if i == 0:
+            suts = tuple(MODELS["kv"].impls[k](spec)
+                         for k in ("atomic", "racy"))
+            check_property(f"{name} per key",
+                           lambda: PComp(spec, lambda p: TorchStepper(p)),
+                           spec, suts, dict(n_trials=30, n_pids=KV_PIDS,
+                                            max_ops=KV_OPS, seed=0),
+                           tag, oracle=PComp(spec), all_decided=True)
+        launches[name] = path_launches(f"{name} per key", tag,
+                                       (stepper_chunk, compact_carry))
+        err = max(err, hold_path_kernels(f"{name} per key", first, tag))
+    return launches, err
+
+
+def phase_hybrid(cases, tag):
+    """Phase 14: the hybrid plan on the card, and the native host oracle
+    against the memo oracle.  ``cases``: (name, spec, unique corpus, a
+    time to set beside, its label).  Each corpus goes through
+    ``HybridDevice(spec)`` (budget 2000) at 4096 lanes: verdicts equal to
+    the memo oracle's, no lane undecided, no degrade, the device deciding
+    some; then ``CppOracle`` and the memo oracle on the unique corpus,
+    verdicts equal.  Each case is its own main path; its kernels are then
+    held against their plain versions on its own first inputs.  Returns
+    the launches of each and the largest error."""
+    launches, err = {}, 0
+    for name, spec, corpus, beside, label in cases:
+        stepper_chunk.launches = compact_carry.launches = 0
+        hb = HybridDevice(spec)
+        require(isinstance(hb.tail, native.CppOracle),
+                f"{name}: the hybrid tail is {hb.tail.name}, not the "
+                f"native oracle")
+        with FirstInputs() as first:
+            r = check_corpus(f"{name} hybrid", hb, spec, corpus,
+                             WingGongCPU(memo=True), tag)
+        v = r["v"]
+        und = int((v == Verdict.BUDGET_EXCEEDED).sum())
+        require(und == 0, f"{name} hybrid: {und} lanes undecided")
+        require(hb.degradations == 0, f"{name} hybrid: degraded "
+                f"({hb.last_error})")
+        require(hb.device_decided > 0, f"{name} hybrid: the device "
+                f"decided nothing")
+        print(f"{tag} {name} hybrid: warm {r['warm_s']:.3f} s for "
+              f"{len(v)} lanes (beside {label} {beside:.3f} s), 0 "
+              f"undecided; over all its runs the device decided "
+              f"{hb.device_decided}, the native tail {hb.tail_histories}",
+              flush=True)
+        launches[name] = path_launches(f"{name} hybrid", tag,
+                                       (stepper_chunk, compact_carry))
+        err = max(err, hold_path_kernels(f"{name} hybrid", first, tag))
+        cpp = native.CppOracle(spec)
+        t0 = time.perf_counter()
+        cv = cpp.check_histories(spec, corpus)
+        cpp_s = time.perf_counter() - t0
+        require(cv.tolist() == r["ov"].tolist(),
+                f"{name}: CppOracle and the memo oracle disagree")
+        print(f"{tag} {name} host oracles on {len(corpus)} unique "
+              f"histories: CppOracle {cpp_s:.3f} s ({cpp.native_histories} "
+              f"native, {cpp.fallback_histories} to the fallback), "
+              f"WingGongCPU(memo=True) {r['oracle_s']:.3f} s, equal "
+              f"verdicts", flush=True)
+    return launches, err
 
 
 def main(argv=None) -> int:
@@ -1665,6 +1905,15 @@ def main(argv=None) -> int:
     for B, S, cs in ((4096, 5, 64), (16384, 5, 64), (4096, 5, 0),
                      (4096, RANDOM_STATES, 64)):
         print(f"  plan: {plan_text(B, S, cs)}")
+    # the native host oracle: g++ must be there (the CUDA toolkit needs a
+    # host compiler), so the host ladder must not fall back to Python
+    status = native.native_status()
+    t0 = time.perf_counter()
+    require(native.native_available(), f"the native host oracle did not "
+            f"build: {native.native_error()}")
+    print(f"{tag} native host oracle: {status} before, g++ build and load "
+          f"{time.perf_counter() - t0:.2f} s, now {native.native_status()} "
+          f"({native.library_path().name})", flush=True)
 
     spec = CasSpec()
     corpus = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=N_UNIQUE,
@@ -1679,7 +1928,7 @@ def main(argv=None) -> int:
     # TorchGPU's main path: launch counts from here to the end of phase 5
     dfs_chunk.launches = 0
     t0 = time.perf_counter()
-    phase_checker(spec, corpus, tag)
+    gpu_warm_s = phase_checker(spec, corpus, tag)
     phase_property(spec, tag)
     launches = dfs_chunk.launches
     print(f"{tag} main path of TorchGPU: {launches} dfs_chunk launches, "
@@ -1704,7 +1953,7 @@ def main(argv=None) -> int:
     # phase 8
     stepper_chunk.launches = compact_carry.launches = 0
     t0 = time.perf_counter()
-    phase_queue_checker(q_spec, q_corpus, tag)
+    q_warm_s = phase_queue_checker(q_spec, q_corpus, tag)
     phase_queue_property(q_spec, tag)
     step_launches = stepper_chunk.launches
     comp_launches = compact_carry.launches
@@ -1725,7 +1974,7 @@ def main(argv=None) -> int:
     # the sweep regime's main path: launch counts over phases 10-11
     stepper_sweep.launches = compact_carry.launches = 0
     t0 = time.perf_counter()
-    phase_kv16(kv_spec, kv_corpus, tag)
+    sweep_v = phase_kv16(kv_spec, kv_corpus, tag)
     sweep_launches = stepper_sweep.launches
     print(f"{tag} main path of TorchStepper's sweep regime: "
           f"{sweep_launches} stepper_sweep launches, "
@@ -1734,10 +1983,31 @@ def main(argv=None) -> int:
     require(sweep_launches > 0, "the sweep regime's main path launched no "
             "stepper_sweep")
     t0 = time.perf_counter()
-    phase_milestones(tag)
+    kv4_v = phase_milestones(tag)
     print(f"{tag} phase milestones: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    pcomp_launches, pcomp_err = phase_pcomp(
+        [("kv16", kv_spec, kv_corpus, sweep_v),
+         ("kv (4 keys)", *kv4_corpus(), kv4_v),
+         ("multireg", *registry_corpus("multireg"), None),
+         ("multicas", *registry_corpus("multicas"), None)], tag)
+    print(f"{tag} phase per-key decomposition: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    hybrid_launches, hybrid_err = phase_hybrid(
+        [("CAS headline", spec, corpus, gpu_warm_s, "TorchGPU"),
+         ("queue headline", q_spec, q_corpus, q_warm_s, "TorchStepper")],
+        tag)
+    print(f"{tag} phase hybrid plan: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
+                                      "compact_carry": comp_launches},
+               **{f"{k} per key": x for k, x in pcomp_launches.items()},
+               **{f"{k} hybrid": x for k, x in hybrid_launches.items()}}
 
+    # phase 6 and the paths of phases 13-14, each on its own inputs
+    step_err = max(step_err, pcomp_err, hybrid_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     kernels_line = {"kernels": [{
@@ -1754,14 +2024,18 @@ def main(argv=None) -> int:
         "replaces": "qsm_tpu/ops/jax_kernel.py:255 (build_stepper -> "
                     "run_one, table regime)",
         "launches": step_launches, "matches_plain": step_err == 0,
-        "max_abs_err": step_err, **step, "library_ms": None}, {
+        "max_abs_err": step_err, **step, "library_ms": None,
+        "launches_by_path": {k: x["stepper_chunk"]
+                             for k, x in by_path.items()}}, {
         "name": "compact_carry", "route": "cuda",
         "source": "qsm_tpu_torch/csrc/compact_carry.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:736 (JaxTPU._compact_fn)",
         "launches": comp_launches,
         "matches_plain": max(step_err, sweep_comp_err) == 0,
         "max_abs_err": max(step_err, sweep_comp_err), **comp,
-        "library_ms": None}, {
+        "library_ms": None,
+        "launches_by_path": {k: x["compact_carry"]
+                             for k, x in by_path.items()}}, {
         "name": "stepper_sweep", "route": "cuda",
         "source": "qsm_tpu_torch/csrc/stepper_sweep.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:303 (build_stepper -> "

@@ -4,8 +4,9 @@ Per trial: generate a program → execute it under the deterministic
 scheduler (k seeded schedules) → check the histories in one backend batch
 → on a violation, shrink.  Every shrink round executes all candidates and
 decides them in one backend batch.  BUDGET_EXCEEDED verdicts from a
-device backend are resolved by the exact host oracle, so the property's
-verdicts are always exact.
+device backend are resolved by the exact host oracle (the native C++
+checker when it builds, else the memoised Python oracle), so the
+property's verdicts are always exact.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..ops.backend import LineariseBackend, Verdict
-from ..ops.wing_gong_cpu import WingGongCPU
 from ..sched.runner import ConcurrentSUT, run_concurrent
 from ..sched.scheduler import FaultPlan
 from .generator import Program, dedupe, generate_program, shrink_candidates
@@ -98,8 +98,17 @@ def _trial_ops(cfg: PropertyConfig, trial: int) -> int:
     return max(2, math.ceil(cfg.max_ops * frac))
 
 
+def _default_oracle(spec: Spec) -> LineariseBackend:
+    """The resolving oracle: ``resilience.failover.host_fallback``, the
+    native C++ checker when it builds, else the memoised Python oracle
+    (the same verdicts either way)."""
+    from ..resilience.failover import host_fallback
+
+    return host_fallback(spec)
+
+
 def _resolve(spec: Spec, verdicts: np.ndarray, histories: Sequence[History],
-             backend: LineariseBackend, oracle: WingGongCPU,
+             backend: LineariseBackend, oracle: LineariseBackend,
              timings: Optional[Dict[str, float]] = None) -> np.ndarray:
     """Resolve BUDGET_EXCEEDED verdicts with the host oracle (skipped
     when the backend is the oracle: the same search would repeat)."""
@@ -125,7 +134,7 @@ def _execute(sut: ConcurrentSUT, prog: Program, sched_seed: str,
 
 
 def shrink_failure(spec: Spec, sut: ConcurrentSUT, backend: LineariseBackend,
-                   oracle: WingGongCPU, cfg: PropertyConfig,
+                   oracle: LineariseBackend, cfg: PropertyConfig,
                    program: Program, history: History, sched_seed: str,
                    timings: Optional[Dict[str, float]] = None):
     """Greedy shrink: each round decides all candidates in one backend
@@ -160,11 +169,12 @@ def shrink_failure(spec: Spec, sut: ConcurrentSUT, backend: LineariseBackend,
 def prop_concurrent(spec: Spec, sut: ConcurrentSUT,
                     cfg: Optional[PropertyConfig] = None,
                     backend: Optional[LineariseBackend] = None,
-                    oracle: Optional[WingGongCPU] = None) -> PropertyResult:
+                    oracle: Optional[LineariseBackend] = None
+                    ) -> PropertyResult:
     """Generate → execute → linearize → shrink.  ``backend`` defaults to
-    the oracle, ``oracle`` to the memoised host checker."""
+    the oracle, ``oracle`` to :func:`_default_oracle`."""
     cfg = cfg or PropertyConfig()
-    oracle = oracle if oracle is not None else WingGongCPU(memo=True)
+    oracle = oracle if oracle is not None else _default_oracle(spec)
     backend = backend or oracle
     timings: Dict[str, float] = {}
 

@@ -4,7 +4,9 @@ n_values).
 The model state is one value per key.  At the default size (4 keys, 4
 values) its packed domain is 256 states and the device tabulates it; at
 16 keys it is 4**16, too many for a table, and the stepper takes its
-sweep regime (``ops/sweep_kernel.py``).
+sweep regime (``ops/sweep_kernel.py``).  The keys are independent, so a
+history also decomposes per key (``ops/pcomp.py``): each key's
+sub-history is a history of a plain register.
 """
 
 from __future__ import annotations
@@ -12,9 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.spec import (CmdSig, Spec, broadcast_vector, floor_div,
-                         take_elem)
+from ..core.spec import (CmdSig, KeyProj, Spec, broadcast_vector,
+                         floor_div, take_elem)
 from ..sched.scheduler import Recv, Scheduler, Send
+from .register import READ, WRITE, RegisterSpec
 
 GET = 0
 PUT = 1
@@ -33,9 +36,13 @@ class KvSpec(Spec):
         self.n_keys = n_keys
         self.n_values = n_values
         self.STATE_DIM = n_keys
+        # GET's arg is the key (projected READ takes arg 0); PUT packs
+        # key * n_values + value (projected WRITE(value))
         self.CMDS = (
-            CmdSig("get", n_args=n_keys, n_resps=n_values),
-            CmdSig("put", n_args=n_keys * n_values, n_resps=1),
+            CmdSig("get", n_args=n_keys, n_resps=n_values,
+                   proj=KeyProj(pcmd=READ, stride=1)),
+            CmdSig("put", n_args=n_keys * n_values, n_resps=1,
+                   proj=KeyProj(pcmd=WRITE, stride=n_values)),
         )
 
     def initial_state(self) -> np.ndarray:
@@ -49,6 +56,13 @@ class KvSpec(Spec):
 
     def sweep_kernel(self):
         return 2, (self.n_keys, self.n_values), None
+
+    def native_kernel(self):
+        return (2, self.n_keys, self.n_values)  # native/wg.cpp kind 2
+
+    def projected_spec(self) -> RegisterSpec:
+        """Each key's sub-history is a history of a plain register."""
+        return RegisterSpec(n_values=self.n_values)
 
     def state_elem_bounds(self):
         return [self.n_values] * self.n_keys  # one value per key

@@ -4,7 +4,9 @@ registers, the shape of a sharded store whose lost-update race lives
 inside one cell while the history interleaves every cell.
 
 Arg packing: read's arg is the cell; write packs ``cell * n_values + v``;
-cas packs ``cell * n_values**2 + old * n_values + new``.
+cas packs ``cell * n_values**2 + old * n_values + new``.  The packing is
+declared as each command's ``KeyProj``: the cells are independent, and a
+cell's sub-history is a history of a ``RegisterSpec`` or ``CasSpec``.
 """
 
 from __future__ import annotations
@@ -12,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.spec import (CmdSig, Spec, broadcast_vector, floor_div,
-                         take_elem)
+from ..core.spec import (CmdSig, KeyProj, Spec, broadcast_vector,
+                         floor_div, take_elem)
 from ..sched.scheduler import Recv, Scheduler, Send
 
 READ = 0
@@ -35,8 +37,10 @@ class MultiRegisterSpec(Spec):
         self.n_values = n_values
         self.STATE_DIM = n_cells
         self.CMDS = (
-            CmdSig("read", n_args=n_cells, n_resps=n_values),
-            CmdSig("write", n_args=n_cells * n_values, n_resps=1),
+            CmdSig("read", n_args=n_cells, n_resps=n_values,
+                   proj=KeyProj(pcmd=READ, stride=1)),
+            CmdSig("write", n_args=n_cells * n_values, n_resps=1,
+                   proj=KeyProj(pcmd=WRITE, stride=n_values)),
         )
 
     def initial_state(self) -> np.ndarray:
@@ -73,6 +77,11 @@ class MultiRegisterSpec(Spec):
                           value[..., None].to(state.dtype), state)
         return new.to(torch.int32), ok
 
+    def projected_spec(self):
+        from .register import RegisterSpec
+
+        return RegisterSpec(n_values=self.n_values)
+
 
 class MultiCasSpec(Spec):
     """``n_cells`` independent CAS registers over values [0, n_values).
@@ -89,9 +98,12 @@ class MultiCasSpec(Spec):
         self.n_values = n_values
         self.STATE_DIM = n_cells
         self.CMDS = (
-            CmdSig("read", n_args=n_cells, n_resps=n_values),
-            CmdSig("write", n_args=n_cells * n_values, n_resps=1),
-            CmdSig("cas", n_args=n_cells * n_values * n_values, n_resps=2),
+            CmdSig("read", n_args=n_cells, n_resps=n_values,
+                   proj=KeyProj(pcmd=READ, stride=1)),
+            CmdSig("write", n_args=n_cells * n_values, n_resps=1,
+                   proj=KeyProj(pcmd=WRITE, stride=n_values)),
+            CmdSig("cas", n_args=n_cells * n_values * n_values, n_resps=2,
+                   proj=KeyProj(pcmd=CAS, stride=n_values * n_values)),
         )
 
     def initial_state(self) -> np.ndarray:
@@ -162,6 +174,11 @@ class MultiCasSpec(Spec):
                 old = rng.randrange(self.n_values)
             return CAS, self.cas_arg(cell, old, new)
         return cmd, rng.randrange(self.CMDS[cmd].n_args)
+
+    def projected_spec(self):
+        from .cas import CasSpec
+
+        return CasSpec(n_values=self.n_values)
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,9 @@ class QueueSpec(Spec):
     def sweep_kernel(self):
         return 1, (self.capacity, self.n_values), None
 
+    def native_kernel(self):
+        return (1, self.capacity, self.n_values)  # native/wg.cpp kind 1
+
     def state_elem_bounds(self):
         # length in [0, capacity]; slots in [0, n_values), vacated slots
         # zeroed

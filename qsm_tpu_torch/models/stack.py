@@ -52,6 +52,9 @@ class StackSpec(Spec):
     def sweep_kernel(self):
         return 3, (self.capacity, self.n_values), None
 
+    def native_kernel(self):
+        return (3, self.capacity, self.n_values)  # native/wg.cpp kind 3
+
     def state_elem_bounds(self):
         # length in [0, capacity]; slots in [0, n_values), vacated top
         # zeroed

@@ -2,6 +2,12 @@
 ``copy(src, dst)`` that reads ``src`` and writes its value into ``dst`` in
 one atomic step.  A copy couples two keys, so the family does not
 decompose per key; its step reads two elements of the state.
+
+It declares a per-key projection all the same, the JAX package's
+deliberately false one: copy claims to be a register write keyed by
+``src``.  ``projection_report`` must catch the lie (the copy's step
+changes ``dst``, outside its declared key), so every decomposition
+consumer refuses the spec with that report.
 """
 
 from __future__ import annotations
@@ -9,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.spec import (CmdSig, Spec, broadcast_vector, floor_div,
-                         take_elem)
+from ..core.spec import (CmdSig, KeyProj, Spec, broadcast_vector,
+                         floor_div, take_elem)
 from ..sched.scheduler import Recv, Scheduler, Send
 
 READ = 0
@@ -37,9 +43,13 @@ class TxnRegisterSpec(Spec):
         self.n_values = n_values
         self.STATE_DIM = n_cells
         self.CMDS = (
-            CmdSig("read", n_args=n_cells, n_resps=n_values),
-            CmdSig("write", n_args=n_cells * n_values, n_resps=1),
-            CmdSig("copy", n_args=n_cells * (n_cells - 1), n_resps=1),
+            CmdSig("read", n_args=n_cells, n_resps=n_values,
+                   proj=KeyProj(pcmd=READ, stride=1)),
+            CmdSig("write", n_args=n_cells * n_values, n_resps=1,
+                   proj=KeyProj(pcmd=WRITE, stride=n_values)),
+            # the lie: a copy also writes dst (module docstring)
+            CmdSig("copy", n_args=n_cells * (n_cells - 1), n_resps=1,
+                   proj=KeyProj(pcmd=WRITE, stride=n_cells - 1)),
         )
 
     def initial_state(self) -> np.ndarray:
@@ -64,6 +74,11 @@ class TxnRegisterSpec(Spec):
 
     def state_elem_bounds(self):
         return [self.n_values] * self.n_cells
+
+    def projected_spec(self):
+        from .register import RegisterSpec
+
+        return RegisterSpec(n_values=self.n_values)
 
     def step_py(self, state, cmd, arg, resp):
         state = list(state)

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -46,32 +46,45 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str, src: Optional[Path] = None) -> Path:
+def library_path(name: str, src: Optional[Path] = None,
+                 flags: Sequence[str] = NVCC_FLAGS) -> Path:
     """Where ``src`` (default ``csrc/<name>.cu``) builds to: keyed by
     source and flags."""
     src = src or CSRC_DIR / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{key}.so"
 
 
-def build(name: str, src: Optional[Path] = None) -> Path:
-    """Compile ``src`` (default ``csrc/<name>.cu``) unless its library
-    already exists.  The compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills) is kept beside the library as
-    ``<lib>.ptxas.txt``."""
+def build(name: str, src: Optional[Path] = None,
+          compiler: Optional[str] = None,
+          flags: Sequence[str] = NVCC_FLAGS,
+          timeout: Optional[float] = None) -> Path:
+    """Compile ``src`` (default ``csrc/<name>.cu``) with ``compiler``
+    (default ``nvcc``) unless its library already exists.  Several
+    processes may build at once: each compiles to a file of its own and
+    installs it with an atomic rename.  The compiler's report (for
+    ``nvcc``, the ``-Xptxas -v`` lines: registers, shared memory, spills)
+    is kept beside the library as ``<lib>.ptxas.txt``."""
     src = src or CSRC_DIR / f"{name}.cu"
-    out = library_path(name, src)
+    out = library_path(name, src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    compiler = compiler or find_nvcc()
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=timeout)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"{compiler} unavailable: {e!r}") from e
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(
-            f"nvcc failed ({r.returncode}) on {name}.cu:\n{r.stderr[-4000:]}")
+            f"{Path(compiler).name} failed ({r.returncode}) on {src.name}:"
+            f"\n{r.stderr[-4000:]}")
     out.with_suffix(".ptxas.txt").write_text(r.stdout + r.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out

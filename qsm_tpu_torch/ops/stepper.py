@@ -150,6 +150,7 @@ class TorchStepper(DeviceChecker):
         self.total_budget = budget + mid_budget + rescue_budget
         self.deferred_out_of_domain = 0
         self.device_histories = 0
+        self.device_batches = 0  # each its own encoding and tables
         self.rescued = 0       # decided after more than ``budget`` iters
         self.rounds_run = 0    # chunk calls
         self.compactions = 0   # bucket or memo-size changes
@@ -263,6 +264,7 @@ class TorchStepper(DeviceChecker):
             lanes = lanes[~done]
             round_i += 1
         self.device_histories += b
+        self.device_batches += 1
         if collect_chosen:
             return out_status, out_chosen
         return out_status

@@ -1,12 +1,23 @@
 """Command line: ``python -m qsm_tpu_torch run|bench``.
 
-Backends: ``gpu`` is :class:`~qsm_tpu_torch.ops.gpu_backend.TorchGPU`
-(the ``dfs_chunk`` kernel), ``stepper`` is
-:class:`~qsm_tpu_torch.ops.stepper.TorchStepper` (the lane-compacting
-``stepper_chunk`` / ``compact_carry`` kernels, and ``stepper_sweep`` for a
-spec too large for a table; the counterpart of the reference CLI's
-``--backend tpu``), ``--device cpu`` runs either one's
-plain versions instead; ``cpu`` is the memoised host oracle.
+Device backends (``--device cpu`` runs their kernels' plain versions):
+
+* ``gpu``: :class:`~qsm_tpu_torch.ops.gpu_backend.TorchGPU` (the
+  ``dfs_chunk`` kernel);
+* ``stepper``: :class:`~qsm_tpu_torch.ops.stepper.TorchStepper` (the
+  lane-compacting ``stepper_chunk`` / ``compact_carry`` kernels, and
+  ``stepper_sweep`` for a spec too large for a table; the counterpart of
+  the reference CLI's ``--backend tpu``);
+* ``pcomp-stepper``: per-key decomposition with ``TorchStepper`` deciding
+  the sub-histories (the reference's ``pcomp-tpu``);
+* ``hybrid-stepper``: ``TorchStepper`` under a 2000-iteration budget, the
+  rest on the host checker (the reference's ``hybrid-tpu``).
+
+Host backends: ``auto`` (the native C++ checker when it builds, else the
+memoised oracle: the property layer's resolving oracle), ``cpu`` (the
+memoised oracle), ``cpp`` (the native checker), ``pcomp`` and
+``pcomp-cpp`` (per-key decomposition over the memoised oracle or the
+native checker).
 """
 
 from __future__ import annotations
@@ -19,10 +30,38 @@ from ..core.property import PropertyConfig, prop_concurrent
 from ..models.registry import MODELS, make
 from ..ops.wing_gong_cpu import WingGongCPU
 
-BACKENDS = ("gpu", "stepper", "cpu")
+BACKENDS = ("auto", "gpu", "stepper", "pcomp-stepper", "hybrid-stepper",
+            "cpu", "cpp", "pcomp", "pcomp-cpp")
+# host backends that are the resolving oracle themselves: the property
+# layer need not search again what they left undecided
+_ORACLES = ("auto", "cpu", "cpp")
 
 
 def make_backend(name: str, spec, device=None):
+    from ..ops.pcomp import NotDecomposableError
+
+    try:
+        return _make_backend(name, spec, device)
+    except NotDecomposableError as e:
+        # exactly this misconfiguration exits cleanly; other errors of a
+        # backend's construction still raise
+        raise SystemExit(str(e)) from e
+
+
+def _native_oracle_factory(fallback: str):
+    from ..native import CppOracle, native_available, native_error
+
+    if not native_available():
+        raise SystemExit(f"native backend unavailable: {native_error()}\n"
+                         f"use --backend {fallback}")
+    return CppOracle
+
+
+def _make_backend(name: str, spec, device):
+    if name == "auto":
+        from ..core.property import _default_oracle
+
+        return _default_oracle(spec)
     if name == "gpu":
         from ..ops.gpu_backend import TorchGPU
 
@@ -31,8 +70,27 @@ def make_backend(name: str, spec, device=None):
         from ..ops.stepper import TorchStepper
 
         return TorchStepper(spec, device=device)
+    if name == "pcomp-stepper":
+        from ..ops.pcomp import PComp
+        from ..ops.stepper import TorchStepper
+
+        return PComp(spec, lambda p: TorchStepper(p, device=device))
+    if name == "hybrid-stepper":
+        from ..ops.hybrid import HybridDevice
+
+        return HybridDevice(spec, device=device)
     if name == "cpu":
         return WingGongCPU(memo=True)
+    if name == "cpp":
+        return _native_oracle_factory("cpu")(spec)
+    if name == "pcomp":
+        from ..ops.pcomp import PComp
+
+        return PComp(spec)
+    if name == "pcomp-cpp":
+        from ..ops.pcomp import PComp
+
+        return PComp(spec, _native_oracle_factory("pcomp"))
     raise SystemExit(f"unknown backend {name!r}")
 
 
@@ -57,11 +115,16 @@ def _add_common(p: argparse.ArgumentParser, backend_default: str) -> None:
                    help="gpu: the dfs_chunk kernel (scalar specs, <= 32 "
                         "ops); stepper: the lane-compacting stepper, the "
                         "counterpart of the reference's --backend tpu; "
-                        "cpu: the host memo oracle")
+                        "pcomp-stepper: per-key decomposition over the "
+                        "stepper; hybrid-stepper: the stepper under a "
+                        "tight budget, the rest on the host checker; "
+                        "auto: the native checker when it builds, else "
+                        "cpu, the host memo oracle; cpp: the native "
+                        "checker; pcomp, pcomp-cpp: per-key decomposition "
+                        "over the memo oracle or the native checker")
     p.add_argument("--device", default=None,
-                   help="torch device of the gpu and stepper backends "
-                        "(default cuda; cpu runs the kernels' plain "
-                        "versions)")
+                   help="torch device of the device backends (default "
+                        "cuda; cpu runs the kernels' plain versions)")
 
 
 def cmd_run(args) -> int:
@@ -75,7 +138,7 @@ def cmd_run(args) -> int:
                          trial_batch=args.trial_batch)
     t0 = time.perf_counter()
     backend = make_backend(args.backend, spec, args.device)
-    oracle = backend if args.backend == "cpu" else None
+    oracle = backend if args.backend in _ORACLES else None
     res = prop_concurrent(spec, sut, cfg, backend=backend, oracle=oracle)
     dt = time.perf_counter() - t0
     if res.ok:
@@ -93,6 +156,21 @@ def cmd_run(args) -> int:
     return 1
 
 
+def _device_name(backend) -> str:
+    """The card a backend's device search runs on, or "host".  A
+    combinator keeps its device engine as ``inner`` (per-key
+    decomposition) or ``device`` (the hybrid plan)."""
+    import torch
+
+    for b in (backend, getattr(backend, "inner", None),
+              getattr(backend, "device", None)):
+        dev = getattr(b, "device", None)
+        if isinstance(dev, torch.device):
+            return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else str(dev))
+    return "host"
+
+
 def cmd_bench(args) -> int:
     from .corpus import build_corpus
 
@@ -103,15 +181,11 @@ def cmd_bench(args) -> int:
         n=args.corpus, n_pids=args.pids or entry.default_pids,
         max_ops=args.ops or entry.default_ops, seed_prefix="bench")
     backend = make_backend(args.backend, spec, args.device)
+    device = _device_name(backend)
     backend.check_histories(spec, hists)  # warm-up (kernel build)
     t0 = time.perf_counter()
     v = backend.check_histories(spec, hists)
     dt = time.perf_counter() - t0
-    device = str(getattr(backend, "device", "host"))
-    if device.startswith("cuda"):
-        import torch
-
-        device = torch.cuda.get_device_name(backend.device)
     print(json.dumps({
         "model": args.model, "backend": args.backend, "device": device,
         "histories": len(hists), "seconds": round(dt, 3),

@@ -17,7 +17,10 @@ the checker's slot count, a 16-slot memo on every kind, args and start
 states off the domains, plans fixed by hand, plans refused, a lane list
 that leaves out a running lane refused), the compaction of sweep-regime carries,
 and ``TorchStepper``'s sweep regime on KV histories against the memo
-oracle per key.  Without CUDA each test skips in its fixture."""
+oracle per key; per-key decomposition over ``TorchStepper`` (KV of 16
+keys, multireg, multicas) and the hybrid plan (CAS, queue) against the
+host oracle, nothing undecided.  Without CUDA each test skips in its
+fixture."""
 
 from __future__ import annotations
 
@@ -664,3 +667,83 @@ def test_sweep_checker_matches_per_key_oracle(cuda):
     for h in lin:
         wv, wit = t.check_witness(spec, h)
         assert wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit)
+
+
+@pytest.mark.parametrize("model,kw", [("kv", {"n_keys": 16}),
+                                      ("multireg", None),
+                                      ("multicas", None)])
+def test_pcomp_over_the_stepper_decides_every_history(cuda, model, kw):
+    """``PComp`` over ``TorchStepper`` on CUDA: the sub-histories run in
+    the table regime's kernels, no history is left undecided, and the
+    verdicts and stitched witnesses are the host path's."""
+    from qsm_tpu_torch.models.registry import MODELS, make
+    from qsm_tpu_torch.ops.pcomp import PComp
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk
+
+    spec, _ = make(model, "atomic", kw)
+    entry = MODELS[model]
+    hs = build_corpus(spec, (entry.impls["atomic"], entry.impls["racy"]),
+                      n=256, n_pids=16, max_ops=64, seed_base=1000,
+                      seed_prefix="bench")
+    pc = PComp(spec, lambda p: TorchStepper(p))
+    assert pc.inner.regime == "table"
+    before = stepper_chunk.launches
+    v = pc.check_histories(spec, hs)
+    assert stepper_chunk.launches > before
+    assert (v != Verdict.BUDGET_EXCEEDED).all()
+    np.testing.assert_array_equal(v, PComp(spec).check_histories(spec, hs))
+    assert (v == Verdict.VIOLATION).any() and (v == Verdict.LINEARIZABLE).any()
+    for h in [h for h, x in zip(hs, v) if x == Verdict.LINEARIZABLE][:4]:
+        wv, wit = pc.check_witness(spec, h)
+        assert wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit)
+
+
+@pytest.mark.parametrize("model", ["cas", "queue"])
+def test_hybrid_device_matches_host_oracle(cuda, model):
+    """``HybridDevice`` on CUDA: the device decides most histories at a
+    budget of 2000, the host tail the rest, and the verdicts are the host
+    checker's, nothing undecided, no degrade."""
+    from qsm_tpu_torch.models.registry import MODELS
+    from qsm_tpu_torch.ops.hybrid import HybridDevice
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk
+    from qsm_tpu_torch.resilience.failover import host_fallback
+
+    entry = MODELS[model]
+    spec = entry.make_spec()
+    hs = build_corpus(spec, (entry.impls["atomic"], entry.impls["racy"]),
+                      n=256, n_pids=entry.default_pids,
+                      max_ops=entry.default_ops, seed_base=1000,
+                      seed_prefix="bench")
+    hb = HybridDevice(spec)
+    before = stepper_chunk.launches
+    v = hb.check_histories(spec, hs)
+    assert stepper_chunk.launches > before
+    assert hb.degradations == 0 and hb.device_decided > 0
+    assert hb.device_decided + hb.tail_histories == len(hs)
+    assert (v != Verdict.BUDGET_EXCEEDED).all()
+    np.testing.assert_array_equal(
+        v, host_fallback(spec).check_histories(spec, hs))
+
+
+def test_hybrid_device_raises_a_device_error_on_the_card(cuda, monkeypatch):
+    """On CUDA a device error raises out of ``HybridDevice``: the batch
+    never moves to the host tail, and nothing records a degrade."""
+    from qsm_tpu_torch.ops.backend import BackendUnavailable
+    from qsm_tpu_torch.ops.hybrid import HybridDevice
+
+    spec = CasSpec()
+    hs = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=4, n_pids=4,
+                      max_ops=16, seed_base=1000, seed_prefix="bench")
+    hb = HybridDevice(spec)
+
+    def lost(*a, **kw):
+        raise BackendUnavailable("card lost")
+
+    monkeypatch.setattr(hb.device, "check_histories", lost)
+    with pytest.raises(BackendUnavailable):
+        hb.check_histories(spec, hs)
+    with pytest.raises(BackendUnavailable):
+        hb.check_witness(spec, hs[0])
+    assert not hb.degraded and hb.degradations == 0
+    assert hb.tail_histories == 0

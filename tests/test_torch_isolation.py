@@ -27,7 +27,9 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = ("import json, sys, qsm_tpu_torch, qsm_tpu_torch.utils.cli, "
             "qsm_tpu_torch.ops.kernels, qsm_tpu_torch.ops.stepper, "
             "qsm_tpu_torch.ops.sweep_kernel, qsm_tpu_torch.utils.fuzz, "
-            "qsm_tpu_torch.models.registry, qsm_tpu_torch.models.failover\n"
+            "qsm_tpu_torch.models.registry, qsm_tpu_torch.models.failover, "
+            "qsm_tpu_torch.ops.pcomp, qsm_tpu_torch.ops.hybrid, "
+            "qsm_tpu_torch.native, qsm_tpu_torch.resilience.failover\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
