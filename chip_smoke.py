@@ -129,15 +129,36 @@ Phases, in order; any failure exits non-zero and no result is printed:
    bucket, op count, slots, chunk and budget) at full width on the card
    against the plain version on a lane sample on the CPU, and its first
    compaction against ``compact_carry_plain`` at full width (tolerance
-   0).
+   0);
+15. generation plane: (a) ``threefry_draws`` against its plain version
+   on the card at seeds 0, 7, 17, 2**31, 2**32 + 5, -3 and 1,000,004 and
+   shapes 1 x 1, 33 x 17, 4096 x 624 and 4096 x 3120, every word equal,
+   and the known answers of the JAX package's ``_raw_draws_jax``; the
+   kernel timed (CUDA events) at 4096 x 3120, 4096 x 624 and the main
+   path's 1024 x 816 beside its bound, the plain version once; (b)
+   ``generate_batch(path="jax")`` on the card for rangeset, semaphore and
+   register (the families of ``tools/bench_gen.py``) at 8 pids x 32 ops
+   and 4096 lanes: the table equal to the plain version's, 256 histories
+   equal to the ``device="cpu"`` call's, the draw, the copy to the host
+   and the assembly timed apart (``GenStages``); (c) the main path:
+   ``SteeringLoop(spec, HybridDevice(spec), batch=1024, seed=17,
+   path="auto")`` for 4 rounds a family, each round's stages timed and
+   printed with its report, the first family's last round profiled;
+   then each round's verdicts equal to ``CppOracle``'s with nothing
+   undecided, every flip re-checked by a fresh memo oracle (0 missed,
+   in worker processes), 64 LINEARIZABLE witnesses of the best profile's
+   batch replayed, ``save``/``load`` giving an equal pool, the path's
+   tables and its first ``stepper_chunk`` batch and compaction held
+   against the plain versions.
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 ``compact_carry`` over phases 7-8, ``stepper_sweep`` and
 ``compact_carry`` over phases 10-11, each milestone's kernels over its
-own path, and each case of phases 13 and 14 over its own; the kernels
-record lists those of phases 7-8 under ``launches`` and every path's
-under ``launches_by_path``).  The second-to-last stdout line is the
+own path, each case of phases 13 and 14 over its own, and
+``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
+15 (c); the kernels record lists those of phases 7-8 under ``launches``
+and every path's under ``launches_by_path``).  The second-to-last stdout line is the
 kernels record, the last the device record.  Every number is printed
 beside the card's name and power limit.
 """
@@ -163,6 +184,9 @@ import torch
 from qsm_tpu_torch import native
 from qsm_tpu_torch.core.history import encode_batch
 from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
+from qsm_tpu_torch.gen import GenProfile, SteeringLoop, generate_batch
+from qsm_tpu_torch.gen import core as gen_core
+from qsm_tpu_torch.gen import steer as gen_steer
 from qsm_tpu_torch.models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
 from qsm_tpu_torch.models.counter import (AtomicTicketSUT, RacyTicketSUT,
                                           TicketSpec)
@@ -181,6 +205,8 @@ from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
                                           SMEM_BLOCK_MAX,
                                           Carry, blocks_per_sm, dfs_chunk,
                                           dfs_chunk_plain, launch_plan)
+from qsm_tpu_torch.ops.draws_kernel import (raw_draws, raw_draws_plain,
+                                            threefry_draws)
 from qsm_tpu_torch.ops.gpu_backend import TorchGPU, fresh_carry, lane_tables
 from qsm_tpu_torch.ops.host_contracts import flatten
 from qsm_tpu_torch.ops.hybrid import HybridDevice
@@ -202,6 +228,7 @@ from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry, stepper_sweep,
                                             sweep_launch_plan, sweep_model,
                                             sweep_tables)
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
+from qsm_tpu_torch.search.planner import profile_corpus
 from qsm_tpu_torch.utils import cli
 from qsm_tpu_torch.utils.corpus import build_corpus, random_lane_tables
 from qsm_tpu_torch.utils.fuzz import RandomVectorSpec, random_history
@@ -1855,6 +1882,353 @@ def phase_hybrid(cases, tag):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the generation plane
+# ---------------------------------------------------------------------------
+
+GEN_FAMILIES = ("rangeset", "semaphore", "register")  # tools/bench_gen.py
+GEN_PIDS, GEN_OPS = 8, 32      # bench_gen's larger geometry
+GEN_LANES, GEN_SAMPLE = 4096, 256
+GEN_BATCH, GEN_ROUNDS, GEN_SEED = 1024, 4, 17
+GEN_WITNESSES = 64
+DRAW_SEEDS = (0, 7, 17, 2**31, 2**32 + 5, -3, 1_000_004)
+DRAW_SHAPES = ((1, 1), (33, 17), (4096, 624), (4096, 3120))
+# the known answers of the JAX package's _raw_draws_jax, taken on the CPU
+KNOWN_DRAW_ROWS = (
+    (7, (3, 5), {0: [3725328165, 2389352394, 1291398195, 1428036129,
+                     4260943734]}),
+    (-3, (2, 3), {0: [2585318788, 4151447820, 471961339],
+                  1: [2707064578, 2513172215, 3288622452]}),
+    (2**32 + 5, (2, 3), {0: [2839113055, 3758129494, 1086722469],
+                         1: [359975681, 984463424, 482527479]}))
+KNOWN_DRAW_17 = dict(head=[2639664804, 3479077941, 2518621796, 1267003793],
+                     tail=[1348504043, 1475632984, 2031686271, 3777973134],
+                     xor=3671365389, sum=4283564019)
+# integer operations a word, counted from csrc/threefry_draws.cu: 20
+# rounds of add, rotate, xor; 12 key injections (adds); the output xor;
+# the row index, address and loop (3)
+THREEFRY_OPS_PER_WORD = 20 * 3 + 12 + 1 + 3
+
+
+def draws_bound(n_lanes: int, n_draws: int):
+    """(bound_ms, bound_by): the table written once, one threefry a
+    word."""
+    words = n_lanes * n_draws
+    t_bytes = words * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = words * THREEFRY_OPS_PER_WORD / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_draws(n_lanes: int, n_draws: int, dev, reps=50):
+    """(kernel ms per launch over warm launches, CUDA events; the plain
+    version's ms, once, synchronised) on the table of seed 17."""
+    out = torch.empty((n_lanes, n_draws), dtype=torch.int32, device=dev)
+    launches = threefry_draws.launches
+    ms = time_launches(lambda o: threefry_draws(o, GEN_SEED),
+                       [out] * (reps + 1), reps)
+    threefry_draws.launches = launches  # timing launches are not the path's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw_draws_plain(GEN_SEED, n_lanes, n_draws, device=dev)
+    torch.cuda.synchronize()
+    return ms, (time.perf_counter() - t0) * 1e3
+
+
+def phase_draws(dev, tag):
+    """Phase 15 (a): ``threefry_draws`` against its plain version on the
+    card at every seed and shape (tolerance 0), the known answers of the
+    JAX package's table, then the kernel timed at the shapes of phase 15
+    beside its bound.  Returns the largest error."""
+    launches = threefry_draws.launches
+    for seed in DRAW_SEEDS:
+        for shape in DRAW_SHAPES:
+            got = raw_draws(seed, *shape, device=dev)
+            want = raw_draws_plain(seed, *shape, device=dev)
+            require(torch.equal(got, want), f"threefry_draws differs from "
+                    f"plain at seed {seed}, {shape}")
+    for seed, shape, rows in KNOWN_DRAW_ROWS:
+        t = raw_draws(seed, *shape, device=dev).cpu().numpy().view(np.uint32)
+        for i, row in rows.items():
+            require(t[i].tolist() == row, f"threefry_draws: seed {seed} row "
+                    f"{i} is not the JAX package's")
+    t = raw_draws(GEN_SEED, 4096, 3120, device=dev).cpu().numpy().view(
+        np.uint32)
+    require(t[0, :4].tolist() == KNOWN_DRAW_17["head"]
+            and t[4095, -4:].tolist() == KNOWN_DRAW_17["tail"]
+            and int(np.bitwise_xor.reduce(t.ravel())) == KNOWN_DRAW_17["xor"]
+            and int(t.astype(np.uint64).sum() % 2**32)
+            == KNOWN_DRAW_17["sum"],
+            "threefry_draws: seed 17 at 4096 x 3120 is not the JAX "
+            "package's table")
+    threefry_draws.launches = launches
+    print(f"{tag} threefry_draws == plain: seeds {list(DRAW_SEEDS)} x "
+          f"shapes {list(DRAW_SHAPES)}, every word bit-identical; known "
+          f"answers of _raw_draws_jax equal (seed 17, 4096 x 3120: XOR "
+          f"{KNOWN_DRAW_17['xor']}, sum {KNOWN_DRAW_17['sum']})", flush=True)
+    rows = {}
+    for shape in ((4096, 3120), (4096, 624),
+                  (GEN_BATCH, gen_core._n_draws(GEN_OPS))):
+        ms, plain_ms = time_draws(*shape, dev)
+        bound_ms, by = draws_bound(*shape)
+        rows[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=by)
+        print(f"{tag} threefry_draws {shape[0]} x {shape[1]}: {ms:.6f} ms "
+              f"a launch, bound {bound_ms:.6f} ms by {by} "
+              f"({ms / bound_ms:.2f}x), plain {plain_ms:.3f} ms",
+              flush=True)
+    return 0, rows
+
+
+class GenStages:
+    """Inside ``with``: ``gen/core.py``'s device table swapped for a
+    pass-through that makes the same two calls (``raw_draws`` on the
+    card, then the copy to the host) with a synchronise between them, so
+    that the draw and the copy are timed apart.  Each launch is still
+    counted once, by the wrapper it reaches.  ``calls`` keeps (seed,
+    lanes, draws, the card's table) of each call."""
+
+    def __init__(self):
+        self.draw_s = self.copy_s = 0.0
+        self.calls = []
+
+    def _device_table(self, seed, n_lanes, n_draws, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab = raw_draws(seed, n_lanes, n_draws, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = tab.cpu().numpy().view(np.uint32)
+        self.copy_s += time.perf_counter() - t1
+        self.draw_s += t1 - t0
+        self.calls.append((seed, n_lanes, n_draws, tab))
+        return host
+
+    def __enter__(self):
+        gen_core._raw_draws_device = self._device_table
+        return self
+
+    def __exit__(self, *exc):
+        gen_core._raw_draws_device = _DEVICE_TABLE
+
+
+_DEVICE_TABLE = gen_core._raw_draws_device
+
+
+def phase_generate(dev, tag):
+    """Phase 15 (b): ``generate_batch(path="jax")`` on the card for each
+    family at 8 pids x 32 ops and 4096 lanes: the card's table equal to
+    the plain version's, the first 256 histories equal to the
+    ``device="cpu"`` call's; the draw, the copy and the assembly timed
+    apart."""
+    profile = GenProfile(n_pids=GEN_PIDS, n_ops=GEN_OPS)
+    for fam in GEN_FAMILIES:
+        spec = MODELS[fam].make_spec()
+        with GenStages() as st:
+            t0 = time.perf_counter()
+            hs = generate_batch(spec, profile, GEN_SEED, GEN_LANES,
+                                path="jax")
+            total = time.perf_counter() - t0
+        (seed, lanes, draws, tab), = st.calls
+        require(torch.equal(tab, raw_draws_plain(seed, lanes, draws,
+                                                 device=dev)),
+                f"{fam}: the card's table differs from the plain version's")
+        cpu = generate_batch(spec, profile, GEN_SEED, GEN_SAMPLE,
+                             path="jax", device="cpu")
+        require([h.fingerprint() for h in hs[:GEN_SAMPLE]]
+                == [h.fingerprint() for h in cpu],
+                f"{fam}: histories differ from the device='cpu' call's")
+        ops = sum(len(h) for h in hs)
+        print(f"{tag} generate_batch {fam} {GEN_LANES} x ({GEN_PIDS} pids x "
+              f"{GEN_OPS} ops, {draws} draws a lane): draw "
+              f"{st.draw_s * 1e3:.3f} ms, copy to the host "
+              f"{st.copy_s * 1e3:.3f} ms, assembly "
+              f"{total - st.draw_s - st.copy_s:.3f} s ({ops} ops); table "
+              f"bit-identical to plain, {GEN_SAMPLE} histories equal to "
+              f"device='cpu'", flush=True)
+
+
+def _audit_flip(item):
+    """A flip re-checked by a fresh memo oracle (in a worker process)."""
+    fam, h = item
+    spec = MODELS[fam].make_spec()
+    return int(WingGongCPU(memo=True).check_histories(spec, [h])[0])
+
+
+def steer_family(fam, tag, profile_round):
+    """``GEN_ROUNDS`` rounds of ``SteeringLoop(spec, HybridDevice(spec),
+    path="auto")``, each round's stages timed: the draw and the copy
+    (``GenStages``), the assembly, the check, ``profile_corpus``.  With
+    ``profile_round`` the last round runs under ``torch.profiler``."""
+    spec = MODELS[fam].make_spec()
+    hb = HybridDevice(spec)
+    rounds, flips = [], []
+    check = hb.check_histories
+
+    def timed_check(spec_, hs):
+        lanes, tail = hb.device.device_histories, hb.tail_histories
+        t0 = time.perf_counter()
+        v = check(spec_, hs)
+        rounds[-1].update(hists=hs, v=np.asarray(v),
+                          check_s=time.perf_counter() - t0,
+                          lanes=hb.device.device_histories - lanes,
+                          tail=hb.tail_histories - tail)
+        return v
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            rounds[-1][name] = time.perf_counter() - t0
+            return out
+        return run
+
+    hb.check_histories = timed_check
+    loop = SteeringLoop(spec, hb, profile=GenProfile(n_pids=GEN_PIDS,
+                                                     n_ops=GEN_OPS),
+                        batch=GEN_BATCH, seed=GEN_SEED, path="auto",
+                        on_flip=lambda s, p, h: flips.append((fam, h)))
+    gen_steer.generate_batch = timed("gen_s", generate_batch)
+    gen_steer.profile_corpus = timed("profile_s", profile_corpus)
+    prof = None
+    try:
+        with GenStages() as st:
+            for r in range(GEN_ROUNDS):
+                rounds.append({})
+                d0, c0 = st.draw_s, st.copy_s
+                t0 = time.perf_counter()
+                if profile_round and r == GEN_ROUNDS - 1:
+                    box = []
+                    prof = profile_device(lambda: box.append(loop.round()))
+                    report = box[0]
+                else:
+                    report = loop.round()
+                rounds[-1].update(report=report,
+                                  round_s=time.perf_counter() - t0,
+                                  draw_s=st.draw_s - d0,
+                                  copy_s=st.copy_s - c0)
+    finally:
+        gen_steer.generate_batch = generate_batch
+        gen_steer.profile_corpus = profile_corpus
+    return spec, hb, loop, rounds, flips, prof, st.calls
+
+
+def phase_steer(dev, tag):
+    """Phase 15 (c), the main path of the generation plane: the steering
+    loop over the hybrid plan on the card for each family.  Its launches
+    are read just after the loops; then each round's verdicts are held
+    against ``CppOracle``'s (nothing undecided), every flip is re-checked
+    by a fresh memo oracle (0 missed), 64 LINEARIZABLE witnesses of the
+    best profile's batch are replayed, ``save``/``load`` gives an equal
+    pool, and the path's kernels are held against their plain versions
+    on its own inputs.  Returns (launches, largest error)."""
+    threefry_draws.launches = 0
+    stepper_chunk.launches = compact_carry.launches = 0
+    runs = []
+    with FirstInputs() as first:
+        for i, fam in enumerate(GEN_FAMILIES):
+            runs.append((fam, *steer_family(fam, tag, profile_round=i == 0)))
+    launches = path_launches("the generation plane", tag,
+                             (threefry_draws, stepper_chunk, compact_carry))
+    want = len(GEN_FAMILIES) * GEN_ROUNDS
+    require(launches["threefry_draws"] == want, f"the generation plane "
+            f"launched threefry_draws {launches['threefry_draws']} times, "
+            f"not once a round ({want})")
+    require(launches["stepper_chunk"] > 0, "the generation plane launched "
+            "no stepper_chunk")
+    all_flips, tables = [], []
+    for fam, spec, hb, loop, rounds, flips, prof, calls in runs:
+        tables += calls
+        cpp = native.CppOracle(spec)
+        for r, rec in enumerate(rounds):
+            v = rec["v"]
+            require(not (v == Verdict.BUDGET_EXCEEDED).any(),
+                    f"{fam} round {r}: lanes undecided")
+            require(v.tolist() == cpp.check_histories(
+                spec, rec["hists"]).tolist(),
+                f"{fam} round {r}: verdicts differ from CppOracle's")
+            rep = rec["report"]
+            assembly = rec["gen_s"] - rec["draw_s"] - rec["copy_s"]
+            print(f"{tag} steer {fam} round {r}: {json.dumps(rep)}; round "
+                  f"{rec['round_s']:.3f} s = draw "
+                  f"{rec['draw_s'] * 1e3:.3f} ms + copy "
+                  f"{rec['copy_s'] * 1e3:.3f} ms + assembly {assembly:.3f} "
+                  f"s + check {rec['check_s']:.3f} s + profile_corpus "
+                  f"{rec['profile_s'] * 1e3:.1f} ms; the check ran "
+                  f"{rec['lanes']} device lanes (pending ops expanded) and "
+                  f"sent {rec['tail']} histories to the native tail; "
+                  f"verdicts equal to CppOracle's, 0 undecided", flush=True)
+        if prof is not None:
+            wall, busy, top = prof
+            print(f"{tag} steer {fam} profiled round: wall {wall:.3f} s, "
+                  f"device busy {busy:.6f} s, idle share "
+                  f"{1 - busy / wall:.4f}; top kernels {top}", flush=True)
+        best = loop.pool.best()
+        batch = next((rec["hists"], rec["v"]) for rec in rounds
+                     if rec["report"]["seed"] == best.seed) \
+            if any(rec["report"]["seed"] == best.seed for rec in rounds) \
+            else None
+        if batch is None:  # the starting entry: regenerate its batch
+            hs = generate_batch(spec, best.profile, best.seed, GEN_BATCH,
+                                path="auto")
+            batch = (hs, cpp.check_histories(spec, hs))
+        lin = [h for h, x in zip(*batch)
+               if x == Verdict.LINEARIZABLE][:GEN_WITNESSES]
+        from_tail = 0
+        for h in lin:
+            wv, wit = hb.check_witness(spec, h)
+            if wv == Verdict.LINEARIZABLE and wit is None:
+                # a history with pending ops: the device search gives no
+                # witness (as JaxTPU's), the host tail does
+                wv, wit = hb.tail.check_witness(spec, h)
+                from_tail += 1
+            require(wv == Verdict.LINEARIZABLE
+                    and verify_witness(spec, h, wit),
+                    f"{fam}: a LINEARIZABLE witness failed to replay")
+        ckpt = kernels.BUILD_DIR / f"steer_{fam}.json"
+        loop.save(str(ckpt))
+        back = SteeringLoop(spec, native.CppOracle(spec), path="py")
+        require(back.load(str(ckpt)) and back.pool.to_dict()
+                == loop.pool.to_dict() and back.stats.to_compact()
+                == loop.stats.to_compact(),
+                f"{fam}: save/load did not give an equal pool")
+        ckpt.unlink()
+        st = loop.search_stats()
+        print(f"{tag} steer {fam}: best {json.dumps(best.to_dict())}; "
+              f"{len(lin)} witnesses of its batch replayed ({from_tail} "
+              f"from the host tail: pending ops); save/load "
+              f"equal; search stats {json.dumps(st.to_compact())}; over "
+              f"its rounds the device decided {hb.device_decided}, the "
+              f"native tail {hb.tail_histories}", flush=True)
+        all_flips += flips
+    t0 = time.perf_counter()
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            max_workers=min(8, multiprocessing.cpu_count()),
+            mp_context=multiprocessing.get_context("fork")) as pool:
+        audit = list(pool.map(_audit_flip, all_flips, chunksize=16))
+    missed = sum(v != int(Verdict.VIOLATION) for v in audit)
+    require(missed == 0, f"{missed} flips a fresh memo oracle does not "
+            f"call VIOLATION")
+    print(f"{tag} flip audit: {len(all_flips)} flips re-checked by a fresh "
+          f"memo oracle each, 0 missed ({time.perf_counter() - t0:.2f} s, "
+          f"worker processes)", flush=True)
+    # the path's own tables, each against the plain version on the card
+    for seed, lanes, draws, tab in tables:
+        require(torch.equal(tab, raw_draws_plain(seed, lanes, draws,
+                                                 device=dev)),
+                f"threefry_draws on the path (seed {seed}, {lanes} x "
+                f"{draws}) differs from plain")
+    print(f"{tag} threefry_draws == plain on the path of the generation "
+          f"plane: its {len(tables)} tables "
+          f"({sorted({(l, d) for _, l, d, _ in tables})}), every word "
+          f"bit-identical", flush=True)
+    err = hold_path_kernels("the generation plane", first, tag)
+    return launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -2001,13 +2375,20 @@ def main(argv=None) -> int:
         tag)
     print(f"{tag} phase hybrid plan: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    draws_err, draw_rows = phase_draws(dev, tag)
+    phase_generate(dev, tag)
+    gen_launches, gen_err = phase_steer(dev, tag)
+    print(f"{tag} phase generation plane: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
-               **{f"{k} hybrid": x for k, x in hybrid_launches.items()}}
+               **{f"{k} hybrid": x for k, x in hybrid_launches.items()},
+               "generation plane (phase 15)": gen_launches}
 
-    # phase 6 and the paths of phases 13-14, each on its own inputs
-    step_err = max(step_err, pcomp_err, hybrid_err)
+    # phase 6 and the paths of phases 13-15, each on its own inputs
+    step_err = max(step_err, pcomp_err, hybrid_err, gen_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     kernels_line = {"kernels": [{
@@ -2041,7 +2422,18 @@ def main(argv=None) -> int:
         "replaces": "qsm_tpu/ops/jax_kernel.py:303 (build_stepper -> "
                     "run_one, sweep regime)",
         "launches": sweep_launches, "matches_plain": sweep_err == 0,
-        "max_abs_err": sweep_err, **sweep, "library_ms": None}]
+        "max_abs_err": sweep_err, **sweep, "library_ms": None}, {
+        "name": "threefry_draws", "route": "cuda",
+        "source": "qsm_tpu_torch/csrc/threefry_draws.cu",
+        "replaces": "qsm_tpu/gen/core.py:88 (_raw_draws_jax)",
+        "launches": gen_launches["threefry_draws"],
+        "matches_plain": draws_err == 0, "max_abs_err": draws_err,
+        **draw_rows[(GEN_BATCH, gen_core._n_draws(GEN_OPS))],
+        # torch's generators are Philox: no PyTorch call computes
+        # threefry's bits
+        "library_ms": None,
+        "launches_by_path": {"generation plane (phase 15)":
+                             gen_launches["threefry_draws"]}}]
     print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line))

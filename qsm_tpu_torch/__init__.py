@@ -20,6 +20,12 @@ checker (``native/wg.cpp``, built with ``g++`` at first use), the
 property layer's resolving oracle when it builds; :class:`HybridDevice`
 lets ``TorchStepper`` decide the easy majority under a tight budget and
 the host checker the rest.
+
+The generation plane (``gen/``) manufactures the histories worth
+checking: ``generate_batch`` draws a seeded table (on the card,
+``csrc/threefry_draws.cu``) and assembles histories on the host, and
+``SteeringLoop`` mutates workload profiles scored by the checkers'
+search-cost records (``search/stats.py``).
 """
 
 from .core.generator import Program, ProgOp, generate_program

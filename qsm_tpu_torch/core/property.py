@@ -22,6 +22,7 @@ import numpy as np
 from ..ops.backend import LineariseBackend, Verdict
 from ..sched.runner import ConcurrentSUT, run_concurrent
 from ..sched.scheduler import FaultPlan
+from ..search.stats import SearchStats, collect_search_stats, stats_delta
 from .generator import Program, dedupe, generate_program, shrink_candidates
 from .history import History
 from .spec import Spec
@@ -176,6 +177,30 @@ def prop_concurrent(spec: Spec, sut: ConcurrentSUT,
     cfg = cfg or PropertyConfig()
     oracle = oracle if oracle is not None else _default_oracle(spec)
     backend = backend or oracle
+    # search-cost accounting rides the timings dict: engines count
+    # cumulatively per instance, so the run reports its own delta
+    st0 = _run_stats(backend, oracle)
+    res = _prop_concurrent_body(spec, sut, cfg, backend, oracle)
+    st = stats_delta(_run_stats(backend, oracle), st0)
+    if st is not None:
+        res.timings.update(st.to_timings())
+    return res
+
+
+def _run_stats(backend: LineariseBackend, oracle: LineariseBackend):
+    """The backend's search-cost record.  A dispatching backend without
+    one reports an empty record, as the JAX package's failover wrapper
+    around it does, so that both packages' ``timings`` carry the same
+    keys."""
+    st = collect_search_stats(backend)
+    if st is None and backend is not oracle:
+        st = SearchStats()
+    return st
+
+
+def _prop_concurrent_body(spec: Spec, sut: ConcurrentSUT,
+                          cfg: PropertyConfig, backend: LineariseBackend,
+                          oracle: LineariseBackend) -> PropertyResult:
     timings: Dict[str, float] = {}
 
     def _bump(key: str, t0: float) -> None:

@@ -237,6 +237,47 @@ def compile_step_table(spec: Spec, n_states: int):
     return trans, ok
 
 
+# Selectivity probing caps at this many states: the table is a search
+# heuristic, never a soundness input, so a deterministic stride sample of
+# a large packed domain estimates the same ranks at a bounded cost.
+MAX_SELECTIVITY_PROBE_STATES = 512
+
+
+def compile_selectivity_table(
+    spec: Spec, n_states: int,
+    max_probe_states: int = MAX_SELECTIVITY_PROBE_STATES,
+) -> np.ndarray:
+    """Postcondition selectivity per (cmd, arg, resp): the fraction of
+    scalar states in ``[0, n_states)`` whose ``step_py`` accepts the op.
+
+    Same scalar-domain contract and source of truth as
+    :func:`compile_step_table`.  Low selectivity means the op's
+    postcondition holds almost nowhere (the steering loop's starting op
+    mix weights such commands up).  Domains larger than
+    ``max_probe_states`` are stride-sampled deterministically: the result
+    is a rank estimate, and no verdict depends on it."""
+    assert spec.STATE_DIM == 1, \
+        "selectivity tables only for scalar-state specs"
+    if n_states <= max_probe_states:
+        # the step table's ok plane is the selectivity source, so the
+        # estimate can never disagree with the tabulation
+        _, ok = compile_step_table(spec, n_states)
+        return ok.mean(axis=0, dtype=np.float64)
+    max_args = max(c.n_args for c in spec.CMDS)
+    stride = -(-n_states // max_probe_states)
+    sel = np.zeros((spec.n_cmds, max_args, spec.max_resps), np.float64)
+    n_probed = 0
+    for s in range(0, n_states, stride):
+        n_probed += 1
+        for c, sig in enumerate(spec.CMDS):
+            for a in range(sig.n_args):
+                for r in range(sig.n_resps):
+                    _, good = spec.step_py([s], c, a, r)
+                    if good:
+                        sel[c, a, r] += 1.0
+    return sel / max(n_probed, 1)
+
+
 # ---------------------------------------------------------------------------
 # Validation of a declared per-key projection (once per spec)
 # ---------------------------------------------------------------------------

@@ -186,6 +186,19 @@ class CppOracle:
         v = self.check_histories(spec, [history], init_states=[init_state])
         return Verdict(int(v[0]))
 
+    def search_stats(self):
+        """Host-search cost record (``search/stats.py``): native nodes
+        plus whatever the Python fallback spent on histories outside the
+        native domain, one sum."""
+        from ..search.stats import SearchStats, collect_search_stats
+
+        st = SearchStats(
+            engine=self.name,
+            histories=self.native_histories + self.fallback_histories,
+            nodes_explored=self.nodes_explored,
+        )
+        return st.absorb(collect_search_stats(self.fallback))
+
     def check_witness(self, spec: Spec, history: History):
         """(verdict, witness) — delegated to the Python oracle: witness
         extraction is a debugging/audit path, and the fallback shares

@@ -113,6 +113,21 @@ class HybridDevice:
                 self._degrade(e)
         return self.tail.check_witness(spec, history)
 
+    def search_stats(self):
+        """Device lockstep cost and host tail nodes side by side
+        (``search/stats.py``): device iterations saved by deferring
+        stragglers are savings only with the tail's nodes beside them."""
+        from ..search.stats import collect_search_stats
+
+        st = self.device.search_stats()
+        st.engine = self.name
+        st.tail_histories = self.tail_histories
+        st.degradations += self.degradations
+        if self.fallback_engine:
+            st.fallback_engine = self.fallback_engine
+        st.absorb(collect_search_stats(self.tail))
+        return st
+
     def resilience(self) -> dict:
         """The fault-handling record: degradations and who decided what."""
         return {

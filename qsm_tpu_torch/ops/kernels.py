@@ -152,8 +152,20 @@ def stepper_sweep_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def threefry_draws_lib() -> ctypes.CDLL:
+    """The built ``threefry_draws`` library: the output pointer, the
+    32-bit seed, the two 64-bit counts of lanes and draws, the stream."""
+    lib = ctypes.CDLL(str(build("threefry_draws")))
+    fn = lib.threefry_draws_launch
+    fn.argtypes = [_P, ctypes.c_uint32, ctypes.c_longlong,
+                   ctypes.c_longlong, _P]
+    fn.restype = _I
+    return lib
+
+
 KERNEL_SOURCES = ("dfs_chunk", "stepper_chunk", "compact_carry",
-                  "stepper_sweep")
+                  "stepper_sweep", "threefry_draws")
 
 
 def build_all(names=KERNEL_SOURCES) -> dict:

@@ -231,6 +231,26 @@ class PComp:
         v, w = self._witness_oracle.check_witness(self.projected, sub_h)
         return Verdict(int(v)), w
 
+    def search_stats(self):
+        """The decomposition's own cost and shape record with the inner
+        engine's counters absorbed: a decomposed rate says that it
+        decomposed, and into what (``search/stats.py``)."""
+        from ..search.stats import SearchStats, collect_search_stats
+
+        st = SearchStats(
+            engine=self.name,
+            histories=self.histories_seen,
+            pcomp_split=self.split_histories,
+            pcomp_subs=self.subs_produced,
+            pcomp_max_sub=self.max_sub_len,
+            pcomp_recombine_ms=int(self.recombine_s * 1000),
+        )
+        st.absorb(collect_search_stats(self.inner))
+        if self._witness_oracle is not None:
+            # per-key witness searches are host nodes this combinator spent
+            st.absorb(collect_search_stats(self._witness_oracle))
+        return st
+
 
 # ---------------------------------------------------------------------------
 # witness stitching

@@ -160,6 +160,26 @@ class TorchStepper(DeviceChecker):
         # bucket: what every lane pays in lockstep, not what it needed
         self.lockstep_cost = 0
 
+    def search_stats(self):
+        """Cumulative :class:`~qsm_tpu_torch.search.stats.SearchStats`:
+        ``histories`` counts device lanes (after pending expansion),
+        ``lockstep_iters`` the trips x padded width every lane pays.  The
+        port has no candidate ordering or search plan yet, so ``ordering``
+        and ``plan`` keep their defaults."""
+        from ..search.stats import SearchStats
+
+        return SearchStats(
+            engine=self.name,
+            histories=self.device_histories,
+            lockstep_iters=self.lockstep_cost,
+            memo_prunes=self.memo_prunes,
+            memo_inserts=self.memo_inserts,
+            compactions=self.compactions,
+            chunk_rounds=self.rounds_run,
+            rescued=self.rescued,
+            deferred=self.deferred_out_of_domain,
+        )
+
     # -- the chunked, lane-compacting driver ---------------------------
     def _run_device(self, flat: Sequence[History],
                     flat_inits: Optional[List] = None,

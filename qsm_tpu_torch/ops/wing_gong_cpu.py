@@ -33,6 +33,8 @@ class WingGongCPU:
                  memo: bool = False):
         self.node_budget = node_budget
         self.memo = memo
+        self.nodes_explored = 0  # cumulative, for the search-cost record
+        self.histories_checked = 0
 
     def check_histories(self, spec: Spec, histories: Sequence[History]
                         ) -> np.ndarray:
@@ -55,10 +57,23 @@ class WingGongCPU:
         return v, (list(reversed(witness))
                    if v == Verdict.LINEARIZABLE else None)
 
+    def search_stats(self):
+        """Host-search cost record (``search/stats.py``): oracle nodes
+        per history, the denominator a device's iterations per history
+        is judged against."""
+        from ..search.stats import SearchStats
+
+        return SearchStats(
+            engine=self.name + ("_memo" if self.memo else ""),
+            histories=self.histories_checked,
+            nodes_explored=self.nodes_explored,
+        )
+
     def _check(self, spec: Spec, history: History,
                init_state=None, witness_out=None) -> Verdict:
         ops = history.ops
         n = len(ops)
+        self.histories_checked += 1
         if n == 0:
             return Verdict.LINEARIZABLE
         prec = history.precedes_matrix()
@@ -94,6 +109,7 @@ class WingGongCPU:
                          else (op.resp,))
                 for resp in resps:
                     budget[0] -= 1
+                    self.nodes_explored += 1
                     if budget[0] <= 0:
                         return Verdict.BUDGET_EXCEEDED
                     new_state, ok = spec.step_py(list(state), op.cmd,

@@ -19,8 +19,12 @@ that leaves out a running lane refused), the compaction of sweep-regime carries,
 and ``TorchStepper``'s sweep regime on KV histories against the memo
 oracle per key; per-key decomposition over ``TorchStepper`` (KV of 16
 keys, multireg, multicas) and the hybrid plan (CAS, queue) against the
-host oracle, nothing undecided.  Without CUDA each test skips in its
-fixture."""
+host oracle, nothing undecided; ``threefry_draws`` against its plain
+version (seven seeds, four shapes, more lanes than the launch's block
+cap) and the known answers of the JAX package's table, ``generate_batch``
+on CUDA equal to the ``device="cpu"`` call, and one ``SteeringLoop``
+round over ``HybridDevice`` whose verdicts are ``CppOracle``'s.  Without
+CUDA each test skips in its fixture."""
 
 from __future__ import annotations
 
@@ -747,3 +751,108 @@ def test_hybrid_device_raises_a_device_error_on_the_card(cuda, monkeypatch):
         hb.check_witness(spec, hs[0])
     assert not hb.degraded and hb.degradations == 0
     assert hb.tail_histories == 0
+
+
+# the known answers of the JAX package's ``_raw_draws_jax`` (seed, shape,
+# rows), taken on the CPU with JAX 0.9.0
+KNOWN_DRAWS = [
+    (7, (3, 5), {0: [3725328165, 2389352394, 1291398195, 1428036129,
+                     4260943734]}),
+    (-3, (2, 3), {0: [2585318788, 4151447820, 471961339],
+                  1: [2707064578, 2513172215, 3288622452]}),
+    (2**32 + 5, (2, 3), {0: [2839113055, 3758129494, 1086722469],
+                         1: [359975681, 984463424, 482527479]}),
+]
+
+
+@pytest.mark.parametrize("seed", [0, 7, 17, 2**31, 2**32 + 5, -3,
+                                  1_000_004])
+@pytest.mark.parametrize("shape", [(1, 1), (33, 17), (4096, 624),
+                                   (65537, 3)])
+def test_threefry_draws_matches_plain_version(cuda, seed, shape):
+    """``threefry_draws`` on CUDA against its plain version on the card,
+    every word equal (tolerance 0): one lane, ragged rows, the main
+    path's 4096 lanes, more lanes than the launch's block cap."""
+    from qsm_tpu_torch.ops.draws_kernel import (raw_draws, raw_draws_plain,
+                                                threefry_draws)
+
+    before = threefry_draws.launches
+    got = raw_draws(seed, *shape, device=cuda)
+    torch.cuda.synchronize()
+    assert threefry_draws.launches == before + 1
+    assert torch.equal(got, raw_draws_plain(seed, *shape, device=cuda))
+
+
+def test_threefry_draws_known_answers(cuda):
+    """The kernel's table equals the JAX package's ``_raw_draws_jax``: the
+    known rows, and seed 17 at 4096 x 3120 by its corners, XOR and sum."""
+    from qsm_tpu_torch.ops.draws_kernel import raw_draws
+
+    for seed, shape, rows in KNOWN_DRAWS:
+        t = raw_draws(seed, *shape, device=cuda).cpu().numpy().view(
+            np.uint32)
+        for i, row in rows.items():
+            assert t[i].tolist() == row, (seed, i)
+    t = raw_draws(17, 4096, 3120, device=cuda).cpu().numpy().view(np.uint32)
+    assert t[0, :4].tolist() == [2639664804, 3479077941, 2518621796,
+                                 1267003793]
+    assert t[4095, -4:].tolist() == [1348504043, 1475632984, 2031686271,
+                                     3777973134]
+    assert int(np.bitwise_xor.reduce(t.ravel())) == 3671365389
+    assert int(t.astype(np.uint64).sum() % 2**32) == 4283564019
+
+
+@pytest.mark.parametrize("model", ["rangeset", "semaphore", "register"])
+def test_generate_batch_on_cuda_equals_the_cpu_call(cuda, model):
+    """``generate_batch`` on the ``"jax"`` and ``"auto"`` paths launches
+    the kernel and gives the histories of the ``device="cpu"`` call."""
+    from qsm_tpu_torch.gen import GenProfile, generate_batch
+    from qsm_tpu_torch.models.registry import MODELS
+    from qsm_tpu_torch.ops.draws_kernel import threefry_draws
+
+    spec = MODELS[model].make_spec()
+    profile = GenProfile(n_pids=8, n_ops=32, key_skew=1.0, p_pending=0.05,
+                         p_adverse=0.05)
+    want = [h.fingerprint() for h in generate_batch(
+        spec, profile, 17, 64, path="jax", device="cpu")]
+    for path in ("jax", "auto"):
+        before = threefry_draws.launches
+        got = generate_batch(spec, profile, 17, 64, path=path)
+        assert threefry_draws.launches == before + 1
+        assert [h.fingerprint() for h in got] == want
+
+
+def test_steering_round_over_the_hybrid_plan_matches_the_host_oracle(
+        cuda, monkeypatch):
+    """One ``SteeringLoop`` round over ``HybridDevice`` on the card: the
+    table comes from the kernel, the check launches ``stepper_chunk``, and
+    the round's verdicts are ``CppOracle``'s, nothing undecided."""
+    from qsm_tpu_torch.gen import GenProfile, SteeringLoop
+    from qsm_tpu_torch.models.registry import MODELS
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops.draws_kernel import threefry_draws
+    from qsm_tpu_torch.ops.hybrid import HybridDevice
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk
+
+    spec = MODELS["rangeset"].make_spec()
+    hb = HybridDevice(spec)
+    seen = []
+    check = hb.check_histories
+
+    def recording(spec_, hs):
+        v = check(spec_, hs)
+        seen.append((hs, v))
+        return v
+
+    monkeypatch.setattr(hb, "check_histories", recording)
+    loop = SteeringLoop(spec, hb, profile=GenProfile(n_pids=8, n_ops=32),
+                        batch=256, seed=17, path="auto")
+    draws, steps = threefry_draws.launches, stepper_chunk.launches
+    report = loop.round()
+    assert threefry_draws.launches == draws + 1
+    assert stepper_chunk.launches > steps
+    (hs, v), = seen
+    assert (v != Verdict.BUDGET_EXCEEDED).all()
+    np.testing.assert_array_equal(v, CppOracle(spec).check_histories(spec,
+                                                                     hs))
+    assert report["flips"] == int((v == Verdict.VIOLATION).sum())

@@ -112,6 +112,39 @@ def test_counters_equal_to_reference_queue():
     assert isinstance(hb.tail, CppOracle)
 
 
+def test_search_stats_show_device_and_tail_side_by_side():
+    """The composed record: the device's lockstep cost and the tail's
+    host nodes together, the tail's lanes counted, as the reference's."""
+    jspec, tspec = CasSpec(), TCas()
+    corpus = _corpus()
+    ref = JHybrid(jspec, budget=50)
+    ref.check_histories(jspec, corpus)
+    hb = HybridDevice(tspec, budget=50, **CPU)
+    hb.check_histories(tspec, _port(corpus))
+    st, want = hb.search_stats(), ref.search_stats()
+    assert st.engine == want.engine == "hybrid_device"
+    assert st.tail_histories == hb.tail_histories == want.tail_histories
+    assert st.lockstep_iters > 0 and st.nodes_explored > 0
+    assert st.nodes_explored == want.nodes_explored
+    assert st.degradations == 0 and st.fallback_engine == ""
+
+
+def test_search_stats_record_a_degrade(monkeypatch):
+    spec = TCas()
+    hb = HybridDevice(spec, **CPU)
+
+    def lost(*a, **kw):
+        raise BackendUnavailable("card lost")
+
+    monkeypatch.setattr(hb.device, "check_histories", lost)
+    hb.check_histories(spec, _port(_corpus(n=6)))
+    st = hb.search_stats()
+    assert st.degradations == 1
+    assert st.fallback_engine == hb.tail.name
+    assert st.tail_histories == 6 and st.lockstep_iters == 0
+    assert st.to_timings()["resilience_degradations"] == 1.0
+
+
 def test_device_error_degrades_to_the_tail(monkeypatch):
     spec = TCas()
     corpus = _port(_corpus())

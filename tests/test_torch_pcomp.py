@@ -465,3 +465,52 @@ def test_property_run_with_pcomp_backend_matches_reference():
     assert got.histories_checked == ref.histories_checked
     assert got.distinct_histories == ref.distinct_histories
     assert pc.subs_produced > 0
+
+
+# ---------------------------------------------------------------------------
+# the search-cost record (the counters of tests/test_pcomp.py)
+# ---------------------------------------------------------------------------
+
+def test_pcomp_counters_ride_stats_and_timings():
+    spec, tspec = KvSpec(n_keys=4, n_values=4), TKv(n_keys=4, n_values=4)
+    hs = build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT), n=8, n_pids=8,
+                      max_ops=24, seed_base=1000, seed_prefix="pcs")
+    pc, ref = tpc.PComp(tspec), jpc.PComp(spec)
+    pc.check_histories(tspec, _port(hs))
+    ref.check_histories(spec, hs)
+    st = pc.search_stats()
+    assert st.pcomp_split > 0
+    assert st.pcomp_subs >= st.pcomp_split
+    assert st.pcomp_max_sub > 0
+    compact = st.to_compact()
+    assert compact["pcs"] == st.pcomp_split
+    assert compact["pcn"] == st.pcomp_subs
+    assert compact["pcm"] == st.pcomp_max_sub
+    t = st.to_timings()
+    assert t["pcomp_subs"] == float(st.pcomp_subs)
+    assert "pcomp_recombine_ms" in t
+    # the reference's record, but for the host time of the split
+    want = ref.search_stats()
+    for k in ("histories", "nodes_explored", "pcomp_split", "pcomp_subs",
+              "pcomp_max_sub"):
+        assert getattr(st, k) == getattr(want, k), k
+    assert st.engine == want.engine == "pcomp(wing_gong_cpu)"
+
+
+def test_property_run_carries_pcomp_timings():
+    import qsm_tpu
+    from qsm_tpu.ops.wing_gong_cpu import WingGongCPU as JOracle
+
+    spec, tspec = KvSpec(n_keys=4, n_values=4), TKv(n_keys=4, n_values=4)
+    cfg = dict(n_trials=8, n_pids=8, max_ops=24, seed=5)
+    res = prop_concurrent(tspec, TAtomicKv(tspec), PropertyConfig(**cfg),
+                          backend=tpc.PComp(tspec), oracle=TOracle())
+    assert res.ok, res.counterexample
+    assert res.timings.get("pcomp_subs", 0) > 0
+    ref = qsm_tpu.prop_concurrent(spec, AtomicKvSUT(spec),
+                                  qsm_tpu.PropertyConfig(**cfg),
+                                  backend=jpc.PComp(spec), oracle=JOracle())
+    assert sorted(res.timings) == sorted(ref.timings)
+    for k in ("pcomp_split", "pcomp_subs", "pcomp_max_sub",
+              "search_histories", "search_nodes_per_history"):
+        assert res.timings[k] == ref.timings[k], k
