@@ -5,6 +5,7 @@
     python3 chip_smoke.py --against OLD.cu   # also time an earlier kernel
     python3 chip_smoke.py --against-stepper OLD_DIR  # earlier stepper kernels
     python3 chip_smoke.py --against-sweep OLD.cu     # an earlier stepper_sweep
+    python3 chip_smoke.py --against-draws OLD.cu     # an earlier threefry_draws
     python3 chip_smoke.py --ablate-sweep   # where a kv16 iteration's cycles go
 
 Phases, in order; any failure exits non-zero and no result is printed:
@@ -132,18 +133,32 @@ Phases, in order; any failure exits non-zero and no result is printed:
    0);
 15. generation plane: (a) ``threefry_draws`` against its plain version
    on the card at seeds 0, 7, 17, 2**31, 2**32 + 5, -3 and 1,000,004 and
-   shapes 1 x 1, 33 x 17, 4096 x 624 and 4096 x 3120, every word equal,
-   and the known answers of the JAX package's ``_raw_draws_jax``; the
-   kernel timed (CUDA events) at 4096 x 3120, 4096 x 624 and the main
-   path's 1024 x 816 beside its bound, the plain version once; (b)
+   every ``DRAW_SHAPES`` (one word, rows of 3, 17, 33 and 4097 words that
+   take 4-byte stores, more units than the grid, the main path's 1024 x
+   816, 4096 x 624, 4096 x 3120), every word equal; tables off a 16-byte boundary (4-byte stores); the known answers of
+   the JAX package's ``_raw_draws_jax``; the SASS of the hot loop
+   (``cuobjdump -sass``: instructions a word); the kernel timed (CUDA
+   events, queued behind a spin of the card, and through the wrapper
+   back to back) at the main path's 1024 x 816, 4096 x 624 and 4096 x
+   3120 beside its bound and the floor its SASS sets at the SM clock,
+   with its plan, the plain version once.
+   With ``--against-draws OLD.cu`` (an earlier ``threefry_draws.cu``
+   whose C entry takes out, seed, lanes, draws and the stream) that
+   kernel is built too, its ptxas report and SASS printed beside this
+   one's, both checked equal, and timed in turns (old, new, new, old) at
+   the three shapes; (b)
    ``generate_batch(path="jax")`` on the card for rangeset, semaphore and
    register (the families of ``tools/bench_gen.py``) at 8 pids x 32 ops
    and 4096 lanes: the table equal to the plain version's, 256 histories
    equal to the ``device="cpu"`` call's, the draw, the copy to the host
-   and the assembly timed apart (``GenStages``); (c) the main path:
+   (``table_to_host``, through pinned memory, as ``gen/core.py`` copies)
+   and the assembly timed apart (``GenStages``), then the copy alone in
+   turns with a pageable ``.cpu()`` at 1024 x 816 and 4096 x 816,
+   after the first pinned call of each size; (c) the main path:
    ``SteeringLoop(spec, HybridDevice(spec), batch=1024, seed=17,
-   path="auto")`` for 4 rounds a family, each round's stages timed and
-   printed with its report, the first family's last round profiled;
+   path="auto")`` for 4 rounds a family (the loop's construction, which
+   pins the copy's host block, timed apart), each round's stages timed
+   and printed with its report, the first family's last round profiled;
    then each round's verdicts equal to ``CppOracle``'s with nothing
    undecided, every flip re-checked by a fresh memo oracle (0 missed,
    in worker processes), 64 LINEARIZABLE witnesses of the best profile's
@@ -205,8 +220,10 @@ from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
                                           SMEM_BLOCK_MAX,
                                           Carry, blocks_per_sm, dfs_chunk,
                                           dfs_chunk_plain, launch_plan)
-from qsm_tpu_torch.ops.draws_kernel import (raw_draws, raw_draws_plain,
-                                            threefry_draws)
+from qsm_tpu_torch.ops.draws_kernel import (draws_plan, raw_draws,
+                                            raw_draws_plain,
+                                            reserve_host_table, seed_word,
+                                            table_to_host, threefry_draws)
 from qsm_tpu_torch.ops.gpu_backend import TorchGPU, fresh_carry, lane_tables
 from qsm_tpu_torch.ops.host_contracts import flatten
 from qsm_tpu_torch.ops.hybrid import HybridDevice
@@ -1892,7 +1909,14 @@ GEN_LANES, GEN_SAMPLE = 4096, 256
 GEN_BATCH, GEN_ROUNDS, GEN_SEED = 1024, 4, 17
 GEN_WITNESSES = 64
 DRAW_SEEDS = (0, 7, 17, 2**31, 2**32 + 5, -3, 1_000_004)
-DRAW_SHAPES = ((1, 1), (33, 17), (4096, 624), (4096, 3120))
+# one word; rows that are not a multiple of the kernel's 16-word unit or
+# of 4 (4-byte stores); more units than the grid (65537 x 3); the main
+# path's 1024 x 816; the timed shapes
+DRAW_SHAPES = ((1, 1), (5, 3), (33, 17), (9, 33), (3, 4097), (65537, 3),
+               (1024, 816), (4096, 624), (4096, 3120))
+# timed: the main path's shape (GEN_BATCH x _n_draws(GEN_OPS)) first
+DRAW_TIMED = ((1024, 816), (4096, 624), (4096, 3120))
+DRAW_WORDS_A_UNIT = 16         # csrc/threefry_draws.cu's G
 # the known answers of the JAX package's _raw_draws_jax, taken on the CPU
 KNOWN_DRAW_ROWS = (
     (7, (3, 5), {0: [3725328165, 2389352394, 1291398195, 1428036129,
@@ -1904,10 +1928,16 @@ KNOWN_DRAW_ROWS = (
 KNOWN_DRAW_17 = dict(head=[2639664804, 3479077941, 2518621796, 1267003793],
                      tail=[1348504043, 1475632984, 2031686271, 3777973134],
                      xor=3671365389, sum=4283564019)
-# integer operations a word, counted from csrc/threefry_draws.cu: 20
-# rounds of add, rotate, xor; 12 key injections (adds); the output xor;
-# the row index, address and loop (3)
+# integer operations a word, counted from the first version of
+# csrc/threefry_draws.cu (kept, so that the bound stays comparable across
+# versions): 20 rounds of add, rotate, xor; 12 key injections (adds); the
+# output xor; the row index, address and loop (3)
 THREEFRY_OPS_PER_WORD = 20 * 3 + 12 + 1 + 3
+# thread-instructions an SM issues a clock (4 schedulers, a warp each),
+# and 32-bit integer add / shift / logic, or multiply-add, results a clock
+# an SM (the CUDA C++ Programming Guide's arithmetic-throughput table,
+# compute capability 9.0), for the SASS floors
+ISSUE_PER_CLOCK_SM, INT_PER_CLOCK_SM = 128, 64
 
 
 def draws_bound(n_lanes: int, n_draws: int):
@@ -1920,26 +1950,194 @@ def draws_bound(n_lanes: int, n_draws: int):
                                  else "operations")
 
 
+def draws_c_entry(lib: Path, first_version=False):
+    """``launch(out, seed)`` through a built ``threefry_draws`` library's
+    C entry alone, uncounted: this source's (the SM count among its
+    arguments), or with ``first_version`` the first version's (out,
+    seed, lanes, draws, stream)."""
+    fn = ctypes.CDLL(str(lib)).threefry_draws_launch
+    sizes = [ctypes.c_longlong] * 2
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, *sizes,
+                   *([] if first_version else [ctypes.c_int]),
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(out, seed):
+        sms = [] if first_version else [device_sms(out.device)]
+        rc = fn(out.data_ptr(), seed_word(seed), *out.shape, *sms,
+                torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"{lib.name} failed ({rc})")
+        return out
+    return launch
+
+
+def time_queued(launch, out, seed=GEN_SEED, reps=100) -> float:
+    """ms per launch of ``launch(out, seed)``, CUDA events, the launches
+    queued behind a spin of the card long enough for the host to enqueue
+    them all (checked; the spin doubles until it is), so that the host's
+    launch time cannot starve the card: the card's time alone, launch
+    gaps included."""
+    launch(out, seed)
+    torch.cuda.synchronize()
+    spin = 20_000_000  # cycles: ~10 ms at 1980 MHz
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            launch(out, seed)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        spin *= 2
+
+
 def time_draws(n_lanes: int, n_draws: int, dev, reps=50):
-    """(kernel ms per launch over warm launches, CUDA events; the plain
-    version's ms, once, synchronised) on the table of seed 17."""
+    """(kernel ms per launch queued (``time_queued``), ms per launch
+    through the wrapper back to back (``time_launches``, as the other
+    kernels are timed: the host's launch rate at small shapes), the
+    plain version's ms once, synchronised) on the table of seed 17."""
     out = torch.empty((n_lanes, n_draws), dtype=torch.int32, device=dev)
     launches = threefry_draws.launches
-    ms = time_launches(lambda o: threefry_draws(o, GEN_SEED),
-                       [out] * (reps + 1), reps)
+    ms = time_queued(threefry_draws, out)
+    unqueued = time_launches(lambda o: threefry_draws(o, GEN_SEED),
+                             [out] * (reps + 1), reps)
     threefry_draws.launches = launches  # timing launches are not the path's
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     raw_draws_plain(GEN_SEED, n_lanes, n_draws, device=dev)
     torch.cuda.synchronize()
-    return ms, (time.perf_counter() - t0) * 1e3
+    return ms, unqueued, (time.perf_counter() - t0) * 1e3
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_functions(lib: Path) -> dict:
+    """``{function: [(address, opcode, operands)]}`` from ``cuobjdump
+    -sass`` on a built library, or {} when the toolkit has no
+    cuobjdump."""
+    tool = Path(kernels.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    text = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return parse_sass(text)
+
+
+def parse_sass(text: str) -> dict:
+    """``{function: [(address, opcode, operands)]}`` of ``cuobjdump
+    -sass`` text."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
+        elif cur is not None:
+            m = _SASS_LINE.search(line)
+            if m:
+                cur.append((int(m.group(1), 16), m.group(3),
+                            m.group(4).strip()))
+    return funcs
+
+
+def hot_loop(instrs):
+    """The instructions of a function's innermost loop with the most
+    funnel shifts (the rotations): the body from a backward branch's
+    target to the branch."""
+    loops = []
+    for addr, op, args in instrs:
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b)
+                        for c, d in loops)]
+    bodies = [[x for x in instrs if a <= x[0] <= b] for a, b in inner]
+    return max(bodies, key=lambda body: sum(op.startswith("SHF")
+                                            for _, op, _ in body),
+               default=[])
+
+
+# SASS opcodes by the pipe that retires them: the ALU pipe (logic,
+# shifts, adds, compares) and the FMA pipe's integer multiply-add, which
+# nvcc also uses for plain adds (IMAD.IADD) and moves
+ALU_OPS = frozenset(("LOP3", "SHF", "IADD3", "ISETP", "LEA", "SEL", "VIADD",
+                     "PRMT", "IMNMX", "VIMNMX", "PLOP3", "FLO", "POPC",
+                     "IABS", "BMSK", "SGXT"))
+
+
+def sass_per_word(lib: Path, words_a_trip=None) -> dict:
+    """For each kernel function of ``lib``: ``{name: (instructions of
+    its hot loop, funnel shifts there, words a trip, (instructions, ALU
+    instructions, IMAD instructions) a word, top opcodes)}``.
+    ``words_a_trip`` None: one word a 20 rotations (one threefry a word,
+    the lane key outside the loop)."""
+    rows = {}
+    for name, instrs in sass_functions(lib).items():
+        body = hot_loop(instrs)
+        if not body:
+            continue
+        rot = sum(op.startswith("SHF") for _, op, _ in body)
+        words = words_a_trip or max(1, rot // 20)
+        ops = {}
+        for _, op, _ in body:
+            key = op.split(".")[0]
+            ops[key] = ops.get(key, 0) + 1
+        alu = sum(n for k, n in ops.items() if k in ALU_OPS)
+        per_word = (len(body) / words, alu / words, ops.get("IMAD", 0) /
+                    words)
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+        rows[name] = (len(body), rot, words, per_word, top)
+    return rows
+
+
+def print_sass(lib: Path, what: str, tag, words_a_trip=None) -> dict:
+    """Print :func:`sass_per_word`'s rows; returns ``{name: (instructions,
+    ALU, IMAD) a word}`` ({} without cuobjdump)."""
+    rows = sass_per_word(lib, words_a_trip)
+    if not rows:
+        print(f"{tag} SASS of {what}: not measured (no cuobjdump)",
+              flush=True)
+    for name, (n, rot, words, per_word, top) in rows.items():
+        print(f"{tag} SASS {what} {name}: hot loop {n} instructions, "
+              f"{rot} funnel shifts, {words} words a trip: "
+              f"{per_word[0]:.2f} instructions a word ({per_word[1]:.2f} "
+              f"ALU, {per_word[2]:.2f} IMAD); top {top}", flush=True)
+    return {name: row[3] for name, row in rows.items()}
+
+
+def instantiation(plan) -> str:
+    """The mangled name's part that tells ``threefry_draws_kernel<V>`` of
+    ``plan`` from the other store width."""
+    return f"threefry_draws_kernelILi{4 if plan.vector else 1}E"
+
+
+def sass_floor_ms(words: int, per_word, mhz: float, sms: int):
+    """(floor ms, what sets it) of ``words`` at ``per_word`` =
+    (instructions, ALU, IMAD) a word: the largest of the issue floor
+    (``ISSUE_PER_CLOCK_SM``) and the ALU and FMA pipes' floors
+    (``INT_PER_CLOCK_SM`` each)."""
+    hz = mhz * 1e6 * sms
+    return max((words * per_word[0] / (ISSUE_PER_CLOCK_SM * hz) * 1e3,
+                "issue"),
+               (words * per_word[1] / (INT_PER_CLOCK_SM * hz) * 1e3,
+                "ALU pipe"),
+               (words * per_word[2] / (INT_PER_CLOCK_SM * hz) * 1e3,
+                "IMAD pipe"))
 
 
 def phase_draws(dev, tag):
     """Phase 15 (a): ``threefry_draws`` against its plain version on the
-    card at every seed and shape (tolerance 0), the known answers of the
-    JAX package's table, then the kernel timed at the shapes of phase 15
-    beside its bound.  Returns the largest error."""
+    card at every seed and shape (tolerance 0) and on misaligned tables
+    (4-byte stores), the known answers of the JAX package's table, then the kernel timed at the
+    shapes of ``DRAW_TIMED`` beside its bound and its SASS floor.  Returns
+    the largest error and the timing rows."""
     launches = threefry_draws.launches
     for seed in DRAW_SEEDS:
         for shape in DRAW_SHAPES:
@@ -1947,13 +2145,23 @@ def phase_draws(dev, tag):
             want = raw_draws_plain(seed, *shape, device=dev)
             require(torch.equal(got, want), f"threefry_draws differs from "
                     f"plain at seed {seed}, {shape}")
+    for shape in ((64, 816), (5, 3120), (3, 4)):
+        n = shape[0] * shape[1]
+        buf = torch.full((n + 4,), 12345, dtype=torch.int32, device=dev)
+        out = buf[1:1 + n].view(shape)
+        require(not draws_plan(out).vector, f"{shape} misaligned: the plan "
+                f"still takes 16-byte stores")
+        threefry_draws(out, 11)
+        require(torch.equal(out, raw_draws_plain(11, *shape, device=dev))
+                and int(buf[0]) == 12345 and int(buf[-3:].ne(12345).sum())
+                == 0, f"threefry_draws on a misaligned {shape} table "
+                f"differs from plain")
     for seed, shape, rows in KNOWN_DRAW_ROWS:
-        t = raw_draws(seed, *shape, device=dev).cpu().numpy().view(np.uint32)
+        t = table_to_host(raw_draws(seed, *shape, device=dev))
         for i, row in rows.items():
             require(t[i].tolist() == row, f"threefry_draws: seed {seed} row "
                     f"{i} is not the JAX package's")
-    t = raw_draws(GEN_SEED, 4096, 3120, device=dev).cpu().numpy().view(
-        np.uint32)
+    t = table_to_host(raw_draws(GEN_SEED, 4096, 3120, device=dev))
     require(t[0, :4].tolist() == KNOWN_DRAW_17["head"]
             and t[4095, -4:].tolist() == KNOWN_DRAW_17["tail"]
             and int(np.bitwise_xor.reduce(t.ravel())) == KNOWN_DRAW_17["xor"]
@@ -1963,30 +2171,87 @@ def phase_draws(dev, tag):
             "package's table")
     threefry_draws.launches = launches
     print(f"{tag} threefry_draws == plain: seeds {list(DRAW_SEEDS)} x "
-          f"shapes {list(DRAW_SHAPES)}, every word bit-identical; known "
-          f"answers of _raw_draws_jax equal (seed 17, 4096 x 3120: XOR "
-          f"{KNOWN_DRAW_17['xor']}, sum {KNOWN_DRAW_17['sum']})", flush=True)
+          f"shapes {list(DRAW_SHAPES)}, every word bit-identical; misaligned "
+          f"tables (4-byte stores) equal; known answers of _raw_draws_jax "
+          f"equal (seed 17, 4096 x 3120: XOR {KNOWN_DRAW_17['xor']}, sum "
+          f"{KNOWN_DRAW_17['sum']})", flush=True)
+    sass = print_sass(kernels.library_path("threefry_draws"),
+                      "threefry_draws", tag, DRAW_WORDS_A_UNIT)
     rows = {}
-    for shape in ((4096, 3120), (4096, 624),
-                  (GEN_BATCH, gen_core._n_draws(GEN_OPS))):
-        ms, plain_ms = time_draws(*shape, dev)
+    sms = device_sms(dev)
+    for shape in DRAW_TIMED:
+        ms, unqueued, plain_ms = time_draws(*shape, dev)
+        mhz = sm_clock_mhz()
         bound_ms, by = draws_bound(*shape)
-        rows[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=by)
+        rows[shape] = dict(ms=ms, wrapper_ms=unqueued, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by)
+        p = draws_plan(torch.empty(shape, dtype=torch.int32, device=dev))
+        per_word = next((w for name, w in sass.items()
+                         if instantiation(p) in name), None)
+        floor = ("not measured" if per_word is None else
+                 "{:.6f} ms by the {}".format(*sass_floor_ms(
+                     shape[0] * shape[1], per_word, mhz, sms)))
         print(f"{tag} threefry_draws {shape[0]} x {shape[1]}: {ms:.6f} ms "
-              f"a launch, bound {bound_ms:.6f} ms by {by} "
-              f"({ms / bound_ms:.2f}x), plain {plain_ms:.3f} ms",
+              f"a launch queued ({unqueued:.6f} through the wrapper back "
+              f"to back), bound {bound_ms:.6f} ms by {by} "
+              f"({ms / bound_ms:.2f}x); SASS floor at {mhz:.0f} MHz: "
+              f"{floor}; plan {p._asdict()}; plain {plain_ms:.3f} ms",
               flush=True)
     return 0, rows
+
+
+def phase_against_draws(src: Path, dev, tag):
+    """``--against-draws``: an earlier ``threefry_draws.cu`` (the first
+    version's C entry: out, seed, lanes, draws, stream) built as its own library, its
+    ``-Xptxas -v`` report and SASS beside this source's, both checked
+    equal to the plain version at every ``DRAW_TIMED`` shape, then timed
+    in turns (old, new, new, old; ``time_queued``) beside
+    ``draws_bound``.  Returns ``{shape: {who: ms}}``."""
+    old_lib = kernels.build("threefry_draws_against", src=src)
+    for who, name, path in (("earlier", "threefry_draws_against", src),
+                            ("this", "threefry_draws",
+                             kernels.CSRC_DIR / "threefry_draws.cu")):
+        for line in kernels.library_path(name, path).with_suffix(
+                ".ptxas.txt").read_text().splitlines():
+            if any(k in line for k in ("registers", "stack frame",
+                                       "Compiling entry")):
+                print(f"  ptxas ({who} threefry_draws): {line.strip()}")
+    print_sass(old_lib, "the earlier threefry_draws", tag)
+    print_sass(kernels.library_path("threefry_draws"), "threefry_draws",
+               tag, DRAW_WORDS_A_UNIT)
+    old = draws_c_entry(old_lib, first_version=True)
+    new = draws_c_entry(kernels.library_path("threefry_draws"))
+    result = {}
+    for shape in DRAW_TIMED:
+        want = raw_draws_plain(GEN_SEED, *shape, device=dev)
+        for who, launch in (("old", old), ("new", new)):
+            got = launch(torch.empty_like(want), GEN_SEED)
+            require(torch.equal(got, want), f"{who} threefry_draws differs "
+                    f"from plain at {shape}")
+        out = torch.empty_like(want)
+        bound_ms, by = draws_bound(*shape)
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            turns[who].append(time_queued(old if who == "old" else new,
+                                          out))
+        print(f"{tag} threefry_draws in turns at {shape[0]} x {shape[1]} "
+              f"(bound {bound_ms:.6f} ms by {by}): old "
+              f"{turns['old'][0]:.6f} / {turns['old'][1]:.6f} ms, new "
+              f"{turns['new'][0]:.6f} / {turns['new'][1]:.6f} ms: "
+              f"{sum(turns['old']) / sum(turns['new']):.2f}x; new "
+              f"{min(turns['new']) / bound_ms:.2f}x its bound", flush=True)
+        result[shape] = turns
+    return result
 
 
 class GenStages:
     """Inside ``with``: ``gen/core.py``'s device table swapped for a
     pass-through that makes the same two calls (``raw_draws`` on the
-    card, then the copy to the host) with a synchronise between them, so
-    that the draw and the copy are timed apart.  Each launch is still
-    counted once, by the wrapper it reaches.  ``calls`` keeps (seed,
-    lanes, draws, the card's table) of each call."""
+    card, then ``table_to_host``, the copy through pinned memory) with a
+    synchronise between them, so that the draw and the copy are timed
+    apart.  Each launch is still counted once, by the wrapper it reaches.
+    ``calls`` keeps (seed, lanes, draws, the card's table) of each
+    call."""
 
     def __init__(self):
         self.draw_s = self.copy_s = 0.0
@@ -1998,7 +2263,7 @@ class GenStages:
         tab = raw_draws(seed, n_lanes, n_draws, device)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        host = tab.cpu().numpy().view(np.uint32)
+        host = table_to_host(tab)
         self.copy_s += time.perf_counter() - t1
         self.draw_s += t1 - t0
         self.calls.append((seed, n_lanes, n_draws, tab))
@@ -2020,7 +2285,8 @@ def phase_generate(dev, tag):
     family at 8 pids x 32 ops and 4096 lanes: the card's table equal to
     the plain version's, the first 256 histories equal to the
     ``device="cpu"`` call's; the draw, the copy and the assembly timed
-    apart."""
+    apart; then the copy alone in turns with a pageable one
+    (``time_copies``)."""
     profile = GenProfile(n_pids=GEN_PIDS, n_ops=GEN_OPS)
     for fam in GEN_FAMILIES:
         spec = MODELS[fam].make_spec()
@@ -2046,6 +2312,50 @@ def phase_generate(dev, tag):
               f"{total - st.draw_s - st.copy_s:.3f} s ({ops} ops); table "
               f"bit-identical to plain, {GEN_SAMPLE} histories equal to "
               f"device='cpu'", flush=True)
+    time_copies(dev, tag)
+
+
+def time_copies(dev, tag, reps=20):
+    """The table's trip to the host in turns (pageable, pinned, pinned,
+    pageable; ms a call over ``reps`` calls, host clock, each call
+    synchronised): a pageable copy (``.cpu()``, as the first version of
+    ``gen/core.py`` copied) and
+    ``table_to_host``'s through pinned memory, at the steering loop's
+    1024 x 816 and ``generate_batch``'s 4096 x 816; first the time of
+    the first pinned call of each size (the allocator pins a new block
+    then; 4096 x 816 was pinned already in phase 15 (b))."""
+    for shape in ((GEN_BATCH, gen_core._n_draws(GEN_OPS)),
+                  (GEN_LANES, gen_core._n_draws(GEN_OPS))):
+        tab = raw_draws(GEN_SEED, *shape, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = table_to_host(tab)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(first, tab.cpu().numpy().view(np.uint32)),
+                f"table_to_host at {shape} differs from the table")
+        del first
+        calls = {"pageable": lambda: tab.cpu().numpy(),
+                 "pinned": lambda: table_to_host(tab)}
+        turns = {"pageable": [], "pinned": []}
+        for who in ("pageable", "pinned", "pinned", "pageable"):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                calls[who]()
+            turns[who].append((time.perf_counter() - t0) / reps * 1e3)
+        print(f"{tag} copy to the host in turns at {shape[0]} x {shape[1]} "
+              f"({tab.numel() * 4} bytes): pageable .cpu() "
+              f"{turns['pageable'][0]:.3f} / {turns['pageable'][1]:.3f} "
+              f"ms, pinned table_to_host {turns['pinned'][0]:.3f} / "
+              f"{turns['pinned'][1]:.3f} ms "
+              f"({sum(turns['pageable']) / sum(turns['pinned']):.2f}x); "
+              f"its first pinned call {first_ms:.3f} ms", flush=True)
+
+
+def host_allocs():
+    """Blocks the caching host allocator has pinned so far, or None where
+    this torch does not count them."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return None if stats is None else stats().get("num_host_alloc")
 
 
 def _audit_flip(item):
@@ -2083,14 +2393,28 @@ def steer_family(fam, tag, profile_round):
             return out
         return run
 
+    def timed_reserve(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reserve_host_table(*a)
+        reserve.append(time.perf_counter() - t0)
+
     hb.check_histories = timed_check
-    loop = SteeringLoop(spec, hb, profile=GenProfile(n_pids=GEN_PIDS,
-                                                     n_ops=GEN_OPS),
-                        batch=GEN_BATCH, seed=GEN_SEED, path="auto",
-                        on_flip=lambda s, p, h: flips.append((fam, h)))
+    reserve = []
+    gen_steer.reserve_host_table = timed_reserve
+    try:
+        loop = SteeringLoop(spec, hb, profile=GenProfile(n_pids=GEN_PIDS,
+                                                         n_ops=GEN_OPS),
+                            batch=GEN_BATCH, seed=GEN_SEED, path="auto",
+                            on_flip=lambda s, p, h: flips.append((fam, h)))
+    finally:
+        gen_steer.reserve_host_table = reserve_host_table
+    require(len(reserve) == 1, f"{fam}: SteeringLoop on the card did not "
+            f"pin its copy's host block once ({len(reserve)})")
     gen_steer.generate_batch = timed("gen_s", generate_batch)
     gen_steer.profile_corpus = timed("profile_s", profile_corpus)
     prof = None
+    allocs = host_allocs()
     try:
         with GenStages() as st:
             for r in range(GEN_ROUNDS):
@@ -2110,7 +2434,9 @@ def steer_family(fam, tag, profile_round):
     finally:
         gen_steer.generate_batch = generate_batch
         gen_steer.profile_corpus = profile_corpus
-    return spec, hb, loop, rounds, flips, prof, st.calls
+    pinned = None if allocs is None else host_allocs() - allocs
+    return spec, hb, loop, rounds, flips, prof, st.calls, (reserve[0],
+                                                           pinned)
 
 
 def phase_steer(dev, tag):
@@ -2122,6 +2448,12 @@ def phase_steer(dev, tag):
     best profile's batch are replayed, ``save``/``load`` gives an equal
     pool, and the path's kernels are held against their plain versions
     on its own inputs.  Returns (launches, largest error)."""
+    # the pinned blocks of phases (a)-(b) given back, so that the first
+    # loop's construction pins its block as in a fresh process
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    allocs = host_allocs()
     threefry_draws.launches = 0
     stepper_chunk.launches = compact_carry.launches = 0
     runs = []
@@ -2130,6 +2462,11 @@ def phase_steer(dev, tag):
             runs.append((fam, *steer_family(fam, tag, profile_round=i == 0)))
     launches = path_launches("the generation plane", tag,
                              (threefry_draws, stepper_chunk, compact_carry))
+    print(f"{tag} steer: host cache emptied before the loops: "
+          f"{empty is not None}; blocks pinned over the {len(GEN_FAMILIES)} loops (their "
+          f"constructions and rounds): "
+          f"{'not counted' if allocs is None else host_allocs() - allocs}",
+          flush=True)
     want = len(GEN_FAMILIES) * GEN_ROUNDS
     require(launches["threefry_draws"] == want, f"the generation plane "
             f"launched threefry_draws {launches['threefry_draws']} times, "
@@ -2137,8 +2474,16 @@ def phase_steer(dev, tag):
     require(launches["stepper_chunk"] > 0, "the generation plane launched "
             "no stepper_chunk")
     all_flips, tables = [], []
-    for fam, spec, hb, loop, rounds, flips, prof, calls in runs:
+    for fam, spec, hb, loop, rounds, flips, prof, calls, pins in runs:
         tables += calls
+        print(f"{tag} steer {fam}: the loop's construction reserved the "
+              f"copy's host block ({GEN_BATCH} x "
+              f"{gen_core._n_draws(GEN_OPS)}) in {pins[0] * 1e3:.3f} ms; "
+              f"over its {len(rounds)} rounds draw "
+              f"{sum(r['draw_s'] for r in rounds) * 1e3:.3f} ms + copy "
+              f"{sum(r['copy_s'] for r in rounds) * 1e3:.3f} ms, blocks "
+              f"pinned {'not counted' if pins[1] is None else pins[1]}",
+              flush=True)
         cpp = native.CppOracle(spec)
         for r, rec in enumerate(rounds):
             v = rec["v"]
@@ -2241,6 +2586,10 @@ def main(argv=None) -> int:
                     help="an earlier stepper_sweep.cu (a C entry of 14 "
                          "pointers, no lane list) to time in turns with "
                          "this one")
+    ap.add_argument("--against-draws", type=Path, default=None,
+                    help="an earlier threefry_draws.cu (the first "
+                         "version's C entry: out, seed, lanes, draws, "
+                         "stream) to time in turns with this one")
     ap.add_argument("--ablate-sweep", action="store_true",
                     help="after phase 9, time stepper_sweep against the "
                          "running lanes launched and against ablation "
@@ -2265,11 +2614,11 @@ def main(argv=None) -> int:
     print(f"{tag} build: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in "
           f"parallel)")
-    for name in libs:
-        for line in kernels.ptxas_report(name).splitlines():
+    for name, lib in libs.items():
+        for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
             if "Compiling entry" in line:
                 print(f"  ptxas {name}: "
-                      f"{line.split(name + '_kernel')[-1].strip()}")
+                      f"{line.split('_kernel')[-1].strip()}")
             elif any(k in line for k in ("registers", "stack frame")):
                 print(f"  ptxas {name}: {line.strip()}")
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -2377,6 +2726,8 @@ def main(argv=None) -> int:
           flush=True)
     t0 = time.perf_counter()
     draws_err, draw_rows = phase_draws(dev, tag)
+    if args.against_draws is not None:
+        phase_against_draws(args.against_draws, dev, tag)
     phase_generate(dev, tag)
     gen_launches, gen_err = phase_steer(dev, tag)
     print(f"{tag} phase generation plane: {time.perf_counter() - t0:.1f} s",
@@ -2391,8 +2742,10 @@ def main(argv=None) -> int:
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
+    # how each "ms" was taken, so that lines of different versions compare
+    back_to_back = "cuda events, launches back to back through the wrapper"
     kernels_line = {"kernels": [{
-        "name": "dfs_chunk", "route": "cuda",
+        "name": "dfs_chunk", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/dfs_chunk.cu",
         "replaces": "qsm_tpu/ops/pallas_kernel.py:265 (build_pallas_chunk)",
         "launches": launches, "matches_plain": max_err == 0,
@@ -2400,7 +2753,7 @@ def main(argv=None) -> int:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None}]}
     kernels_line["kernels"] += [{
-        "name": "stepper_chunk", "route": "cuda",
+        "name": "stepper_chunk", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/stepper_chunk.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:255 (build_stepper -> "
                     "run_one, table regime)",
@@ -2408,7 +2761,7 @@ def main(argv=None) -> int:
         "max_abs_err": step_err, **step, "library_ms": None,
         "launches_by_path": {k: x["stepper_chunk"]
                              for k, x in by_path.items()}}, {
-        "name": "compact_carry", "route": "cuda",
+        "name": "compact_carry", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/compact_carry.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:736 (JaxTPU._compact_fn)",
         "launches": comp_launches,
@@ -2417,13 +2770,16 @@ def main(argv=None) -> int:
         "library_ms": None,
         "launches_by_path": {k: x["compact_carry"]
                              for k, x in by_path.items()}}, {
-        "name": "stepper_sweep", "route": "cuda",
+        "name": "stepper_sweep", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/stepper_sweep.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:303 (build_stepper -> "
                     "run_one, sweep regime)",
         "launches": sweep_launches, "matches_plain": sweep_err == 0,
         "max_abs_err": sweep_err, **sweep, "library_ms": None}, {
         "name": "threefry_draws", "route": "cuda",
+        "timing": "cuda events, launches queued behind a spin of the card "
+                  "(time_queued); wrapper_ms: back to back through the "
+                  "wrapper",
         "source": "qsm_tpu_torch/csrc/threefry_draws.cu",
         "replaces": "qsm_tpu/gen/core.py:88 (_raw_draws_jax)",
         "launches": gen_launches["threefry_draws"],

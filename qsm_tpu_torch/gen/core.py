@@ -86,11 +86,11 @@ def _raw_draws_py(seed: int, n_lanes: int, n_draws: int) -> np.ndarray:
 def _raw_draws_device(seed: int, n_lanes: int, n_draws: int,
                       device) -> np.ndarray:
     """The batched table: one ``threefry_draws`` launch on ``device`` (the
-    plain version on the CPU), copied to the host for the assembly."""
-    from ..ops.draws_kernel import raw_draws
+    plain version on the CPU), copied to the host for the assembly
+    through pinned memory (``table_to_host``)."""
+    from ..ops.draws_kernel import raw_draws, table_to_host
 
-    return raw_draws(seed, n_lanes, n_draws, device).cpu().numpy().view(
-        np.uint32)
+    return table_to_host(raw_draws(seed, n_lanes, n_draws, device))
 
 
 def _pick_weighted(stream: DrawStream, weights) -> int:

@@ -19,7 +19,9 @@ The pool is bounded (``SeedPool``) and the loop state checkpoints through
 ``atomic_write_json``.  The loop scores verdicts, it never issues them:
 every verdict comes from a real backend, and its ``gen_*`` counters are
 bookkeeping only.  ``device`` goes to ``generate_batch``: the ``"jax"``
-and ``"auto"`` tables run on CUDA unless it is ``"cpu"``.
+and ``"auto"`` tables run on CUDA unless it is ``"cpu"``, and on CUDA
+the loop pins the host block of its first table's copy when it is built
+(``reserve_host_table``), so that no round pays for pinning it.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ import random
 from typing import Callable, List, Optional
 
 from ..ops.backend import Verdict, resolve_device
+from ..ops.draws_kernel import reserve_host_table
 from ..resilience.checkpoint import atomic_write_json
 from ..search.planner import profile_corpus
 from ..search.stats import SearchStats, collect_search_stats, stats_delta
-from .core import PATHS, generate_batch
+from .core import PATHS, _n_draws, generate_batch
 from .profile import GenProfile
 
 # a flip is worth this many search-nodes-per-history in the score: a
@@ -161,6 +164,8 @@ class SteeringLoop:
         self.flip_histories: List = []  # (history, verdict) of violations
         base = profile if profile is not None else self.seed_profile()
         self.pool.add(PoolSeed(profile=base, seed=seed))
+        if self.device is not None:
+            reserve_host_table(batch, _n_draws(base.n_ops), self.device)
 
     # -- initial profile ----------------------------------------------
     def seed_profile(self) -> GenProfile:

@@ -13,14 +13,22 @@ host copy as ``np.uint32``): on a CUDA tensor it launches
 ``csrc/threefry_draws.cu`` (``threefry_draws.launches`` counts each
 launch), on a CPU tensor it runs :func:`threefry_draws_plain`, the same
 function in eager PyTorch.  A failed build or launch raises; nothing
-falls back.
+falls back.  :func:`draws_plan` says how the kernel runs a table (store
+width, grid, passes); :func:`table_to_host` is the one copy of a table
+to the host, through pinned memory, and :func:`reserve_host_table` pins
+its block ahead of the first copy of a size.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .backend import resolve_device
+from .stepper_kernel import device_sms
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -75,6 +83,37 @@ def _check_out(out: torch.Tensor) -> None:
         raise ValueError("threefry_draws: out is not contiguous")
 
 
+class DrawsPlan(NamedTuple):
+    """How ``csrc/threefry_draws.cu`` runs a table (its C entry
+    ``threefry_draws_plan``): 16-byte stores or 4-byte, the grid, the
+    passes of its grid-stride loop, units a row."""
+    vector: bool
+    blocks: int
+    threads: int
+    passes: int
+    per_row: int
+
+
+def plan_of(plan_fn, ptr: int, n_lanes: int, n_draws: int,
+            sms: int) -> DrawsPlan:
+    """The plan that ``plan_fn`` (a built ``threefry_draws_plan``) gives
+    for a table at address ``ptr``; a shape it refuses raises."""
+    buf = (ctypes.c_longlong * 5)()
+    rc = plan_fn(ptr, n_lanes, n_draws, sms, buf)
+    if rc != 0:
+        raise ValueError(f"threefry_draws refuses {n_lanes} x {n_draws} "
+                         f"on {sms} SMs (CUDA error {rc})")
+    return DrawsPlan(bool(buf[0]), *buf[1:])
+
+
+def draws_plan(out: torch.Tensor) -> DrawsPlan:
+    """The plan of a launch into the CUDA tensor ``out``."""
+    from .kernels import threefry_draws_lib
+
+    return plan_of(threefry_draws_lib().threefry_draws_plan,
+                   out.data_ptr(), *out.shape, device_sms(out.device))
+
+
 def threefry_draws(out: torch.Tensor, seed: int) -> torch.Tensor:
     """The table of ``seed`` into ``out`` (int32 ``[n_lanes, n_draws]``):
     the CUDA kernel for a CUDA tensor, the plain version for a CPU
@@ -91,7 +130,8 @@ def threefry_draws(out: torch.Tensor, seed: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = threefry_draws_lib().threefry_draws_launch(
-            out.data_ptr(), seed_word(seed), n_lanes, n_draws, stream)
+            out.data_ptr(), seed_word(seed), n_lanes, n_draws,
+            device_sms(dev), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"threefry_draws launch failed: CUDA error {rc}")
@@ -118,3 +158,33 @@ def raw_draws_plain(seed: int, n_lanes: int, n_draws: int,
     out = torch.empty((n_lanes, n_draws), dtype=torch.int32,
                       device=torch.device(device))
     return threefry_draws_plain(out, seed)
+
+
+def table_to_host(table: torch.Tensor) -> np.ndarray:
+    """``table`` (int32 ``[n_lanes, n_draws]``) as ``np.uint32`` on the
+    host, for the assembly.  A CUDA table is copied into a pinned host
+    tensor (PyTorch's caching host allocator reuses freed blocks) with
+    ``non_blocking=True``, and the stream is synchronised before the host
+    reads it; a CPU table is returned as it is, viewed as uint32, and
+    nothing is pinned.  The array belongs to the caller: it holds its
+    pinned block, so no later call writes into it."""
+    dev = table.device
+    if dev.type == "cuda":
+        host = torch.empty(table.shape, dtype=table.dtype, pin_memory=True)
+        host.copy_(table, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        table = host
+    elif dev.type != "cpu":
+        raise ValueError(f"table_to_host takes a cuda or cpu table, not "
+                         f"{dev}")
+    return table.numpy().view(np.uint32)
+
+
+def reserve_host_table(n_lanes: int, n_draws: int, device) -> None:
+    """Pin a host block for an int32 ``[n_lanes, n_draws]`` table ahead
+    of :func:`table_to_host`'s first copy of that size, and give it back
+    to PyTorch's caching host allocator, which then serves the copies of
+    that size from it: pinning a new block costs milliseconds, many
+    copies' worth.  Nothing is pinned for a CPU ``device``."""
+    if torch.device(device).type == "cuda":
+        torch.empty((n_lanes, n_draws), dtype=torch.int32, pin_memory=True)

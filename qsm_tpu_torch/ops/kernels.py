@@ -154,13 +154,18 @@ def stepper_sweep_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def threefry_draws_lib() -> ctypes.CDLL:
-    """The built ``threefry_draws`` library: the output pointer, the
-    32-bit seed, the two 64-bit counts of lanes and draws, the stream."""
+    """The built ``threefry_draws`` library: its launch takes the output
+    pointer, the 32-bit seed, the two 64-bit counts of lanes and draws,
+    the card's SM count, the stream; its plan (``draws_kernel.
+    DrawsPlan``) the output pointer, the counts, the SM count and an
+    int64 array of 5 to fill."""
     lib = ctypes.CDLL(str(build("threefry_draws")))
-    fn = lib.threefry_draws_launch
-    fn.argtypes = [_P, ctypes.c_uint32, ctypes.c_longlong,
-                   ctypes.c_longlong, _P]
-    fn.restype = _I
+    _LL = ctypes.c_longlong
+    lib.threefry_draws_launch.argtypes = [_P, ctypes.c_uint32, _LL, _LL,
+                                          _I, _P]
+    lib.threefry_draws_plan.argtypes = [_P, _LL, _LL, _I, _P]
+    for fn in (lib.threefry_draws_launch, lib.threefry_draws_plan):
+        fn.restype = _I
     return lib
 
 

@@ -1,9 +1,10 @@
 // A host stand-in for the few CUDA runtime pieces that the sources under
 // qsm_tpu_torch/csrc/ use, so that they compile with a plain C++ compiler
 // and run on the CPU (tests/test_torch_dfs_host.py,
-// tests/test_torch_stepper_host.py).  `host_launch` runs every block's
-// threads one after another over a fresh shared-memory buffer: right for
-// a kernel whose threads share nothing (dfs_chunk.cu, compact_carry.cu);
+// tests/test_torch_stepper_host.py, tests/test_torch_draws_host.py).
+// `host_launch` runs every block's threads one after another over a fresh
+// shared-memory buffer: right for a kernel whose threads share nothing
+// (dfs_chunk.cu, compact_carry.cu, threefry_draws.cu);
 // a kernel whose threads meet at warp votes or barriers runs under
 // cuda_warp.h's `host_launch_threads` instead.  The tests rewrite the
 // CUDA-only lines of a source (an `extern __shared__` declaration, the
@@ -57,6 +58,17 @@ inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned shift) {
   const unsigned s = shift > 32 ? 32 : shift;
   const unsigned long long w = static_cast<unsigned long long>(hi) << 32 | lo;
   return static_cast<unsigned>((w << s) >> 32);
+}
+// the top word of (hi:lo) << (shift & 31), as on the card
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned shift) {
+  const unsigned long long w = static_cast<unsigned long long>(hi) << 32 | lo;
+  return static_cast<unsigned>((w << (shift & 31)) >> 32);
+}
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
 }
 // the launches that use it run one thread at a time
 inline int atomicMax(int* p, int v) {

@@ -44,7 +44,8 @@ from qsm_tpu_torch.models.registry import MODELS
 from qsm_tpu_torch.native import CppOracle
 from qsm_tpu_torch.ops.backend import BackendUnavailable, Verdict
 from qsm_tpu_torch.ops.draws_kernel import (raw_draws, raw_draws_plain,
-                                            threefry_draws)
+                                            reserve_host_table,
+                                            table_to_host, threefry_draws)
 from qsm_tpu_torch.ops.stepper import TorchStepper
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
 from qsm_tpu_torch.sched.runner import PENDING_T
@@ -250,6 +251,110 @@ def test_wrapper_takes_the_plain_version_for_a_cpu_tensor():
         threefry_draws(torch.empty((4, 9), dtype=torch.int64), 17)
     with pytest.raises(ValueError):
         threefry_draws(torch.empty((9, 4), dtype=torch.int32).t(), 17)
+
+
+# -- the table's copy to the host ---------------------------------------
+
+def test_table_to_host_returns_a_cpu_table_as_it_is(monkeypatch):
+    """On the CPU the copy function hands back the plain table itself,
+    viewed as uint32, and never pins: no pinned tensor is asked for."""
+    asked = []
+    empty = torch.empty
+
+    def recording_empty(*a, **kw):
+        asked.append(kw.get("pin_memory", False))
+        return empty(*a, **kw)
+
+    def no_pinning(*a, **kw):
+        raise AssertionError("pinned on the CPU")
+
+    tab = raw_draws_plain(17, 4, 9)
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", no_pinning)
+    host = table_to_host(tab)
+    assert host.dtype == np.uint32 and host.shape == (4, 9)
+    assert np.shares_memory(host, tab.numpy())
+    np.testing.assert_array_equal(host, _raw_draws_jax(17, 4, 9))
+    assert not any(asked)
+    with pytest.raises(ValueError):
+        table_to_host(tab.to("meta"))
+
+
+def test_generate_batch_copies_through_table_to_host(monkeypatch):
+    """The ``"jax"`` path's table reaches the assembly through
+    ``table_to_host``, once a batch."""
+    from qsm_tpu_torch.ops import draws_kernel
+
+    calls = []
+
+    def counting(table):
+        calls.append(tuple(table.shape))
+        return table_to_host(table)
+
+    monkeypatch.setattr(draws_kernel, "table_to_host", counting)
+    spec = MODELS["register"].make_spec()
+    generate_batch(spec, GenProfile(n_pids=3, n_ops=12), 4, 6, path="jax",
+                   device="cpu")
+    assert calls == [(6, _n_draws(12))]
+
+
+def test_reserve_host_table_pins_nothing_on_the_cpu(monkeypatch):
+    """The pinned warm-up is for CUDA tables alone: for the CPU, and for a
+    loop whose tables stay on the CPU, no pinned tensor is asked for."""
+    asked = []
+    empty = torch.empty
+
+    def recording_empty(*a, **kw):
+        asked.append(kw.get("pin_memory", False))
+        return empty(*a, **kw)
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    reserve_host_table(4, 9, "cpu")
+    spec = MODELS["register"].make_spec()
+    for path in ("py", "jax"):
+        SteeringLoop(spec, WingGongCPU(memo=True), path=path, device="cpu")
+    assert not any(asked)
+
+
+@pytest.mark.parametrize("path,n_ops,batch", [("jax", 8, 16),
+                                              ("auto", 32, 1024),
+                                              ("py", 8, 16)])
+def test_steering_loop_reserves_its_first_table_once(monkeypatch, path,
+                                                     n_ops, batch):
+    """A loop whose tables run on CUDA pins the block of its first table's
+    copy (batch x draws of its starting profile) once, when it is built,
+    and not in its rounds; the ``"py"`` path reserves nothing."""
+    from qsm_tpu_torch.gen import steer
+
+    calls = []
+    monkeypatch.setattr(steer, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(steer, "reserve_host_table",
+                        lambda *a: calls.append(a))
+    spec = MODELS["register"].make_spec()
+    SteeringLoop(spec, WingGongCPU(memo=True), batch=batch, path=path,
+                 profile=GenProfile(n_pids=3, n_ops=n_ops))
+    want = [] if path == "py" else [(batch, _n_draws(n_ops),
+                                     torch.device("cuda", 0))]
+    assert calls == want
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_successive_jax_batches_equal_the_reference(family):
+    """Two successive ``"jax"`` batches on the CPU each give the
+    reference's histories, list for list, and the second leaves the
+    first's as they were."""
+    spec, jspec = MODELS[family].make_spec(), J_MODELS[family].make_spec()
+    kw = dict(n_pids=4, n_ops=16, p_pending=0.1, p_adverse=0.1)
+    first = generate_batch(spec, GenProfile(**kw), 21, 10, path="jax",
+                           device="cpu")
+    kept = _fingerprint(first)
+    second = generate_batch(spec, GenProfile(**kw), 22, 10, path="jax",
+                            device="cpu")
+    assert _fingerprint(first) == kept
+    for seed, got in ((21, first), (22, second)):
+        want = j_generate_batch(jspec, JProfile(**kw), seed, 10, path="jax")
+        assert _fingerprint(got) == _fingerprint(want)
 
 
 # -- generate_batch against the reference ------------------------------

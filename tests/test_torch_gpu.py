@@ -20,9 +20,11 @@ and ``TorchStepper``'s sweep regime on KV histories against the memo
 oracle per key; per-key decomposition over ``TorchStepper`` (KV of 16
 keys, multireg, multicas) and the hybrid plan (CAS, queue) against the
 host oracle, nothing undecided; ``threefry_draws`` against its plain
-version (seven seeds, four shapes, more lanes than the launch's block
-cap) and the known answers of the JAX package's table, ``generate_batch``
-on CUDA equal to the ``device="cpu"`` call, and one ``SteeringLoop``
+version (seven seeds, eight shapes: one word, rows that take 4-byte
+stores, the main path's 1024 x 816, more units than the grid; tables off
+a 16-byte boundary) and the known answers of the JAX package's table,
+``table_to_host``'s pinned copy, ``generate_batch`` on CUDA equal to the
+``device="cpu"`` call, and one ``SteeringLoop``
 round over ``HybridDevice`` whose verdicts are ``CppOracle``'s.  Without
 CUDA each test skips in its fixture."""
 
@@ -767,12 +769,15 @@ KNOWN_DRAWS = [
 
 @pytest.mark.parametrize("seed", [0, 7, 17, 2**31, 2**32 + 5, -3,
                                   1_000_004])
-@pytest.mark.parametrize("shape", [(1, 1), (33, 17), (4096, 624),
+@pytest.mark.parametrize("shape", [(1, 1), (5, 3), (33, 17), (9, 33),
+                                   (3, 4097), (1024, 816), (4096, 624),
                                    (65537, 3)])
 def test_threefry_draws_matches_plain_version(cuda, seed, shape):
     """``threefry_draws`` on CUDA against its plain version on the card,
-    every word equal (tolerance 0): one lane, ragged rows, the main
-    path's 4096 lanes, more lanes than the launch's block cap."""
+    every word equal (tolerance 0), one launch counted a call: one word,
+    rows that are not a multiple of the 16-word unit or of 4 (4-byte
+    stores), the main path's 1024 x 816 and 4096 lanes, more units than
+    the grid."""
     from qsm_tpu_torch.ops.draws_kernel import (raw_draws, raw_draws_plain,
                                                 threefry_draws)
 
@@ -800,6 +805,59 @@ def test_threefry_draws_known_answers(cuda):
                                      3777973134]
     assert int(np.bitwise_xor.reduce(t.ravel())) == 3671365389
     assert int(t.astype(np.uint64).sum() % 2**32) == 4283564019
+
+
+@pytest.mark.parametrize("shape", [(64, 816), (5, 3120), (3, 4)])
+def test_threefry_draws_on_a_misaligned_table(cuda, shape):
+    """A table 4 bytes off a 16-byte boundary takes the 4-byte-store
+    instantiation (an aligned one the 16-byte one), every word right and
+    nothing around the table written."""
+    from qsm_tpu_torch.ops.draws_kernel import (draws_plan, raw_draws_plain,
+                                                threefry_draws)
+
+    n = shape[0] * shape[1]
+    buf = torch.full((n + 4,), 12345, dtype=torch.int32, device=cuda)
+    out = buf[1:1 + n].view(shape)
+    assert not draws_plan(out).vector
+    assert draws_plan(torch.empty(shape, dtype=torch.int32,
+                                  device=cuda)).vector
+    threefry_draws(out, 11)
+    torch.cuda.synchronize()
+    assert torch.equal(out, raw_draws_plain(11, *shape, device=cuda))
+    assert int(buf[0]) == 12345 and (buf[1 + n:] == 12345).all()
+
+
+def test_table_to_host_copies_through_pinned_memory(cuda):
+    """The copy to the host: a pinned array equal to the plain table, and
+    a second call leaves the first call's array as it was."""
+    from qsm_tpu_torch.ops.draws_kernel import (raw_draws, raw_draws_plain,
+                                                table_to_host)
+
+    first = table_to_host(raw_draws(17, 1024, 816, device=cuda))
+    kept = first.copy()
+    assert first.dtype == np.uint32 and torch.from_numpy(first).is_pinned()
+    np.testing.assert_array_equal(
+        first, raw_draws_plain(17, 1024, 816).numpy().view(np.uint32))
+    for seed in (18, 19):
+        other = table_to_host(raw_draws(seed, 1024, 816, device=cuda))
+        np.testing.assert_array_equal(
+            other, raw_draws_plain(seed, 1024, 816).numpy().view(np.uint32))
+        del other  # its pinned block goes back to the allocator's cache
+    np.testing.assert_array_equal(first, kept)
+
+
+def test_reserved_host_block_serves_the_next_copy(cuda):
+    """``reserve_host_table`` pins and frees a block; the copy of that
+    size that follows is pinned and equal to the plain table."""
+    from qsm_tpu_torch.ops.draws_kernel import (raw_draws, raw_draws_plain,
+                                                reserve_host_table,
+                                                table_to_host)
+
+    assert reserve_host_table(300, 816, cuda) is None
+    got = table_to_host(raw_draws(23, 300, 816, device=cuda))
+    assert torch.from_numpy(got).is_pinned()
+    np.testing.assert_array_equal(
+        got, raw_draws_plain(23, 300, 816).numpy().view(np.uint32))
 
 
 @pytest.mark.parametrize("model", ["rangeset", "semaphore", "register"])
