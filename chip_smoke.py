@@ -23,7 +23,7 @@ Phases, in order; any failure exits non-zero and no result is printed:
    tables (32 ops x 8 pids) with mid-search carries, at 4096 and 16384
    lanes, memo off and at 64 slots, and on random 64-state tables at 4096
    lanes (too large to stage: ``nxt`` read from global memory), after 1
-   and 8 chunks of 1024 iterations: every output plane must be
+   and 4 chunks of 1024 iterations: every output plane must be
    bit-identical to ``dfs_chunk_plain`` on the same CUDA tensors
    (tolerance 0, all integer).  Then the kernel is timed with CUDA events
    and the plain version once.  With ``--against OLD.cu`` (an earlier
@@ -46,7 +46,7 @@ Phases, in order; any failure exits non-zero and no result is printed:
    lanes, one batch-shared op-vocabulary table staged in shared memory),
    memo off and at the port's slot count for that bucket, from a fresh and
    from a mid-search carry, after 1 and 3 chunks of 2048 iterations at
-   full width, and from the mid-search carry after each of 8 on a lane
+   full width, and from the mid-search carry after each of 4 on a lane
    sample (one lane of every unique history still running, carried to the
    CPU by ``compact_carry_plain`` and advanced there by the plain
    version); on
@@ -82,7 +82,7 @@ Phases, in order; any failure exits non-zero and no result is printed:
    lanes alone) and over every lane, every plane bit-identical to
    ``stepper_sweep_plain`` at full width after 1 and 2 chunks of 1024
    iterations (KV) or 1 (the others), and on a lane sample (as in phase
-   6) after each of 8 chunks (KV) or 2; each case's plan and how its
+   6) after each of 4 chunks (KV) or 2; each case's plan and how its
    running lanes fall on blocks and SMs, time per launch in turns (every
    lane, the running lanes alone), cycles an iteration of the longest
    lane at the SM clock, plain time and bound, and with the memo the
@@ -164,7 +164,33 @@ Phases, in order; any failure exits non-zero and no result is printed:
    in worker processes), 64 LINEARIZABLE witnesses of the best profile's
    batch replayed, ``save``/``load`` giving an equal pool, the path's
    tables and its first ``stepper_chunk`` batch and compaction held
-   against the plain versions.
+   against the plain versions;
+16. search plane: (a) the CAS headline at 4096 lanes through
+   ``TorchStepper(spec)`` at its defaults ("hand") and through the
+   planned checker ``build_backend(spec, plan_search(spec,
+   profile_corpus(corpus, spec)))`` (the port's CUDA plan: ordering on,
+   ``SegDC`` with the native middle enumerator), each warm, timed and
+   profiled, with its lockstep iterations a history; the planned path's
+   final segments start outside the initial state and its middles are
+   enumerated natively; 8 LINEARIZABLE witnesses of the ordered
+   ``TorchStepper`` replayed; then ``TorchGPU(ordering=True)`` on the
+   same lanes, its witnesses replayed; (b) ``AutoDevice`` on the CAS
+   headline, CAS 8 x 128 and queue 8 x 96 (``tests/test_longcontext.py``'s
+   generators, 512 unique at 4096 lanes) and kv16 (per key, through a
+   nested router), each beside a plain ``TorchStepper`` on the same
+   batch (on the 512 unique alone when that would pass 60 s), with each
+   route's time by the widest middle segment of a history; (c)
+   ``RootSplit`` escalation over ``TorchStepper(budget=2000)`` on the CAS
+   headline; (d) ``SegDC`` over ``TorchStepper`` in the sweep regime
+   (queue and stack of capacity 8, 8 x 48, 1024 lanes), final segments
+   from vector frontier states; (e) after each path its launches are
+   read and its kernels held against their plain versions on its own
+   first inputs (``FirstInputs``: the first one or two ``stepper_chunk``
+   batches, the first compaction, the first ``stepper_sweep`` and
+   ``dfs_chunk`` launches; tolerance 0); (f) ``python -m qsm_tpu_torch
+   stats --model cas --planned`` (the CUDA plan's name in its document)
+   and ``run --model cas --backend auto-stepper`` (racy CAS convicted).
+   Every verdict equal to ``CppOracle``'s wherever both decided.
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
@@ -172,7 +198,7 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 ``compact_carry`` over phases 10-11, each milestone's kernels over its
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
-15 (c); the kernels record lists those of phases 7-8 under ``launches``
+15 (c), and each path of phase 16 over its own; the kernels record lists those of phases 7-8 under ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
 kernels record, the last the device record.  Every number is printed
 beside the card's name and power limit.
@@ -214,6 +240,7 @@ from qsm_tpu_torch.models.stack import (AtomicStackSUT, RacyTwoPhaseStackSUT,
 from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
                                       TxnRegisterSpec)
 from qsm_tpu_torch.ops import kernels
+from qsm_tpu_torch.ops import gpu_backend as gpu_module
 from qsm_tpu_torch.ops import stepper as stepper_module
 from qsm_tpu_torch.ops.backend import Verdict, verify_witness
 from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
@@ -228,7 +255,10 @@ from qsm_tpu_torch.ops.gpu_backend import TorchGPU, fresh_carry, lane_tables
 from qsm_tpu_torch.ops.host_contracts import flatten
 from qsm_tpu_torch.ops.hybrid import HybridDevice
 from qsm_tpu_torch.ops.pcomp import PComp, split_history
+from qsm_tpu_torch.ops.rootsplit import RootSplit
+from qsm_tpu_torch.ops.router import AutoDevice, _width
 from qsm_tpu_torch.ops.scalarize import scalar_shadow
+from qsm_tpu_torch.ops.segdc import SegDC, split_at_quiescent_cuts
 from qsm_tpu_torch.ops.stepper import TorchStepper, default_slots
 from qsm_tpu_torch.ops.stepper_kernel import (StepperCarry, compact_carry,
                                               compact_carry_plain,
@@ -245,7 +275,10 @@ from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry, stepper_sweep,
                                             sweep_launch_plan, sweep_model,
                                             sweep_tables)
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
-from qsm_tpu_torch.search.planner import profile_corpus
+from qsm_tpu_torch.search import (collect_search_stats, ordering_table,
+                                  permute_history)
+from qsm_tpu_torch.search.planner import (CUDA_PLAN, build_backend,
+                                          plan_search, profile_corpus)
 from qsm_tpu_torch.utils import cli
 from qsm_tpu_torch.utils.corpus import build_corpus, random_lane_tables
 from qsm_tpu_torch.utils.fuzz import RandomVectorSpec, random_history
@@ -268,6 +301,11 @@ KV_KEYS, KV_PIDS, KV_OPS = 16, 16, 64   # the sweep regime's KV headline
 SWEEP_CHUNK = 1024             # stepper_sweep iterations a launch, phase 9
 SWEEP_MID = 256                # plain iterations before phase 9's carries
 SAMPLE_LANES = 192             # lanes of a sample held on the CPU
+# chunks after which phases 3, 6 and 9 hold a kernel against its plain
+# version: the plain loops are those phases' cost, cut from 8 to keep the
+# whole run well inside its time limit
+HELD_DFS_CHUNKS = 4            # phase 3: after the first and the last
+HELD_SAMPLE_CHUNKS = 4         # phases 6 and 9: after each, on a sample
 TICKET_PIDS, TICKET_OPS = 4, 24          # the ticket milestone
 
 
@@ -389,12 +427,12 @@ def phase_kernel(spec, corpus, dev, tag):
             running = int((mid.dsi[1] == RUNNING).sum())
             require(running > 0, "mid-search carry has no running lane")
             ck, cp = mid, mid
-            for i in range(8):
+            for i in range(HELD_DFS_CHUNKS):
                 ck = dfs_chunk(tabs, ck, chunk=CHUNK, budget=TOTAL_BUDGET,
                                cache_slots=cs)
                 cp = dfs_chunk_plain(tabs, cp, chunk=CHUNK,
                                      budget=TOTAL_BUDGET, cache_slots=cs)
-                if i in (0, 7):
+                if i in (0, HELD_DFS_CHUNKS - 1):
                     torch.cuda.synchronize()
                     for plane, a, b in zip(Carry._fields, ck, cp):
                         err = int((a.long() - b.long()).abs().max())
@@ -403,8 +441,9 @@ def phase_kernel(spec, corpus, dev, tag):
                                 f"plain on {name} at B={B} slots={cs} after "
                                 f"{i + 1} chunk(s) (max abs err {err})")
             print(f"{tag} dfs_chunk == plain on {name} tables at B={B} "
-                  f"slots={cs}: all 7 planes bit-identical after 1 and 8 "
-                  f"chunks ({running} lanes running at the start)",
+                  f"slots={cs}: all 7 planes bit-identical after 1 and "
+                  f"{HELD_DFS_CHUNKS} chunks ({running} lanes running at "
+                  f"the start)",
                   flush=True)
             one = dfs_chunk(tabs, mid, chunk=CHUNK, budget=TOTAL_BUDGET,
                             cache_slots=cs)
@@ -709,11 +748,11 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                     tabs, clone_carry(fresh), chunk=256, budget=TOTAL_BUDGET)
             # the plain version's loop on the card is the phase's cost: the
             # CAS shapes run 2 chunks at full width, the queue headline 3,
-            # and from its mid-search carry 8 on a lane sample carried on
+            # and from its mid-search carry 4 on a lane sample carried on
             # the CPU
             n_full = 3 if name == "queue48" else 2
             for start, c0 in begins.items():
-                n_sample = 8 if start == "mid" else 0
+                n_sample = HELD_SAMPLE_CHUNKS if start == "mid" else 0
                 ck, cp = clone_carry(c0), clone_carry(c0)
                 running = int((c0.dsi[1] == RUNNING).sum())
                 if n_sample:
@@ -1310,7 +1349,7 @@ def phase_sweep(kv_spec, kv_corpus, dev, tag, against=None):
             ck, cf, cp = (clone_carry(mid) for _ in range(3))
             sample = LaneSample(mid, n_unique, lambda c: stepper_sweep_plain(
                 spec, cpu_tabs, c, chunk=SWEEP_CHUNK, budget=TOTAL_BUDGET))
-            n_sample = 8 if name == "kv16" else 2
+            n_sample = HELD_SAMPLE_CHUNKS if name == "kv16" else 2
             for i in range(max(n_full, n_sample)):
                 main_sweep(model, tabs, ck)
                 if i < n_full:
@@ -1720,20 +1759,31 @@ def path_launches(name, tag, counters):
 
 
 class FirstInputs:
-    """Inside ``with``: the inputs of the first ``stepper_chunk`` and the
-    first ``compact_carry`` that ``TorchStepper`` runs, cloned before the
-    launch, so that a path's own shapes (its tables, bucket, op count,
-    slots and chunk) can be held against the plain versions after the
-    path's launches are read.  ``TorchStepper``'s module names are
-    swapped for pass-through functions: each launch is still counted
-    once, by the wrapper it reaches."""
+    """Inside ``with``: the inputs of the first ``stepper_chunk`` launch of
+    each of the first ``keep`` device batches, of the first
+    ``compact_carry``, of the first ``stepper_sweep`` and of the first
+    ``dfs_chunk`` that the device backends run, cloned before the launch,
+    so that a path's own shapes (its tables, bucket, op count, slots,
+    start states and chunk) can be held against the plain versions after
+    the path's launches are read.  The backends' module names are swapped
+    for pass-through functions: each launch is still counted once, by
+    the wrapper it reaches."""
 
-    def __init__(self):
-        self.step = self.comp = None
+    def __init__(self, keep=1):
+        self.keep = keep
+        self.steps = []  # (tables, fresh carry, kwargs) a device batch
+        self.comp = self.sweep = self.dfs = None
+
+    @property
+    def step(self):
+        return self.steps[0] if self.steps else None
 
     def _step(self, tabs, carry, **kw):
-        if self.step is None:
-            self.step = (tabs, clone_carry(carry), kw)
+        # a device batch builds its own tables: a new tables object is a
+        # new batch (the kept ones stay alive, so identity is safe)
+        if len(self.steps) < self.keep and all(
+                t is not tabs for t, _, _ in self.steps):
+            self.steps.append((tabs, clone_carry(carry), kw))
         return stepper_chunk(tabs, carry, **kw)
 
     def _comp(self, carry, lanes, bucket, slots):
@@ -1741,52 +1791,111 @@ class FirstInputs:
             self.comp = (clone_carry(carry), np.array(lanes), bucket, slots)
         return compact_carry(carry, lanes, bucket, slots)
 
+    def _sweep(self, model, tabs, carry, **kw):
+        if self.sweep is None:
+            self.sweep = (model, tabs, clone_carry(carry), dict(kw))
+        return stepper_sweep(model, tabs, carry, **kw)
+
+    def _dfs(self, tabs, carry, **kw):
+        if self.dfs is None:
+            self.dfs = (tabs, Carry(*(t.clone() for t in carry)), kw)
+        return dfs_chunk(tabs, carry, **kw)
+
     def __enter__(self):
         stepper_module.stepper_chunk = self._step
         stepper_module.compact_carry = self._comp
+        stepper_module.stepper_sweep = self._sweep
+        gpu_module.dfs_chunk = self._dfs
         return self
 
     def __exit__(self, *exc):
         stepper_module.stepper_chunk = stepper_chunk
         stepper_module.compact_carry = compact_carry
+        stepper_module.stepper_sweep = stepper_sweep
+        gpu_module.dfs_chunk = dfs_chunk
 
 
-def hold_path_kernels(name, first, tag):
+def hold_path_kernels(name, first, tag, spec=None):
     """The kernels of a path against their plain versions, on the path's
     own inputs (``first``, a :class:`FirstInputs`): one chunk of
-    ``stepper_chunk`` from the first batch's fresh carry at full width
+    ``stepper_chunk`` from each kept batch's fresh carry at full width
     on the card, the plain version on a lane sample on the CPU (as in
     phase 6), all 7 planes of the sample compared; the path's first
-    compaction against ``compact_carry_plain`` at full width.  Called
-    after the path's launches are read.  Returns the largest error."""
-    tabs, c0, kw = first.step
-    B, N, slots = c0.row.shape[0], tabs.vocab.shape[1], c0.occ.shape[1]
-    cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
-    sample = LaneSample(c0, min(SAMPLE_LANES, B), functools.partial(
-        stepper_chunk_plain, cpu_tabs, **kw))
-    ck = clone_carry(c0)
-    stepper_chunk(tabs, ck, **kw)
-    err = sample.step_and_check(ck, f"stepper_chunk on the path of {name}")
-    print(f"{tag} stepper_chunk == plain on the path of {name}: its first "
-          f"batch, B={B} N={N} slots={slots}, from the fresh carry, one "
-          f"chunk of {kw['chunk']} at budget {kw['budget']}: all 7 planes "
-          f"bit-identical on a sample of {len(sample.lanes)} lanes; "
-          f"{int((ck.dsi[1] == RUNNING).sum())} of {B} still running",
-          flush=True)
-    if first.comp is None:
+    compaction against ``compact_carry_plain`` at full width; its first
+    ``stepper_sweep`` launch (lanes as the path listed them) against
+    ``stepper_sweep_plain`` of ``spec`` on a lane sample; its first
+    ``dfs_chunk`` launch against ``dfs_chunk_plain`` at full width on the
+    card.  Called after the path's launches are read.  Returns the
+    largest error."""
+    err = 0
+    for i, (tabs, c0, kw) in enumerate(first.steps):
+        B, N, slots = c0.row.shape[0], tabs.vocab.shape[1], c0.occ.shape[1]
+        cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
+        sample = LaneSample(c0, min(SAMPLE_LANES, B), functools.partial(
+            stepper_chunk_plain, cpu_tabs, **kw))
+        ck = clone_carry(c0)
+        stepper_chunk(tabs, ck, **kw)
+        err = max(err, sample.step_and_check(
+            ck, f"stepper_chunk on the path of {name}, batch {i + 1}"))
+        print(f"{tag} stepper_chunk == plain on the path of {name}: its "
+              f"batch {i + 1}, B={B} N={N} slots={slots}, from the fresh "
+              f"carry, one chunk of {kw['chunk']} at budget {kw['budget']}: "
+              f"all 7 planes bit-identical on a sample of "
+              f"{len(sample.lanes)} lanes; "
+              f"{int((ck.dsi[1] == RUNNING).sum())} of {B} still running",
+              flush=True)
+    if first.comp is not None:
+        c, lanes, to, new_slots = first.comp
+        got = compact_carry(c, lanes, to, new_slots)
+        want = compact_carry_plain(c, lanes, to, new_slots)
+        torch.cuda.synchronize()
+        err = max(err, _compare(f"compact_carry on the path of {name}",
+                                got, want))
+        print(f"{tag} compact_carry == plain on the path of {name}: its "
+              f"first compaction, {c.row.shape[0]} -> {to} lanes, "
+              f"{c.occ.shape[1]} -> {new_slots} slots: all 7 planes "
+              f"bit-identical at full width", flush=True)
+    elif first.steps:
         print(f"{tag} compact_carry on the path of {name}: the path made "
               f"no compaction", flush=True)
-        return err
-    c, lanes, to, new_slots = first.comp
-    got = compact_carry(c, lanes, to, new_slots)
-    want = compact_carry_plain(c, lanes, to, new_slots)
-    torch.cuda.synchronize()
-    err = max(err, _compare(f"compact_carry on the path of {name}", got,
-                            want))
-    print(f"{tag} compact_carry == plain on the path of {name}: its first "
-          f"compaction, {c.row.shape[0]} -> {to} lanes, "
-          f"{c.occ.shape[1]} -> {new_slots} slots: all 7 planes "
-          f"bit-identical at full width", flush=True)
+    if first.sweep is not None:
+        require(spec is not None, f"{name}: stepper_sweep ran; hold it "
+                f"with the path's spec")
+        model, tabs, c0, kw = first.sweep
+        B, D = c0.row.shape[0], c0.states.shape[2]
+        cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
+        sample = LaneSample(c0, min(SAMPLE_LANES, B), lambda c:
+                            stepper_sweep_plain(spec, cpu_tabs, c,
+                                                chunk=kw["chunk"],
+                                                budget=kw["budget"]))
+        ck = clone_carry(c0)
+        stepper_sweep(model, tabs, ck, **kw)
+        err = max(err, sample.step_and_check(
+            ck, f"stepper_sweep on the path of {name}"))
+        starts = c0.states[:, 0].cpu().numpy()
+        init = np.asarray(spec.initial_state(), np.int32)
+        print(f"{tag} stepper_sweep == plain on the path of {name}: its "
+              f"first launch, B={B} N={tabs.cmd.shape[1]} D={D} slots="
+              f"{c0.occ.shape[1]}, {int((starts != init).any(1).sum())} "
+              f"lanes starting outside the initial state, "
+              f"{0 if kw.get('lanes') is None else len(kw['lanes'])} lanes "
+              f"listed, one chunk of {kw['chunk']}: all 7 planes "
+              f"bit-identical on a sample of {len(sample.lanes)} lanes",
+              flush=True)
+    if first.dfs is not None:
+        tabs, c0, kw = first.dfs
+        got = dfs_chunk(tabs, Carry(*(t.clone() for t in c0)), **kw)
+        want = dfs_chunk_plain(tabs, Carry(*(t.clone() for t in c0)), **kw)
+        torch.cuda.synchronize()
+        for plane, a, b in zip(Carry._fields, got, want):
+            e = int((a.long() - b.long()).abs().max())
+            err = max(err, e)
+            require(e == 0, f"dfs_chunk on the path of {name}: {plane} "
+                    f"differs from plain (max abs err {e})")
+        print(f"{tag} dfs_chunk == plain on the path of {name}: its first "
+              f"launch, B={c0.dsi.shape[1]} N={tabs.nxt.shape[1]}, one chunk "
+              f"of {kw['chunk']}: all 7 planes bit-identical at full width",
+              flush=True)
     return err
 
 
@@ -2574,6 +2683,362 @@ def phase_steer(dev, tag):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the search plane
+# ---------------------------------------------------------------------------
+
+LONG_PIDS = 8                  # tests/test_longcontext.py's generators
+CAS_LONG_OPS, QUEUE_LONG_OPS = 128, 96
+SEARCH_WITNESSES = 8
+PLAIN_CAP_S = 60.0             # (b): the plain 128-op batch's time cap
+SWEEP_SEGDC = (("queue8", QueueSpec, (AtomicQueueSUT, RacyTwoPhaseQueueSUT)),
+               ("stack8", StackSpec, (AtomicStackSUT, RacyTwoPhaseStackSUT)))
+
+
+def long_corpora():
+    """(b)'s long corpora, as ``tests/test_longcontext.py`` generates
+    them: CAS at 8 pids x 128 ops (``seed_base=2000``, ``"long128"``),
+    the queue at 8 x 96 (``seed_base=1000``, ``"long"``), 512 unique
+    each."""
+    cas = CasSpec()
+    q = QueueSpec()
+    return (("CAS 8x128", cas, build_corpus(
+                cas, (AtomicCasSUT, RacyCasSUT), n=N_UNIQUE,
+                n_pids=LONG_PIDS, max_ops=CAS_LONG_OPS, seed_base=2000,
+                seed_prefix="long128")),
+            ("queue 8x96", q, build_corpus(
+                q, (AtomicQueueSUT, RacyTwoPhaseQueueSUT), n=N_UNIQUE,
+                n_pids=LONG_PIDS, max_ops=QUEUE_LONG_OPS, seed_base=1000,
+                seed_prefix="long")))
+
+
+def against_cpp(name, v, ov):
+    """Lane ``i`` of ``v`` holds unique history ``i % len(ov)``: 0
+    mismatches against ``CppOracle``'s verdicts ``ov`` wherever both
+    decided.  Returns (decided by both, undecided lanes)."""
+    ref = np.asarray(ov)[np.arange(len(v)) % len(ov)]
+    both = (v != Verdict.BUDGET_EXCEEDED) & (ref != Verdict.BUDGET_EXCEEDED)
+    bad = int(((v != ref) & both).sum())
+    require(bad == 0, f"{name}: {bad} verdict mismatches against "
+            f"CppOracle")
+    return int(both.sum()), int((v == Verdict.BUDGET_EXCEEDED).sum())
+
+
+def timed_check(backend, spec, lanes):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = np.asarray(backend.check_histories(spec, lanes))
+    torch.cuda.synchronize()
+    return v, time.perf_counter() - t0
+
+
+def widest_middle(h) -> int:
+    """The widest middle segment of ``h`` (0: no cut)."""
+    return max((_width(seg) for seg in split_at_quiescent_cuts(h)[:-1]),
+               default=0)
+
+
+def routes_by_width(name, spec, corpus, cap, tag):
+    """Each route's time on ``corpus``'s histories grouped by their
+    widest middle segment (0: no cut, plain only): a fresh
+    ``TorchStepper`` and ``SegDC`` over it, one group after another.  The
+    numbers a retune of ``AutoDevice``'s width caps on the card needs."""
+    groups = {}
+    for h in corpus:
+        groups.setdefault(widest_middle(h), []).append(h)
+    n = {"plain": 0, "segdc": 0}
+    route_s = {"plain": 0.0, "segdc": 0.0}
+    segdc_as_plain_s = 0.0  # the plain stepper on the segdc route's lot
+    for w in sorted(groups):
+        hs = groups[w]
+        t = TorchStepper(spec)
+        _, plain_s = timed_check(t, spec, hs)
+        seg_s = float("nan")
+        if w:
+            _, seg_s = timed_check(SegDC(spec, make_inner=lambda q: t),
+                                   spec, hs)
+        route = "segdc" if 0 < w <= cap else "plain"
+        n[route] += len(hs)
+        if route == "segdc":
+            route_s[route] += seg_s
+            segdc_as_plain_s += plain_s
+        else:
+            route_s[route] += plain_s
+        print(f"{tag} {name} widest middle {w}: {len(hs)} histories "
+              f"(routed {route}), plain {plain_s:.4f} s, segdc "
+              f"{seg_s:.4f} s", flush=True)
+    print(f"{tag} {name} by route, the {len(corpus)} unique one group after "
+          f"another: plain route {n['plain']} histories "
+          f"{route_s['plain']:.4f} s; segdc route {n['segdc']} histories "
+          f"{route_s['segdc']:.4f} s (the plain stepper on them "
+          f"{segdc_as_plain_s:.4f} s)", flush=True)
+
+
+def planned_host_stages(spec, lanes, oracle):
+    """The host stages of the planned CAS path, timed apart on its lanes
+    as ``SegDC`` and the ordered ``TorchStepper`` run them: the cut scan
+    of every lane, the native end-state enumeration of every middle
+    segment (the frontier threaded as ``SegDC`` threads it), and the
+    selectivity permutation of every lane.  Returns seconds each."""
+    t0 = time.perf_counter()
+    segs = [split_at_quiescent_cuts(h) for h in lanes]
+    t1 = time.perf_counter()
+    init = {tuple(int(v) for v in spec.initial_state())}
+    for ss in segs:
+        frontier = init
+        for seg in ss[:-1]:
+            frontier = oracle.end_states(spec, seg, frontier)
+            if not frontier:
+                break
+    t2 = time.perf_counter()
+    table = ordering_table(spec)
+    for h in lanes:
+        permute_history(h, table.permutation(h))
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def phase_search(spec, corpus, kv_spec, kv_corpus, tag):
+    """Phase 16: the search plane on the card.  (a) the CAS headline at
+    4096 lanes through ``TorchStepper(spec)`` ("hand") and the planned
+    checker ``build_backend(spec, plan_search(spec, profile))``, and
+    through ``TorchGPU(spec, ordering=True)``; (b) ``AutoDevice`` on the
+    CAS headline, CAS 8 x 128, queue 8 x 96 and kv16 (per key through the
+    nested router), each beside a plain ``TorchStepper``; (c)
+    ``RootSplit`` escalation over a starved ``TorchStepper``; (d)
+    ``SegDC`` over ``TorchStepper`` in the sweep regime (queue and stack
+    of capacity 8); each path's kernels then held against their plain
+    versions on its own first inputs (e); (f) the ``stats --planned`` and
+    ``run --backend auto-stepper`` entry points.  Every verdict equal to
+    ``CppOracle``'s wherever both decided.  Returns the launches of each
+    path and the largest error."""
+    launches, err = {}, 0
+    counters = (stepper_chunk, compact_carry, stepper_sweep)
+
+    def reset():
+        for c in counters + (dfs_chunk,):
+            c.launches = 0
+
+    cpp_v = native.CppOracle(spec).check_histories(spec, corpus)
+    lanes = _replicate(corpus, DEVICE_BATCH)
+
+    # (a) hand against planned
+    reset()
+    hand = TorchStepper(spec)
+    with FirstInputs() as first:
+        v_hand, cold_s = timed_check(hand, spec, lanes)
+        v_hand, hand_s = timed_check(hand, spec, lanes)
+        h_wall, h_busy, _ = profile_device(
+            lambda: hand.check_histories(spec, lanes))
+    both, und = against_cpp("CAS hand", v_hand, cpp_v)
+    iph_hand = hand.search_stats().iters_per_history
+    launches["CAS hand (16a)"] = path_launches("the CAS headline, hand",
+                                               tag, counters)
+    err = max(err, hold_path_kernels("the CAS headline, hand", first, tag))
+    print(f"{tag} 16a CAS hand: TorchStepper(spec) at its defaults, warm "
+          f"{hand_s:.4f} s = {len(lanes) / hand_s:.1f} histories/s (cold "
+          f"{cold_s:.4f} s), {iph_hand:.1f} lockstep iterations a history, "
+          f"undecided {und}, {both} lanes decided by both against "
+          f"CppOracle, 0 mismatches; profiled: wall {h_wall:.4f} s, device "
+          f"busy {h_busy:.4f} s, idle share {1 - h_busy / h_wall:.4f}",
+          flush=True)
+
+    profile = profile_corpus(corpus, spec)
+    plan = plan_search(spec, profile)
+    require(plan.name == CUDA_PLAN, f"plan_search chose {plan.name}")
+    print(f"{tag} 16a plan: {json.dumps(plan.describe())}", flush=True)
+    reset()
+    planned = build_backend(spec, plan)
+    seg = planned if isinstance(planned, SegDC) else None
+    require(seg is not None and isinstance(seg.oracle, native.CppOracle),
+            "the planned CAS checker is not SegDC over TorchStepper with "
+            "the native middle enumerator")
+    with FirstInputs(keep=2) as first:
+        v_plan, cold_s = timed_check(planned, spec, lanes)
+        v_plan, plan_s = timed_check(planned, spec, lanes)
+        p_wall, p_busy, _ = profile_device(
+            lambda: planned.check_histories(spec, lanes))
+    both, und = against_cpp("CAS planned", v_plan, cpp_v)
+    st = collect_search_stats(planned)
+    launches["CAS planned (16a)"] = path_launches("the CAS headline, "
+                                                  "planned", tag, counters)
+    require(seg.segments_native > 0, "no middle segment was enumerated "
+            "natively on CAS")
+    require(seg.final_states_device > 0, "no final segment reached the "
+            "device")
+    fin = first.steps[0][1]
+    init = int(spec.initial_state()[0])
+    outside = int((fin.states[0] != init).sum())
+    require(outside > 0, "the first batch of the planned path has no lane "
+            "starting outside the initial state")
+    err = max(err, hold_path_kernels("the CAS headline, planned", first,
+                                     tag))
+    runs = 3
+    print(f"{tag} 16a CAS planned ({plan.name}): warm {plan_s:.4f} s = "
+          f"{len(lanes) / plan_s:.1f} histories/s (cold {cold_s:.4f} s), "
+          f"{st.iters_per_history:.1f} lockstep iterations a history "
+          f"(hand : planned {iph_hand / st.iters_per_history:.2f}), "
+          f"undecided {und}, {both} decided by both against CppOracle, 0 "
+          f"mismatches; over its {runs} runs {seg.segments_split} histories "
+          f"cut into {seg.segments_total} segments, "
+          f"{seg.final_states_device} final-segment lanes on the device "
+          f"(its first batch: {outside} of {fin.row.shape[0]} lanes "
+          f"starting outside the initial state), {seg.segments_native} "
+          f"middle segments enumerated natively, {seg.middle_nodes} middle "
+          f"nodes; profiled: wall {p_wall:.4f} s, device busy "
+          f"{p_busy:.4f} s, idle share {1 - p_busy / p_wall:.4f}",
+          flush=True)
+    cut_s, mid_s, perm_s = planned_host_stages(spec, lanes, seg.oracle)
+    print(f"{tag} 16a CAS planned, host stages timed apart on its "
+          f"{len(lanes)} lanes: cut scan {cut_s:.4f} s, native middles "
+          f"{mid_s:.4f} s, selectivity permutation {perm_s:.4f} s",
+          flush=True)
+    inner = seg.inner
+    require(inner.search_stats().ordering, "the planned stepper is not "
+            "ordered")
+    lin = [h for h, x in zip(corpus, v_plan[:len(corpus)])
+           if x == Verdict.LINEARIZABLE][:SEARCH_WITNESSES]
+    for h in lin:
+        wv, wit = inner.check_witness(spec, h)
+        require(wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit),
+                "an ordered witness failed to replay")
+    print(f"{tag} 16a {len(lin)} LINEARIZABLE witnesses of the ordered "
+          f"TorchStepper replayed through verify_witness", flush=True)
+
+    reset()
+    gpu = TorchGPU(spec, ordering=True)
+    with FirstInputs() as first:
+        v_gpu, gpu_s = timed_check(gpu, spec, lanes)
+    both, und = against_cpp("CAS ordered TorchGPU", v_gpu, cpp_v)
+    launches["CAS ordered TorchGPU (16a)"] = path_launches(
+        "the CAS headline, ordered TorchGPU", tag, (dfs_chunk,))
+    for h in lin:
+        wv, wit = gpu.check_witness(spec, h)
+        require(wv != Verdict.LINEARIZABLE or verify_witness(spec, h, wit),
+                "an ordered TorchGPU witness failed to replay")
+    err = max(err, hold_path_kernels("the CAS headline, ordered TorchGPU",
+                                     first, tag))
+    print(f"{tag} 16a CAS through TorchGPU(ordering=True): {gpu_s:.4f} s "
+          f"(one run), undecided {und}, {both} decided by both, 0 "
+          f"mismatches, witnesses replayed", flush=True)
+
+    # (b) per-history routing
+    cases = [("CAS headline", spec, corpus)] + list(long_corpora()) + [
+        ("kv16", kv_spec, kv_corpus)]
+    for name, sp, cs in cases:
+        ov = native.CppOracle(sp).check_histories(sp, cs)
+        lanes_b = _replicate(cs, DEVICE_BATCH)
+        reset()
+        auto = AutoDevice(sp)
+        with FirstInputs() as first:
+            v, auto_s = timed_check(auto, sp, lanes_b)
+        both, und = against_cpp(f"{name} auto", v, ov)
+        launches[f"{name} auto (16b)"] = path_launches(
+            f"{name}, auto", tag, counters)
+        err = max(err, hold_path_kernels(f"{name}, auto", first, tag, sp))
+        router = auto.pcomp.inner if auto.pcomp is not None else auto
+        pv, plain_s = timed_check(TorchStepper(sp), sp, cs)
+        what = f"{len(cs)} unique alone"
+        if plain_s * DEVICE_BATCH / len(cs) <= PLAIN_CAP_S:
+            pv, plain_s = timed_check(TorchStepper(sp), sp, lanes_b)
+            what = f"{len(lanes_b)} lanes"
+        _, plain_und = against_cpp(f"{name} plain", pv, ov)
+        print(f"{tag} 16b {name} auto ({auto.name}): {len(lanes_b)} lanes "
+              f"in {auto_s:.4f} s (one run), routed plain "
+              f"{router.routed_plain} / segdc {router.routed_segdc}"
+              + (" (sub-histories of the per-key split)"
+                 if auto.pcomp is not None else "")
+              + f", undecided {und}, {both} decided by both against "
+              f"CppOracle, 0 mismatches; plain TorchStepper on {what}: "
+              f"{plain_s:.4f} s, undecided {plain_und}, 0 mismatches",
+              flush=True)
+        if auto.pcomp is None:
+            cap = (auto.NATIVE_WIDTH_CAP if auto._native_mid
+                   else auto.WIDTH_CAP)
+            routes_by_width(name, sp, cs, cap, tag)
+
+    # (c) root splitting, escalation: the inner pass alone first, for its
+    # undecided lanes, then the path (its whole pass and the children)
+    starve = dict(budget=2000, mid_budget=0, rescue_budget=0)
+    inner_v = np.asarray(TorchStepper(spec, **starve).check_histories(
+        spec, lanes))
+    reset()
+    rs = RootSplit(spec, TorchStepper(spec, **starve))
+    with FirstInputs(keep=2) as first:
+        v_rs, rs_s = timed_check(rs, spec, lanes)
+    both, und = against_cpp("CAS rootsplit", v_rs, cpp_v)
+    launches["CAS rootsplit (16c)"] = path_launches("the CAS headline, "
+                                                    "rootsplit", tag,
+                                                    counters)
+    err = max(err, hold_path_kernels("the CAS headline, rootsplit", first,
+                                     tag))
+    print(f"{tag} 16c CAS RootSplit over TorchStepper(budget=2000, no mid "
+          f"or rescue budget): the inner pass leaves "
+          f"{int((inner_v == Verdict.BUDGET_EXCEEDED).sum())} lanes "
+          f"undecided; {rs.split_histories} split into "
+          f"{rs.children_checked} children; {und} lanes still undecided "
+          f"after ({rs_s:.4f} s, one run); {both} decided by both against "
+          f"CppOracle, 0 mismatches", flush=True)
+
+    # (d) SegDC over TorchStepper in the sweep regime
+    for name, make_spec, suts in SWEEP_SEGDC:
+        sp = make_spec(capacity=8)
+        cs = build_corpus(sp, suts, n=256, n_pids=N_PIDS, max_ops=Q_OPS,
+                          seed_base=1000, seed_prefix="bench")
+        ov = native.CppOracle(sp).check_histories(sp, cs)
+        lanes_d = _replicate(cs, 1024)
+        reset()
+        sd = SegDC(sp, make_inner=lambda q: TorchStepper(q))
+        require(sd.inner.regime == "sweep" and sd.device_final,
+                f"{name}: SegDC's finals are not on the sweep regime")
+        with FirstInputs() as first:
+            v, sd_s = timed_check(sd, sp, lanes_d)
+        both, und = against_cpp(f"{name} segdc", v, ov)
+        launches[f"{name} segdc sweep (16d)"] = path_launches(
+            f"{name}, segdc over the sweep", tag,
+            (stepper_sweep, compact_carry))
+        require(sd.final_states_device > 0, f"{name}: no final-segment "
+                f"lane reached the sweep")
+        err = max(err, hold_path_kernels(f"{name}, segdc over the sweep",
+                                         first, tag, sp))
+        print(f"{tag} 16d {name} SegDC over TorchStepper (sweep regime): "
+              f"{len(lanes_d)} lanes in {sd_s:.4f} s (one run), "
+              f"{sd.segments_split} cut, {sd.final_states_device} "
+              f"final-segment lanes sent to stepper_sweep, "
+              f"{sd.segments_native} middles native, undecided {und}, "
+              f"{both} decided by both against CppOracle, 0 mismatches",
+              flush=True)
+
+    # (f) the entry points
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "qsm_tpu_torch", "stats", "--model", "cas",
+         "--planned"], capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"stats --planned exited "
+            f"{out.returncode}: {out.stderr[-400:]}")
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    require(doc["plan_for_corpus"]["name"] == CUDA_PLAN
+            and doc["search_stats"]["plan"] == CUDA_PLAN,
+            f"stats --planned ran plan {doc['plan_for_corpus']['name']}")
+    print(f"{tag} 16f python -m qsm_tpu_torch stats --model cas --planned: "
+          f"backend {doc['backend']} on {doc['device']}, "
+          f"{doc['histories']} histories in {doc['seconds']} s, undecided "
+          f"{doc['undecided']}, iters/history "
+          f"{doc['search_stats']['iters_per_history']:.1f} "
+          f"({time.perf_counter() - t0:.1f} s with start-up)", flush=True)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "qsm_tpu_torch", "run", "--model", "cas",
+         "--backend", "auto-stepper", "--trials", "30"],
+        capture_output=True, text=True, timeout=600)
+    require(out.returncode == 1 and "FAIL" in out.stdout,
+            f"run --backend auto-stepper did not convict racy CAS "
+            f"(rc {out.returncode}): {out.stdout[-400:]}{out.stderr[-400:]}")
+    print(f"{tag} 16f python -m qsm_tpu_torch run --model cas --backend "
+          f"auto-stepper: rc 1, {out.stdout.splitlines()[0]} "
+          f"({time.perf_counter() - t0:.1f} s with start-up)", flush=True)
+    return launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -2732,14 +3197,23 @@ def main(argv=None) -> int:
     gen_launches, gen_err = phase_steer(dev, tag)
     print(f"{tag} phase generation plane: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    search_launches, search_err = phase_search(spec, corpus, kv_spec,
+                                               kv_corpus, tag)
+    print(f"{tag} phase search plane: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
                **{f"{k} hybrid": x for k, x in hybrid_launches.items()},
-               "generation plane (phase 15)": gen_launches}
+               "generation plane (phase 15)": gen_launches,
+               **search_launches}
 
-    # phase 6 and the paths of phases 13-15, each on its own inputs
-    step_err = max(step_err, pcomp_err, hybrid_err, gen_err)
+    def paths_of(kernel):
+        return {k: x[kernel] for k, x in by_path.items() if kernel in x}
+
+    # phase 6 and the paths of phases 13-16, each on its own inputs
+    step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare
@@ -2748,10 +3222,12 @@ def main(argv=None) -> int:
         "name": "dfs_chunk", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/dfs_chunk.cu",
         "replaces": "qsm_tpu/ops/pallas_kernel.py:265 (build_pallas_chunk)",
-        "launches": launches, "matches_plain": max_err == 0,
-        "max_abs_err": max_err, "ms": head["ms"],
+        "launches": launches, "matches_plain": max(max_err, search_err) == 0,
+        "max_abs_err": max(max_err, search_err), "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": None}]}
+        "bound_by": head["bound_by"], "library_ms": None,
+        "launches_by_path": {"CAS headline (phases 4-5)": launches,
+                             **paths_of("dfs_chunk")}}]}
     kernels_line["kernels"] += [{
         "name": "stepper_chunk", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/stepper_chunk.cu",
@@ -2759,8 +3235,7 @@ def main(argv=None) -> int:
                     "run_one, table regime)",
         "launches": step_launches, "matches_plain": step_err == 0,
         "max_abs_err": step_err, **step, "library_ms": None,
-        "launches_by_path": {k: x["stepper_chunk"]
-                             for k, x in by_path.items()}}, {
+        "launches_by_path": paths_of("stepper_chunk")}, {
         "name": "compact_carry", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/compact_carry.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:736 (JaxTPU._compact_fn)",
@@ -2768,14 +3243,17 @@ def main(argv=None) -> int:
         "matches_plain": max(step_err, sweep_comp_err) == 0,
         "max_abs_err": max(step_err, sweep_comp_err), **comp,
         "library_ms": None,
-        "launches_by_path": {k: x["compact_carry"]
-                             for k, x in by_path.items()}}, {
+        "launches_by_path": paths_of("compact_carry")}, {
         "name": "stepper_sweep", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/stepper_sweep.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:303 (build_stepper -> "
                     "run_one, sweep regime)",
-        "launches": sweep_launches, "matches_plain": sweep_err == 0,
-        "max_abs_err": sweep_err, **sweep, "library_ms": None}, {
+        "launches": sweep_launches,
+        "matches_plain": max(sweep_err, search_err) == 0,
+        "max_abs_err": max(sweep_err, search_err), **sweep,
+        "library_ms": None,
+        "launches_by_path": {"kv16 (phases 10-11)": sweep_launches,
+                             **paths_of("stepper_sweep")}}, {
         "name": "threefry_draws", "route": "cuda",
         "timing": "cuda events, launches queued behind a spin of the card "
                   "(time_queued); wrapper_ms: back to back through the "

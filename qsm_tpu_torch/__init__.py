@@ -21,6 +21,14 @@ property layer's resolving oracle when it builds; :class:`HybridDevice`
 lets ``TorchStepper`` decide the easy majority under a tight budget and
 the host checker the rest.
 
+The search plane (``search/``): selectivity ordering of each history's
+ops, and ``plan_search`` / ``build_backend``, the planned checker (the
+port's own plan on the card).  Combinators that decide a history by its
+structure: :class:`SegDC` (quiescent cuts, the final segments batched on
+the device from every frontier state), :class:`RootSplit` (the first
+choice point spread over lanes) and :class:`AutoDevice` (per-history
+routing between the plain stepper and ``SegDC``, per key first).
+
 The generation plane (``gen/``) manufactures the histories worth
 checking: ``generate_batch`` draws a seeded table (on the card,
 ``csrc/threefry_draws.cu``) and assembles histories on the host, and
@@ -42,17 +50,25 @@ from .native import CppOracle
 from .ops.gpu_backend import TorchGPU
 from .ops.hybrid import HybridDevice
 from .ops.pcomp import NotDecomposableError, PComp
+from .ops.rootsplit import RootSplit
+from .ops.router import AutoDevice
+from .ops.segdc import SegDC
 from .ops.stepper import TorchStepper
 from .ops.wing_gong_cpu import WingGongCPU
+from .search import (CorpusProfile, OrderingTable, SearchPlan, SearchStats,
+                     build_backend, collect_search_stats, ordering_table,
+                     permute_history, plan_search, profile_corpus)
 
 __all__ = [
-    "AtomicCasSUT", "AtomicQueueSUT", "AtomicRegisterSUT",
-    "BackendUnavailable", "CasSpec", "CmdSig", "CppOracle", "History",
-    "HybridDevice", "KeyProj", "NotDecomposableError", "Op", "PComp",
-    "Program", "ProgOp", "PropertyConfig", "QueueSpec",
-    "RacyCachedRegisterSUT",
-    "RacyCasSUT", "RacyTwoPhaseQueueSUT", "RegisterSpec", "Spec",
-    "TorchGPU", "TorchStepper", "Verdict", "WingGongCPU", "check_one",
-    "encode_batch", "generate_program", "overlapping_history",
-    "prop_concurrent", "replay", "verify_witness",
+    "AtomicCasSUT", "AtomicQueueSUT", "AtomicRegisterSUT", "AutoDevice",
+    "BackendUnavailable", "CasSpec", "CmdSig", "CorpusProfile", "CppOracle",
+    "History", "HybridDevice", "KeyProj", "NotDecomposableError", "Op",
+    "OrderingTable", "PComp", "Program", "ProgOp", "PropertyConfig",
+    "QueueSpec", "RacyCachedRegisterSUT", "RacyCasSUT",
+    "RacyTwoPhaseQueueSUT", "RegisterSpec", "RootSplit", "SearchPlan",
+    "SearchStats", "SegDC", "Spec", "TorchGPU", "TorchStepper", "Verdict",
+    "WingGongCPU", "build_backend", "check_one", "collect_search_stats",
+    "encode_batch", "generate_program", "ordering_table",
+    "overlapping_history", "permute_history", "plan_search",
+    "profile_corpus", "prop_concurrent", "replay", "verify_witness",
 ]

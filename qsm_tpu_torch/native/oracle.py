@@ -127,8 +127,7 @@ class CppOracle:
         """True when this spec has a native route at all (step table or
         vector kernel, library loaded) — i.e., :meth:`end_states` can
         ever answer non-None.  Callers choosing a middle-segment
-        enumerator (segment-wise checking, the JAX package's
-        ``ops/segdc.py``, which the port does not have yet) probe this:
+        enumerator (``ops/segdc.py::default_middle_oracle``) probe this:
         a CppOracle that always falls back is strictly worse than the
         memoised Python oracle it would displace."""
         return self._lib is not None and self._dispatch(1) is not None

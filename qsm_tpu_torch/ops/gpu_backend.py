@@ -28,7 +28,7 @@ from ..core.spec import Spec
 from .backend import resolve_device
 from .dfs_kernel import (BUDGET, MAX_OPS, MAX_STATES, RUNNING, SUCCESS, Carry,
                          Tables, dfs_chunk)
-from .host_contracts import DeviceChecker
+from .host_contracts import DeviceChecker, map_chosen_back
 
 
 def lane_tables(spec: Spec, histories: Sequence[History], n_ops: int,
@@ -83,7 +83,10 @@ class TorchGPU(DeviceChecker):
 
     ``device`` defaults to CUDA; without a CUDA device construction raises
     unless ``device="cpu"`` is asked for, which runs the kernel's plain
-    version (the tests do)."""
+    version (the tests do).  ``ordering=True`` permutes each history's
+    ops by selectivity before its step tables are built
+    (``search/ordering.py``), as the JAX package's ``PallasTPU`` does;
+    witnesses map back to the original indices."""
 
     name = "torch_gpu"
 
@@ -94,9 +97,15 @@ class TorchGPU(DeviceChecker):
 
     def __init__(self, spec: Spec, budget: int = 2_000,
                  max_expansions: int = 128, rescue_budget: int = 500_000,
-                 mid_budget: int = 50_000, device=None):
+                 mid_budget: int = 50_000, device=None,
+                 ordering: bool = False):
         self.spec = spec
         self.device = resolve_device(device)
+        self._ordering_table = None
+        if ordering:
+            from ..search.ordering import ordering_table
+
+            self._ordering_table = ordering_table(spec)
         bound = (spec.scalar_state_bound(MAX_OPS)
                  if spec.STATE_DIM == 1 else None)
         if bound is None:
@@ -134,6 +143,15 @@ class TorchGPU(DeviceChecker):
                     flat_inits[i:i + top] if flat_inits else None)
                 for i in range(0, len(flat), top)])
 
+        # the selectivity try order: the kernel's lowest-index pick then
+        # tries the most constrained ops first; chosen is mapped back below
+        perms = None
+        if self._ordering_table is not None:
+            from ..search.ordering import permute_history
+
+            perms = [self._ordering_table.permutation(h) for h in flat]
+            flat = [permute_history(h, p) for h, p in zip(flat, perms)]
+
         n_ops = bucket_for(max(len(h) for h in flat) or 1)
         if n_ops > MAX_OPS:
             raise ValueError(
@@ -162,5 +180,8 @@ class TorchGPU(DeviceChecker):
         status = np.where(status == RUNNING, BUDGET, status)
         self.device_histories += b
         if collect_chosen:
-            return status, carry.chosen.T[:b].cpu().numpy()
+            chosen = carry.chosen.T[:b].cpu().numpy()
+            if perms is not None:
+                map_chosen_back(chosen, perms)
+            return status, chosen
         return status

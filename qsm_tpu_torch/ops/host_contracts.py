@@ -127,6 +127,15 @@ def fold_statuses(groups: Sequence[Tuple[int, int]], statuses: np.ndarray
     return out
 
 
+def map_chosen_back(chosen: np.ndarray, perms) -> None:
+    """Rows of ``chosen`` index permuted op arrays (``permuted[k] =
+    ops[perm[k]]``, ``search/ordering.py``): map each taken index ``v``
+    to ``perm[v]`` in place; -1 (beyond the depth) stays."""
+    for row, p in zip(chosen, perms):
+        m = row >= 0
+        row[m] = np.asarray(p)[row[m]]
+
+
 class DeviceChecker:
     """The ``LineariseBackend`` entry points of a device backend.  A
     subclass sets ``spec``, ``max_expansions`` and

@@ -44,7 +44,7 @@ import torch
 from ..core.history import History, bucket_for, encode_batch
 from ..core.spec import Spec
 from .backend import resolve_device
-from .host_contracts import DeviceChecker
+from .host_contracts import DeviceChecker, map_chosen_back
 from .scalarize import scalar_shadow
 from .stepper_kernel import (BUDGET, INSERTS, ITERS, MAX_OPS, PRUNES,
                              RUNNING, STATUS, compact_carry,
@@ -103,7 +103,11 @@ class TorchStepper(DeviceChecker):
     unless ``device="cpu"`` is asked for, which runs the kernels' plain
     versions (the tests do).  ``chunk_schedule``, ``batch_buckets`` and
     ``slots_for_batch`` (bucket -> memo slots a lane) replace the port's
-    defaults, so that a test can hand it the JAX package's plan.
+    defaults, so that a test can hand it the JAX package's plan; a
+    ``plan`` (``search/planner.py::SearchPlan``) replaces all three at
+    once and may not be combined with them.  ``ordering`` permutes each
+    history's ops by selectivity before encoding (``search/ordering.py``;
+    None: the plan's setting, off without a plan); witnesses map back.
     ``regime`` says which search a spec takes: "table" or "sweep"."""
 
     name = "torch_stepper"
@@ -119,9 +123,28 @@ class TorchStepper(DeviceChecker):
                  mid_budget: int = 50_000, device=None,
                  chunk_schedule: Optional[Sequence[int]] = None,
                  batch_buckets: Optional[Sequence[int]] = None,
-                 slots_for_batch: Optional[Dict[int, int]] = None):
+                 slots_for_batch: Optional[Dict[int, int]] = None,
+                 plan=None, ordering: Optional[bool] = None):
+        if plan is not None:
+            if (chunk_schedule is not None or batch_buckets is not None
+                    or slots_for_batch is not None):
+                raise ValueError("pass a plan or chunk_schedule / "
+                                 "batch_buckets / slots_for_batch, not both")
+            # the port's kernels have no unroll knob (plan.unroll): it
+            # changes no verdict and no iteration count
+            chunk_schedule = plan.chunk_schedule
+            batch_buckets = plan.batch_buckets
+            slots_for_batch = plan.slots_for_batch
+        self.plan = plan
         self.spec = spec
         self.device = resolve_device(device)
+        if ordering is None:
+            ordering = bool(plan.ordering) if plan is not None else False
+        self._ordering_table = None
+        if ordering:
+            from ..search.ordering import ordering_table
+
+            self._ordering_table = ordering_table(spec)
         self._shadow = scalar_shadow(spec)
         self.kspec = self._shadow if self._shadow is not None else spec
         if self._shadow is not None:
@@ -163,9 +186,9 @@ class TorchStepper(DeviceChecker):
     def search_stats(self):
         """Cumulative :class:`~qsm_tpu_torch.search.stats.SearchStats`:
         ``histories`` counts device lanes (after pending expansion),
-        ``lockstep_iters`` the trips x padded width every lane pays.  The
-        port has no candidate ordering or search plan yet, so ``ordering``
-        and ``plan`` keep their defaults."""
+        ``lockstep_iters`` the trips x padded width every lane pays,
+        ``ordering`` whether ops are tried in selectivity order and
+        ``plan`` the search plan's name ("" without one)."""
         from ..search.stats import SearchStats
 
         return SearchStats(
@@ -178,6 +201,8 @@ class TorchStepper(DeviceChecker):
             chunk_rounds=self.rounds_run,
             rescued=self.rescued,
             deferred=self.deferred_out_of_domain,
+            ordering=self._ordering_table is not None,
+            plan=self.plan.name if self.plan is not None else "",
         )
 
     # -- the chunked, lane-compacting driver ---------------------------
@@ -202,6 +227,18 @@ class TorchStepper(DeviceChecker):
                     np.concatenate([np.pad(
                         p[1], ((0, 0), (0, width - p[1].shape[1])),
                         constant_values=-1) for p in parts]))
+
+        # selectivity try order: each history's ops permuted before
+        # encoding (pending variants are expanded already, as the JAX
+        # package orders them), so the kernel's lowest-index pick tries
+        # the most constrained candidates first; chosen is mapped back
+        # below
+        perms = None
+        if self._ordering_table is not None:
+            from ..search.ordering import permute_history
+
+            perms = [self._ordering_table.permutation(h) for h in flat]
+            flat = [permute_history(h, p) for h, p in zip(flat, perms)]
 
         n_ops = bucket_for(max(len(h) for h in flat) or 1)
         if n_ops > MAX_OPS:
@@ -286,5 +323,7 @@ class TorchStepper(DeviceChecker):
         self.device_histories += b
         self.device_batches += 1
         if collect_chosen:
+            if perms is not None:
+                map_chosen_back(out_chosen, perms)
             return out_status, out_chosen
         return out_status

@@ -9,6 +9,10 @@ non-linearizable-from.
 Pending operations (invoked, never answered) may be linearized with any
 response in their domain (they took effect, the response was lost) or not
 at all (they did not take effect).
+
+``ordering=True`` tries candidates in selectivity order
+(``search/ordering.py``): verdicts are invariant under the try order,
+only ``nodes_explored`` changes.
 """
 
 from __future__ import annotations
@@ -30,9 +34,13 @@ class WingGongCPU:
     name = "wing_gong_cpu"
 
     def __init__(self, node_budget: int = _DEFAULT_NODE_BUDGET,
-                 memo: bool = False):
+                 memo: bool = False, ordering: bool = False):
         self.node_budget = node_budget
         self.memo = memo
+        # off by default: the canonical index order is what every kernel
+        # is pinned against
+        self.ordering = ordering
+        self._ordering_tables: dict = {}  # (name, kwargs) -> table or None
         self.nodes_explored = 0  # cumulative, for the search-cost record
         self.histories_checked = 0
 
@@ -67,7 +75,22 @@ class WingGongCPU:
             engine=self.name + ("_memo" if self.memo else ""),
             histories=self.histories_checked,
             nodes_explored=self.nodes_explored,
+            ordering=self.ordering,
         )
+
+    def _try_order(self, spec: Spec, history: History) -> Sequence[int]:
+        if not self.ordering:
+            return range(len(history.ops))
+        # keyed by the constructor kwargs too: two specs of one name
+        # (CasSpec(n_values=2) and (8)) must not share a table
+        key = (spec.name, repr(spec.spec_kwargs()))
+        if key not in self._ordering_tables:
+            from ..search.ordering import ordering_table
+
+            self._ordering_tables[key] = ordering_table(spec)
+        from ..search.ordering import order_indices
+
+        return order_indices(self._ordering_tables[key], history)
 
     def _check(self, spec: Spec, history: History,
                init_state=None, witness_out=None) -> Verdict:
@@ -87,6 +110,7 @@ class WingGongCPU:
         taken = [False] * n
         budget = [self.node_budget]
         seen = set() if self.memo else None
+        order = self._try_order(spec, history)
 
         def eligible(j: int) -> bool:
             if taken[j]:
@@ -101,7 +125,7 @@ class WingGongCPU:
             if seen is not None and (state, tuple(taken)) in seen:
                 return Verdict.VIOLATION
             saw_budget = False
-            for j in range(n):
+            for j in order:
                 if not eligible(j):
                     continue
                 op = ops[j]

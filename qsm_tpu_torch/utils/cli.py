@@ -1,4 +1,4 @@
-"""Command line: ``python -m qsm_tpu_torch run|bench``.
+"""Command line: ``python -m qsm_tpu_torch run|bench|stats``.
 
 Device backends (``--device cpu`` runs their kernels' plain versions):
 
@@ -11,13 +11,29 @@ Device backends (``--device cpu`` runs their kernels' plain versions):
 * ``pcomp-stepper``: per-key decomposition with ``TorchStepper`` deciding
   the sub-histories (the reference's ``pcomp-tpu``);
 * ``hybrid-stepper``: ``TorchStepper`` under a 2000-iteration budget, the
-  rest on the host checker (the reference's ``hybrid-tpu``).
+  rest on the host checker (the reference's ``hybrid-tpu``);
+* ``segdc-stepper``: quiescent-cut segmentation, the final segments of a
+  batch decided by ``TorchStepper`` from every frontier state in one call
+  (the reference's ``segdc-tpu``);
+* ``rootsplit-stepper``: ``TorchStepper``, its undecided histories split
+  at the first choice point and decided again as children (the
+  reference's ``rootsplit-tpu``);
+* ``auto-stepper``: per-history routing between ``TorchStepper`` and
+  ``segdc-stepper``, per key first for a projected spec (the reference's
+  ``auto-tpu``).
 
 Host backends: ``auto`` (the native C++ checker when it builds, else the
 memoised oracle: the property layer's resolving oracle), ``cpu`` (the
 memoised oracle), ``cpp`` (the native checker), ``pcomp`` and
 ``pcomp-cpp`` (per-key decomposition over the memoised oracle or the
-native checker).
+native checker), ``segdc`` and ``segdc-cpp`` (segmentation over the
+memoised oracle or the native checker), ``rootsplit`` (root splitting
+over the memoised oracle).
+
+``stats`` prints one JSON document: a backend's search-cost record on one
+corpus, the corpus profile and the plan ``plan_search`` picks for it;
+``--planned`` runs ``build_backend(spec, plan_search(spec, profile))``,
+the port's plan, on the card.
 """
 
 from __future__ import annotations
@@ -31,7 +47,8 @@ from ..models.registry import MODELS, make
 from ..ops.wing_gong_cpu import WingGongCPU
 
 BACKENDS = ("auto", "gpu", "stepper", "pcomp-stepper", "hybrid-stepper",
-            "cpu", "cpp", "pcomp", "pcomp-cpp")
+            "segdc-stepper", "rootsplit-stepper", "auto-stepper", "cpu",
+            "cpp", "pcomp", "pcomp-cpp", "segdc", "segdc-cpp", "rootsplit")
 # host backends that are the resolving oracle themselves: the property
 # layer need not search again what they left undecided
 _ORACLES = ("auto", "cpu", "cpp")
@@ -79,6 +96,22 @@ def _make_backend(name: str, spec, device):
         from ..ops.hybrid import HybridDevice
 
         return HybridDevice(spec, device=device)
+    if name == "segdc-stepper":
+        from ..ops.segdc import SegDC
+        from ..ops.stepper import TorchStepper
+
+        # middles on SegDC's default enumerator (native when it builds),
+        # finals batched on the device through init_states
+        return SegDC(spec, lambda s: TorchStepper(s, device=device))
+    if name == "rootsplit-stepper":
+        from ..ops.rootsplit import RootSplit
+        from ..ops.stepper import TorchStepper
+
+        return RootSplit(spec, TorchStepper(spec, device=device))
+    if name == "auto-stepper":
+        from ..ops.router import AutoDevice
+
+        return AutoDevice(spec, device=device)
     if name == "cpu":
         return WingGongCPU(memo=True)
     if name == "cpp":
@@ -91,6 +124,19 @@ def _make_backend(name: str, spec, device):
         from ..ops.pcomp import PComp
 
         return PComp(spec, _native_oracle_factory("pcomp"))
+    if name == "segdc":
+        from ..ops.segdc import SegDC
+
+        return SegDC(spec)
+    if name == "segdc-cpp":
+        from ..ops.segdc import SegDC
+
+        cpp = _native_oracle_factory("segdc")(spec)
+        return SegDC(spec, make_inner=lambda s: cpp, oracle=cpp)
+    if name == "rootsplit":
+        from ..ops.rootsplit import RootSplit
+
+        return RootSplit(spec)
     raise SystemExit(f"unknown backend {name!r}")
 
 
@@ -121,7 +167,11 @@ def _add_common(p: argparse.ArgumentParser, backend_default: str) -> None:
                         "auto: the native checker when it builds, else "
                         "cpu, the host memo oracle; cpp: the native "
                         "checker; pcomp, pcomp-cpp: per-key decomposition "
-                        "over the memo oracle or the native checker")
+                        "over the memo oracle or the native checker; "
+                        "segdc[-cpp,-stepper]: quiescent-cut segmentation; "
+                        "rootsplit[-stepper]: root splitting; "
+                        "auto-stepper: per-history routing between the "
+                        "stepper and segdc-stepper")
     p.add_argument("--device", default=None,
                    help="torch device of the device backends (default "
                         "cuda; cpu runs the kernels' plain versions)")
@@ -158,16 +208,23 @@ def cmd_run(args) -> int:
 
 def _device_name(backend) -> str:
     """The card a backend's device search runs on, or "host".  A
-    combinator keeps its device engine as ``inner`` (per-key
-    decomposition) or ``device`` (the hybrid plan)."""
+    combinator keeps its engine as ``inner`` (per-key decomposition,
+    segmentation, root splitting), ``device`` (the hybrid plan) or
+    ``plain`` / ``pcomp`` (the router), possibly nested."""
     import torch
 
-    for b in (backend, getattr(backend, "inner", None),
-              getattr(backend, "device", None)):
+    todo, seen = [backend], set()
+    while todo:
+        b = todo.pop(0)
+        if b is None or id(b) in seen:
+            continue
+        seen.add(id(b))
         dev = getattr(b, "device", None)
         if isinstance(dev, torch.device):
             return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                     else str(dev))
+        todo += [getattr(b, a, None)
+                 for a in ("inner", "device", "plain", "pcomp")]
     return "host"
 
 
@@ -194,6 +251,60 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_stats(args) -> int:
+    """Search-cost accounting of one backend on one corpus as ONE JSON
+    document (the JAX package's ``stats`` without ``--serve``):
+    the backend's ``SearchStats``, the corpus profile and the plan
+    ``plan_search`` picks for it.  ``--planned`` runs the planned checker
+    (``build_backend``; on the card unless ``--device cpu``) instead of
+    ``--backend``."""
+    import numpy as np
+
+    from ..resilience.failover import collect_resilience
+    from ..search import collect_search_stats, plan_search, profile_corpus
+    from .corpus import build_corpus
+
+    entry = MODELS[args.model]
+    spec = entry.make_spec()
+    hists = build_corpus(
+        spec, (entry.impls["atomic"], entry.impls["racy"]),
+        n=args.corpus, n_pids=args.pids or entry.default_pids,
+        max_ops=args.ops or entry.default_ops, seed_prefix="stats")
+    # with the spec the profile measures the per-key shape too, and the
+    # printed plan says whether (and why) it splits
+    profile = profile_corpus(hists, spec)
+    plan = plan_search(spec, profile,
+                       platform=None if args.planned else "cpu")
+    if args.planned:
+        from ..search.planner import build_backend
+
+        backend = build_backend(spec, plan, device=args.device)
+        bname = f"planned({plan.name})"
+    else:
+        backend = make_backend(args.backend, spec, args.device)
+        bname = args.backend
+    t0 = time.perf_counter()
+    v = backend.check_histories(spec, hists)
+    dt = time.perf_counter() - t0
+    st = collect_search_stats(backend)
+    print(json.dumps({
+        "model": args.model, "backend": bname,
+        "device": _device_name(backend),
+        "histories": len(hists), "seconds": round(dt, 3),
+        "undecided": int((np.asarray(v) == 2).sum()),
+        "resilience": collect_resilience(backend),
+        "profile": {
+            "max_ops": profile.max_ops,
+            "mean_ops": round(profile.mean_ops, 1),
+            "pending_fraction": round(profile.pending_fraction, 3),
+            "mean_segments": round(profile.mean_segments, 2),
+        },
+        "plan_for_corpus": plan.describe(),
+        "search_stats": st.to_dict() if st is not None else None,
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="qsm_tpu_torch",
@@ -217,6 +328,18 @@ def main(argv=None) -> int:
     _add_common(p, "cpu")
     p.add_argument("--corpus", type=int, default=256)
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser(
+        "stats",
+        help="search-cost accounting (SearchStats) of one backend on one "
+             "corpus, with the corpus profile and the planner's verdict")
+    _add_common(p, "cpu")
+    p.add_argument("--planned", action="store_true",
+                   help="run the plan_search-built checker (the port's "
+                        "plan: TorchStepper, ordering, SegDC / PComp when "
+                        "the profile says so) instead of --backend")
+    p.add_argument("--corpus", type=int, default=64)
+    p.set_defaults(fn=cmd_stats)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -25,8 +25,12 @@ stores, the main path's 1024 x 816, more units than the grid; tables off
 a 16-byte boundary) and the known answers of the JAX package's table,
 ``table_to_host``'s pinned copy, ``generate_batch`` on CUDA equal to the
 ``device="cpu"`` call, and one ``SteeringLoop``
-round over ``HybridDevice`` whose verdicts are ``CppOracle``'s.  Without
-CUDA each test skips in its fixture."""
+round over ``HybridDevice`` whose verdicts are ``CppOracle``'s; the search
+plane: ``SegDC``'s final segments from frontier states other than the
+initial one (table and sweep regimes), ordered ``TorchStepper`` and
+``TorchGPU`` witnesses, ``AutoDevice`` routing, each first launch held
+against the plain version.  Without CUDA each test skips in its
+fixture."""
 
 from __future__ import annotations
 
@@ -914,3 +918,171 @@ def test_steering_round_over_the_hybrid_plan_matches_the_host_oracle(
     np.testing.assert_array_equal(v, CppOracle(spec).check_histories(spec,
                                                                      hs))
     assert report["flips"] == int((v == Verdict.VIOLATION).sum())
+
+
+# ---------------------------------------------------------------------------
+# the search plane: SegDC's final segments, ordering, AutoDevice
+# ---------------------------------------------------------------------------
+
+
+class _FirstLaunch:
+    """Stands in for a kernel wrapper that a backend module calls by name:
+    the inputs of the first launch are kept (the carry cloned before the
+    launch), and every launch still goes through the wrapper, which counts
+    it once."""
+
+    def __init__(self, monkeypatch, module, name: str):
+        self.fn = getattr(module, name)
+        self.first = None
+        monkeypatch.setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        if self.first is None:
+            self.first = (args[:-1], _clone(args[-1]), dict(kw))
+        return self.fn(*args, **kw)
+
+    def hold(self, plain, what: str):
+        """One launch of the kernel from the kept inputs against ``plain``
+        (called with the same tables, carry and counters), every carry
+        plane equal.  Returns the kept fresh carry."""
+        args, c0, kw = self.first
+        got, want = _clone(c0), _clone(c0)
+        self.fn(*args, got, **kw)
+        torch.cuda.synchronize()
+        plain(got, want, args, kw)
+        _assert_stepper_equal(got, want, what)
+        return c0
+
+
+def _hold_stepper_chunk(rec, what):
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk_plain
+
+    return rec.hold(lambda got, want, args, kw: stepper_chunk_plain(
+        *args, want, chunk=kw["chunk"], budget=kw["budget"]), what)
+
+
+def _agree_with_cpp(spec, hs, v):
+    """Every verdict decided on the card is ``CppOracle``'s."""
+    from qsm_tpu_torch.native import CppOracle
+
+    ref = CppOracle(spec).check_histories(spec, hs)
+    both = (v != Verdict.BUDGET_EXCEEDED) & (ref != Verdict.BUDGET_EXCEEDED)
+    assert both.sum() > len(hs) // 2
+    np.testing.assert_array_equal(v[both], ref[both])
+
+
+@pytest.mark.parametrize("regime", ["table", "sweep"])
+def test_segdc_final_segments_from_frontier_states(cuda, monkeypatch,
+                                                   regime):
+    """``SegDC`` over ``TorchStepper`` on the card: the final segments of
+    the cut histories go to the device in one batch, lanes starting from
+    frontier states other than the initial one (CAS in the table regime,
+    a queue of capacity 8 in the sweep regime); the first launch is the
+    plain version's, bit for bit, and the verdicts are ``CppOracle``'s."""
+    from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
+                                            RacyTwoPhaseQueueSUT)
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.ops.segdc import SegDC
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.ops.sweep_kernel import stepper_sweep_plain
+
+    if regime == "table":
+        spec = CasSpec()
+        hs = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=256,
+                          n_pids=8, max_ops=32, seed_base=1000,
+                          seed_prefix="bench")
+        name = "stepper_chunk"
+    else:
+        spec = QueueSpec(capacity=8)
+        hs = build_corpus(spec, (AtomicQueueSUT, RacyTwoPhaseQueueSUT),
+                          n=256, n_pids=4, max_ops=48, seed_base=1000,
+                          seed_prefix="bench")
+        name = "stepper_sweep"
+    sd = SegDC(spec, make_inner=lambda q: TorchStepper(q))
+    assert sd.device_final and sd.inner.regime == regime
+    rec = _FirstLaunch(monkeypatch, stepper_module, name)
+    v = sd.check_histories(spec, hs)
+    assert sd.final_states_device > 0 and rec.first is not None
+    _agree_with_cpp(spec, hs, v)
+    what = "on the first batch of final segments"
+    if regime == "table":
+        c0 = _hold_stepper_chunk(rec, what)
+        starts = c0.states[0].cpu().numpy()
+        init = int(spec.initial_state()[0])
+    else:
+        c0 = rec.hold(lambda got, want, args, kw: stepper_sweep_plain(
+            spec, args[1], want, chunk=kw["chunk"], budget=kw["budget"]),
+            what)
+        starts = c0.states[:, 0].cpu().numpy()
+        init = np.asarray(spec.initial_state(), np.int32)
+    running = (c0.dsi[1] == RUNNING).cpu().numpy()
+    assert ((starts != init).reshape(len(running), -1).any(1)
+            & running).any()
+
+
+@pytest.mark.parametrize("engine", ["stepper", "gpu"])
+def test_ordered_witnesses_replay_on_the_card(cuda, monkeypatch, corpus,
+                                              engine):
+    """``TorchStepper(ordering=True)`` and ``TorchGPU(ordering=True)`` on
+    the card: each history's ops run in selectivity order, the verdicts
+    are the unordered engine's and ``CppOracle``'s, the witnesses map
+    back to the original op indices and replay, and the first launch of
+    the ordered batch is the plain version's."""
+    from qsm_tpu_torch.ops import gpu_backend as gpu_module
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+
+    spec, hs = corpus
+    if engine == "stepper":
+        make, module, name = TorchStepper, stepper_module, "stepper_chunk"
+    else:
+        make, module, name = TorchGPU, gpu_module, "dfs_chunk"
+    ordered = make(spec, ordering=True)
+    rec = _FirstLaunch(monkeypatch, module, name)
+    v = ordered.check_histories(spec, hs)
+    if engine == "stepper":
+        assert ordered.search_stats().ordering
+        _hold_stepper_chunk(rec, "on the first ordered batch")
+    else:
+        rec.hold(lambda got, want, args, kw: dfs_chunk_plain(
+            *args, want, **kw), "on the first ordered batch")
+    plain = make(spec).check_histories(spec, hs)
+    both = (v != Verdict.BUDGET_EXCEEDED) & (plain != Verdict.BUDGET_EXCEEDED)
+    np.testing.assert_array_equal(v[both], plain[both])
+    _agree_with_cpp(spec, hs, v)
+    lin = [h for h, x in zip(hs, v) if x == Verdict.LINEARIZABLE][:8]
+    assert lin
+    for h in lin:
+        wv, wit = ordered.check_witness(spec, h)
+        assert wv == Verdict.LINEARIZABLE and verify_witness(spec, h, wit)
+
+
+def test_auto_device_routes_both_ways_on_the_card(cuda, monkeypatch):
+    """``AutoDevice`` on the card: a queue corpus of narrow and wide
+    middle segments is routed as the plain versions route it (both routes
+    taken), one ``TorchStepper`` serves both routes, the verdicts are
+    ``CppOracle``'s, and its first launch is the plain version's."""
+    from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
+                                            RacyTwoPhaseQueueSUT)
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.ops.router import AutoDevice
+
+    spec = QueueSpec()
+    hs = (build_corpus(spec, (AtomicQueueSUT, RacyTwoPhaseQueueSUT), n=96,
+                       n_pids=2, max_ops=32, seed_base=77,
+                       seed_prefix="router")
+          + build_corpus(spec, (AtomicQueueSUT, RacyTwoPhaseQueueSUT),
+                         n=96, n_pids=8, max_ops=32, seed_base=1000,
+                         seed_prefix="bench"))
+    auto = AutoDevice(spec)
+    assert auto.segdc.inner is auto.plain
+    rec = _FirstLaunch(monkeypatch, stepper_module, "stepper_chunk")
+    v = auto.check_histories(spec, hs)
+    _hold_stepper_chunk(rec, "on the router's first batch")
+    cpu = AutoDevice(spec, device="cpu")
+    assert [cpu._route_segdc(h) for h in hs] == \
+        [auto._route_segdc(h) for h in hs]
+    assert auto.routed_plain > 0 and auto.routed_segdc > 0
+    assert auto.routed_plain + auto.routed_segdc == len(hs)
+    assert auto.search_stats().histories == len(hs)
+    _agree_with_cpp(spec, hs, v)

@@ -29,7 +29,10 @@ def test_import_loads_no_jax_and_no_reference_module():
             "qsm_tpu_torch.ops.sweep_kernel, qsm_tpu_torch.utils.fuzz, "
             "qsm_tpu_torch.models.registry, qsm_tpu_torch.models.failover, "
             "qsm_tpu_torch.ops.pcomp, qsm_tpu_torch.ops.hybrid, "
-            "qsm_tpu_torch.native, qsm_tpu_torch.resilience.failover\n"
+            "qsm_tpu_torch.native, qsm_tpu_torch.resilience.failover, "
+            "qsm_tpu_torch.search.ordering, qsm_tpu_torch.search.planner, "
+            "qsm_tpu_torch.ops.segdc, qsm_tpu_torch.ops.rootsplit, "
+            "qsm_tpu_torch.ops.router\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
