@@ -190,7 +190,38 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``dfs_chunk`` launches; tolerance 0); (f) ``python -m qsm_tpu_torch
    stats --model cas --planned`` (the CUDA plan's name in its document)
    and ``run --model cas --backend auto-stepper`` (racy CAS convicted).
-   Every verdict equal to ``CppOracle``'s wherever both decided.
+   Every verdict equal to ``CppOracle``'s wherever both decided;
+17. entry points, exploration and fuzzing: (a) the CAS headline's 4096
+   lanes written as a ``histories`` trace file and decided by ``python -m
+   qsm_tpu_torch check --backend stepper`` and ``--backend gpu``, each in
+   a subprocess and again through the CLI's ``main`` in this process
+   (whose launches count here): verdicts equal to ``CppOracle``'s, the
+   exit code the verdicts imply; ``check --witness`` on one history,
+   ``witness_verifies`` true; (b) ``explore_many`` over generated programs
+   of register, cas, set and queue (2 pids x 5 ops), atomic and racy,
+   enough programs that each union passes 4096 histories (the trees
+   walked over one ``ExplorePool``), each union decided in one
+   ``TorchStepper`` call and, for the scalar-table specs, one
+   ``TorchGPU`` call: decided verdicts equal to ``CppOracle``'s on the
+   union, every atomic tree verified, racy convicted wherever the host
+   oracle convicts; host enumeration against the device check, one union
+   warm and profiled; then ``explore --model failover --crash-sweep
+   primary:1-15 --backend stepper`` (atomic: ``all_verified``; racy at
+   ``primary:2``: convicted) and ``explore --programs 64 --workers 4``
+   equal to the serial run apart from ``seconds``, in subprocesses; (c)
+   ``fuzz_parity`` on the card: random scalar tables (8 specs x 512
+   histories, 4 pids x 10 ops, arms memo, cpp, device, pallas, segdc,
+   auto, hybrid) and random vector specs at ``vector_bounds=(7,) * 7``
+   (4 x 256, 8 ops; memo, device, hybrid): 0 mismatches, the cpp arm
+   native and the hybrid arm's tail used, time by arm; (d) after each
+   in-process path its launches are read and its kernels held against
+   their plain versions on its own first inputs (``FirstInputs``,
+   tolerance 0); ``stepper_chunk``, ``compact_carry``, ``dfs_chunk`` and
+   ``stepper_sweep`` each launched on the phase; (e) ``run --p-drop 0.05
+   --save-regression`` (racy CAS convicted, every fault flag in the
+   replay hint), ``replay --regression`` (bit-identical), and ``run
+   --transport tcp --workers 2`` against the memory transport (the same
+   counterexample), in subprocesses.
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
@@ -198,7 +229,9 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 ``compact_carry`` over phases 10-11, each milestone's kernels over its
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
-15 (c), and each path of phase 16 over its own; the kernels record lists those of phases 7-8 under ``launches``
+15 (c), each path of phase 16 over its own, and phase 17's in-process
+paths over the phase; the kernels record lists those of phases 7-8 under
+``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
 kernels record, the last the device record.  Every number is printed
 beside the card's name and power limit.
@@ -211,6 +244,7 @@ import ctypes
 import functools
 import json
 import math
+import os
 import random
 import re
 import subprocess
@@ -223,6 +257,7 @@ import numpy as np
 import torch
 
 from qsm_tpu_torch import native
+from qsm_tpu_torch.core.generator import generate_program as gen_program
 from qsm_tpu_torch.core.history import encode_batch
 from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
 from qsm_tpu_torch.gen import GenProfile, SteeringLoop, generate_batch
@@ -234,7 +269,8 @@ from qsm_tpu_torch.models.counter import (AtomicTicketSUT, RacyTicketSUT,
 from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
 from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
                                         RacyTwoPhaseQueueSUT)
-from qsm_tpu_torch.models.registry import MODELS
+from qsm_tpu_torch.models.registry import MODELS, SutFactory
+from qsm_tpu_torch.models.registry import make as make_model
 from qsm_tpu_torch.models.stack import (AtomicStackSUT, RacyTwoPhaseStackSUT,
                                         StackSpec)
 from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
@@ -277,11 +313,14 @@ from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry, stepper_sweep,
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
 from qsm_tpu_torch.search import (collect_search_stats, ordering_table,
                                   permute_history)
+from qsm_tpu_torch.sched.systematic import explore_many
 from qsm_tpu_torch.search.planner import (CUDA_PLAN, build_backend,
                                           plan_search, profile_corpus)
 from qsm_tpu_torch.utils import cli
 from qsm_tpu_torch.utils.corpus import build_corpus, random_lane_tables
-from qsm_tpu_torch.utils.fuzz import RandomVectorSpec, random_history
+from qsm_tpu_torch.utils.fuzz import (RandomVectorSpec, fuzz_parity,
+                                      random_history)
+from qsm_tpu_torch.utils.interop import history_to_rows
 
 N_PIDS, N_OPS = 8, 32          # the headline configuration
 N_UNIQUE, DEVICE_BATCH = 512, 4096
@@ -3039,6 +3078,422 @@ def phase_search(spec, corpus, kv_spec, kv_corpus, tag):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the entry points, systematic exploration and fuzzing
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+EXPLORE_PIDS, EXPLORE_OPS = 2, 5
+EXPLORE_UNION = 4096           # histories a union batch reaches, at least
+# (family, impl) -> (programs: seeds 0..n-1, the fewest whose union
+# passes EXPLORE_UNION; whether the walk prunes).  The walks are
+# deterministic, so the counts are fixed; at 2 x 5 the unpruned walk is
+# the cheaper one on the host, except for the racy set, where it passes
+# EXPLORE_MAX_SCHEDULES on some trees (the history sets are equal either
+# way).
+EXPLORE_PLAN = {
+    ("register", "atomic"): (577, False), ("register", "racy"): (1153, False),
+    ("cas", "atomic"): (537, False), ("cas", "racy"): (511, False),
+    ("set", "atomic"): (920, False), ("set", "racy"): (889, True),
+    ("queue", "atomic"): (565, False), ("queue", "racy"): (524, False),
+}
+EXPLORE_MAX_SCHEDULES = 10_000
+FUZZ_SCALAR = dict(n_specs=8, hists_per_spec=512, n_pids=4, n_ops=10,
+                   p_pending=0.1, seed=17,
+                   backends=("memo", "cpp", "device", "pallas", "segdc",
+                             "auto", "hybrid"))
+FUZZ_VECTOR = dict(n_specs=4, hists_per_spec=256, n_ops=8, p_pending=0.1,
+                   seed=17, vector_bounds=(7,) * 7,
+                   backends=("memo", "device", "hybrid"))
+CLI_TIMEOUT_S = 600
+
+
+def cli_proc(*argv):
+    """``python -m qsm_tpu_torch ARGV`` started from the checkout's root;
+    collected by :func:`cli_result`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "qsm_tpu_torch", *map(str, argv)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def cli_result(proc, what):
+    """(rc, stdout lines) of a :func:`cli_proc`; killed past its time."""
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke: {what} ran past "
+                           f"{CLI_TIMEOUT_S} s")
+    if proc.returncode not in (0, 1, 2):
+        raise RuntimeError(f"chip_smoke: {what} exited {proc.returncode}: "
+                           f"{err[-600:]}")
+    return proc.returncode, out.strip().splitlines()
+
+
+def cli_inproc(*argv):
+    """(rc, stdout lines) of the CLI's ``main`` run in this process, so
+    that its kernel launches count here (stderr discarded)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main([str(a) for a in argv])
+    return rc, out.getvalue().strip().splitlines()
+
+
+def drop_seconds(lines):
+    docs = [json.loads(x) for x in lines]
+    for d in docs:
+        d.pop("seconds", None)
+    return docs
+
+
+class UnionRecorder:
+    """The backend handed to ``explore_many``: keeps the union of the
+    trees it is asked to decide and decides it with ``inner`` in one
+    call, timed to the card's completion."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.union, self.verdicts, self.check_s = [], None, 0.0
+
+    def check_histories(self, spec, histories):
+        self.union = list(histories)
+        self.verdicts, self.check_s = timed_check(self.inner, spec,
+                                                  self.union)
+        return self.verdicts
+
+
+def explore_family(fam, pool, tag):
+    """(b) for one family: ``explore_many`` over the family's atomic and
+    racy programs (2 pids x 5 ops), each union decided in one
+    ``TorchStepper`` call (and ``TorchGPU``'s, for a scalar-table spec),
+    every decided verdict equal to ``CppOracle``'s on the same union,
+    every atomic tree verified, racy convicted wherever the host oracle
+    convicts.  Returns (unions, {impl: (host s, device s, histories)})."""
+    spec, _ = make_model(fam, "atomic")
+    gpu_ok = (spec.STATE_DIM == 1
+              and spec.scalar_state_bound(EXPLORE_OPS) is not None)
+    unions, times = {}, {}
+    for impl in ("atomic", "racy"):
+        n, prune = EXPLORE_PLAN[(fam, impl)]
+        progs = [gen_program(spec, seed=s, n_pids=EXPLORE_PIDS,
+                             max_ops=EXPLORE_OPS) for s in range(n)]
+        rec = UnionRecorder(TorchStepper(spec))
+        t0 = time.perf_counter()
+        res = explore_many(SutFactory(fam, impl), progs, spec, backend=rec,
+                           max_schedules=EXPLORE_MAX_SCHEDULES, prune=prune,
+                           pool=pool)
+        wall = time.perf_counter() - t0
+        union = rec.union
+        require(len(union) >= EXPLORE_UNION, f"{fam}/{impl}: a union of "
+                f"{len(union)} histories, under {EXPLORE_UNION}")
+        v = rec.verdicts
+        ov = native.CppOracle(spec).check_histories(spec, union)
+        both, und = against_cpp(f"{fam}/{impl} union (TorchStepper)", v, ov)
+        gpu_text = ""
+        if gpu_ok:
+            gv, gpu_s = timed_check(TorchGPU(spec), spec, union)
+            gboth, gund = against_cpp(f"{fam}/{impl} union (TorchGPU)", gv,
+                                      ov)
+            gpu_text = (f"; TorchGPU {gpu_s:.4f} s, {gboth} decided by both, "
+                        f"{gund} undecided")
+        # per program: the host oracle's conviction against the card's
+        at = 0
+        convicted = agree = 0
+        for r in res:
+            cpu_vio = bool((ov[at:at + r.distinct_histories]
+                            == Verdict.VIOLATION).any())
+            at += r.distinct_histories
+            require(r.exhausted, f"{fam}/{impl}: a tree past "
+                    f"{EXPLORE_MAX_SCHEDULES} schedules")
+            if impl == "atomic":
+                require(r.verified, f"{fam}/atomic: a tree not verified "
+                        f"({r.violations} violations, {r.undecided} "
+                        f"undecided)")
+            else:
+                convicted += cpu_vio
+                if r.undecided == 0 or r.violations:
+                    require((r.violations > 0) == cpu_vio,
+                            f"{fam}/racy: the card and the host oracle "
+                            f"disagree on a program's conviction")
+                    agree += 1
+        times[impl] = (wall - rec.check_s, rec.check_s, len(union))
+        unions[impl] = union
+        print(f"{tag} 17b explore_many {fam}/{impl}: {n} programs "
+              f"({'pruned' if prune else 'unpruned'} walks), union of "
+              f"{len(union)} histories from "
+              f"{sum(r.schedules_run for r in res)} schedules; host "
+              f"enumeration {wall - rec.check_s:.3f} s, one TorchStepper "
+              f"call {rec.check_s:.4f} s = "
+              f"{len(union) / rec.check_s:,.1f} histories/s, undecided "
+              f"{und}, {both} decided by both against CppOracle"
+              f"{gpu_text}; "
+              + (f"{len(res)} trees verified" if impl == "atomic" else
+                 f"{sum(r.violations > 0 for r in res)} programs convicted "
+                 f"({convicted} by the host oracle, {agree} compared)"),
+              flush=True)
+    return unions, times
+
+
+def phase_entry(spec, corpus, tag):
+    """Phase 17: the entry points, exploration and fuzzing on the card;
+    see the module docstring.  Returns (launches of each path, largest
+    error of the kernels held on the paths)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p17_"))
+    lanes = _replicate(corpus, DEVICE_BATCH)
+    trace = tmp / "headline.json"
+    trace.write_text(json.dumps({"model": "cas", "histories": [
+        history_to_rows(h) for h in lanes]}))
+    reg = tmp / "regression.json"
+    # the subprocesses run beside the in-process paths: the longest (the
+    # crash sweep, one core for 15 trees) and the checks now, the rest
+    # once the exploration pool is done with the host's cores
+    procs = {
+        "crash sweep atomic": cli_proc(
+            "explore", "--model", "failover", "--impl", "atomic", "--pids",
+            2, "--ops", 4, "--seed", 9, "--crash-sweep", "primary:1-15",
+            "--backend", "stepper"),
+        "crash sweep racy": cli_proc(
+            "explore", "--model", "failover", "--impl", "racy", "--pids",
+            2, "--ops", 4, "--seed", 9, "--crash-sweep", "primary:2-2",
+            "--backend", "stepper"),
+        "check stepper": cli_proc("check", "--trace", trace, "--backend",
+                                  "stepper"),
+        "check gpu": cli_proc("check", "--trace", trace, "--backend",
+                              "gpu"),
+    }
+    later = {
+        "explore workers": lambda: cli_proc(
+            "explore", "--model", "set", "--impl", "racy", "--pids", 2,
+            "--ops", 5, "--programs", 64, "--workers", 4, "--backend",
+            "stepper"),
+        "explore serial": lambda: cli_proc(
+            "explore", "--model", "set", "--impl", "racy", "--pids", 2,
+            "--ops", 5, "--programs", 64, "--backend", "stepper"),
+        "run faults": lambda: cli_proc(
+            "run", "--model", "cas", "--impl", "racy", "--backend",
+            "stepper", "--trials", 30, "--p-drop", 0.05,
+            "--save-regression", reg),
+        "run tcp": lambda: cli_proc(
+            "run", "--model", "cas", "--impl", "racy", "--backend",
+            "stepper", "--trials", 30, "--transport", "tcp", "--workers",
+            2),
+        "run memory": lambda: cli_proc(
+            "run", "--model", "cas", "--impl", "racy", "--backend",
+            "stepper", "--trials", 30),
+    }
+    from qsm_tpu_torch.sched.pool import ExplorePool
+
+    # the host's cores but two: the crash sweep's and this process's
+    pool = ExplorePool(n_workers=max(2, min(6, (os.cpu_count() or 4) - 2)))
+    launches, err = {}, 0
+    counters = (stepper_chunk, compact_carry, stepper_sweep, dfs_chunk)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    total = dict.fromkeys((c.__name__ for c in counters), 0)
+
+    def read(name, first, path_spec=None):
+        nonlocal err
+        got = {c.__name__: c.launches for c in counters}
+        print(f"{tag} path of {name}: " + ", ".join(
+            f"{n} {k}" for k, n in got.items()) + " launches", flush=True)
+        for k, n in got.items():
+            total[k] += n
+        launches[name] = got
+        err = max(err, hold_path_kernels(name, first, tag, path_spec))
+
+    try:
+        # (a) check in this process too: the same command, its launches
+        # counted and held here
+        cpp_v = native.CppOracle(spec).check_histories(spec, corpus)
+        names = ("VIOLATION", "LINEARIZABLE", "BUDGET_EXCEEDED")
+        want = [names[int(x)] for x in cpp_v[np.arange(len(lanes))
+                                             % len(corpus)]]
+        for backend in ("stepper", "gpu"):
+            reset()
+            with FirstInputs() as first:
+                t0 = time.perf_counter()
+                rc, out = cli_inproc("check", "--trace", trace,
+                                     "--backend", backend)
+                dt = time.perf_counter() - t0
+            doc = json.loads(out[-1])
+            require(doc["verdicts"] == want, f"check --backend {backend}: "
+                    f"verdicts differ from CppOracle's")
+            require(rc == (1 if doc["violations"] else
+                           2 if doc["undecided"] else 0),
+                    f"check --backend {backend}: exit {rc}")
+            read(f"check --backend {backend} (17a)", first)
+            print(f"{tag} 17a check --trace (4096 headline lanes) "
+                  f"--backend {backend} in this process: rc {rc}, "
+                  f"{doc['violations']} violations, {doc['undecided']} "
+                  f"undecided after the host resolution, verdicts equal to "
+                  f"CppOracle's ({dt:.3f} s with the trace's decoding)",
+                  flush=True)
+        lin = next(h for h, x in zip(corpus, cpp_v)
+                   if x == Verdict.LINEARIZABLE)
+        single = tmp / "single.json"
+        single.write_text(json.dumps({"model": "cas",
+                                      "history": history_to_rows(lin)}))
+        rc, out = cli_inproc("check", "--trace", single, "--witness")
+        doc = json.loads(out[-1])
+        require(rc == 0 and doc["witness_verifies"] is True,
+                f"check --witness: rc {rc}, {doc}")
+        print(f"{tag} 17a check --witness on one {doc['ops']}-op headline "
+              f"history: {doc['verdict']}, witness_verifies "
+              f"{doc['witness_verifies']}", flush=True)
+
+        # (b) exploration unions, through the card
+        reset()
+        union_times = {}
+        profiled = None
+        with FirstInputs(keep=len(EXPLORE_PLAN)) as first:
+            for fam in ("register", "cas", "set", "queue"):
+                unions, union_times[fam] = explore_family(fam, pool, tag)
+                if fam == "cas":
+                    profiled = unions["racy"]
+        read("exploration unions (17b)", first)
+        fam_spec = make_model("cas", "racy")[0]
+        warm = TorchStepper(fam_spec)
+        _, warm_s = timed_check(warm, fam_spec, profiled)
+        p_wall, p_busy, top = profile_device(
+            lambda: warm.check_histories(fam_spec, profiled))
+        host_s = sum(t[0] for ts in union_times.values()
+                     for t in ts.values())
+        dev_s = sum(t[1] for ts in union_times.values()
+                    for t in ts.values())
+        n_hist = sum(t[2] for ts in union_times.values()
+                     for t in ts.values())
+        pool.close()
+        procs.update((k, start()) for k, start in later.items())
+        print(f"{tag} 17b the eight unions: {n_hist} histories, host "
+              f"enumeration {host_s:.3f} s (over the pool's "
+              f"{pool.n_workers} workers) against {dev_s:.4f} s of device "
+              f"check; the cas/racy union warm {warm_s:.4f} s = "
+              f"{len(profiled) / warm_s:,.1f} histories/s, profiled "
+              f"{p_wall:.4f} s, device busy {p_busy:.6f} s, idle share "
+              f"{1 - p_busy / p_wall:.4f}; top {top}", flush=True)
+
+        # (c) fuzz_parity on the card
+        fuzz_launches = {}
+        for name, kw in (("scalar", FUZZ_SCALAR), ("vector", FUZZ_VECTOR)):
+            reset()
+            arm_s = {}
+            with FirstInputs() as first:
+                t0 = time.perf_counter()
+                rep = fuzz_parity(timings=arm_s, **kw)
+                dt = time.perf_counter() - t0
+            require(rep.ok, f"fuzz {name}: mismatches {rep.mismatches[:8]}")
+            require(rep.hybrid_tail_histories > 0, f"fuzz {name}: the "
+                    f"hybrid arm's host tail decided nothing")
+            if "cpp" in kw["backends"]:
+                require(rep.cpp_native_histories > 0, f"fuzz {name}: the "
+                        f"cpp arm decided nothing natively")
+            vspec = (RandomVectorSpec(kw["seed"] * 1_000_003,
+                                      bounds=kw["vector_bounds"])
+                     if name == "vector" else None)
+            read(f"fuzz_parity {name} (17c)", first, vspec)
+            fuzz_launches[name] = launches[f"fuzz_parity {name} (17c)"]
+            print(f"{tag} 17c fuzz_parity {name}: {rep.specs} specs x "
+                  f"{kw['hists_per_spec']} histories, arms "
+                  f"{','.join(kw['backends'])}: 0 mismatches, "
+                  f"{rep.linearizable} linearizable, {rep.violations} "
+                  f"violations, {rep.budget_exceeded} undecided by the "
+                  f"oracle, cpp native {rep.cpp_native_histories}, hybrid "
+                  f"tail {rep.hybrid_tail_histories}; {dt:.3f} s, by arm "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in arm_s.items()),
+                  flush=True)
+        for k in ("stepper_chunk", "compact_carry", "dfs_chunk",
+                  "stepper_sweep"):
+            require(total[k] > 0, f"phase 17 launched no {k}")
+
+        # (a), (b), (e) in subprocesses, collected now
+        for backend in ("stepper", "gpu"):
+            rc, out = cli_result(procs[f"check {backend}"],
+                                 f"check --backend {backend}")
+            doc = json.loads(out[-1])
+            require(doc["verdicts"] == want and rc == (
+                1 if doc["violations"] else 2 if doc["undecided"] else 0),
+                f"python -m qsm_tpu_torch check --backend {backend}: rc "
+                f"{rc}, verdicts equal: {doc['verdicts'] == want}")
+            print(f"{tag} 17a python -m qsm_tpu_torch check --trace "
+                  f"(4096 lanes) --backend {backend}: rc {rc}, verdicts "
+                  f"equal to CppOracle's", flush=True)
+        rc, out = cli_result(procs["crash sweep atomic"], "crash sweep")
+        docs = [json.loads(x) for x in out]
+        require(rc == 0 and docs[-1]["all_verified"] is True
+                and len(docs) == 16, f"explore --crash-sweep primary:1-15 "
+                f"(atomic failover): rc {rc}, {docs[-1]}")
+        print(f"{tag} 17b python -m qsm_tpu_torch explore --model failover "
+              f"--impl atomic --crash-sweep primary:1-15 --backend stepper: "
+              f"rc 0, all_verified true over "
+              f"{sum(d['schedules_run'] for d in docs[:-1])} schedules, "
+              f"{sum(d['distinct_histories'] for d in docs[:-1])} histories "
+              f"({docs[-1]['seconds']} s)", flush=True)
+        rc, out = cli_result(procs["crash sweep racy"], "racy crash sweep")
+        doc = json.loads(out[0])
+        require(rc == 1 and doc["violations"] > 0,
+                f"explore (racy failover, primary:2): rc {rc}, {doc}")
+        print(f"{tag} 17b ... --impl racy (AsyncReplFailoverSUT) "
+              f"--crash-sweep primary:2-2: rc 1, {doc['violations']} "
+              f"violating histories, e.g. {doc['violating_schedule']}",
+              flush=True)
+        rc_w, out_w = cli_result(procs["explore workers"], "explore workers")
+        rc_s, out_s = cli_result(procs["explore serial"], "explore serial")
+        require(rc_w == rc_s and drop_seconds(out_w) == drop_seconds(out_s),
+                "explore --programs 64 --workers 4 differs from the serial "
+                "run")
+        summary = json.loads(out_w[-1])
+        print(f"{tag} 17b explore --model set --impl racy --programs 64 "
+              f"--workers 4 --backend stepper: {len(out_w)} lines equal to "
+              f"the serial run's apart from seconds (rc {rc_w}, "
+              f"{summary['total_violations']} violations; "
+              f"{summary['seconds']} s against "
+              f"{json.loads(out_s[-1])['seconds']} s serial)", flush=True)
+        rc, out = cli_result(procs["run faults"], "run --p-drop")
+        hint = next((x for x in out if x.startswith("replay:")), "")
+        require(rc == 1 and "FAIL" in out[0] and all(
+            f in hint for f in ("--p-drop 0.05", "--p-duplicate 0.0",
+                                "--p-delay 0.0", "--delay-steps 3")),
+            f"run --p-drop 0.05: rc {rc}, hint {hint!r}")
+        print(f"{tag} 17e run --model cas --impl racy --backend stepper "
+              f"--p-drop 0.05: rc 1, {out[0]}; {hint}", flush=True)
+        rc, out = cli_result(cli_proc("replay", "--regression", reg),
+                             "replay --regression")
+        require(rc == 1 and "history reproduced bit-identically: True"
+                in out, f"replay --regression: rc {rc}, {out[:3]}")
+        print(f"{tag} 17e replay --regression: rc 1, history reproduced "
+              f"bit-identically", flush=True)
+        rc_t, out_t = cli_result(procs["run tcp"], "run --transport tcp")
+        rc_m, out_m = cli_result(procs["run memory"], "run (memory)")
+        require(rc_t == rc_m == 1 and out_t[1:] == out_m[1:],
+                "run --transport tcp --workers 2 differs from the memory "
+                "transport's")
+        print(f"{tag} 17e run --transport tcp --workers 2 --backend "
+              f"stepper: rc 1, the memory transport's counterexample and "
+              f"replay key: {out_t[1]}", flush=True)
+    finally:
+        pool.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    dt = time.perf_counter() - t_phase
+    print(f"{tag} phase 17 launches: " + ", ".join(
+        f"{n} {k}" for k, n in total.items()) + f"; {dt:.1f} s", flush=True)
+    return total, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -3202,18 +3657,25 @@ def main(argv=None) -> int:
                                                kv_corpus, tag)
     print(f"{tag} phase search plane: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    entry_launches, entry_err = phase_entry(spec, corpus, tag)
+    print(f"{tag} phase entry points, exploration and fuzzing: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
                **{f"{k} hybrid": x for k, x in hybrid_launches.items()},
                "generation plane (phase 15)": gen_launches,
-               **search_launches}
+               **search_launches,
+               "entry points (phase 17)": entry_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
 
-    # phase 6 and the paths of phases 13-16, each on its own inputs
-    step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err)
+    # phase 6 and the paths of phases 13-17, each on its own inputs
+    step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
+                   entry_err)
+    search_err = max(search_err, entry_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare

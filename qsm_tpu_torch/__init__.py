@@ -34,18 +34,28 @@ checking: ``generate_batch`` draws a seeded table (on the card,
 ``csrc/threefry_draws.cu``) and assembles histories on the host, and
 ``SteeringLoop`` mutates workload profiles scored by the checkers'
 search-cost records (``search/stats.py``).
+
+The entry points (``utils/cli.py``): ``run`` (the concurrent property,
+with fault plans, the TCP transport and worker processes), ``replay``,
+``check`` (external trace files), ``list``, ``coverage``, ``explore``
+(``sched/systematic.py``: every interleaving of small programs, the union
+of their histories decided in one device batch) and ``fuzz``
+(``utils/fuzz.py::fuzz_parity``: every checker against the exact oracle
+on random specs).  ``core/sequential.py`` is the sequential property.
 """
 
 from .core.generator import Program, ProgOp, generate_program
 from .core.history import History, Op, encode_batch, overlapping_history
-from .core.property import PropertyConfig, prop_concurrent, replay
+from .core.property import (Counterexample, PropertyConfig, PropertyResult,
+                            prop_concurrent, replay, trial_seed)
+from .core.sequential import ModelSUT, prop_sequential, run_sequential
 from .core.spec import CmdSig, KeyProj, Spec
 from .models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
 from .models.queue import AtomicQueueSUT, QueueSpec, RacyTwoPhaseQueueSUT
 from .models.register import (AtomicRegisterSUT, RacyCachedRegisterSUT,
                               RegisterSpec)
-from .ops.backend import (BackendUnavailable, Verdict, check_one,
-                          verify_witness)
+from .ops.backend import (BackendUnavailable, LineariseBackend, Verdict,
+                          check_one, verify_witness)
 from .native import CppOracle
 from .ops.gpu_backend import TorchGPU
 from .ops.hybrid import HybridDevice
@@ -55,20 +65,25 @@ from .ops.router import AutoDevice
 from .ops.segdc import SegDC
 from .ops.stepper import TorchStepper
 from .ops.wing_gong_cpu import WingGongCPU
+from .sched.runner import ConcurrentSUT, run_concurrent
+from .sched.scheduler import FaultPlan, Monitor, Recv, Scheduler, Send
 from .search import (CorpusProfile, OrderingTable, SearchPlan, SearchStats,
                      build_backend, collect_search_stats, ordering_table,
                      permute_history, plan_search, profile_corpus)
 
 __all__ = [
     "AtomicCasSUT", "AtomicQueueSUT", "AtomicRegisterSUT", "AutoDevice",
-    "BackendUnavailable", "CasSpec", "CmdSig", "CorpusProfile", "CppOracle",
-    "History", "HybridDevice", "KeyProj", "NotDecomposableError", "Op",
-    "OrderingTable", "PComp", "Program", "ProgOp", "PropertyConfig",
-    "QueueSpec", "RacyCachedRegisterSUT", "RacyCasSUT",
-    "RacyTwoPhaseQueueSUT", "RegisterSpec", "RootSplit", "SearchPlan",
-    "SearchStats", "SegDC", "Spec", "TorchGPU", "TorchStepper", "Verdict",
+    "BackendUnavailable", "CasSpec", "CmdSig", "ConcurrentSUT",
+    "CorpusProfile", "Counterexample", "CppOracle", "FaultPlan", "History",
+    "HybridDevice", "KeyProj", "LineariseBackend", "ModelSUT", "Monitor",
+    "NotDecomposableError", "Op", "OrderingTable", "PComp", "Program",
+    "ProgOp", "PropertyConfig", "PropertyResult", "QueueSpec",
+    "RacyCachedRegisterSUT", "RacyCasSUT", "RacyTwoPhaseQueueSUT", "Recv",
+    "RegisterSpec", "RootSplit", "Scheduler", "SearchPlan", "SearchStats",
+    "SegDC", "Send", "Spec", "TorchGPU", "TorchStepper", "Verdict",
     "WingGongCPU", "build_backend", "check_one", "collect_search_stats",
     "encode_batch", "generate_program", "ordering_table",
     "overlapping_history", "permute_history", "plan_search",
-    "profile_corpus", "prop_concurrent", "replay", "verify_witness",
+    "profile_corpus", "prop_concurrent", "prop_sequential", "replay",
+    "run_concurrent", "run_sequential", "trial_seed", "verify_witness",
 ]

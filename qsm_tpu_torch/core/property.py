@@ -45,6 +45,19 @@ class PropertyConfig:
     # to this width, and short groups are padded with empty histories so
     # every batch has the same width.  Verdicts do not depend on it.
     trial_batch: int = 1
+    # message transport of the scheduler plane: "memory" or "tcp" (real
+    # loopback sockets, sched/transport.py); histories are bit-identical
+    # on both
+    transport: str = "memory"
+    # minimising the failing history itself through the batched history
+    # shrinker; that shrinker is not part of this package yet, so
+    # prop_concurrent refuses True.  The field keeps the configuration's
+    # keys (and so a regression file's) equal to the JAX package's.
+    minimize_history: bool = False
+    # worker processes executing schedules (sched/pool.py), 0: serial.
+    # Histories are bit-identical either way.  Needs a picklable
+    # ``sut_factory`` (prop_concurrent's), ignored without one.
+    executor_workers: int = 0
 
 
 @dataclasses.dataclass
@@ -70,6 +83,11 @@ class PropertyResult:
     # wall-clock split (seconds): generate, execute, check, resolve,
     # shrink_execute, shrink_check
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def schedule_diversity(self) -> float:
+        return (self.distinct_histories / self.schedules_run
+                if self.schedules_run else 0.0)
 
     def __bool__(self) -> bool:
         return self.ok and self.undecided == 0
@@ -129,15 +147,25 @@ def _resolve(spec: Spec, verdicts: np.ndarray, histories: Sequence[History],
 
 
 def _execute(sut: ConcurrentSUT, prog: Program, sched_seed: str,
-             cfg: PropertyConfig) -> History:
+             cfg: PropertyConfig, transport=None) -> History:
     return run_concurrent(sut, prog, seed=sched_seed, faults=cfg.faults,
-                          max_steps=cfg.max_steps)
+                          max_steps=cfg.max_steps, transport=transport)
+
+
+def _execute_many(sut: ConcurrentSUT, jobs, cfg: PropertyConfig,
+                  transport=None, executor=None) -> List[History]:
+    """Histories of [(program, seed), ...] in job order: serially, or over
+    the worker pool (order kept, histories bit-identical)."""
+    if executor is not None:
+        return executor.run_many(jobs, cfg.faults, cfg.max_steps)
+    return [_execute(sut, p, s, cfg, transport) for p, s in jobs]
 
 
 def shrink_failure(spec: Spec, sut: ConcurrentSUT, backend: LineariseBackend,
                    oracle: LineariseBackend, cfg: PropertyConfig,
                    program: Program, history: History, sched_seed: str,
-                   timings: Optional[Dict[str, float]] = None):
+                   timings: Optional[Dict[str, float]] = None,
+                   transport=None, executor=None):
     """Greedy shrink: each round decides all candidates in one backend
     batch and steps to the first (canonical order) still-failing one.
     Returns (min_program, min_history, shrink_steps, histories_checked)."""
@@ -149,7 +177,8 @@ def shrink_failure(spec: Spec, sut: ConcurrentSUT, backend: LineariseBackend,
         if not cands:
             break
         t0 = time.perf_counter()
-        hists = [_execute(sut, c, sched_seed, cfg) for c in cands]
+        hists = _execute_many(sut, [(c, sched_seed) for c in cands], cfg,
+                              transport, executor)
         t1 = time.perf_counter()
         timings["shrink_execute"] = (timings.get("shrink_execute", 0.0)
                                      + t1 - t0)
@@ -170,21 +199,50 @@ def shrink_failure(spec: Spec, sut: ConcurrentSUT, backend: LineariseBackend,
 def prop_concurrent(spec: Spec, sut: ConcurrentSUT,
                     cfg: Optional[PropertyConfig] = None,
                     backend: Optional[LineariseBackend] = None,
-                    oracle: Optional[LineariseBackend] = None
-                    ) -> PropertyResult:
+                    oracle: Optional[LineariseBackend] = None,
+                    sut_factory=None) -> PropertyResult:
     """Generate → execute → linearize → shrink.  ``backend`` defaults to
-    the oracle, ``oracle`` to :func:`_default_oracle`."""
+    the oracle, ``oracle`` to :func:`_default_oracle`.  ``sut_factory``
+    (picklable, zero-argument, e.g. ``models.registry.SutFactory``)
+    enables the worker pool when ``cfg.executor_workers > 0``."""
     cfg = cfg or PropertyConfig()
+    if cfg.minimize_history:
+        raise NotImplementedError(
+            "minimize_history needs the batched history shrinker, which "
+            "this package does not have yet")
     oracle = oracle if oracle is not None else _default_oracle(spec)
     backend = backend or oracle
-    # search-cost accounting rides the timings dict: engines count
-    # cumulatively per instance, so the run reports its own delta
-    st0 = _run_stats(backend, oracle)
-    res = _prop_concurrent_body(spec, sut, cfg, backend, oracle)
-    st = stats_delta(_run_stats(backend, oracle), st0)
-    if st is not None:
-        res.timings.update(st.to_timings())
-    return res
+    transport = executor = None
+    # whatever opens a resource sits inside the try, so a failure in any
+    # later construction still closes the ones already open
+    try:
+        use_pool = cfg.executor_workers > 0 and sut_factory is not None
+        if cfg.transport != "memory" and not use_pool:
+            # one transport for the whole run: its TCP connections last
+            # over every trial, schedule and shrink execution.  A pool's
+            # workers make their own.
+            from ..sched.transport import make_transport
+
+            transport = make_transport(cfg.transport)
+        if use_pool:
+            from ..sched.pool import PoolExecutor
+
+            executor = PoolExecutor(sut_factory, cfg.executor_workers,
+                                    transport=cfg.transport)
+        # search-cost accounting rides the timings dict: engines count
+        # cumulatively per instance, so the run reports its own delta
+        st0 = _run_stats(backend, oracle)
+        res = _prop_concurrent_body(spec, sut, cfg, backend, oracle,
+                                    transport, executor)
+        st = stats_delta(_run_stats(backend, oracle), st0)
+        if st is not None:
+            res.timings.update(st.to_timings())
+        return res
+    finally:
+        if transport is not None:
+            transport.close()
+        if executor is not None:
+            executor.close()
 
 
 def _run_stats(backend: LineariseBackend, oracle: LineariseBackend):
@@ -200,7 +258,8 @@ def _run_stats(backend: LineariseBackend, oracle: LineariseBackend):
 
 def _prop_concurrent_body(spec: Spec, sut: ConcurrentSUT,
                           cfg: PropertyConfig, backend: LineariseBackend,
-                          oracle: LineariseBackend) -> PropertyResult:
+                          oracle: LineariseBackend, transport=None,
+                          executor=None) -> PropertyResult:
     timings: Dict[str, float] = {}
 
     def _bump(key: str, t0: float) -> None:
@@ -230,7 +289,7 @@ def _prop_concurrent_body(spec: Spec, sut: ConcurrentSUT,
             spans.append(len(jobs))
             jobs.extend((prog, sk) for sk in seeds)
         t0 = time.perf_counter()
-        hists_all = [_execute(sut, p, sk, cfg) for p, sk in jobs]
+        hists_all = _execute_many(sut, jobs, cfg, transport, executor)
         _bump("execute", t0)
         t0 = time.perf_counter()
         pad = group_target * k - len(hists_all)
@@ -254,7 +313,8 @@ def _prop_concurrent_body(spec: Spec, sut: ConcurrentSUT,
             j = fail_at - spans[gi]
             mp, mh, steps, c2 = shrink_failure(
                 spec, sut, backend, oracle, cfg, progs[gi],
-                hists_all[fail_at], seeds_all[gi][j], timings)
+                hists_all[fail_at], seeds_all[gi][j], timings, transport,
+                executor)
             return PropertyResult(
                 ok=False, trials_run=ti + 1,
                 histories_checked=checked + c2, undecided=undecided,
@@ -280,4 +340,7 @@ def replay(spec: Spec, sut: ConcurrentSUT, trial_seed_key: str,
     prog = generate_program(
         spec, seed=random.Random(prog_key).randrange(1 << 62),
         n_pids=cfg.n_pids, max_ops=_trial_ops(cfg, int(t)))
-    return _execute(sut, prog, trial_seed_key, cfg)
+    # one run: pass the transport's name, so that the run owns and
+    # closes it
+    return _execute(sut, prog, trial_seed_key, cfg,
+                    None if cfg.transport == "memory" else cfg.transport)

@@ -109,3 +109,17 @@ def make(model: str, impl: str, spec_kwargs: dict = None):
     entry = MODELS[model]
     spec = entry.make_spec(**(spec_kwargs or {}))
     return spec, entry.impls[impl](spec)
+
+
+class SutFactory:
+    """Picklable zero-argument SUT constructor for the worker pools
+    (``sched/pool.py``): spawned workers rebuild the SUT from registry
+    names, where a lambda or a closure would not pickle."""
+
+    def __init__(self, model: str, impl: str, spec_kwargs: dict = None):
+        self.model = model
+        self.impl = impl
+        self.spec_kwargs = spec_kwargs
+
+    def __call__(self):
+        return make(self.model, self.impl, self.spec_kwargs)[1]

@@ -70,18 +70,59 @@ def _client(rec: HistoryRecorder, sut: ConcurrentSUT, pid: int, ops):
         rec.respond(op_id, resp)
 
 
+def prepare_run(sut: ConcurrentSUT, program: Program, seed,
+                faults: Optional[FaultPlan] = None,
+                max_steps: int = 100_000, transport=None,
+                choices=None) -> tuple:
+    """(scheduler, recorder) wired up and ready to ``sched.run()``, for
+    callers that read the scheduler afterwards (the delivery trace, the
+    choice log).
+
+    ``transport`` is None, ``"memory"``, ``"tcp"`` or a transport
+    object; one made here from a name is the run's own and closed with
+    it, one passed in stays the caller's (the property layer keeps one
+    TCP transport for a whole run).  ``choices`` is a scripted delivery
+    schedule (``sched/systematic.py``)."""
+    owns = isinstance(transport, str)
+    if owns:
+        from .transport import make_transport
+
+        transport = make_transport(transport)
+    try:
+        sched = Scheduler(seed=seed, faults=faults, max_steps=max_steps,
+                          transport=transport, choices=choices)
+        rec = HistoryRecorder(sched)
+        sut.setup(sched)
+        for pid, ops in enumerate(program.per_pid()):
+            if ops:
+                sched.spawn(f"client:{pid}", _client(rec, sut, pid, ops))
+    except BaseException:
+        if owns and transport is not None:
+            transport.close()
+        raise
+    sched.owns_transport = owns
+    return sched, rec
+
+
 def run_concurrent(sut: ConcurrentSUT, program: Program, seed,
                    faults: Optional[FaultPlan] = None,
-                   max_steps: int = 100_000) -> History:
+                   max_steps: int = 100_000, transport=None,
+                   choices=None,
+                   sched_info: Optional[dict] = None) -> History:
     """Execute ``program`` concurrently and return its history.
 
     Identical (sut, program, seed, faults) give an identical history, bit
-    for bit.  Unanswered ops come back as pending ops."""
-    sched = Scheduler(seed=seed, faults=faults, max_steps=max_steps)
-    rec = HistoryRecorder(sched)
-    sut.setup(sched)
-    for pid, ops in enumerate(program.per_pid()):
-        if ops:
-            sched.spawn(f"client:{pid}", _client(rec, sut, pid, ops))
-    sched.run()
+    for bit, on every transport: the transport carries messages, never
+    their order.  Unanswered ops come back as pending ops.
+    ``sched_info``, when given, receives ``choice_clamped``: a scripted
+    choice was past the live branching factor."""
+    sched, rec = prepare_run(sut, program, seed, faults, max_steps,
+                             transport=transport, choices=choices)
+    try:
+        sched.run()
+    finally:
+        if sched.transport is not None and sched.owns_transport:
+            sched.transport.close()
+        if sched_info is not None:
+            sched_info["choice_clamped"] = sched.choice_clamped
     return rec.history(seed=seed)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import random
 from collections import deque
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +84,15 @@ class FaultPlan:
         self.crash_at = dict(crash_at or {})
         self.protected = protected or set()  # never dropped
 
+    def is_deterministic(self) -> bool:
+        """True when this plan never consults the RNG's outcome: crash
+        schedules (delivery-count triggers) and partitions (a pure (src,
+        dst) predicate) only.  Systematic exploration
+        (``sched/systematic.py``) enumerates exactly these plans; a new
+        seeded fault knob must make this answer False."""
+        return (self.p_drop == 0 and self.p_duplicate == 0
+                and self.p_delay == 0)
+
     def decide(self, msg: Message, rng: random.Random) -> str:
         if msg.src in self.protected or msg.dst in self.protected:
             return self.DELIVER
@@ -107,6 +116,12 @@ class FaultPlan:
 
 class DeadlockError(RuntimeError):
     pass
+
+
+class PruneRun(Exception):
+    """Raised out of :meth:`Scheduler.run` when a ``prune_hook`` finds
+    the current quiescent state already explored (state-fingerprint
+    pruning of ``sched/systematic.py``).  Control flow, not an error."""
 
 
 @dataclasses.dataclass
@@ -136,14 +151,38 @@ class Scheduler:
     """Single-threaded deterministic actor scheduler."""
 
     def __init__(self, seed, faults: Optional[FaultPlan] = None,
-                 max_steps: int = 100_000):
+                 max_steps: int = 100_000, transport=None,
+                 choices: Optional[List[int]] = None):
         self.rng = random.Random(seed)
         self.faults = faults
         self.max_steps = max_steps
+        # Scripted delivery choices (sched/systematic.py): the k-th
+        # delivery takes eligible[choices[k]] instead of a seeded draw,
+        # eligible[0] past the script's end, and ``choice_log`` records
+        # the branching factor at every delivery.  Delivery choice is the
+        # only nondeterminism of a faultless run, so the script is the
+        # whole schedule.
+        self.choices = choices
+        self.choice_log: List[int] = []
+        self._choice_pos = 0
+        # a scripted choice at or past the live branching factor: the
+        # script was recorded against another tree; the pick is clamped
+        # so the run completes, and the drift is reported
+        self.choice_clamped = False
+        # called at every quiescent delivery point before the branching
+        # factor is logged; True aborts the run with PruneRun
+        self.prune_hook: Optional[Callable[["Scheduler"], bool]] = None
+        # the transport carries the messages; the scheduler keeps every
+        # ordering decision (None: in memory).  ``owns_transport`` is set
+        # by prepare_run when it made the transport from a name and the
+        # run must close it.
+        self.transport = transport
+        self.owns_transport = False
         self.procs: Dict[str, _Proc] = {}
         self.monitors: Dict[str, List[str]] = {}  # target -> watchers
         self.pool: List[_InFlight] = []
         self.clock = 0  # logical event clock (history timestamps)
+        self.trace: List[int] = []  # delivered message uids, in order
         self.n_delivered = 0  # delivery choices made (delays count too)
         self._uid = 0
         self._steps = 0
@@ -204,9 +243,11 @@ class Scheduler:
             p.send_value = None
             if isinstance(eff, Send):
                 self._uid += 1
-                self.pool.append(_InFlight(Message(
-                    src=p.name, dst=eff.to, payload=eff.payload,
-                    uid=self._uid)))
+                msg = Message(src=p.name, dst=eff.to, payload=eff.payload,
+                              uid=self._uid)
+                if self.transport is not None:
+                    msg = self.transport.uplink(msg)
+                self.pool.append(_InFlight(msg))
                 continue
             if isinstance(eff, Recv):
                 if p.mailbox:
@@ -227,14 +268,26 @@ class Scheduler:
             raise TypeError(f"process {p.name} yielded {eff!r}")
 
     def _deliver_one(self) -> None:
-        """Quiescence point: seeded choice of the next in-flight message."""
+        """Quiescence point: seeded (or scripted) choice of the next
+        in-flight message."""
+        if self.prune_hook is not None and self.prune_hook(self):
+            raise PruneRun
         self._bump_steps()
         eligible = [i for i, f in enumerate(self.pool)
                     if f.ready_at <= self.n_delivered]
         if not eligible:
             # every message is held: delivering early is history-equivalent
             eligible = list(range(len(self.pool)))
-        pick = eligible[self.rng.randrange(len(eligible))]
+        if self.choices is not None:
+            self.choice_log.append(len(eligible))
+            k = (self.choices[self._choice_pos]
+                 if self._choice_pos < len(self.choices) else 0)
+            self._choice_pos += 1
+            if k >= len(eligible):
+                self.choice_clamped = True
+            pick = eligible[min(k, len(eligible) - 1)]
+        else:
+            pick = eligible[self.rng.randrange(len(eligible))]
         inf = self.pool.pop(pick)
         msg = inf.msg
         action = (self.faults.decide(msg, self.rng)
@@ -253,6 +306,9 @@ class Scheduler:
         dst = self.procs.get(msg.dst)
         if dst is None or dst.done:
             return  # message to a dead/unknown process: dropped
+        if self.transport is not None:
+            msg = self.transport.downlink(msg)
+        self.trace.append(msg.uid)
         dst.mailbox.append(msg)
         if dst.blocked:
             dst.blocked = False
@@ -267,7 +323,11 @@ class Scheduler:
         self._steps = 0
         self.clock = 0
         self.pool.clear()
+        self.trace.clear()
         self.monitors.clear()
+        self.choice_log.clear()
+        self._choice_pos = 0
+        self.choice_clamped = False
         while True:
             runnable = self._runnable()
             if runnable:

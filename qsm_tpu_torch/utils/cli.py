@@ -1,4 +1,17 @@
-"""Command line: ``python -m qsm_tpu_torch run|bench|stats``.
+"""Command line: ``python -m qsm_tpu_torch
+run|replay|check|list|coverage|explore|fuzz|bench|stats``.
+
+* ``run``: ``prop_concurrent`` on a registry model (fault flags, the TCP
+  transport, worker processes, a JSONL log and a regression file);
+* ``replay``: a failure again, from its seed key or a regression file
+  (an exploration finding by its delivery-choice script);
+* ``check``: an external trace file, one history or a batch;
+* ``list``: models, backends and the native oracle's status;
+* ``coverage``: schedule coverage of seeded runs (``--exact``: against
+  the enumerated tree);
+* ``explore``: every interleaving of small programs, the union of their
+  distinct histories decided in one backend batch;
+* ``fuzz``: the checkers against the exact oracle on random specs.
 
 Device backends (``--device cpu`` runs their kernels' plain versions):
 
@@ -30,7 +43,8 @@ native checker), ``segdc`` and ``segdc-cpp`` (segmentation over the
 memoised oracle or the native checker), ``rootsplit`` (root splitting
 over the memoised oracle).
 
-``stats`` prints one JSON document: a backend's search-cost record on one
+The device backends of ``run``, ``check``, ``explore`` and ``fuzz`` run on
+the card unless ``--device cpu``.  ``stats`` prints one JSON document: a backend's search-cost record on one
 corpus, the corpus profile and the plan ``plan_search`` picks for it;
 ``--planned`` runs ``build_backend(spec, plan_search(spec, profile))``,
 the port's plan, on the card.
@@ -40,11 +54,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
-from ..core.property import PropertyConfig, prop_concurrent
-from ..models.registry import MODELS, make
+from ..core.property import PropertyConfig, prop_concurrent, replay
+from ..models.registry import MODELS, SutFactory, make
 from ..ops.wing_gong_cpu import WingGongCPU
+from ..sched.runner import run_concurrent
+from ..sched.scheduler import FaultPlan
+from .report import (JsonlLogger, format_counterexample, format_history,
+                     load_regression, save_regression)
+from .stats import schedule_coverage
 
 BACKENDS = ("auto", "gpu", "stepper", "pcomp-stepper", "hybrid-stepper",
             "segdc-stepper", "rootsplit-stepper", "auto-stepper", "cpu",
@@ -52,6 +72,8 @@ BACKENDS = ("auto", "gpu", "stepper", "pcomp-stepper", "hybrid-stepper",
 # host backends that are the resolving oracle themselves: the property
 # layer need not search again what they left undecided
 _ORACLES = ("auto", "cpu", "cpp")
+# index == Verdict value
+_VERDICT_NAMES = ("VIOLATION", "LINEARIZABLE", "BUDGET_EXCEEDED")
 
 
 def make_backend(name: str, spec, device=None):
@@ -140,19 +162,6 @@ def _make_backend(name: str, spec, device):
     raise SystemExit(f"unknown backend {name!r}")
 
 
-def format_history(spec, history) -> str:
-    """One row per op: pid, command(arg) -> resp, [invoke, response]."""
-    if not history.ops:
-        return "  (empty history)"
-    rows = []
-    for o in history.ops:
-        resp = "pending" if o.is_pending else str(o.resp)
-        ret = "-" if o.is_pending else str(o.response_time)
-        rows.append(f"  pid {o.pid}  {spec.CMDS[o.cmd].name}({o.arg}) -> "
-                    f"{resp}  [{o.invoke_time}, {ret}]")
-    return "\n".join(rows)
-
-
 def _add_common(p: argparse.ArgumentParser, backend_default: str) -> None:
     p.add_argument("--model", default="cas", choices=sorted(MODELS))
     p.add_argument("--pids", type=int, default=None)
@@ -172,25 +181,89 @@ def _add_common(p: argparse.ArgumentParser, backend_default: str) -> None:
                         "rootsplit[-stepper]: root splitting; "
                         "auto-stepper: per-history routing between the "
                         "stepper and segdc-stepper")
-    p.add_argument("--device", default=None,
-                   help="torch device of the device backends (default "
-                        "cuda; cpu runs the kernels' plain versions)")
+    _add_device(p)
+
+
+def _add_fault_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--p-drop", type=float, default=0.0)
+    p.add_argument("--p-duplicate", type=float, default=0.0)
+    p.add_argument("--p-delay", type=float, default=0.0)
+    p.add_argument("--delay-steps", type=int, default=3,
+                   help="delivery choices a delayed message is held for")
+    p.add_argument("--crash-at", action="append", default=[],
+                   metavar="NAME:N",
+                   help="crash process NAME after N delivery choices "
+                        "(repeatable; e.g. --crash-at primary:6)")
+    p.add_argument("--partition", action="append", default=[],
+                   metavar="A,B,...",
+                   help="network partition: messages crossing the named "
+                        "group's boundary are dropped (repeatable, one "
+                        "group a flag; deterministic, so it composes "
+                        "with explore)")
+
+
+def _faults_from_args(args):
+    crash_at = {}
+    for spec in args.crash_at:
+        name, _, n = spec.rpartition(":")
+        if not name or not n.isdigit():
+            raise SystemExit(f"--crash-at wants NAME:N, got {spec!r}")
+        crash_at[name] = int(n)
+    partitions = []
+    for group in getattr(args, "partition", []):
+        names = {x.strip() for x in group.split(",") if x.strip()}
+        if not names:
+            raise SystemExit(f"--partition wants A,B,..., got {group!r}")
+        partitions.append(names)
+    if not (args.p_drop or args.p_duplicate or args.p_delay or crash_at
+            or partitions):
+        return None
+    return FaultPlan(p_drop=args.p_drop, p_duplicate=args.p_duplicate,
+                     p_delay=args.p_delay, delay_steps=args.delay_steps,
+                     crash_at=crash_at, partitions=partitions)
+
+
+def _fault_flags(args) -> str:
+    """Every fault flag of ``args`` as command-line text: a replay hint
+    without one of them replays another fault plan."""
+    flags = (f" --p-drop {args.p_drop} --p-duplicate {args.p_duplicate}"
+             f" --p-delay {args.p_delay} --delay-steps {args.delay_steps}")
+    flags += "".join(f" --crash-at {c}" for c in args.crash_at)
+    flags += "".join(f" --partition {g}" for g in args.partition)
+    return flags
 
 
 def cmd_run(args) -> int:
     entry = MODELS[args.model]
     spec, sut = make(args.model, args.impl)
+    faults = _faults_from_args(args)
     cfg = PropertyConfig(n_trials=args.trials,
                          n_pids=args.pids or entry.default_pids,
                          max_ops=args.ops or entry.default_ops,
-                         seed=args.seed,
+                         seed=args.seed, faults=faults,
                          schedules_per_program=args.schedules,
-                         trial_batch=args.trial_batch)
-    t0 = time.perf_counter()
-    backend = make_backend(args.backend, spec, args.device)
-    oracle = backend if args.backend in _ORACLES else None
-    res = prop_concurrent(spec, sut, cfg, backend=backend, oracle=oracle)
-    dt = time.perf_counter() - t0
+                         trial_batch=args.trial_batch,
+                         transport=args.transport,
+                         executor_workers=args.workers)
+    log = JsonlLogger(path=args.log) if args.log else JsonlLogger()
+    try:
+        t0 = time.perf_counter()
+        backend = make_backend(args.backend, spec, args.device)
+        oracle = backend if args.backend in _ORACLES else None
+        res = prop_concurrent(
+            spec, sut, cfg, backend=backend, oracle=oracle,
+            sut_factory=(SutFactory(args.model, args.impl)
+                         if args.workers > 0 else None))
+        dt = time.perf_counter() - t0
+        log.emit("result", model=args.model, impl=args.impl, ok=res.ok,
+                 trials=res.trials_run, histories=res.histories_checked,
+                 undecided=res.undecided, seconds=round(dt, 3),
+                 schedules=res.schedules_run,
+                 schedule_diversity=round(res.schedule_diversity, 3),
+                 timings={key: round(v, 3)
+                          for key, v in sorted(res.timings.items())})
+    finally:
+        log.close()
     if res.ok:
         print(f"OK: {args.model}/{args.impl} passed {res.trials_run} trials "
               f"({res.histories_checked} histories, {dt:.1f}s)")
@@ -200,10 +273,69 @@ def cmd_run(args) -> int:
         return 0
     cx = res.counterexample
     print(f"FAIL: {args.model}/{args.impl} — linearizability violation")
-    print(f"counterexample after trial {cx.trial} (seed {cx.trial_seed!r}, "
-          f"{cx.shrink_steps} shrink steps, {len(cx.program)} ops):")
-    print(format_history(spec, cx.history))
+    print(format_counterexample(spec, cx))
+    hint = _fault_flags(args) if faults is not None else ""
+    print(f"replay: python -m qsm_tpu_torch replay --model {args.model} "
+          f"--impl {args.impl} --trial-seed '{cx.trial_seed}' "
+          f"--pids {cfg.n_pids} --ops {cfg.max_ops} "
+          f"--trials {cfg.n_trials}{hint}")
+    if args.save_regression:
+        save_regression(args.save_regression, args.model, args.impl, spec,
+                        cfg, cx)
+        print(f"regression saved to {args.save_regression}")
     return 1
+
+
+def cmd_replay(args) -> int:
+    if args.regression:
+        model, impl, seed_key, prog, hist, faults, spec_kwargs = \
+            load_regression(args.regression)
+        spec, sut = make(model, impl, spec_kwargs)
+        print(f"replaying {model}/{impl} trial seed {seed_key!r}")
+        # an exploration finding replays by its delivery-choice script
+        from ..sched.systematic import parse_schedule_key
+
+        info: dict = {}
+        h = run_concurrent(sut, prog, seed=seed_key, faults=faults,
+                           choices=parse_schedule_key(seed_key),
+                           sched_info=info)
+        same = h.fingerprint() == hist.fingerprint()
+        print(f"history reproduced bit-identically: {same}")
+        if info.get("choice_clamped"):
+            print("WARNING: schedule script no longer matches the "
+                  "interleaving tree (a scripted choice exceeded the live "
+                  "branching factor and was clamped) — the model or fault "
+                  "plan has drifted since this regression was captured")
+    else:
+        if not (args.model and args.trial_seed):
+            raise SystemExit(
+                "replay needs either --regression FILE or both "
+                "--model and --trial-seed")
+        spec, sut = make(args.model, args.impl)
+        entry = MODELS[args.model]
+        cfg = PropertyConfig(n_trials=args.trials,
+                             n_pids=args.pids or entry.default_pids,
+                             max_ops=args.ops or entry.default_ops,
+                             faults=_faults_from_args(args))
+        h = replay(spec, sut, args.trial_seed, cfg)
+    w = None
+    if args.witness:
+        # one search gives both the verdict and the witness
+        verdict, w = WingGongCPU().check_witness(spec, h)
+        v = int(verdict)
+    else:
+        v = int(WingGongCPU().check_histories(spec, [h])[0])
+    print(format_history(spec, h))
+    print(f"verdict: {_VERDICT_NAMES[v]}")
+    if w is not None:
+        from ..ops.backend import verify_witness
+
+        steps = " -> ".join(
+            f"{spec.CMDS[h.ops[j].cmd].name}[op{j}]" for j, _ in w)
+        print(f"witness: {steps}")
+        print(f"witness verifies (search-free replay): "
+              f"{verify_witness(spec, h, w)}")
+    return 0 if v == 1 else 1
 
 
 def _device_name(backend) -> str:
@@ -305,6 +437,326 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def _resolve_deferred(name, spec, histories, verdicts):
+    """A device backend's BUDGET_EXCEEDED verdicts decided again by the
+    host oracle (the property layer's resolving oracle); a host backend
+    that is that oracle is left as it answered."""
+    from ..core.property import _default_oracle
+    from ..ops.backend import Verdict
+
+    und = [i for i, x in enumerate(verdicts)
+           if x == int(Verdict.BUDGET_EXCEEDED)]
+    if und and name not in _ORACLES:
+        res = _default_oracle(spec).check_histories(
+            spec, [histories[i] for i in und])
+        for i, x in zip(und, res):
+            verdicts[i] = int(x)
+    return verdicts
+
+
+def cmd_check(args) -> int:
+    """Decide an external trace file, without the scheduler.
+
+    The file is JSON with a ``history`` array of ``[pid, cmd, arg, resp,
+    invoke_time, response_time]`` rows (the regression file's encoding,
+    so a saved regression checks directly) or a ``histories`` array of
+    such arrays (decided in one backend call), and optionally ``model`` /
+    ``spec_kwargs``.  stdout is one JSON line; exit 0 all linearizable, 1
+    a violation, 2 undecided only."""
+    from ..ops.backend import Verdict, verify_witness
+    from .report import history_from_rows
+
+    with open(args.trace) as f:
+        doc = json.load(f)
+    model = args.model or doc.get("model")
+    if not model:
+        raise SystemExit("trace has no 'model'; pass --model")
+    if model not in MODELS:
+        raise SystemExit(
+            f"unknown model {model!r}; one of {sorted(MODELS)}")
+    spec, _ = make(model, "atomic", doc.get("spec_kwargs") or None)
+    if "histories" in doc:
+        if args.witness:
+            raise SystemExit(
+                "--witness applies to a single 'history' trace; the "
+                "batch 'histories' form reports verdicts only")
+        hs = [history_from_rows(rows) for rows in doc["histories"]]
+        backend = make_backend(args.backend, spec, args.device)
+        vs = _resolve_deferred(
+            args.backend, spec, hs,
+            [int(x) for x in backend.check_histories(spec, hs)])
+        n_vio = sum(x == int(Verdict.VIOLATION) for x in vs)
+        n_und = sum(x == int(Verdict.BUDGET_EXCEEDED) for x in vs)
+        print(json.dumps({
+            "model": model, "histories": len(hs),
+            "verdicts": [_VERDICT_NAMES[x] for x in vs],
+            "violations": n_vio, "undecided": n_und}))
+        return 1 if n_vio else (2 if n_und else 0)
+    if "history" not in doc:
+        raise SystemExit(
+            "trace needs a 'history' (or 'histories') array of "
+            "[pid, cmd, arg, resp, invoke_time, response_time] rows")
+    h = history_from_rows(doc["history"])
+    w = None
+    if args.witness:
+        # one host-oracle search gives both the verdict and the witness
+        v, w = WingGongCPU(memo=True).check_witness(spec, h)
+        v = int(v)
+    else:
+        backend = make_backend(args.backend, spec, args.device)
+        v = _resolve_deferred(
+            args.backend, spec, [h],
+            [int(backend.check_histories(spec, [h])[0])])[0]
+    # the human rendering goes to stderr: stdout stays one JSON line
+    print(format_history(spec, h), file=sys.stderr)
+    out = {"model": model, "ops": len(h), "pending": h.n_pending,
+           "verdict": _VERDICT_NAMES[v]}
+    if w is not None:
+        out["witness"] = w
+        out["witness_verifies"] = verify_witness(spec, h, w)
+    print(json.dumps(out))
+    if v == int(Verdict.LINEARIZABLE):
+        return 0
+    return 2 if v == int(Verdict.BUDGET_EXCEEDED) else 1
+
+
+def cmd_list(args) -> int:
+    """Every registry model (sizes and impls), every backend and the
+    native oracle's status, as one JSON object.  ``native_status`` builds
+    nothing."""
+    from ..native import native_status
+
+    status = native_status()
+    print(json.dumps({
+        "models": {
+            name: {"pids": e.default_pids, "ops": e.default_ops,
+                   "impls": sorted(e.impls)}
+            for name, e in sorted(MODELS.items())},
+        "backends": list(BACKENDS),
+        "native": status,
+        "native_available": status in ("loaded", "built"),
+    }))
+    return 0
+
+
+def cmd_coverage(args) -> int:
+    from ..core.generator import generate_program
+
+    entry = MODELS[args.model]
+    spec, _ = make(args.model, args.impl)
+    prog = generate_program(spec, seed=args.seed,
+                            n_pids=args.pids or entry.default_pids,
+                            max_ops=args.ops or entry.default_ops)
+    factory = SutFactory(args.model, args.impl)
+    stats = schedule_coverage(
+        factory, prog, seeds=[f"{args.seed}:{i}" for i in range(args.runs)])
+    out = {
+        "model": args.model, "ops": len(prog), "runs": stats.seeds,
+        "distinct_schedules": stats.distinct_schedules,
+        "distinct_histories": stats.distinct_histories,
+        "schedule_diversity": round(stats.schedule_diversity, 3)}
+    if args.exact:
+        # the enumerated tree as ground truth (counts only, no verdicts)
+        from ..sched.systematic import explore_program
+
+        res = explore_program(factory, prog, spec,
+                              max_schedules=args.max_schedules, check=False)
+        out["exact"] = {"schedules": res.schedules_run,
+                        "pruned_schedules": res.pruned_schedules,
+                        "distinct_histories": res.distinct_histories,
+                        "exhausted": res.exhausted}
+        if res.exhausted and res.distinct_histories:
+            out["sampled_history_coverage"] = round(
+                stats.distinct_histories / res.distinct_histories, 3)
+    print(json.dumps(out))
+    return 0
+
+
+def _result_line(r) -> dict:
+    """The one ExploreResult -> JSON mapping of every explore output."""
+    line = {"schedules_run": r.schedules_run,
+            "pruned_schedules": r.pruned_schedules,
+            "distinct_histories": r.distinct_histories,
+            "exhausted": r.exhausted, "violations": r.violations,
+            "undecided": r.undecided, "verified": r.verified}
+    if r.violating is not None:
+        # the replayable delivery-choice script that produced it
+        line["violating_schedule"] = r.violating.seed
+    return line
+
+
+def _crash_sweep_arg(args):
+    """``--crash-sweep NAME:LO-HI`` as (name, lo, hi), refused with the
+    flags it does not combine with."""
+    if (args.programs > 1 or args.shrink or args.save_regression
+            or args.crash_at):
+        raise SystemExit(
+            "--crash-sweep explores ONE program under a range of "
+            "crash points; combine it only with --seed/--pids/--ops/"
+            "--partition (drop --programs/--shrink/"
+            "--save-regression/--crash-at)")
+    name, _, rng = args.crash_sweep.partition(":")
+    lo, _, hi = rng.partition("-")
+    if not (name and lo.isdigit() and hi.isdigit()):
+        raise SystemExit("--crash-sweep wants NAME:LO-HI "
+                         "(e.g. primary:1-12)")
+    if int(lo) > int(hi):
+        # an empty range would print a vacuous all_verified
+        raise SystemExit(f"--crash-sweep range is empty "
+                         f"({lo}-{hi}); want LO <= HI")
+    return name, int(lo), int(hi)
+
+
+def cmd_explore(args) -> int:
+    """Bounded-exhaustive schedule exploration (sched/systematic.py):
+    every interleaving, one batched verdict."""
+    from ..core.generator import generate_program
+    from ..sched.runner import prepare_run
+    from ..sched.systematic import (deterministic_faults, explore_many,
+                                    explore_program, shrink_explored)
+
+    # usage errors before any backend is built
+    if args.programs > 1 and (args.shrink or args.save_regression):
+        raise SystemExit(
+            "--programs is a sweep; combine --shrink/--save-regression "
+            "with a single program (drop --programs)")
+    if args.workers and args.programs <= 1:
+        raise SystemExit(
+            "--workers fans a --programs sweep over processes; a single "
+            "program's tree enumerates serially (add --programs N)")
+    cs = _crash_sweep_arg(args) if args.crash_sweep else None
+    faults = _faults_from_args(args)
+    if not deterministic_faults(faults):
+        raise SystemExit(
+            "explore enumerates schedules exactly, which only composes "
+            "with DETERMINISTIC fault plans (--crash-at/--partition); "
+            "probabilistic faults (--p-drop/--p-duplicate/--p-delay) are "
+            "seeded draws — use `run` sampling for those")
+    spec, _ = make(args.model, args.impl)
+    factory = SutFactory(args.model, args.impl)
+    if cs is not None:
+        # a misspelt process name would crash nothing and certify the
+        # fault-free system: check it against what a run spawns
+        probe, _ = prepare_run(factory(), generate_program(
+            spec, seed=args.seed, n_pids=args.pids, max_ops=args.ops),
+            seed=0)
+        if cs[0] not in probe.procs:
+            raise SystemExit(
+                f"--crash-sweep: no process named {cs[0]!r} is spawned "
+                f"by {args.model}/{args.impl}; processes: "
+                f"{sorted(probe.procs)}")
+    backend = make_backend(args.backend, spec, args.device)
+    if args.programs > 1:
+        # N trees enumerate on the host, all their histories decide in
+        # one backend batch
+        progs = [generate_program(spec, seed=args.seed + i,
+                                  n_pids=args.pids, max_ops=args.ops)
+                 for i in range(args.programs)]
+        results = explore_many(
+            factory, progs, spec, backend=backend,
+            max_schedules=args.max_schedules, prune=not args.no_prune,
+            faults=faults, workers=args.workers)
+        total_vio = sum(r.violations for r in results)
+        for i, r in enumerate(results):
+            print(json.dumps({"seed": args.seed + i, "ops": len(progs[i]),
+                              **_result_line(r)}))
+        print(json.dumps({
+            "programs": len(results), "total_violations": total_vio,
+            "total_undecided": sum(r.undecided for r in results),
+            "all_verified": all(r.verified for r in results),
+            "seconds": round(sum(r.seconds for r in results), 3)}))
+        return 0 if total_vio == 0 else 1
+    prog = generate_program(spec, seed=args.seed, n_pids=args.pids,
+                            max_ops=args.ops)
+    if cs is not None:
+        # the program under every crash point of the range: `verified` on
+        # every line covers the whole crash point x schedule space
+        name, lo, hi = cs
+        total_vio = total_und = 0
+        all_verified = True
+        seconds = 0.0
+        for k in range(lo, hi + 1):
+            # a co-passed --partition extends every point's plan
+            plan = FaultPlan(crash_at={name: k},
+                             partitions=faults.partitions if faults
+                             else [])
+            r = explore_program(factory, prog, spec, backend=backend,
+                                max_schedules=args.max_schedules,
+                                prune=not args.no_prune, faults=plan)
+            print(json.dumps({"crash_at": f"{name}:{k}",
+                              **_result_line(r)}))
+            total_vio += r.violations
+            total_und += r.undecided
+            all_verified = all_verified and r.verified
+            seconds += r.seconds
+        print(json.dumps({"crash_sweep": f"{name}:{lo}-{hi}",
+                          "ops": len(prog),
+                          "total_violations": total_vio,
+                          "total_undecided": total_und,
+                          "all_verified": all_verified,
+                          "seconds": round(seconds, 3)}))
+        # 1: violations; 2: none, but truncated or undecided; 0: verified
+        if total_vio:
+            return 1
+        return 0 if all_verified else 2
+    res = explore_program(factory, prog, spec, backend=backend,
+                          max_schedules=args.max_schedules,
+                          prune=not args.no_prune, faults=faults)
+    shrink_steps = 0
+    if res.violations and args.shrink:
+        prog, res, shrink_steps = shrink_explored(
+            factory, prog, spec, backend=backend,
+            max_schedules=args.max_schedules, initial=res, faults=faults)
+    print(json.dumps({"model": args.model, "impl": args.impl,
+                      "ops": len(prog), **_result_line(res),
+                      "shrink_steps": shrink_steps,
+                      "seconds": res.seconds}))
+    if res.violating is not None:
+        print(format_history(spec, res.violating), file=sys.stderr)
+        if args.save_regression:
+            from ..core.property import Counterexample
+
+            cx = Counterexample(program=prog, history=res.violating,
+                                trial=0, trial_seed=res.violating.seed,
+                                shrink_steps=shrink_steps)
+            # the fault plan is part of the finding
+            cfg = PropertyConfig(n_pids=args.pids, max_ops=args.ops,
+                                 faults=faults)
+            save_regression(args.save_regression, args.model, args.impl,
+                            spec, cfg, cx)
+            print(f"regression saved to {args.save_regression}",
+                  file=sys.stderr)
+    return 0 if res.ok else 1
+
+
+def cmd_fuzz(args) -> int:
+    from .fuzz import fuzz_parity
+
+    arms = tuple(args.backends.split(","))
+    rep = fuzz_parity(n_specs=args.specs, hists_per_spec=args.histories,
+                      seed=args.seed, n_pids=args.pids, n_ops=args.ops,
+                      p_pending=args.p_pending, backends=arms,
+                      device=args.device)
+    out = {
+        "specs": rep.specs, "histories": rep.histories,
+        "linearizable": rep.linearizable, "violations": rep.violations,
+        "budget_exceeded": rep.budget_exceeded,
+        "mismatches": rep.mismatches[:20], "ok": rep.ok}
+    if "cpp" in arms:
+        out["cpp_native_histories"] = rep.cpp_native_histories
+        if rep.cpp_native_histories == 0:
+            # every history fell back to the oracle it is compared with
+            out["cpp_vacuous"] = True
+    print(json.dumps(out))
+    return 0 if rep.ok else 1
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device of the device backends (default "
+                        "cuda; cpu runs the kernels' plain versions)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="qsm_tpu_torch",
@@ -322,7 +774,117 @@ def main(argv=None) -> int:
     p.add_argument("--trial-batch", type=int, default=1,
                    help="trials decided per backend batch (verdicts are "
                         "identical at any value)")
+    p.add_argument("--transport", default="memory",
+                   choices=["memory", "tcp"],
+                   help="scheduler-plane message transport (tcp: real "
+                        "loopback sockets; histories are bit-identical)")
+    p.add_argument("--workers", type=int, default=0,
+                   help="worker processes for schedule execution "
+                        "(0: serial; histories are bit-identical)")
+    _add_fault_args(p)
+    p.add_argument("--log", default=None, help="JSONL log path")
+    p.add_argument("--save-regression", default=None,
+                   help="write the failing counterexample to this JSON "
+                        "file")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("replay", help="reproduce a failure from seed or file")
+    p.add_argument("--regression", default=None)
+    p.add_argument("--witness", action="store_true",
+                   help="on a LINEARIZABLE verdict, print the "
+                        "linearization order and its search-free "
+                        "verification")
+    p.add_argument("--model", default=None, choices=sorted(MODELS))
+    p.add_argument("--impl", default="racy")
+    p.add_argument("--trial-seed", default=None)
+    p.add_argument("--pids", type=int, default=None)
+    p.add_argument("--ops", type=int, default=None)
+    p.add_argument("--trials", type=int, default=100)
+    _add_fault_args(p)
+    p.set_defaults(fn=cmd_replay)
+
+    p = sub.add_parser(
+        "check", help="decide an external trace file (no scheduler)")
+    p.add_argument("--trace", required=True,
+                   help="JSON with a 'history' array of [pid, cmd, arg, "
+                        "resp, invoke_time, response_time] rows, or a "
+                        "'histories' array of them")
+    p.add_argument("--model", default=None, choices=sorted(MODELS),
+                   help="overrides the trace's own 'model' field")
+    p.add_argument("--backend", default="stepper", choices=BACKENDS)
+    _add_device(p)
+    p.add_argument("--witness", action="store_true",
+                   help="include the verified linearization order (one "
+                        "host-oracle search gives verdict and witness; "
+                        "--backend is ignored)")
+    p.set_defaults(fn=cmd_check)
+
+    p = sub.add_parser("list", help="models, impls, and backend choices")
+    p.set_defaults(fn=cmd_list)
+
+    p = sub.add_parser("coverage", help="schedule-coverage stats")
+    p.add_argument("--model", required=True, choices=sorted(MODELS))
+    p.add_argument("--impl", default="atomic")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pids", type=int, default=None)
+    p.add_argument("--ops", type=int, default=None)
+    p.add_argument("--runs", type=int, default=100)
+    p.add_argument("--exact", action="store_true",
+                   help="also enumerate the interleaving tree (bounded) "
+                        "and report what fraction of distinct histories "
+                        "the sampled runs reached")
+    p.add_argument("--max-schedules", type=int, default=10_000)
+    p.set_defaults(fn=cmd_coverage)
+
+    p = sub.add_parser(
+        "explore",
+        help="bounded-exhaustive schedule exploration of one program")
+    p.add_argument("--model", required=True, choices=sorted(MODELS))
+    p.add_argument("--impl", default="racy")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pids", type=int, default=2)
+    p.add_argument("--ops", type=int, default=6)
+    p.add_argument("--max-schedules", type=int, default=10_000)
+    p.add_argument("--programs", type=int, default=1,
+                   help="sweep N generated programs (seeds seed..seed+N-1)"
+                        "; all trees' histories decide in ONE batch")
+    p.add_argument("--workers", type=int, default=0,
+                   help="fan the --programs tree enumerations over N "
+                        "worker processes (0: serial; results are "
+                        "bit-identical either way)")
+    p.add_argument("--backend", default="stepper", choices=BACKENDS)
+    _add_device(p)
+    p.add_argument("--shrink", action="store_true",
+                   help="minimize a violating program by re-exploring "
+                        "shrink candidates")
+    p.add_argument("--save-regression", default=None,
+                   help="persist the violating (program, schedule) as a "
+                        "replayable regression file")
+    p.add_argument("--no-prune", action="store_true",
+                   help="disable state-fingerprint subtree pruning (the "
+                        "raw lexicographic enumeration)")
+    _add_fault_args(p)  # deterministic plans only, see cmd_explore
+    p.add_argument("--crash-sweep", default=None, metavar="NAME:LO-HI",
+                   help="explore the program under crash_at={NAME: k} "
+                        "for every k in [LO, HI]: one JSON line a crash "
+                        "point plus a summary")
+    p.set_defaults(fn=cmd_explore)
+
+    p = sub.add_parser(
+        "fuzz", help="differential backend fuzzing over random specs")
+    p.add_argument("--specs", type=int, default=10)
+    p.add_argument("--histories", type=int, default=32,
+                   help="histories per spec")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pids", type=int, default=4)
+    p.add_argument("--ops", type=int, default=10)
+    p.add_argument("--p-pending", type=float, default=0.1)
+    p.add_argument("--backends", default="memo,cpp,device",
+                   help="comma list from {memo, cpp, device, segdc, auto, "
+                        "hybrid, pallas}: device is TorchStepper, pallas "
+                        "TorchGPU (the dfs_chunk kernel)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_fuzz)
 
     p = sub.add_parser("bench", help="checker throughput on one model")
     _add_common(p, "cpu")

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import random
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -214,3 +214,142 @@ def random_history(spec: Spec, rng: random.Random, n_pids: int,
         t += 1
     done.sort(key=lambda o: o.invoke_time)
     return History(done)
+
+
+@dataclasses.dataclass
+class FuzzReport:
+    specs: int
+    histories: int
+    linearizable: int
+    violations: int
+    budget_exceeded: int
+    # (spec_seed, history_index, backend_name, oracle_verdict, got)
+    mismatches: List[Tuple[int, int, str, int, int]]
+    # histories the cpp arm decided natively (0: the arm was vacuous,
+    # every history fell back to the Python oracle it is compared with)
+    cpp_native_histories: int = 0
+    # histories the hybrid arm's host tail decided (0: the device budget
+    # decided everything and the tail went unexercised)
+    hybrid_tail_histories: int = 0
+
+    @property
+    def ok(self) -> bool:
+        return not self.mismatches
+
+
+def fuzz_arm(name: str, spec: Spec, device=None):
+    """The backend of one fuzz arm.  The names are the JAX package's, so
+    that a ``--backends`` string means the same in both packages; the
+    device arms run on ``device`` (CUDA unless ``"cpu"``): ``device`` is
+    ``TorchStepper`` (its sweep regime when the spec has no scalar
+    shadow), ``segdc`` and ``auto`` the combinators over it, ``hybrid``
+    ``HybridDevice`` at a device budget of 12 (so that random specs push
+    real traffic through both sides), and ``pallas`` ``TorchGPU``, the
+    port of the Pallas kernel, at the JAX package's budgets for that
+    arm."""
+    if name == "memo":
+        from ..ops.wing_gong_cpu import WingGongCPU
+
+        return WingGongCPU(memo=True)
+    if name == "cpp":
+        from ..native import CppOracle
+
+        return CppOracle(spec)
+    if name == "device":
+        from ..ops.stepper import TorchStepper
+
+        return TorchStepper(spec, device=device)
+    if name == "segdc":
+        from ..ops.segdc import SegDC
+        from ..ops.stepper import TorchStepper
+
+        return SegDC(spec, make_inner=lambda s: TorchStepper(s,
+                                                             device=device))
+    if name == "auto":
+        from ..ops.router import AutoDevice
+
+        return AutoDevice(spec, device=device)
+    if name == "hybrid":
+        from ..ops.hybrid import HybridDevice
+
+        return HybridDevice(spec, budget=12, device=device)
+    if name == "pallas":
+        from ..ops.gpu_backend import TorchGPU
+
+        return TorchGPU(spec, budget=4_000, mid_budget=0, rescue_budget=0,
+                        device=device)
+    raise ValueError(f"unknown fuzz backend {name!r}")
+
+
+def fuzz_parity(n_specs: int = 10, hists_per_spec: int = 32,
+                seed: int = 0, n_pids: int = 4, n_ops: int = 10,
+                p_pending: float = 0.1,
+                backends: Sequence[str] = ("memo", "cpp", "device"),
+                spec_kwargs: Optional[dict] = None,
+                vector_bounds: Optional[Tuple[int, ...]] = None,
+                device=None, timings: Optional[Dict[str, float]] = None
+                ) -> FuzzReport:
+    """Differential sweep: for each random spec, every requested arm
+    (:func:`fuzz_arm`) must agree with the exact memo-free Python oracle
+    on every random history.  BUDGET_EXCEEDED on either side is never a
+    mismatch by itself; a decided verdict that contradicts the oracle's
+    decided verdict always is.
+
+    ``vector_bounds`` switches from scalar random tables to
+    :class:`RandomVectorSpec` with those element bounds: a small product
+    rides the scalar shadow, one past the packed-state cap the sweep
+    regime.  ``timings``, when given, receives each arm's seconds (and
+    the oracle's, under ``"oracle"``)."""
+    import time
+
+    from ..ops.backend import Verdict
+    from ..ops.wing_gong_cpu import WingGongCPU
+
+    oracle = WingGongCPU(memo=False)
+    lin = vio = bud = 0
+    cpp_native = 0
+    hybrid_tail = 0
+    undecided = int(Verdict.BUDGET_EXCEEDED)
+    mismatches: List[Tuple[int, int, str, int, int]] = []
+
+    def clock(key, t0):
+        if timings is not None:
+            timings[key] = (timings.get(key, 0.0)
+                            + time.perf_counter() - t0)
+
+    for k in range(n_specs):
+        spec_seed = seed * 1_000_003 + k
+        if vector_bounds is not None:
+            spec = RandomVectorSpec(spec_seed, bounds=vector_bounds,
+                                    **(spec_kwargs or {}))
+        else:
+            spec = RandomTableSpec(spec_seed, **(spec_kwargs or {}))
+        rng = random.Random(f"fuzz:{spec_seed}")
+        hists = [random_history(spec, rng, n_pids, n_ops,
+                                p_pending=p_pending)
+                 for _ in range(hists_per_spec)]
+        t0 = time.perf_counter()
+        want = np.asarray(oracle.check_histories(spec, hists))
+        clock("oracle", t0)
+        lin += int((want == int(Verdict.LINEARIZABLE)).sum())
+        vio += int((want == int(Verdict.VIOLATION)).sum())
+        bud += int((want == undecided).sum())
+        for name in backends:
+            t0 = time.perf_counter()
+            backend = fuzz_arm(name, spec, device)
+            got = backend.check_histories(spec, hists)
+            clock(name, t0)
+            if name == "cpp":
+                cpp_native += backend.native_histories
+            elif name == "hybrid":
+                hybrid_tail += backend.tail_histories
+            for i, (w, g) in enumerate(zip(want, got)):
+                if int(g) == undecided or int(w) == undecided:
+                    continue  # a deferral on either side
+                if int(w) != int(g):
+                    mismatches.append((spec_seed, i, name, int(w), int(g)))
+    return FuzzReport(specs=n_specs, histories=n_specs * hists_per_spec,
+                      linearizable=lin, violations=vio,
+                      budget_exceeded=bud, mismatches=mismatches,
+                      cpp_native_histories=cpp_native,
+                      hybrid_tail_histories=hybrid_tail)

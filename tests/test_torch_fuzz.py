@@ -113,3 +113,117 @@ def test_random_step_torch_equals_step_py_and_step_jax(seed, vector):
     jn, jok = _jax(jspec, st, cmd, arg, resp)
     np.testing.assert_array_equal(jn.reshape(m, -1), tn.reshape(m, -1))
     np.testing.assert_array_equal(jok, tok.numpy())
+
+
+# ---------------------------------------------------------------------------
+# fuzz_parity and FuzzReport (tests/test_fuzz.py)
+# ---------------------------------------------------------------------------
+
+def _report_fields(rep):
+    return {f: getattr(rep, f) for f in (
+        "specs", "histories", "linearizable", "violations",
+        "budget_exceeded", "mismatches", "cpp_native_histories",
+        "hybrid_tail_histories")} | {"ok": rep.ok}
+
+
+@pytest.mark.parametrize("seed", [1, 5])
+def test_fuzz_report_equals_the_reference_on_host_arms(seed):
+    kw = dict(n_specs=12, hists_per_spec=24, seed=seed,
+              backends=("memo", "cpp"))
+    rep = fuzz.fuzz_parity(**kw)
+    assert _report_fields(rep) == _report_fields(jfuzz.fuzz_parity(**kw))
+    assert rep.ok and rep.linearizable > 0 and rep.violations > 0
+    assert rep.cpp_native_histories == rep.histories
+
+
+def test_fuzz_report_equals_the_reference_on_device_arms():
+    """``device`` (TorchStepper) and ``hybrid`` on the CPU against the
+    reference's ``JaxTPU`` / ``HybridDevice``: the same report, the host
+    tail deciding the same number of histories."""
+    kw = dict(n_specs=3, hists_per_spec=24, seed=6,
+              backends=("device", "hybrid"))
+    rep = fuzz.fuzz_parity(device="cpu", **kw)
+    ref = jfuzz.fuzz_parity(**kw)
+    assert _report_fields(rep) == _report_fields(ref)
+    assert rep.ok and rep.hybrid_tail_histories > 0
+    assert rep.linearizable > 0 and rep.violations > 0
+
+
+def test_device_arm_verdicts_equal_the_reference_where_both_decide():
+    from qsm_tpu.ops.jax_kernel import JaxTPU
+
+    for k in range(2):
+        spec = fuzz.RandomTableSpec(2 * 1_000_003 + k)
+        jspec = jfuzz.RandomTableSpec(2 * 1_000_003 + k)
+        rng, jrng = random.Random(f"d{k}"), random.Random(f"d{k}")
+        hs = [fuzz.random_history(spec, rng, 4, 10, 0.1) for _ in range(24)]
+        jhs = [jfuzz.random_history(jspec, jrng, 4, 10, 0.1)
+               for _ in range(24)]
+        got = np.asarray(fuzz.fuzz_arm("device", spec, "cpu")
+                         .check_histories(spec, hs))
+        want = np.asarray(JaxTPU(jspec).check_histories(jspec, jhs))
+        both = (got != 2) & (want != 2)
+        assert both.sum() > 0
+        np.testing.assert_array_equal(got[both], want[both])
+
+
+def test_vector_bounds_past_the_cap_send_the_device_arm_to_the_sweep():
+    from qsm_tpu.ops.jax_kernel import JaxTPU
+
+    bounds = (7,) * 7  # 7**7 = 823,543 states: no scalar shadow
+    assert JaxTPU(jfuzz.RandomVectorSpec(1, bounds=bounds))._shadow is None
+    arm = fuzz.fuzz_arm("device", fuzz.RandomVectorSpec(1, bounds=bounds),
+                        "cpu")
+    assert arm.regime == "sweep"
+    small = fuzz.fuzz_arm("device", fuzz.RandomVectorSpec(1), "cpu")
+    assert small.regime == "table"
+    kw = dict(n_specs=2, hists_per_spec=16, seed=4, n_ops=8,
+              vector_bounds=bounds)
+    rep = fuzz.fuzz_parity(backends=("memo", "device", "hybrid"),
+                           device="cpu", **kw)
+    ref = jfuzz.fuzz_parity(backends=("memo",), **kw)
+    assert rep.ok and rep.linearizable > 0
+    assert (rep.linearizable, rep.violations, rep.budget_exceeded) == \
+        (ref.linearizable, ref.violations, ref.budget_exceeded)
+
+
+@pytest.mark.parametrize("arms,vector", [(("pallas",), None),
+                                         (("segdc", "auto"), None),
+                                         (("segdc",), (3, 2, 2))])
+def test_combinator_and_dfs_arms_agree_with_the_oracle(arms, vector):
+    rep = fuzz.fuzz_parity(n_specs=2, hists_per_spec=12, seed=21,
+                           backends=arms, device="cpu",
+                           vector_bounds=vector)
+    assert rep.mismatches == []
+    assert rep.linearizable + rep.violations > 0
+
+
+def test_arm_names_are_the_references_and_unknown_ones_refused():
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops.gpu_backend import TorchGPU
+    from qsm_tpu_torch.ops.hybrid import HybridDevice
+    from qsm_tpu_torch.ops.router import AutoDevice
+    from qsm_tpu_torch.ops.segdc import SegDC
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
+
+    spec = fuzz.RandomTableSpec(3)
+    want = {"memo": WingGongCPU, "cpp": CppOracle, "device": TorchStepper,
+            "segdc": SegDC, "auto": AutoDevice, "hybrid": HybridDevice,
+            "pallas": TorchGPU}
+    for name, ty in want.items():
+        arm = fuzz.fuzz_arm(name, spec, "cpu")
+        assert isinstance(arm, ty), name
+    assert fuzz.fuzz_arm("hybrid", spec, "cpu").device.budget == 12
+    assert isinstance(fuzz.fuzz_arm("segdc", spec, "cpu").inner,
+                      TorchStepper)
+    with pytest.raises(ValueError, match="unknown fuzz backend"):
+        fuzz.fuzz_parity(n_specs=1, hists_per_spec=2, backends=("tpu",))
+
+
+def test_fuzz_parity_times_each_arm():
+    t = {}
+    fuzz.fuzz_parity(n_specs=2, hists_per_spec=8, backends=("memo", "cpp"),
+                     timings=t)
+    assert set(t) == {"oracle", "memo", "cpp"}
+    assert all(v >= 0 for v in t.values())

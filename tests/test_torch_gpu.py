@@ -1086,3 +1086,103 @@ def test_auto_device_routes_both_ways_on_the_card(cuda, monkeypatch):
     assert auto.routed_plain + auto.routed_segdc == len(hs)
     assert auto.search_stats().histories == len(hs)
     _agree_with_cpp(spec, hs, v)
+
+
+@pytest.mark.parametrize("family", ["register", "cas", "set", "queue"])
+def test_explore_many_through_the_stepper_equals_cpp(cuda, monkeypatch,
+                                                     family):
+    """The union of many programs' interleaving trees (racy and atomic,
+    2 pids x 5 ops) decided in one ``TorchStepper`` call on the card:
+    every decided verdict is ``CppOracle``'s on the same union, every
+    atomic tree is verified, racy convicted wherever the host oracle
+    convicts, and the first launch is the plain version's."""
+    from qsm_tpu_torch.core.generator import generate_program
+    from qsm_tpu_torch.models.registry import SutFactory, make
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.sched.systematic import enumerate_many, explore_many
+
+    spec, _ = make(family, "atomic")
+    progs = [generate_program(spec, seed=s, n_pids=2, max_ops=5)
+             for s in range(24)]
+    for impl in ("atomic", "racy"):
+        factory = SutFactory(family, impl)
+        rec = _FirstLaunch(monkeypatch, stepper_module, "stepper_chunk")
+        got = explore_many(factory, progs, spec,
+                           backend=TorchStepper(spec), max_schedules=5_000)
+        _hold_stepper_chunk(rec, f"on the {family}/{impl} union")
+        monkeypatch.undo()
+        host = explore_many(factory, progs, spec,
+                            backend=CppOracle(spec), max_schedules=5_000)
+        flat = [h for walked in enumerate_many(factory, progs, 5_000,
+                                               100_000)
+                for h in walked[0]]
+        v = np.asarray(TorchStepper(spec).check_histories(spec, flat))
+        _agree_with_cpp(spec, flat, v)
+        for g, h in zip(got, host):
+            assert (g.schedules_run, g.distinct_histories, g.exhausted) == \
+                (h.schedules_run, h.distinct_histories, h.exhausted)
+            if g.undecided == 0:
+                assert g.violations == h.violations
+            if impl == "atomic":
+                assert g.verified
+        if impl == "racy":
+            assert sum(h.violations > 0 for h in host) == \
+                sum(g.violations > 0 for g in got)
+
+
+@pytest.mark.parametrize("vector", [None, (7,) * 7])
+def test_fuzz_parity_on_every_device_arm(cuda, vector):
+    """``fuzz_parity`` with every device arm on the card: 0 mismatches
+    against the exact oracle, the host tail of the hybrid arm used, and
+    the native arm non-vacuous."""
+    from qsm_tpu_torch.ops.dfs_kernel import dfs_chunk
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk
+    from qsm_tpu_torch.ops.sweep_kernel import stepper_sweep
+    from qsm_tpu_torch.utils.fuzz import fuzz_parity
+
+    if vector is None:
+        arms = ("memo", "cpp", "device", "pallas", "segdc", "auto",
+                "hybrid")
+        kw = dict(n_specs=4, hists_per_spec=128, n_pids=4, n_ops=10)
+    else:
+        arms = ("memo", "device", "hybrid")
+        kw = dict(n_specs=2, hists_per_spec=64, n_ops=8,
+                  vector_bounds=vector)
+    before = (dfs_chunk.launches, stepper_chunk.launches,
+              stepper_sweep.launches)
+    rep = fuzz_parity(seed=11, p_pending=0.1, backends=arms, **kw)
+    assert rep.ok, rep.mismatches[:10]
+    assert rep.hybrid_tail_histories > 0
+    assert rep.linearizable > 0
+    if vector is None:
+        assert rep.cpp_native_histories > 0 and rep.violations > 0
+        assert dfs_chunk.launches > before[0]
+        assert stepper_chunk.launches > before[1]
+    else:
+        assert stepper_sweep.launches > before[2]
+
+
+def test_check_batch_trace_through_the_stepper(cuda, tmp_path, capsys):
+    """``check --backend stepper`` on a batch trace (the CAS headline's
+    512 unique histories) on the card: the verdicts are ``CppOracle``'s
+    and the exit code is the one they imply."""
+    import json
+
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.utils.cli import main
+    from qsm_tpu_torch.utils.interop import history_to_rows
+
+    spec = CasSpec()
+    hs = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=512, n_pids=8,
+                      max_ops=32, seed_base=1000, seed_prefix="bench")
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"model": "cas", "histories": [
+        history_to_rows(h) for h in hs]}))
+    rc = main(["check", "--trace", str(path), "--backend", "stepper"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    names = ("VIOLATION", "LINEARIZABLE", "BUDGET_EXCEEDED")
+    ref = [names[int(x)] for x in CppOracle(spec).check_histories(spec, hs)]
+    assert out["verdicts"] == ref and out["undecided"] == 0
+    assert rc == (1 if out["violations"] else 0)

@@ -32,7 +32,10 @@ def test_import_loads_no_jax_and_no_reference_module():
             "qsm_tpu_torch.native, qsm_tpu_torch.resilience.failover, "
             "qsm_tpu_torch.search.ordering, qsm_tpu_torch.search.planner, "
             "qsm_tpu_torch.ops.segdc, qsm_tpu_torch.ops.rootsplit, "
-            "qsm_tpu_torch.ops.router\n"
+            "qsm_tpu_torch.ops.router, qsm_tpu_torch.sched.systematic, "
+            "qsm_tpu_torch.sched.transport, qsm_tpu_torch.sched.pool, "
+            "qsm_tpu_torch.core.sequential, qsm_tpu_torch.utils.report, "
+            "qsm_tpu_torch.utils.stats\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
