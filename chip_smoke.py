@@ -221,7 +221,52 @@ Phases, in order; any failure exits non-zero and no result is printed:
    --save-regression`` (racy CAS convicted, every fault flag in the
    replay hint), ``replay --regression`` (bit-identical), and ``run
    --transport tcp --workers 2`` against the memory transport (the same
-   counterexample), in subprocesses.
+   counterexample), in subprocesses;
+18. resilience and the history shrinker: (a) ``shrink_history`` on the
+   first 8 violating histories of the CAS headline through
+   ``TorchStepper(spec)``, through the planned checker
+   (``build_backend(spec, plan_search(spec, profile_corpus([h], spec),
+   platform="cuda"))``) and on the host default: every minimised history
+   a VIOLATION by ``CppOracle``, every certificate verified
+   (``verify_certificate``), every frontier batch one ``check_histories``
+   call, and wherever the device left no lane undecided the history,
+   rounds, ``lanes_checked`` and ``one_minimal`` of the host shrink;
+   rounds, lanes, engine calls, memo hits and time by backend printed;
+   then a kv16 violation through its plan (``PComp`` first; the first of
+   the corpus whose certificate holds a stitched witness) and through
+   ``HybridDevice`` (``TorchStepper`` over whole histories, the sweep
+   regime, at budget 2000; ``PComp`` on the host for the rest), and the
+   ``shrink
+   --trace --certificate`` entry point in this process on the first
+   headline violation (the planned checker on the card: the planned
+   shrink's result, its certificate audited); (b) ``run
+   --minimize --backend stepper`` on racy CAS 8 x 32 (100 trials, seed 0)
+   in this process: convicted, the printed minimised history the
+   shrinker's on the regression file's history, a VIOLATION by
+   ``CppOracle``, the regression replayed, and ``--backend cpp`` printing
+   the same; (c) ``FailoverBackend(TorchStepper)`` on the headline's 4096
+   lanes under ``QSM_TPU_FAULTS=raise:dispatch@2`` from a side stream
+   (verdicts exact, 1024 lanes on the card and 3072 on ``CppOracle``, one
+   degrade; its first launch from the watchdog's thread on the caller's
+   stream), under ``hang:dispatch@1`` (a 3 s hang, a 1 s watchdog: the
+   degrade goes through the watchdog), the card's rule (a
+   ``BackendUnavailable`` the plane did not inject raises out of the
+   wrapper and ``prop_concurrent``), ``stats --failover --backend
+   stepper`` (a resilience block of zeros), what the wrap costs a
+   4-lane dispatch of the CAS and of the queue headline (in turns: bare, bare on a new thread a call and on
+   one reused thread, wrapped with no watchdog, wrapped with a new
+   watchdog thread a dispatch and wrapped as it ships, with the process'
+   one watchdog worker; a fresh engine and its first dispatch, bare and
+   wrapped;
+   beside the watchdog's empty calls) and, in a subprocess, ``run
+   --failover --backend stepper`` under ``raise:dispatch@3`` (convicted,
+   one degrade in the log); (d) ``build_kernel``'s ``check_one`` on
+   bench-corpus history #35 at budget 500,000, 4096 memo slots (FAILURE
+   in under 50,000 iterations) and none (BUDGET at exactly 500,000): one
+   ``stepper_chunk`` launch each, timed with CUDA events beside its bound,
+   held against the plain version on the card (to completion with the
+   memo, over the first 5,000 iterations without); each path's launches
+   read and its first kernels held (``FirstInputs``).
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
@@ -229,8 +274,9 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 ``compact_carry`` over phases 10-11, each milestone's kernels over its
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
-15 (c), each path of phase 16 over its own, and phase 17's in-process
-paths over the phase; the kernels record lists those of phases 7-8 under
+15 (c), each path of phase 16 over its own, phase 17's in-process
+paths over the phase, and each path of phase 18 over its own; the
+kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
 kernels record, the last the device record.  Every number is printed
@@ -240,6 +286,7 @@ beside the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import json
@@ -249,6 +296,7 @@ import random
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -258,7 +306,7 @@ import torch
 
 from qsm_tpu_torch import native
 from qsm_tpu_torch.core.generator import generate_program as gen_program
-from qsm_tpu_torch.core.history import encode_batch
+from qsm_tpu_torch.core.history import bucket_for, encode_batch
 from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
 from qsm_tpu_torch.gen import GenProfile, SteeringLoop, generate_batch
 from qsm_tpu_torch.gen import core as gen_core
@@ -278,7 +326,8 @@ from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
 from qsm_tpu_torch.ops import kernels
 from qsm_tpu_torch.ops import gpu_backend as gpu_module
 from qsm_tpu_torch.ops import stepper as stepper_module
-from qsm_tpu_torch.ops.backend import Verdict, verify_witness
+from qsm_tpu_torch.ops.backend import (BackendUnavailable, Verdict,
+                                       verify_witness)
 from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
                                           SMEM_BLOCK_MAX,
                                           Carry, blocks_per_sm, dfs_chunk,
@@ -296,7 +345,8 @@ from qsm_tpu_torch.ops.router import AutoDevice, _width
 from qsm_tpu_torch.ops.scalarize import scalar_shadow
 from qsm_tpu_torch.ops.segdc import SegDC, split_at_quiescent_cuts
 from qsm_tpu_torch.ops.stepper import TorchStepper, default_slots
-from qsm_tpu_torch.ops.stepper_kernel import (StepperCarry, compact_carry,
+from qsm_tpu_torch.ops.stepper_kernel import (ITERS, STATUS, StepperCarry,
+                                              build_kernel, compact_carry,
                                               compact_carry_plain,
                                               device_sms,
                                               fresh_stepper_carry, key_words,
@@ -311,6 +361,9 @@ from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry, stepper_sweep,
                                             sweep_launch_plan, sweep_model,
                                             sweep_tables)
 from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
+from qsm_tpu_torch.resilience import faults as faults_mod
+from qsm_tpu_torch.resilience.failover import FailoverBackend
+from qsm_tpu_torch.resilience.policy import Watchdog, preset, watchdog
 from qsm_tpu_torch.search import (collect_search_stats, ordering_table,
                                   permute_history)
 from qsm_tpu_torch.sched.systematic import explore_many
@@ -320,7 +373,10 @@ from qsm_tpu_torch.utils import cli
 from qsm_tpu_torch.utils.corpus import build_corpus, random_lane_tables
 from qsm_tpu_torch.utils.fuzz import (RandomVectorSpec, fuzz_parity,
                                       random_history)
-from qsm_tpu_torch.utils.interop import history_to_rows
+from qsm_tpu_torch.shrink import (minimality_certificate, shrink_history,
+                                  verify_certificate)
+from qsm_tpu_torch.utils.interop import history_from_rows, history_to_rows
+from qsm_tpu_torch.utils.report import format_history
 
 N_PIDS, N_OPS = 8, 32          # the headline configuration
 N_UNIQUE, DEVICE_BATCH = 512, 4096
@@ -3108,13 +3164,14 @@ FUZZ_VECTOR = dict(n_specs=4, hists_per_spec=256, n_ops=8, p_pending=0.1,
 CLI_TIMEOUT_S = 600
 
 
-def cli_proc(*argv):
-    """``python -m qsm_tpu_torch ARGV`` started from the checkout's root;
-    collected by :func:`cli_result`."""
+def cli_proc(*argv, env=None):
+    """``python -m qsm_tpu_torch ARGV`` started from the checkout's root,
+    ``env`` added to this process' environment; collected by
+    :func:`cli_result`."""
     return subprocess.Popen(
         [sys.executable, "-m", "qsm_tpu_torch", *map(str, argv)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+        text=True, env=None if env is None else {**os.environ, **env})
 
 
 def cli_result(proc, what):
@@ -3494,6 +3551,633 @@ def phase_entry(spec, corpus, tag):
     return total, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: resilience and the history shrinker on the card
+# ---------------------------------------------------------------------------
+
+SHRINK_HISTORIES = 8           # (a): violating headline histories shrunk
+HANG_S = 3.0                   # (c) 2: the injected hang ...
+HANG_TIMEOUT_S = 1.0           # ... and the watchdog's shorter bound
+CHECK_ONE_BUDGET = 500_000     # (d): tests/test_cache.py's budget and memo
+CHECK_ONE_SLOTS = 4096
+CHECK_ONE_PLAIN = 5_000        # (d): iterations the memo-less plain version
+# runs against the kernel (its loop takes a trip of small launches an
+# iteration: the whole budget would take minutes)
+
+
+class CountedBackend:
+    """A backend's ``check_histories`` with its calls and its BUDGET
+    verdicts counted (``inner`` keeps its search record reachable)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name = getattr(inner, "name", type(inner).__name__)
+        self.calls = self.budget_lanes = 0
+
+    def check_histories(self, spec, histories):
+        v = np.asarray(self.inner.check_histories(spec, histories))
+        self.calls += 1
+        self.budget_lanes += int((v == Verdict.BUDGET_EXCEEDED).sum())
+        return v
+
+
+class FaultEnv:
+    """Inside ``with``: ``QSM_TPU_FAULTS`` (and the hang's length) set and
+    the port's fault plane parsed afresh; restored after."""
+
+    def __init__(self, rules, hang_s=None):
+        self.set = {faults_mod.ENV_VAR: rules}
+        if hang_s is not None:
+            self.set[faults_mod.HANG_VAR] = str(hang_s)
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.set}
+        os.environ.update(self.set)
+        faults_mod._plane = None
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults_mod._plane = None
+
+
+class LaunchOrigin:
+    """Inside ``with``: the thread and the CUDA stream of the first
+    ``stepper_chunk`` launch a ``TorchStepper`` makes."""
+
+    def __init__(self, dev):
+        self.dev, self.thread, self.stream = dev, None, None
+
+    def _step(self, *a, **kw):
+        if self.thread is None:
+            self.thread = threading.get_ident()
+            self.stream = torch.cuda.current_stream(self.dev).cuda_stream
+        return self.inner(*a, **kw)
+
+    def __enter__(self):
+        self.inner = stepper_module.stepper_chunk
+        stepper_module.stepper_chunk = self._step
+        return self
+
+    def __exit__(self, *exc):
+        stepper_module.stepper_chunk = self.inner
+
+
+WRAP_LANES = 4                 # (c): a property batch (4 schedules a trial)
+WRAP_REPS = 50
+
+
+def wrap_cost(spec, lanes) -> dict:
+    """ms a dispatch of ``lanes`` through ``TorchStepper``: bare, bare on
+    a new thread a call (``watchdog``) and on one reused worker
+    (``Watchdog``), and inside ``FailoverBackend`` with no watchdog
+    (``timeout_s=None``), with a new watchdog thread a dispatch (as the
+    wrapper's first build ran) and as it ships (the process' one worker
+    for every wrapper); in
+    turns, forward then backward, each the mean of both; with them what a
+    property run pays once (a fresh engine and its first dispatch, bare
+    and wrapped); beside ``kernels.build_all()`` once built and empty
+    calls on a new thread, on one that sets the caller's stream, and on
+    the reused worker."""
+    timeout = preset("dispatch").timeout_s
+    bare = TorchStepper(spec)
+    worker = Watchdog("wrap_cost")
+    inline = FailoverBackend(spec, TorchStepper(spec),
+                             policy=preset("dispatch").with_(timeout_s=None))
+    per_call = FailoverBackend(spec, TorchStepper(spec))
+    per_call.watchdog = functools.partial(watchdog, label="wrap_cost")
+    shipped = FailoverBackend(spec, TorchStepper(spec))
+    stream = torch.cuda.current_stream()
+
+    def on_stream():
+        with torch.cuda.stream(stream):
+            return None
+
+    def ms_a_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WRAP_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / WRAP_REPS
+
+    def dispatch(eng):
+        return lambda: eng.check_histories(spec, lanes)
+
+    variants = {
+        "bare": dispatch(bare),
+        "bare on a new thread a call": lambda: watchdog(
+            dispatch(bare), timeout),
+        "bare on one reused thread": lambda: worker(dispatch(bare),
+                                                    timeout),
+        "wrapped, no watchdog": dispatch(inline),
+        "wrapped, a new watchdog thread a dispatch": dispatch(per_call),
+        "wrapped as shipped (the process' one watchdog worker)":
+            dispatch(shipped),
+    }
+    # what a property run pays once: its engine, built fresh, and the
+    # engine's first dispatch (the wrapper's worker thread starts there)
+    variants["a fresh TorchStepper and its first dispatch"] = \
+        lambda: TorchStepper(spec).check_histories(spec, lanes)
+    variants["a fresh FailoverBackend(TorchStepper) and its first "
+             "dispatch"] = lambda: FailoverBackend(
+                 spec, TorchStepper(spec)).check_histories(spec, lanes)
+    for fn in variants.values():
+        fn()  # warm: the tables' bucket, the worker threads
+    out = {k: [] for k in variants}
+    for name in [*variants, *reversed(variants)]:
+        out[name].append(ms_a_call(variants[name]))
+    return {**{k: sum(v) / len(v) for k, v in out.items()},
+            "kernels.build_all() with every kernel built": ms_a_call(
+                kernels.build_all),
+            "watchdog of an empty call": ms_a_call(
+                lambda: watchdog(lambda: None, timeout)),
+            "... that sets the caller's stream": ms_a_call(
+                lambda: watchdog(on_stream, timeout)),
+            "the reused worker's empty call": ms_a_call(
+                lambda: worker(lambda: None, timeout))}
+
+
+def shrink_on_card(name, spec, h, backend, cpp, tag):
+    """``shrink_history`` of ``h`` through ``backend`` (None: the host
+    default), timed to the card's completion; the minimised history a
+    VIOLATION by ``cpp`` and its certificate verified.  Returns (result,
+    seconds, the counted backend or None)."""
+    rec = CountedBackend(backend) if backend is not None else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = shrink_history(spec, h, backend=rec, certificate=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(res.ok and res.complete, f"{name}: shrink not complete: "
+            f"{res.why}")
+    require(int(cpp.check_histories(spec, [res.history])[0])
+            == Verdict.VIOLATION, f"{name}: the minimised history is not "
+            f"a VIOLATION by CppOracle")
+    cert = minimality_certificate(spec, res.history)
+    audit = verify_certificate(spec, res.history, cert)
+    require(audit["one_minimal_proved"] and audit["violation_reconfirmed"],
+            f"{name}: the certificate does not verify: {audit}")
+    if rec is not None:
+        require(rec.calls == res.engine_calls, f"{name}: {rec.calls} "
+                f"backend calls for {res.engine_calls} frontier batches")
+    return res, dt, rec
+
+
+def same_shrink(name, res, host, rec):
+    """Where the device left no lane undecided, the result equals the
+    host shrink's; returns whether it was compared."""
+    if rec.budget_lanes or res.undecided_neighbors:
+        return False
+    got = (history_to_rows(res.history), res.rounds, res.lanes_checked,
+           res.one_minimal)
+    want = (history_to_rows(host.history), host.rounds, host.lanes_checked,
+            host.one_minimal)
+    require(got == want, f"{name}: the shrink differs from the host's: "
+            f"{got[1:]} against {want[1:]}")
+    return True
+
+
+def phase_resilience(spec, corpus, kv_spec, kv_corpus, dev, tag):
+    """Phase 18: resilience and the history shrinker on the card; see the
+    module docstring.  Returns (launches of each path, largest error of
+    the kernels held on the paths, the check_one record)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p18_"))
+    log = tmp / "failover.jsonl"
+    # (c) 4 in a subprocess, beside the in-process paths
+    proc = cli_proc("run", "--model", "cas", "--impl", "racy", "--backend",
+                    "stepper", "--failover", "--trials", 100, "--pids",
+                    N_PIDS, "--ops", N_OPS, "--log", log,
+                    env={faults_mod.ENV_VAR: "raise:dispatch@3"})
+    counters = (stepper_chunk, compact_carry, stepper_sweep)
+    launches, err = {}, 0
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read(name, first, path_spec=None):
+        nonlocal err
+        got = {c.__name__: c.launches for c in counters}
+        print(f"{tag} path of {name}: " + ", ".join(
+            f"{n} {k}" for k, n in got.items()) + " launches", flush=True)
+        require(got["stepper_chunk"] + got["stepper_sweep"] > 0,
+                f"{name} launched no stepper kernel")
+        launches[name] = got
+        if first is not None:
+            err = max(err, hold_path_kernels(name, first, tag, path_spec))
+
+    cpp = native.CppOracle(spec)
+    try:
+        # (a) the shrinker on the card: 8 violating headline histories
+        t_a = time.perf_counter()
+        cpp_v = cpp.check_histories(spec, corpus)
+        vio = [h for h, x in zip(corpus, cpp_v)
+               if x == Verdict.VIOLATION][:SHRINK_HISTORIES]
+        require(len(vio) == SHRINK_HISTORIES, "too few violating headline "
+                "histories")
+        rows, times, compared = [], {}, 0
+        for i, h in enumerate(vio):
+            host, t_host, _ = shrink_on_card("host", spec, h, None, cpp, tag)
+            times["host"] = times.get("host", 0.0) + t_host
+            reset()
+            # the first history's path is read and held: its batch 1 is
+            # the input history, its batch 2 the first frontier
+            with (FirstInputs(keep=2) if i == 0
+                  else contextlib.nullcontext()) as first:
+                st_res, t_st, st_rec = shrink_on_card(
+                    "TorchStepper", spec, h, TorchStepper(spec), cpp, tag)
+            times["TorchStepper"] = times.get("TorchStepper", 0.0) + t_st
+            if i == 0:
+                read("the shrinker over TorchStepper (18a)", first)
+            plan = plan_search(spec, profile_corpus([h], spec),
+                               platform="cuda")
+            reset()
+            pl_res, t_pl, pl_rec = shrink_on_card(
+                "planned", spec, h, build_backend(spec, plan), cpp, tag)
+            times["planned"] = times.get("planned", 0.0) + t_pl
+            if i == 0:
+                read(f"the shrinker over the planned checker ({plan.name},"
+                     f" decompose={plan.decompose}) (18a)", None)
+            for name, res, rec in (("TorchStepper", st_res, st_rec),
+                                   ("planned", pl_res, pl_rec)):
+                compared += same_shrink(f"history {i} {name}", res, host,
+                                        rec)
+            rows.append((len(h), host, st_res, pl_res))
+        for i, (n, host, st_res, pl_res) in enumerate(rows):
+            print(f"{tag} 18a shrink of headline violation {i} ({n} ops): "
+                  + "; ".join(
+                      f"{name} {r.final_ops} ops, {r.rounds} rounds, "
+                      f"{r.lanes_checked} lanes, {r.engine_calls} engine "
+                      f"calls, {r.memo_hits} memo hits, undecided "
+                      f"neighbours {r.undecided_neighbors}"
+                      for name, r in (("host", host),
+                                      ("TorchStepper", st_res),
+                                      ("planned", pl_res))), flush=True)
+        print(f"{tag} 18a {SHRINK_HISTORIES} headline shrinks: every "
+              f"minimised history a VIOLATION by CppOracle, every "
+              f"certificate verified, {compared} of "
+              f"{2 * SHRINK_HISTORIES} device shrinks equal to the host's "
+              f"(the rest left a lane undecided); time by backend "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()),
+              flush=True)
+        # one kv16 violation through the plan (per key first)
+        # the first violation with a linearizable neighbour whose split
+        # pays: its certificate then holds a stitched witness
+        kv_v = PComp(kv_spec).check_histories(kv_spec, kv_corpus)
+        t0 = time.perf_counter()
+        for tried, kv_h in enumerate(
+                h for h, x in zip(kv_corpus, kv_v) if x == Verdict.VIOLATION):
+            cert = minimality_certificate(kv_spec, kv_h)
+            stitched = [r for r in cert if r.get("stitched")]
+            if stitched or tried == 15:
+                break
+        t_cert = time.perf_counter() - t0
+        require(stitched, "kv16: no stitched witness in the certificates "
+                "of the first 16 violations")
+        kv_cpp = native.CppOracle(kv_spec)
+        kv_host, t_kvh, _ = shrink_on_card("kv16 host", kv_spec, kv_h, None,
+                                           kv_cpp, tag)
+        kv_plan = plan_search(kv_spec, profile_corpus([kv_h], kv_spec),
+                              platform="cuda")
+        require(kv_plan.decompose_keys, f"kv16: the plan does not split "
+                f"per key: {kv_plan.why}")
+        kv_backend = build_backend(kv_spec, kv_plan)
+        reset()
+        with FirstInputs() as first:
+            kv_res, t_kv, kv_rec = shrink_on_card(
+                "kv16 planned", kv_spec, kv_h, kv_backend, kv_cpp, tag)
+        read(f"the kv16 shrinker over {kv_backend.name} (18a)", first,
+             kv_backend.projected)
+        kv_same = same_shrink("kv16 planned", kv_res, kv_host, kv_rec)
+        n = len(kv_h.ops)
+        for r in cert:
+            if not r.get("undecided"):
+                require(verify_witness(kv_spec, kv_h.subhistory(
+                    [i for i in range(n) if i != r["drop"]]),
+                    [tuple(p) for p in r["witness"]]),
+                    f"kv16: the witness of drop {r['drop']} fails")
+        print(f"{tag} 18a kv16 violation ({n} ops) through "
+              f"{kv_backend.name}: {kv_res.final_ops} ops after "
+              f"{kv_res.rounds} rounds, {kv_res.lanes_checked} lanes, "
+              f"{kv_res.engine_calls} engine calls, {kv_res.memo_hits} memo "
+              f"hits, {t_kv:.3f} s (host {t_kvh:.3f} s; equal to the "
+              f"host's: {kv_same}); the input's certificate: "
+              f"{len(stitched)} of {len(cert)} neighbours stitched, "
+              f"{sum(not r.get('undecided') for r in cert)} witnesses "
+              f"replayed (violation {tried + 1} of the corpus; the "
+              f"certificates {t_cert:.3f} s on the host)", flush=True)
+        # the same violation through the hybrid plan: TorchStepper over
+        # whole histories (kv16 has no scalar state bound: the sweep
+        # regime) at the plan's 2000-iteration budget, the per-key host
+        # checker taking the lanes it leaves (whole kv16 violations of 60
+        # ops outlast even TorchStepper's 552,000 iterations)
+        hy = HybridDevice(kv_spec, tail=PComp(kv_spec))
+        reset()
+        with FirstInputs() as first:
+            sw_res, t_sw, sw_rec = shrink_on_card(
+                "kv16 hybrid", kv_spec, kv_h, hy, kv_cpp, tag)
+        name = ("the kv16 shrinker over HybridDevice (the sweep regime, a "
+                "per-key tail) (18a)")
+        read(name, first, kv_spec)
+        require(launches[name]["stepper_sweep"] > 0,
+                f"{name} launched no stepper_sweep")
+        sw_same = same_shrink("kv16 hybrid", sw_res, kv_host, sw_rec)
+        print(f"{tag} 18a the same kv16 violation through HybridDevice "
+              f"(TorchStepper's sweep regime at budget 2000, PComp's host "
+              f"tail): {sw_res.final_ops} ops after {sw_res.rounds} rounds, "
+              f"{sw_res.lanes_checked} lanes, {sw_res.engine_calls} engine "
+              f"calls, {sw_res.memo_hits} memo hits; {hy.device_decided} "
+              f"lanes decided on the card, {hy.tail_histories} by the tail; "
+              f"{t_sw:.3f} s (equal to the host's: {sw_same})", flush=True)
+        # the shrink entry point, on the card by default (the planned
+        # checker), on the first headline violation
+        trace = tmp / "shrink_trace.json"
+        trace.write_text(json.dumps({"model": "cas",
+                                     "spec_kwargs": spec.spec_kwargs(),
+                                     "history": history_to_rows(vio[0])}))
+        reset()
+        t0 = time.perf_counter()
+        with FirstInputs() as first:
+            rc_sh, out_sh = cli_inproc("shrink", "--trace", trace,
+                                       "--certificate")
+        t_sh = time.perf_counter() - t0
+        read("shrink --trace --certificate (18a)", first)
+        doc_sh = json.loads(out_sh[-1])
+        audit = doc_sh.get("certificate_audit") or {}
+        require(rc_sh == 0 and doc_sh["verdict"] == "VIOLATION"
+                and audit.get("one_minimal_proved")
+                and audit.get("violation_reconfirmed"),
+                f"shrink --certificate: rc {rc_sh}, {doc_sh.get('why')}, "
+                f"audit {audit}")
+        pl0 = rows[0][3]
+        got = (doc_sh["history"], doc_sh["rounds"], doc_sh["lanes"],
+               doc_sh["engine_calls"], doc_sh["one_minimal"])
+        want = (json.loads(json.dumps(history_to_rows(pl0.history))),
+                pl0.rounds, pl0.lanes_checked, pl0.engine_calls,
+                pl0.one_minimal)
+        require(got == want, f"shrink --certificate differs from the "
+                f"planned shrink: {got[1:]} against {want[1:]}")
+        require(int(cpp.check_histories(spec, [history_from_rows(
+            doc_sh["history"])])[0]) == Verdict.VIOLATION,
+            "shrink --certificate: the minimised history is not a "
+            "VIOLATION by CppOracle")
+        print(f"{tag} 18a python -m qsm_tpu_torch shrink --trace "
+              f"--certificate (headline violation 0, {len(vio[0])} ops): rc "
+              f"0, {doc_sh['final_ops']} ops after {doc_sh['rounds']} "
+              f"rounds, {doc_sh['lanes']} lanes, {doc_sh['engine_calls']} "
+              f"engine calls, the certificate audited, equal to the planned "
+              f"shrink; {t_sh:.3f} s; (a) took "
+              f"{time.perf_counter() - t_a:.1f} s", flush=True)
+
+        # (b) run --minimize --backend stepper, in this process
+        t_b = time.perf_counter()
+        reg = tmp / "minimize.json"
+        args = ("run", "--model", "cas", "--impl", "racy", "--trials", 100,
+                "--pids", N_PIDS, "--ops", N_OPS, "--seed", 0,
+                "--minimize")
+        reset()
+        with FirstInputs() as first:
+            rc, out = cli_inproc(*args, "--backend", "stepper",
+                                 "--save-regression", reg)
+        read("run --minimize --backend stepper (18b)", first)
+        require(rc == 1 and out[0].startswith("FAIL: cas/racy"),
+                f"run --minimize: rc {rc}, {out[:1]}")
+        at = next(i for i, x in enumerate(out)
+                  if x.startswith("history-minimized to"))
+        n_min = int(re.search(r"to (\d+) op", out[at]).group(1))
+        doc = json.loads(reg.read_text())
+        shrunk = history_from_rows(doc["history"])
+        again = shrink_history(spec, shrunk, backend=TorchStepper(spec),
+                               certificate=False)
+        lines = format_history(spec, again.history).splitlines()
+        require(n_min == len(again.history) <= len(shrunk)
+                and out[at + 1:at + 1 + len(lines)] == lines,
+                "run --minimize: the printed minimised history is not the "
+                "shrinker's on the regression's history")
+        require(int(cpp.check_histories(spec, [again.history])[0])
+                == Verdict.VIOLATION, "run --minimize: the minimised "
+                "history is not a VIOLATION by CppOracle")
+        rc_r, out_r = cli_inproc("replay", "--regression", reg)
+        require(rc_r == 1 and "history reproduced bit-identically: True"
+                in out_r, f"replay --regression: rc {rc_r}")
+        rc_c, out_c = cli_inproc(*args, "--backend", "cpp")
+        require(rc_c == 1 and out_c == [x for x in out if not x.startswith(
+            "regression saved")], "run --minimize --backend cpp prints "
+            "another counterexample or minimised history")
+        print(f"{tag} 18b run --model cas --impl racy --minimize --backend "
+              f"stepper ({N_PIDS} x {N_OPS}, 100 trials, seed 0): rc 1, "
+              f"{out[1]} "
+              f"minimised to {n_min} ops from {len(shrunk)} (a VIOLATION "
+              f"by CppOracle, equal to the shrinker's on the regression's "
+              f"history), replay --regression bit-identical; --backend "
+              f"cpp prints the same counterexample and minimised history; "
+              f"(b) took {time.perf_counter() - t_b:.1f} s", flush=True)
+
+        # (c) failover on the headline's 4096 lanes
+        t_c = time.perf_counter()
+        lanes = _replicate(corpus, DEVICE_BATCH)
+        want = cpp.check_histories(spec, lanes)
+        clean_v, clean_s = timed_check(TorchStepper(spec), spec, lanes)
+        decided = clean_v != Verdict.BUDGET_EXCEEDED
+        require((clean_v == want)[decided].all(), "the clean run differs "
+                "from CppOracle")
+        side = torch.cuda.Stream(dev)
+        reset()
+        with FirstInputs() as first, LaunchOrigin(dev) as origin, \
+                FaultEnv("raise:dispatch@2"):
+            fo = FailoverBackend(spec, TorchStepper(spec))
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                v = fo.check_histories(spec, lanes)
+            torch.cuda.synchronize()
+            t_fo = time.perf_counter() - t0
+        read("FailoverBackend(TorchStepper) under raise:dispatch@2 (18c)",
+             first)
+        r = fo.resilience()
+        require(v.tolist() == want.tolist(), "failover: verdicts differ "
+                "from the clean run's")
+        split = (fo.DISPATCH_LANES, len(lanes) - fo.DISPATCH_LANES)
+        require((r["device_histories"], r["fallback_histories"],
+                 r["degradations"], r["fallback_engine"])
+                == (*split, 1, native.CppOracle.name),
+                f"failover under raise:dispatch@2: {r}")
+        require(origin.thread != threading.get_ident()
+                and origin.stream == side.cuda_stream,
+                "failover: the guarded launch ran outside the watchdog's "
+                "thread or off the caller's stream")
+        print(f"{tag} 18c FailoverBackend(TorchStepper) on {len(lanes)} "
+              f"headline lanes, QSM_TPU_FAULTS=raise:dispatch@2: verdicts "
+              f"equal to "
+              f"the clean run's ({clean_s:.3f} s clean); device "
+              f"{r['device_histories']}, fallback "
+              f"{r['fallback_histories']} ({r['fallback_engine']}), "
+              f"degradations {r['degradations']}, retries {r['retries']}; "
+              f"{t_fo:.3f} s; the first launch from the watchdog's thread "
+              f"on the caller's stream", flush=True)
+        with FaultEnv("hang:dispatch@1", hang_s=HANG_S):
+            fo = FailoverBackend(spec, TorchStepper(spec),
+                                 policy=preset("dispatch").with_(
+                                     timeout_s=HANG_TIMEOUT_S))
+            t0 = time.perf_counter()
+            v = fo.check_histories(spec, lanes)
+            t_hang = time.perf_counter() - t0
+        require(v.tolist() == want.tolist() and fo.degraded
+                and fo.last_error.startswith("InjectedHang"),
+                f"failover under hang:dispatch@1: {fo.resilience()}")
+        print(f"{tag} 18c ... hang:dispatch@1 (hang {HANG_S} s, watchdog "
+              f"{HANG_TIMEOUT_S} s): degraded through the watchdog "
+              f"({fo.last_error[:60]}...), retries {fo.retries}, verdicts "
+              f"exact, {t_hang:.3f} s", flush=True)
+        st = TorchStepper(spec)
+
+        def lost(*a, **kw):
+            raise BackendUnavailable("raised by the smoke test, not by "
+                                     "the fault plane")
+
+        st._run_device = lost
+        fo = FailoverBackend(spec, st)
+        for what, call in (
+                ("FailoverBackend", lambda: fo.check_histories(spec,
+                                                               lanes[:64])),
+                ("prop_concurrent", lambda: prop_concurrent(
+                    spec, RacyCasSUT(spec),
+                    PropertyConfig(n_trials=2, n_pids=2, max_ops=6),
+                    backend=st))):
+            try:
+                call()
+            except BackendUnavailable:
+                continue
+            raise RuntimeError(f"chip_smoke: a real BackendUnavailable did "
+                               f"not raise out of {what}")
+        require(not fo.degraded and fo.degradations == 0,
+                "the card's rule: a real error was degraded")
+        print(f"{tag} 18c the card's rule: a BackendUnavailable the plane "
+              f"did not inject raises out of FailoverBackend and "
+              f"prop_concurrent, no degrade recorded", flush=True)
+        q_spec = QueueSpec()
+        for what, w_spec, w_lanes in (
+                ("CAS headline", spec, lanes[:WRAP_LANES]),
+                ("queue headline", q_spec, build_corpus(
+                    q_spec, (AtomicQueueSUT, RacyTwoPhaseQueueSUT),
+                    n=WRAP_LANES, n_pids=Q_PIDS, max_ops=Q_OPS,
+                    seed_base=1000, seed_prefix="bench"))):
+            wrap_ms = wrap_cost(w_spec, w_lanes)
+            print(f"{tag} 18c what the wrap costs a dispatch of "
+                  f"{WRAP_LANES} {what} lanes ({WRAP_REPS} dispatches a "
+                  f"turn, host clock to the card's completion, in turns "
+                  f"forward and backward): " + ", ".join(
+                      f"{k} {v:.4f} ms" for k, v in wrap_ms.items()),
+                  flush=True)
+        reset()
+        with FirstInputs() as first:
+            rc_s, out_s = cli_inproc("stats", "--model", "cas", "--backend",
+                                     "stepper", "--failover")
+        read("stats --failover --backend stepper (18c)", first)
+        sdoc = json.loads(out_s[-1])
+        res_block = sdoc["resilience"]
+        require(rc_s == 0 and res_block["degradations"] == 0
+                and res_block["retries"] == 0
+                and res_block["fallback_histories"] == 0
+                and res_block["fallback_engine"] is None
+                and res_block["device_histories"] == sdoc["histories"],
+                f"stats --failover: {res_block}")
+        print(f"{tag} 18c stats --model cas --backend stepper --failover: "
+              f"backend {sdoc['backend']}, resilience {res_block}",
+              flush=True)
+        rc_p, out_p = cli_result(proc, "run --failover")
+        rec = [json.loads(x) for x in log.read_text().splitlines()][-1]
+        require(rc_p == 1 and out_p[0].startswith("FAIL: cas/racy")
+                and rec["timings"].get("resilience_degradations") == 1,
+                f"run --failover under raise:dispatch@3: rc {rc_p}, "
+                f"timings {rec['timings']}")
+        print(f"{tag} 18c python -m qsm_tpu_torch run --failover --backend "
+              f"stepper, QSM_TPU_FAULTS=raise:dispatch@3: rc 1 ({out_p[1]}),"
+              f" the log's resilience_degradations 1; (c) took "
+              f"{time.perf_counter() - t_c:.1f} s", flush=True)
+
+        # (d) check_one on bench-corpus history #35
+        h35 = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=36,
+                           n_pids=8, max_ops=32, seed_base=1000,
+                           seed_prefix="bench")[35]
+        n35 = bucket_for(len(h35))
+        enc = encode_batch([h35], spec.initial_state(), max_ops=n35)
+        planes = (enc.ops[:, :, 1], enc.ops[:, :, 2], enc.ops[:, :, 3],
+                  enc.valid, enc.precedes())
+        check_one_rec = {}
+        for slots, want_status in ((CHECK_ONE_SLOTS, 2), (0, 3)):
+            reset()
+            s, it = build_kernel(spec, n35, CHECK_ONE_BUDGET,
+                                 cache_slots=slots)(*planes, enc.init_state)
+            read(f"check_one, {slots} slots (18d)", None)
+            require(stepper_chunk.launches == 1, "check_one: not one launch")
+            tabs = stepper_tables(spec, *planes, dev)
+            fresh = fresh_stepper_carry(
+                tabs.nreq, np.arange(1),
+                np.full(1, int(enc.init_state[0]), np.int32), 1, n35, slots)
+            out_c = stepper_chunk(tabs, clone_carry(fresh),
+                                  chunk=CHECK_ONE_BUDGET,
+                                  budget=CHECK_ONE_BUDGET)
+            run = CHECK_ONE_BUDGET if slots else CHECK_ONE_PLAIN
+            ker = (out_c if slots else stepper_chunk(
+                tabs, clone_carry(fresh), chunk=run,
+                budget=CHECK_ONE_BUDGET))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = stepper_chunk_plain(tabs, clone_carry(fresh), chunk=run,
+                                        budget=CHECK_ONE_BUDGET)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(err, _compare(f"check_one ({slots} slots)", ker, plain))
+            status, iters = int(out_c.dsi[STATUS, 0]), int(out_c.dsi[ITERS, 0])
+            require((int(s[0]), int(it[0])) == (status, iters),
+                    "check_one differs from the same launch by hand")
+            require(status == want_status and (
+                iters < 50_000 if slots else iters == CHECK_ONE_BUDGET),
+                f"check_one ({slots} slots): status {status}, {iters} "
+                f"iterations")
+            ms = time_launches(
+                lambda c: stepper_chunk(tabs, c, chunk=CHECK_ONE_BUDGET,
+                                        budget=CHECK_ONE_BUDGET),
+                [clone_carry(fresh) for _ in range(4)], 3)
+            bound_ms, bound_by, _, _ = stepper_bound(tabs, fresh, out_c)
+            plain_iters = int(plain.dsi[ITERS, 0])
+            # ms and plain_ms cover different iteration counts without
+            # the memo: the per-iteration times are on one basis
+            check_one_rec[f"slots_{slots}"] = dict(
+                status=status, iters=iters, ms=ms, plain_ms=plain_ms,
+                plain_iters=plain_iters, ms_per_iter=ms / iters,
+                plain_ms_per_iter=plain_ms / plain_iters,
+                bound_ms=bound_ms, bound_by=bound_by)
+            print(f"{tag} 18d check_one on bench history #35 ({len(h35)} "
+                  f"ops), budget {CHECK_ONE_BUDGET}, {slots} slots: one "
+                  f"stepper_chunk launch, status {status}, {iters} "
+                  f"iterations, {ms:.4f} ms a launch (CUDA events) against "
+                  f"its bound {bound_ms:.6f} ms ({bound_by}), "
+                  f"{ms / iters * 1e3:.4f} us an iteration; the plain "
+                  f"version on the card over {plain_iters} iterations: all "
+                  f"7 planes bit-identical, {plain_ms:.1f} ms, "
+                  f"{plain_ms / plain_iters * 1e3:.1f} us an iteration",
+                  flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    total = {c.__name__: sum(x[c.__name__] for x in launches.values())
+             for c in counters}
+    dt = time.perf_counter() - t_phase
+    print(f"{tag} phase 18 launches: " + ", ".join(
+        f"{n} {k}" for k, n in total.items()) + f"; {dt:.1f} s", flush=True)
+    return launches, err, check_one_rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -3661,21 +4345,27 @@ def main(argv=None) -> int:
     entry_launches, entry_err = phase_entry(spec, corpus, tag)
     print(f"{tag} phase entry points, exploration and fuzzing: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    res_launches, res_err, check_one_rec = phase_resilience(
+        spec, corpus, kv_spec, kv_corpus, dev, tag)
+    print(f"{tag} phase resilience and the history shrinker: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
                **{f"{k} hybrid": x for k, x in hybrid_launches.items()},
                "generation plane (phase 15)": gen_launches,
                **search_launches,
-               "entry points (phase 17)": entry_launches}
+               "entry points (phase 17)": entry_launches,
+               **res_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
 
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
-                   entry_err)
-    search_err = max(search_err, entry_err)
+                   entry_err, res_err)
+    search_err = max(search_err, entry_err, res_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare
@@ -3697,7 +4387,10 @@ def main(argv=None) -> int:
                     "run_one, table regime)",
         "launches": step_launches, "matches_plain": step_err == 0,
         "max_abs_err": step_err, **step, "library_ms": None,
-        "launches_by_path": paths_of("stepper_chunk")}, {
+        "launches_by_path": paths_of("stepper_chunk"),
+        # build_kernel's check_one (the reference's jax_kernel.py:440):
+        # one launch of the whole budget, on history #35
+        "check_one": check_one_rec}, {
         "name": "compact_carry", "route": "cuda", "timing": back_to_back,
         "source": "qsm_tpu_torch/csrc/compact_carry.cu",
         "replaces": "qsm_tpu/ops/jax_kernel.py:736 (JaxTPU._compact_fn)",

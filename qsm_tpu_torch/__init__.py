@@ -42,10 +42,20 @@ with fault plans, the TCP transport and worker processes), ``replay``,
 of their histories decided in one device batch) and ``fuzz``
 (``utils/fuzz.py::fuzz_parity``: every checker against the exact oracle
 on random specs).  ``core/sequential.py`` is the sequential property.
+
+Resilience (``resilience/``): :class:`FailoverBackend` keeps a property
+run alive through a lost dispatch (on the card only a fault the
+``QSM_TPU_FAULTS`` plane injected degrades; a real device error raises),
+under one :class:`RetryPolicy` and a watchdog, and :class:`CellJournal`
+banks a scan's cells.  The history shrinker (``shrink/``):
+:func:`shrink_history` minimises a failing history to a 1-minimal one
+with a certificate, each frontier decided in one batch, its memo keyed
+as the :class:`VerdictCache` (``serve/cache.py``) keys verdicts.
 """
 
 from .core.generator import Program, ProgOp, generate_program
-from .core.history import History, Op, encode_batch, overlapping_history
+from .core.history import (History, Op, encode_batch, overlapping_history,
+                           sequential_history)
 from .core.property import (Counterexample, PropertyConfig, PropertyResult,
                             prop_concurrent, replay, trial_seed)
 from .core.sequential import ModelSUT, prop_sequential, run_sequential
@@ -65,25 +75,31 @@ from .ops.router import AutoDevice
 from .ops.segdc import SegDC
 from .ops.stepper import TorchStepper
 from .ops.wing_gong_cpu import WingGongCPU
+from .resilience import CellJournal, FailoverBackend, RetryPolicy
 from .sched.runner import ConcurrentSUT, run_concurrent
 from .sched.scheduler import FaultPlan, Monitor, Recv, Scheduler, Send
 from .search import (CorpusProfile, OrderingTable, SearchPlan, SearchStats,
                      build_backend, collect_search_stats, ordering_table,
                      permute_history, plan_search, profile_corpus)
+from .serve import VerdictCache
+from .shrink import ShrinkResult, shrink_history
 
 __all__ = [
     "AtomicCasSUT", "AtomicQueueSUT", "AtomicRegisterSUT", "AutoDevice",
-    "BackendUnavailable", "CasSpec", "CmdSig", "ConcurrentSUT",
-    "CorpusProfile", "Counterexample", "CppOracle", "FaultPlan", "History",
+    "BackendUnavailable", "CasSpec", "CellJournal", "CmdSig",
+    "ConcurrentSUT", "CorpusProfile", "Counterexample", "CppOracle",
+    "FailoverBackend", "FaultPlan", "History",
     "HybridDevice", "KeyProj", "LineariseBackend", "ModelSUT", "Monitor",
     "NotDecomposableError", "Op", "OrderingTable", "PComp", "Program",
     "ProgOp", "PropertyConfig", "PropertyResult", "QueueSpec",
     "RacyCachedRegisterSUT", "RacyCasSUT", "RacyTwoPhaseQueueSUT", "Recv",
-    "RegisterSpec", "RootSplit", "Scheduler", "SearchPlan", "SearchStats",
-    "SegDC", "Send", "Spec", "TorchGPU", "TorchStepper", "Verdict",
-    "WingGongCPU", "build_backend", "check_one", "collect_search_stats",
+    "RegisterSpec", "RetryPolicy", "RootSplit", "Scheduler", "SearchPlan",
+    "SearchStats", "SegDC", "Send", "ShrinkResult", "Spec", "TorchGPU",
+    "TorchStepper", "Verdict", "VerdictCache", "WingGongCPU",
+    "build_backend", "check_one", "collect_search_stats",
     "encode_batch", "generate_program", "ordering_table",
     "overlapping_history", "permute_history", "plan_search",
     "profile_corpus", "prop_concurrent", "prop_sequential", "replay",
-    "run_concurrent", "run_sequential", "trial_seed", "verify_witness",
+    "run_concurrent", "run_sequential", "sequential_history",
+    "shrink_history", "trial_seed", "verify_witness",
 ]

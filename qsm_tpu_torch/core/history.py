@@ -73,6 +73,15 @@ class History:
         return tuple((o.pid, o.cmd, o.arg, o.resp, o.invoke_time,
                       o.response_time) for o in self.ops)
 
+    def subhistory(self, keep: Sequence[int]) -> "History":
+        """The history restricted to the op indices ``keep`` (sorted,
+        timestamps kept).  Dropping ops can only relax the real-time
+        order of the survivors, so a shrink candidate built from this
+        (``shrink/frontier.py``) keeps a sub-order of the original's."""
+        idx = sorted(set(keep))
+        return History([self.ops[i] for i in idx], seed=self.seed,
+                       program_id=self.program_id)
+
     def precedes_matrix(self) -> np.ndarray:
         """bool[n, n]: strict real-time precedence (resp_i < inv_j)."""
         inv = np.array([o.invoke_time for o in self.ops], np.int64)
@@ -137,6 +146,20 @@ def encode_batch(histories: Sequence[History], init_state: np.ndarray,
     return EncodedBatch(ops=ops, interval=interval, valid=valid,
                         pending=pending,
                         init_state=np.asarray(init_state, np.int32))
+
+
+def sequential_history(
+    steps: Sequence[Tuple[int, int, int, int]],
+) -> History:
+    """A (trivially sequential) history from ``(pid, cmd, arg, resp)``
+    tuples, for hand-written histories."""
+    ops = []
+    t = 0
+    for pid, cmd, arg, resp in steps:
+        ops.append(Op(pid=pid, cmd=cmd, arg=arg, resp=resp,
+                      invoke_time=t, response_time=t + 1))
+        t += 2
+    return History(ops)
 
 
 def overlapping_history(

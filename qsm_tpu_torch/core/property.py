@@ -7,6 +7,14 @@ decides them in one backend batch.  BUDGET_EXCEEDED verdicts from a
 device backend are resolved by the exact host oracle (the native C++
 checker when it builds, else the memoised Python oracle), so the
 property's verdicts are always exact.
+
+A backend that is not the oracle is wrapped in
+``resilience.failover.FailoverBackend`` with the oracle as its fallback,
+as in the JAX package: an injected dispatch fault (and on the host any
+device error) degrades the run to the oracle instead of ending it; on
+the card a real device error raises.  With ``minimize_history`` the
+failing history is also minimised by the batched shrinker
+(``shrink/``), on the run's own backend.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import numpy as np
 from ..ops.backend import LineariseBackend, Verdict
 from ..sched.runner import ConcurrentSUT, run_concurrent
 from ..sched.scheduler import FaultPlan
-from ..search.stats import SearchStats, collect_search_stats, stats_delta
+from ..search.stats import collect_search_stats, stats_delta
 from .generator import Program, dedupe, generate_program, shrink_candidates
 from .history import History
 from .spec import Spec
@@ -49,10 +57,10 @@ class PropertyConfig:
     # loopback sockets, sched/transport.py); histories are bit-identical
     # on both
     transport: str = "memory"
-    # minimising the failing history itself through the batched history
-    # shrinker; that shrinker is not part of this package yet, so
-    # prop_concurrent refuses True.  The field keeps the configuration's
-    # keys (and so a regression file's) equal to the JAX package's.
+    # after the program-level shrink, minimise the failing history itself
+    # through the batched history shrinker (shrink/): a 1-minimal
+    # sub-history or reschedule, kept in Counterexample.minimized_history
+    # beside the replayable counterexample
     minimize_history: bool = False
     # worker processes executing schedules (sched/pool.py), 0: serial.
     # Histories are bit-identical either way.  Needs a picklable
@@ -67,6 +75,9 @@ class Counterexample:
     trial: int
     trial_seed: str  # replay key
     shrink_steps: int
+    # the history shrinker's 1-minimal form of ``history`` (with
+    # PropertyConfig.minimize_history; still a VIOLATION, not replayable)
+    minimized_history: Optional[History] = None
 
 
 @dataclasses.dataclass
@@ -81,7 +92,8 @@ class PropertyResult:
     schedules_run: int = 0
     distinct_histories: int = 0
     # wall-clock split (seconds): generate, execute, check, resolve,
-    # shrink_execute, shrink_check
+    # shrink_execute, shrink_check, shrink_minimize; and the search-cost
+    # and shrink counters
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
@@ -129,12 +141,22 @@ def _default_oracle(spec: Spec) -> LineariseBackend:
 def _resolve(spec: Spec, verdicts: np.ndarray, histories: Sequence[History],
              backend: LineariseBackend, oracle: LineariseBackend,
              timings: Optional[Dict[str, float]] = None) -> np.ndarray:
-    """Resolve BUDGET_EXCEEDED verdicts with the host oracle (skipped
-    when the backend is the oracle: the same search would repeat)."""
+    """Resolve BUDGET_EXCEEDED verdicts with the host oracle, except
+    where the oracle itself decided them: when the backend is the oracle,
+    or on the lanes that a failover wrapper's last call sent to it (its
+    ``last_fallback``), the same search would repeat.  The lanes a device
+    decided before a degrade in the same batch are still resolved (the
+    JAX package skips the whole batch once its wrapper has degraded)."""
     if backend is oracle:
         return verdicts
     out = verdicts.copy()
-    todo = [i for i, v in enumerate(out) if v == Verdict.BUDGET_EXCEEDED]
+    skip = np.zeros(len(out), bool)
+    if getattr(backend, "fallback", None) is oracle:
+        # a padded batch: its real lanes come first
+        fell = np.asarray(getattr(backend, "last_fallback", skip), bool)
+        skip = fell[:len(out)] if len(fell) >= len(out) else skip
+    todo = [i for i, v in enumerate(out)
+            if v == Verdict.BUDGET_EXCEEDED and not skip[i]]
     if todo:
         t0 = time.perf_counter()
         resolved = oracle.check_histories(spec, [histories[i] for i in todo])
@@ -196,6 +218,28 @@ def shrink_failure(spec: Spec, sut: ConcurrentSUT, backend: LineariseBackend,
     return program, history, steps, checked
 
 
+def _minimize_history(spec: Spec, backend: LineariseBackend,
+                      history: History, timings: Dict[str, float]):
+    """The history shrinker on the run's own backend (a frontier is one
+    more batch to it), its ``shrink_*`` counters merged into the run's
+    timings.  Returns (minimised history or None, lanes checked)."""
+    from ..shrink.shrinker import shrink_history
+
+    t0 = time.perf_counter()
+    res = shrink_history(spec, history, backend=backend, certificate=False)
+    timings["shrink_minimize"] = (timings.get("shrink_minimize", 0.0)
+                                  + time.perf_counter() - t0)
+    if res.ok:
+        # only the shrink_* keys merge here: the search_* entries stay the
+        # backend's delta that prop_concurrent takes at the end (which
+        # counts the frontier dispatches already)
+        timings.update({k: v
+                        for k, v in res.search_stats().to_timings().items()
+                        if k.startswith("shrink_")})
+        return res.history, res.lanes_checked
+    return None, res.lanes_checked
+
+
 def prop_concurrent(spec: Spec, sut: ConcurrentSUT,
                     cfg: Optional[PropertyConfig] = None,
                     backend: Optional[LineariseBackend] = None,
@@ -206,10 +250,6 @@ def prop_concurrent(spec: Spec, sut: ConcurrentSUT,
     (picklable, zero-argument, e.g. ``models.registry.SutFactory``)
     enables the worker pool when ``cfg.executor_workers > 0``."""
     cfg = cfg or PropertyConfig()
-    if cfg.minimize_history:
-        raise NotImplementedError(
-            "minimize_history needs the batched history shrinker, which "
-            "this package does not have yet")
     oracle = oracle if oracle is not None else _default_oracle(spec)
     backend = backend or oracle
     transport = executor = None
@@ -229,12 +269,21 @@ def prop_concurrent(spec: Spec, sut: ConcurrentSUT,
 
             executor = PoolExecutor(sut_factory, cfg.executor_workers,
                                     transport=cfg.transport)
+        from ..resilience.failover import FailoverBackend
+
+        # a lost dispatch degrades to the resolving oracle instead of
+        # ending the run (the card's rule aside: resilience/failover.py);
+        # a backend wrapped already keeps its own fallback
+        if backend is not oracle \
+                and not isinstance(backend, FailoverBackend):
+            backend = FailoverBackend(spec, backend, fallback=oracle)
         # search-cost accounting rides the timings dict: engines count
-        # cumulatively per instance, so the run reports its own delta
-        st0 = _run_stats(backend, oracle)
+        # cumulatively per instance, so the run reports its own delta,
+        # taken on the wrapper (its resilience counters with it)
+        st0 = collect_search_stats(backend)
         res = _prop_concurrent_body(spec, sut, cfg, backend, oracle,
                                     transport, executor)
-        st = stats_delta(_run_stats(backend, oracle), st0)
+        st = stats_delta(collect_search_stats(backend), st0)
         if st is not None:
             res.timings.update(st.to_timings())
         return res
@@ -243,17 +292,6 @@ def prop_concurrent(spec: Spec, sut: ConcurrentSUT,
             transport.close()
         if executor is not None:
             executor.close()
-
-
-def _run_stats(backend: LineariseBackend, oracle: LineariseBackend):
-    """The backend's search-cost record.  A dispatching backend without
-    one reports an empty record, as the JAX package's failover wrapper
-    around it does, so that both packages' ``timings`` carry the same
-    keys."""
-    st = collect_search_stats(backend)
-    if st is None and backend is not oracle:
-        st = SearchStats()
-    return st
 
 
 def _prop_concurrent_body(spec: Spec, sut: ConcurrentSUT,
@@ -315,6 +353,11 @@ def _prop_concurrent_body(spec: Spec, sut: ConcurrentSUT,
                 spec, sut, backend, oracle, cfg, progs[gi],
                 hists_all[fail_at], seeds_all[gi][j], timings, transport,
                 executor)
+            minimized = None
+            if cfg.minimize_history:
+                minimized, c3 = _minimize_history(spec, backend, mh,
+                                                  timings)
+                c2 += c3
             return PropertyResult(
                 ok=False, trials_run=ti + 1,
                 histories_checked=checked + c2, undecided=undecided,
@@ -322,7 +365,8 @@ def _prop_concurrent_body(spec: Spec, sut: ConcurrentSUT,
                 timings=timings,
                 counterexample=Counterexample(
                     program=mp, history=mh, trial=ti,
-                    trial_seed=seeds_all[gi][j], shrink_steps=steps))
+                    trial_seed=seeds_all[gi][j], shrink_steps=steps,
+                    minimized_history=minimized))
         t += len(group)
         group_n = min(group_target, group_n * 2)
     return PropertyResult(ok=True, trials_run=cfg.n_trials,

@@ -32,10 +32,18 @@ def device_error_types() -> tuple:
     """Every error class that means the device substrate failed, as
     opposed to a bug in the caller's arguments, which must keep crashing.
     Deliberately not a bare ``RuntimeError`` (which a bad argument to any
-    torch op raises) nor ``OSError``: only typed CUDA failures count."""
+    torch op raises) nor ``OSError``: only typed CUDA failures count,
+    beside the resilience plane's own: a watched dispatch that timed out
+    and a fault the fault plane injected (``resilience/``), as in the JAX
+    package.  On a CUDA device ``resilience/failover.py`` degrades on the
+    last two only when the plane injected them."""
     import torch
 
-    errs = [BackendUnavailable, torch.cuda.OutOfMemoryError]
+    from ..resilience.faults import InjectedFault
+    from ..resilience.policy import WatchdogTimeout
+
+    errs = [BackendUnavailable, WatchdogTimeout, InjectedFault,
+            torch.cuda.OutOfMemoryError]
     # a sticky CUDA fault (illegal address, device lost); older torch
     # builds raise a bare RuntimeError there, which stays uncaught
     accel = getattr(torch, "AcceleratorError", None)

@@ -16,7 +16,9 @@ Before a batch reaches the device:
   linearizable iff some variant is.
 
 After it, the lanes' statuses fold back into one verdict per history.
-:class:`DeviceChecker` holds the entry points both device backends share.
+:class:`DeviceChecker` holds the entry points both device backends share,
+and with them the ``dispatch`` site of the fault plane
+(``resilience/faults.py``), where the JAX package's ``JaxTPU`` has it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 
 from ..core.history import History
 from ..core.spec import Spec
+from ..resilience.faults import inject
 from .backend import Verdict
 from .dfs_kernel import BUDGET, FAILURE, SUCCESS
 
@@ -154,6 +157,9 @@ class DeviceChecker:
         if spec is not self.spec:
             raise ValueError(f"{type(self).__name__} is built per spec; "
                              f"construct one per spec")
+        # fault site: every device dispatch enters here (no-op unless
+        # QSM_TPU_FAULTS is set; resilience/faults.py)
+        inject("dispatch")
         if not histories:
             return np.empty(0, np.int8)
         groups, flat, flat_inits, deferred = flatten(
@@ -175,6 +181,9 @@ class DeviceChecker:
         read back on success, as ``(op_index, resp)`` pairs.  Pending-free
         histories only, in-domain ones where the backend tabulates; others
         get (verdict, None)."""
+        # fault site: the pending-free path reaches the device without
+        # passing through check_histories
+        inject("dispatch")
         if history.n_pending or (self._uses_table
                                  and not args_in_domain(spec, history)):
             return Verdict(

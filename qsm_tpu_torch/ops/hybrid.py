@@ -14,8 +14,9 @@ and the device's decided verdicts are pinned against the oracle by the
 kernel tests.  BUDGET_EXCEEDED survives only if the tail itself gives up
 (its node budget).
 
-Unlike the JAX package's plan, this one degrades to the tail on a device
-error only when its device is the CPU; on the card the error raises.
+Unlike the JAX package's plan, this one follows the card's rule of
+``resilience/failover.py``: on the card only a fault the fault plane
+injected degrades it, and a real device error raises.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 
 from ..core.history import History
 from ..core.spec import Spec
-from .backend import Verdict, device_error_types
+from .backend import Verdict
 
 
 class HybridDevice:
@@ -43,8 +44,9 @@ class HybridDevice:
     ``backend.device_error_types``) degrades the backend in place: the
     whole batch goes to the tail, later batches skip the device, and the
     ``degradations`` / ``fallback_engine`` counters record it.  On a CUDA
-    device nothing degrades: a failed launch or a faulting kernel raises,
-    so a broken kernel never hides behind the host checker's verdicts.
+    device only an injected fault degrades: a failed launch or a faulting
+    kernel raises, so a broken kernel never hides behind the host
+    checker's verdicts.
     A kernel that fails to build raises on either device."""
 
     name = "hybrid_device"
@@ -66,11 +68,12 @@ class HybridDevice:
         self.last_error = ""
 
     def _degradable(self) -> tuple:
-        """The errors that degrade the plan: ``device_error_types`` when
-        the device is the CPU, none on the card."""
-        if self.device.device.type == "cuda":
-            return ()
-        return device_error_types()
+        """The errors that degrade the plan: the card's rule of
+        ``resilience/failover.py`` (``device_error_types`` on the CPU,
+        only an injected fault on the card)."""
+        from ..resilience.failover import degradable_errors, host_only
+
+        return degradable_errors(not host_only(self.device))
 
     def _degrade(self, err: BaseException) -> None:
         self.degraded = True

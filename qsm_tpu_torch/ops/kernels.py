@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
@@ -70,6 +71,26 @@ def build(name: str, src: Optional[Path] = None,
     out = library_path(name, src, flags)
     if out.exists():
         return out
+    # threads of one process share the temporary file's name: one build
+    # of a library at a time in a process (a dispatch on a watchdog's
+    # thread may race the caller's own first build)
+    with _build_lock(out):
+        if out.exists():
+            return out
+        return _compile(src, out, compiler, flags, timeout)
+
+
+_locks_guard = threading.Lock()
+_locks: dict = {}
+
+
+def _build_lock(out: Path) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(out, threading.Lock())
+
+
+def _compile(src: Path, out: Path, compiler: Optional[str],
+             flags: Sequence[str], timeout: Optional[float]) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     compiler = compiler or find_nvcc()

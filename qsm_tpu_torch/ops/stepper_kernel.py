@@ -639,3 +639,72 @@ def compact_carry_plain(carry: StepperCarry, lanes, bucket: int, slots: int
     out.keys[:m] = torch.where(got[:, :, None], gathered, 0)
     out.occ[:m] = got.to(torch.int32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# build_kernel: one history decided to completion in one launch
+# ---------------------------------------------------------------------------
+
+def build_kernel(spec, n_ops: int, budget: int, cache_slots: int = 0,
+                 cache_write: str = "onehot", device=None):
+    """The run-to-completion checker of the JAX package's ``build_kernel``
+    (``init_one``, then one unchunked ``run_one``).  Returns ``check_one(
+    cmd, arg, resp, valid, precedes, init_state)``: the padded planes of a
+    batch of ``n_ops``-op histories (``encode_batch``'s: int ``[B, N]``,
+    ``valid`` bool ``[B, N]``, ``precedes`` bool ``[B, N, N]``) and the
+    spec's start state, giving ``(status, iters)``, int32 numpy ``[B]``:
+    one fresh carry and one launch whose chunk is the whole ``budget``
+    (``stepper_chunk``, or ``stepper_sweep`` for a spec without a scalar
+    state bound, which steps the state itself as the reference's
+    ``build_kernel`` does), so every lane ends SUCCESS, FAILURE or BUDGET.
+
+    ``cache_slots`` (0 or a power of two) is the memo a lane.
+    ``cache_write`` exists only for the reference's signature: it is
+    validated against the reference's names, "onehot" and "dus", and
+    changes nothing, since both name one kernel here (the choice is how
+    the reference's memo write lowers on a TPU).  ``device`` (default
+    CUDA) holds the tables and the carry; on CPU tensors the plain
+    versions run."""
+    from .backend import resolve_device
+    from .sweep_kernel import (fresh_sweep_carry, stepper_sweep,
+                               sweep_model, sweep_tables)
+
+    if cache_slots < 0 or cache_slots & (cache_slots - 1):
+        raise ValueError(
+            f"cache_slots must be 0 or a power of two, got {cache_slots}")
+    if cache_write not in ("onehot", "dus"):
+        raise ValueError(
+            f"cache_write must be 'onehot' or 'dus', got {cache_write!r}")
+    if not 1 <= n_ops <= MAX_OPS:
+        raise ValueError(f"build_kernel covers 1 <= n_ops <= {MAX_OPS}")
+    dev = resolve_device(device)
+    table = (spec.STATE_DIM == 1
+             and spec.scalar_state_bound(n_ops) is not None)
+    model = None if table else sweep_model(spec, dev)
+
+    def check_one(cmd, arg, resp, valid, precedes, init_state):
+        planes = (cmd, arg, resp, valid, precedes)
+        B = np.shape(cmd)[0]
+        if any(np.shape(p)[:2] != (B, n_ops) for p in planes):
+            raise ValueError(f"check_one: planes of [B, {n_ops}] ops "
+                             f"expected, got "
+                             f"{[np.shape(p) for p in planes]}")
+        rows = np.arange(B)
+        if table:
+            tables = stepper_tables(spec, *planes, dev)
+            carry = fresh_stepper_carry(
+                tables.nreq, rows,
+                np.full(B, int(np.asarray(init_state).reshape(-1)[0]),
+                        np.int32), B, n_ops, cache_slots)
+            stepper_chunk(tables, carry, chunk=budget, budget=budget)
+        else:
+            tables = sweep_tables(*planes, dev)
+            carry = fresh_sweep_carry(
+                tables.nreq, rows,
+                np.tile(np.asarray(init_state, np.int32).reshape(1, -1),
+                        (B, 1)), B, n_ops, cache_slots)
+            stepper_sweep(model, tables, carry, chunk=budget, budget=budget)
+        dsi = carry.dsi.cpu().numpy()
+        return dsi[STATUS].copy(), dsi[ITERS].copy()
+
+    return check_one

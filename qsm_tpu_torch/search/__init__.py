@@ -9,16 +9,16 @@ The counterpart of the JAX package's ``qsm_tpu/search``:
 * :mod:`.planner`: ``CorpusProfile`` / ``profile_corpus``, and
   ``SearchPlan`` / ``plan_search`` / ``build_backend``: chunk schedule,
   bucket ladder, memo slots, ordering and decomposition picked from
-  corpus statistics and platform (the port's own plan on the card).
-  ``build_host_backend`` waits for the ``FailoverBackend`` port.
+  corpus statistics and platform (the port's own plan on the card), and
+  ``build_host_backend``, the same plan's host shape.
 
 Nothing in this package changes a verdict, only iteration and node
 counts.
 """
 
 from .ordering import OrderingTable, ordering_table, permute_history
-from .planner import (CorpusProfile, SearchPlan, build_backend, plan_search,
-                      profile_corpus)
+from .planner import (CorpusProfile, SearchPlan, build_backend,
+                      build_host_backend, plan_search, profile_corpus)
 from .stats import SearchStats, collect_search_stats, stats_delta
 
 __all__ = [
@@ -27,6 +27,7 @@ __all__ = [
     "SearchPlan",
     "SearchStats",
     "build_backend",
+    "build_host_backend",
     "collect_search_stats",
     "ordering_table",
     "permute_history",

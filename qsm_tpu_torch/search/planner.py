@@ -319,3 +319,19 @@ def build_backend(spec, plan: SearchPlan, budget: int = 2_000,
 
         return PComp(spec, make_inner=make_core)
     return make_core(spec)
+
+
+def build_host_backend(spec, plan: SearchPlan):
+    """The planned checker's host shape: ``PComp`` outermost over the
+    exact host ladder (``resilience.failover.host_fallback``) when the
+    plan splits per key, else that ladder wrapped in ``FailoverBackend``.
+    It touches no device; its verdicts are the device path's by the
+    resolution contract.  The shrinker's default backend
+    (``shrink/shrinker.py``)."""
+    from ..resilience.failover import FailoverBackend, host_fallback
+
+    if plan.decompose_keys:
+        from ..ops.pcomp import PComp
+
+        return PComp(spec, make_inner=host_fallback)
+    return FailoverBackend(spec, host_fallback(spec))

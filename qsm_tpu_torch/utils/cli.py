@@ -1,11 +1,17 @@
 """Command line: ``python -m qsm_tpu_torch
-run|replay|check|list|coverage|explore|fuzz|bench|stats``.
+run|replay|check|shrink|list|coverage|explore|fuzz|bench|stats``.
 
 * ``run``: ``prop_concurrent`` on a registry model (fault flags, the TCP
-  transport, worker processes, a JSONL log and a regression file);
+  transport, worker processes, a JSONL log and a regression file;
+  ``--failover`` wraps the backend in ``FailoverBackend``, ``--minimize``
+  minimises the failing history with the history shrinker);
 * ``replay``: a failure again, from its seed key or a regression file
   (an exploration finding by its delivery-choice script);
 * ``check``: an external trace file, one history or a batch;
+* ``shrink``: one failing trace minimised in process to a 1-minimal
+  history, with its certificate, its frontier batches decided by the
+  planned checker on the card (one JSON line; exit 0 minimised, 1
+  incomplete, 2 not a violation, 3 error);
 * ``list``: models, backends and the native oracle's status;
 * ``coverage``: schedule coverage of seeded runs (``--exact``: against
   the enumerated tree);
@@ -43,11 +49,15 @@ native checker), ``segdc`` and ``segdc-cpp`` (segmentation over the
 memoised oracle or the native checker), ``rootsplit`` (root splitting
 over the memoised oracle).
 
-The device backends of ``run``, ``check``, ``explore`` and ``fuzz`` run on
-the card unless ``--device cpu``.  ``stats`` prints one JSON document: a backend's search-cost record on one
-corpus, the corpus profile and the plan ``plan_search`` picks for it;
+The device backends of ``run``, ``check``, ``shrink``, ``explore`` and
+``fuzz`` run on the card unless ``--device cpu``.  ``stats`` prints one
+JSON document: a backend's search-cost record on one corpus, the corpus
+profile and the plan ``plan_search`` picks for it;
 ``--planned`` runs ``build_backend(spec, plan_search(spec, profile))``,
-the port's plan, on the card.
+the port's plan, on the card; ``--failover`` wraps the backend in
+``FailoverBackend`` and its ``resilience`` block reports the wrap's
+counters.  The fault plane (``QSM_TPU_FAULTS``, ``resilience/faults.py``)
+acts on every device backend's dispatch.
 """
 
 from __future__ import annotations
@@ -244,12 +254,22 @@ def cmd_run(args) -> int:
                          schedules_per_program=args.schedules,
                          trial_batch=args.trial_batch,
                          transport=args.transport,
-                         executor_workers=args.workers)
+                         executor_workers=args.workers,
+                         minimize_history=args.minimize)
     log = JsonlLogger(path=args.log) if args.log else JsonlLogger()
     try:
         t0 = time.perf_counter()
         backend = make_backend(args.backend, spec, args.device)
-        oracle = backend if args.backend in _ORACLES else None
+        if args.failover:
+            from ..resilience.failover import FailoverBackend
+
+            backend = FailoverBackend(spec, backend)
+        # a host backend that is the resolving oracle is passed as the
+        # oracle too, so that the property layer does not search again
+        # what it left undecided; --failover wraps it, and so forfeits
+        # that short cut (the wrap changes nothing for a host backend)
+        oracle = (backend if args.backend in _ORACLES and not args.failover
+                  else None)
         res = prop_concurrent(
             spec, sut, cfg, backend=backend, oracle=oracle,
             sut_factory=(SutFactory(args.model, args.impl)
@@ -274,6 +294,12 @@ def cmd_run(args) -> int:
     cx = res.counterexample
     print(f"FAIL: {args.model}/{args.impl} — linearizability violation")
     print(format_counterexample(spec, cx))
+    if cx.minimized_history is not None:
+        # the history shrinker's 1-minimal form: shorter to read; the
+        # (program, schedule) counterexample above is what replays
+        print(f"history-minimized to {len(cx.minimized_history)} op(s) "
+              "(still a VIOLATION, not replayable):")
+        print(format_history(spec, cx.minimized_history))
     hint = _fault_flags(args) if faults is not None else ""
     print(f"replay: python -m qsm_tpu_torch replay --model {args.model} "
           f"--impl {args.impl} --trial-seed '{cx.trial_seed}' "
@@ -415,6 +441,11 @@ def cmd_stats(args) -> int:
     else:
         backend = make_backend(args.backend, spec, args.device)
         bname = args.backend
+    if args.failover:
+        from ..resilience.failover import FailoverBackend
+
+        backend = FailoverBackend(spec, backend)
+        bname = backend.name
     t0 = time.perf_counter()
     v = backend.check_histories(spec, hists)
     dt = time.perf_counter() - t0
@@ -518,6 +549,102 @@ def cmd_check(args) -> int:
     if v == int(Verdict.LINEARIZABLE):
         return 0
     return 2 if v == int(Verdict.BUDGET_EXCEEDED) else 1
+
+
+def cmd_shrink(args) -> int:
+    """Minimise one failing external trace in this process
+    (``shrink/``): the whole frontier (drop-key, drop-pid, drop-one and
+    adjacent-commute shrinks) decided in one planned batch a greedy round,
+    down to a 1-minimal history; with ``--certificate`` its certificate
+    (one witness a drop-one neighbour) is audited by ``verify_witness``.
+    The frontier batches go to the planned checker on the card
+    (``plan_search(platform="cuda")`` through ``build_backend``), to
+    ``--backend`` when it is given, and to the JAX package's host ladder
+    (``build_host_backend``) with ``--device cpu`` and no ``--backend``.
+    stdout is one JSON line.  Exit 0 minimised, 1 incomplete (best so far
+    returned), 2 the input is not a violation, 3 error."""
+    from ..ops.backend import Verdict
+    from .interop import history_to_rows
+    from .report import history_from_rows
+
+    if args.addr:
+        # the reference sends --addr to a running check server, which
+        # this package does not have yet: never drop the flag silently
+        raise SystemExit("shrink --addr needs the check server, which is "
+                         "not ported yet (ROADMAP A7); drop --addr to "
+                         "shrink in this process")
+    with open(args.trace) as f:
+        doc = json.load(f)
+    model = args.model or doc.get("model")
+    if not model:
+        raise SystemExit("trace has no 'model'; pass --model")
+    if model not in MODELS:
+        raise SystemExit(
+            f"unknown model {model!r}; one of {sorted(MODELS)}")
+    if "history" not in doc:
+        raise SystemExit(
+            "shrink minimizes ONE failing trace: the file needs a "
+            "'history' array of [pid, cmd, arg, resp, invoke_time, "
+            "response_time] rows")
+    h = history_from_rows(doc["history"])
+    spec, _ = make(model, "atomic", doc.get("spec_kwargs") or None)
+    from ..shrink import (collect_shrink_stats, shrink_history,
+                          verify_certificate)
+    from ..shrink.shrinker import DEFAULT_MAX_LANES, DEFAULT_MAX_ROUNDS
+
+    backend = None   # the host ladder
+    if args.backend is not None:
+        backend = make_backend(args.backend, spec, args.device)
+    elif args.device != "cpu":
+        from ..search.planner import (build_backend, plan_search,
+                                      profile_corpus)
+
+        plan = plan_search(spec, profile_corpus([h], spec), platform="cuda")
+        backend = build_backend(spec, plan, device=args.device)
+    res = shrink_history(spec, h, backend=backend,
+                         max_rounds=(args.max_rounds
+                                     if args.max_rounds is not None
+                                     else DEFAULT_MAX_ROUNDS),
+                         max_lanes=(args.max_lanes
+                                    if args.max_lanes is not None
+                                    else DEFAULT_MAX_LANES),
+                         deadline_s=args.deadline,
+                         certificate=(args.certificate
+                                      or args.emit_certificate))
+    st = collect_shrink_stats(res)
+    out = {
+        "model": model,
+        "verdict": _VERDICT_NAMES[int(res.verdict)],
+        "initial_ops": res.initial_ops, "final_ops": res.final_ops,
+        "ratio": round(res.ratio, 3), "rounds": res.rounds,
+        "engine_calls": res.engine_calls, "lanes": res.lanes_checked,
+        "memo_hits": res.memo_hits, "complete": res.complete,
+        "one_minimal": res.one_minimal,
+        "undecided_neighbors": res.undecided_neighbors,
+        "history": history_to_rows(res.history),
+        "why": res.why,
+        "search": st.to_compact(),
+    }
+    if res.certificate is not None:
+        # replayed here (verify_witness, no search trusted): the line
+        # carries the audited claim
+        out["certificate_audit"] = verify_certificate(
+            spec, res.history, res.certificate)
+        if args.emit_certificate:
+            out["certificate"] = res.certificate
+    # the human rendering goes to stderr: stdout stays one JSON line
+    print(format_history(spec, res.history), file=sys.stderr)
+    print(json.dumps(out))
+    if args.save and res.ok:
+        from ..resilience.checkpoint import atomic_write_json
+
+        atomic_write_json(args.save, {
+            "model": model, "spec_kwargs": spec.spec_kwargs(),
+            "history": history_to_rows(res.history)})
+        print(f"minimized trace saved to {args.save}", file=sys.stderr)
+    if not res.ok:
+        return 2 if res.verdict != int(Verdict.VIOLATION) else 3
+    return 0 if res.complete else 1
 
 
 def cmd_list(args) -> int:
@@ -781,6 +908,18 @@ def main(argv=None) -> int:
     p.add_argument("--workers", type=int, default=0,
                    help="worker processes for schedule execution "
                         "(0: serial; histories are bit-identical)")
+    p.add_argument("--failover", action="store_true",
+                   help="wrap the backend in a FailoverBackend: an "
+                        "injected dispatch fault (QSM_TPU_FAULTS), and on "
+                        "the host any device error, degrades the undecided "
+                        "lanes to the exact host ladder with identical "
+                        "verdicts; on the card a real device error raises. "
+                        "Degradations are in the log's timings")
+    p.add_argument("--minimize", action="store_true",
+                   help="after the program-level shrink, minimise the "
+                        "failing history itself with the batched history "
+                        "shrinker: a 1-minimal sub-history or reschedule "
+                        "printed beside the replayable counterexample")
     _add_fault_args(p)
     p.add_argument("--log", default=None, help="JSONL log path")
     p.add_argument("--save-regression", default=None,
@@ -818,6 +957,47 @@ def main(argv=None) -> int:
                         "host-oracle search gives verdict and witness; "
                         "--backend is ignored)")
     p.set_defaults(fn=cmd_check)
+
+    p = sub.add_parser(
+        "shrink",
+        help="minimise a failing external trace: frontier-at-once "
+             "batched shrinking to a 1-minimal history with a "
+             "verify_witness-replayable certificate")
+    p.add_argument("--trace", required=True,
+                   help="JSON with a 'history' array of [pid, cmd, arg, "
+                        "resp, invoke_time, response_time] rows (the "
+                        "`check` trace format)")
+    p.add_argument("--model", default=None, choices=sorted(MODELS),
+                   help="overrides the trace's own 'model' field")
+    p.add_argument("--addr", default=None,
+                   help="a running check server's address (not ported "
+                        "yet: refused)")
+    p.add_argument("--backend", default=None, choices=BACKENDS,
+                   help="the checker of the frontier batches (default: "
+                        "the planned checker, TorchStepper inside SegDC / "
+                        "PComp as plan_search says; with --device cpu, "
+                        "the JAX package's host ladder)")
+    _add_device(p)
+    p.add_argument("--certificate", action="store_true",
+                   help="compute the 1-minimality certificate (one "
+                        "witness a drop-one neighbour) and audit it with "
+                        "verify_witness")
+    p.add_argument("--emit-certificate", action="store_true",
+                   help="also put the certificate's witnesses in the JSON "
+                        "line (implies the audit of --certificate)")
+    p.add_argument("--max-rounds", type=int, default=None,
+                   help="greedy round cap (default 256)")
+    p.add_argument("--max-lanes", type=int, default=None,
+                   help="frontier candidates decided a batch (default "
+                        "512); a truncated frontier is reported in `why` "
+                        "and forfeits the 1-minimality claim")
+    p.add_argument("--deadline", type=float, default=None,
+                   help="seconds; past it the best history so far is "
+                        "returned with complete=false")
+    p.add_argument("--save", default=None,
+                   help="write the minimised history as a `check`-format "
+                        "trace file (atomic)")
+    p.set_defaults(fn=cmd_shrink)
 
     p = sub.add_parser("list", help="models, impls, and backend choices")
     p.set_defaults(fn=cmd_list)
@@ -896,6 +1076,9 @@ def main(argv=None) -> int:
         help="search-cost accounting (SearchStats) of one backend on one "
              "corpus, with the corpus profile and the planner's verdict")
     _add_common(p, "cpu")
+    p.add_argument("--failover", action="store_true",
+                   help="wrap the backend in a FailoverBackend and report "
+                        "its counters in the resilience block")
     p.add_argument("--planned", action="store_true",
                    help="run the plan_search-built checker (the port's "
                         "plan: TorchStepper, ordering, SegDC / PComp when "

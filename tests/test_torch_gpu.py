@@ -29,8 +29,13 @@ round over ``HybridDevice`` whose verdicts are ``CppOracle``'s; the search
 plane: ``SegDC``'s final segments from frontier states other than the
 initial one (table and sweep regimes), ordered ``TorchStepper`` and
 ``TorchGPU`` witnesses, ``AutoDevice`` routing, each first launch held
-against the plain version.  Without CUDA each test skips in its
-fixture."""
+against the plain version; ``build_kernel``'s ``check_one`` at budget
+500,000 with and without the memo, ``FailoverBackend`` degrading on an
+injected fault (its launches from the watchdog's thread on the caller's
+stream) and raising on a real device error (the card's rule), a
+shrinker's frontier batch through ``TorchStepper``, and the ``shrink``
+entry point on the card equal to its host run.  Without CUDA each
+test skips in its fixture."""
 
 from __future__ import annotations
 
@@ -1186,3 +1191,200 @@ def test_check_batch_trace_through_the_stepper(cuda, tmp_path, capsys):
     ref = [names[int(x)] for x in CppOracle(spec).check_histories(spec, hs)]
     assert out["verdicts"] == ref and out["undecided"] == 0
     assert rc == (1 if out["violations"] else 0)
+
+
+# ---------------------------------------------------------------------------
+# Resilience, the history shrinker and build_kernel
+# ---------------------------------------------------------------------------
+
+
+def _history_35():
+    from qsm_tpu_torch.core.history import bucket_for, encode_batch
+
+    spec = CasSpec()
+    h = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=36, n_pids=8,
+                     max_ops=32, seed_base=1000, seed_prefix="bench")[35]
+    n = bucket_for(len(h))
+    enc = encode_batch([h], spec.initial_state(), max_ops=n)
+    return spec, n, (enc.ops[:, :, 1], enc.ops[:, :, 2], enc.ops[:, :, 3],
+                     enc.valid, enc.precedes(), enc.init_state)
+
+
+@pytest.mark.parametrize("slots,status", [(4096, 2), (0, 3)])
+def test_check_one_at_the_full_budget(cuda, slots, status):
+    """``build_kernel``'s ``check_one`` on bench history #35 at budget
+    500,000: one ``stepper_chunk`` launch; FAILURE in under 50,000
+    iterations with the memo (the plain version on the card to the same
+    carry), BUDGET at exactly 500,000 without (the plain version held
+    over the first 5,000 iterations)."""
+    from qsm_tpu_torch.ops.stepper_kernel import (build_kernel,
+                                                  fresh_stepper_carry,
+                                                  stepper_chunk,
+                                                  stepper_chunk_plain,
+                                                  stepper_tables)
+
+    spec, n, args = _history_35()
+    before = stepper_chunk.launches
+    s, it = build_kernel(spec, n, 500_000, cache_slots=slots)(*args)
+    assert stepper_chunk.launches == before + 1
+    assert int(s[0]) == status
+    assert (int(it[0]) < 50_000) if slots else int(it[0]) == 500_000
+    tabs = stepper_tables(spec, *args[:5], cuda)
+    fresh = fresh_stepper_carry(tabs.nreq, np.arange(1),
+                                np.full(1, int(args[5][0]), np.int32), 1, n,
+                                slots)
+    run = 500_000 if slots else 5_000
+    got = stepper_chunk(tabs, _clone(fresh), chunk=run, budget=500_000)
+    want = stepper_chunk_plain(tabs, _clone(fresh), chunk=run,
+                               budget=500_000)
+    _assert_stepper_equal(got, want, f"check_one with {slots} slots")
+
+
+def test_failover_with_an_injected_fault_on_the_card(cuda, monkeypatch):
+    """``FailoverBackend(TorchStepper)`` under ``raise:dispatch@2`` on
+    2048 headline lanes called from a side stream: the first 1024 lanes
+    decided on the card, launched from the watchdog's thread on the
+    caller's stream, the rest on the host ladder, every verdict
+    ``CppOracle``'s; the first launch held against the plain version."""
+    import threading
+
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.resilience import faults
+    from qsm_tpu_torch.resilience.failover import FailoverBackend
+
+    spec = CasSpec()
+    hs = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=512, n_pids=8,
+                      max_ops=32, seed_base=1000, seed_prefix="bench") * 4
+    monkeypatch.setenv(faults.ENV_VAR, "raise:dispatch@2")
+    monkeypatch.setattr(faults, "_plane", None)
+    rec = _FirstLaunch(monkeypatch, stepper_module, "stepper_chunk")
+    seen = []
+    inner = rec.__call__
+
+    def origin(*a, **kw):
+        if not seen:
+            seen.append((threading.get_ident(),
+                         torch.cuda.current_stream(cuda).cuda_stream))
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(stepper_module, "stepper_chunk", origin)
+    side = torch.cuda.Stream(cuda)
+    fo = FailoverBackend(spec, TorchStepper(spec))
+    assert fo.on_card
+    with torch.cuda.stream(side):
+        v = fo.check_histories(spec, hs)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(faults, "_plane", None)
+    np.testing.assert_array_equal(v, CppOracle(spec).check_histories(spec,
+                                                                     hs))
+    r = fo.resilience()
+    assert (r["device_histories"], r["fallback_histories"],
+            r["degradations"]) == (1024, 1024, 1)
+    assert seen[0] == (seen[0][0], side.cuda_stream)
+    assert seen[0][0] != threading.get_ident()
+    _hold_stepper_chunk(rec, "on the failover path")
+
+
+def test_failover_raises_a_real_device_error_on_the_card(cuda):
+    """The card's rule: a ``BackendUnavailable`` the fault plane did not
+    inject raises out of ``FailoverBackend`` and out of
+    ``prop_concurrent``, and nothing is degraded."""
+    from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
+    from qsm_tpu_torch.ops.backend import BackendUnavailable
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.resilience.failover import FailoverBackend
+
+    spec = CasSpec()
+    hs = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=16, n_pids=4,
+                      max_ops=12, seed_prefix="card_rule")
+    st = TorchStepper(spec)
+
+    def lost(*a, **kw):
+        raise BackendUnavailable("card lost")
+
+    st._run_device = lost
+    fo = FailoverBackend(spec, st)
+    with pytest.raises(BackendUnavailable, match="card lost"):
+        fo.check_histories(spec, hs)
+    with pytest.raises(BackendUnavailable, match="card lost"):
+        fo.check_witness(spec, hs[0])
+    assert not fo.degraded and fo.degradations == 0 and fo.retries == 0
+    with pytest.raises(BackendUnavailable, match="card lost"):
+        prop_concurrent(spec, RacyCasSUT(spec),
+                        PropertyConfig(n_trials=4, n_pids=2, max_ops=6),
+                        backend=st)
+
+
+def test_frontier_batch_through_the_stepper(cuda, monkeypatch):
+    """A frontier batch of the history shrinker through ``TorchStepper``
+    on the card: one ``check_histories`` call a round, the minimised
+    history and counters equal to the host shrink's, the first launch of
+    the first frontier batch held against the plain version."""
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.shrink import shrink_history
+    from qsm_tpu_torch.utils.interop import history_to_rows
+
+    spec = CasSpec()
+    hs = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=64, n_pids=8,
+                      max_ops=32, seed_base=1000, seed_prefix="bench")
+    v = CppOracle(spec).check_histories(spec, hs)
+    h = next(x for x, y in zip(hs, v) if y == Verdict.VIOLATION)
+    host = shrink_history(spec, h, certificate=False)
+
+    class Counted:
+        def __init__(self):
+            self.inner, self.calls = TorchStepper(spec), 0
+
+        def check_histories(self, spec, histories):
+            self.calls += 1
+            if self.calls == 2:  # the first frontier batch
+                self.rec = _FirstLaunch(monkeypatch, stepper_module,
+                                        "stepper_chunk")
+            return self.inner.check_histories(spec, histories)
+
+    eng = Counted()
+    res = shrink_history(spec, h, backend=eng, certificate=False)
+    assert eng.calls == res.engine_calls
+    assert history_to_rows(res.history) == history_to_rows(host.history)
+    assert (res.rounds, res.lanes_checked, res.one_minimal) == \
+        (host.rounds, host.lanes_checked, host.one_minimal)
+    _hold_stepper_chunk(eng.rec, "on a frontier batch")
+
+
+def test_shrink_entry_point_runs_on_the_card(cuda, tmp_path, capsys):
+    """``shrink --trace --certificate`` decides its frontier batches on
+    the card by default (the planned checker): the same minimised history,
+    rounds and lanes as the host ladder's run (``--device cpu``), the
+    certificate audited."""
+    import json
+
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.utils.cli import main
+    from qsm_tpu_torch.utils.interop import history_to_rows
+
+    spec = CasSpec()
+    hs = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=64, n_pids=8,
+                      max_ops=32, seed_base=1000, seed_prefix="bench")
+    v = CppOracle(spec).check_histories(spec, hs)
+    h = next(x for x, y in zip(hs, v) if y == Verdict.VIOLATION)
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"model": "cas",
+                                "spec_kwargs": spec.spec_kwargs(),
+                                "history": history_to_rows(h)}))
+    docs = []
+    for extra in ([], ["--device", "cpu"]):
+        stepper_module.stepper_chunk.launches = 0
+        rc = main(["shrink", "--trace", str(path), "--certificate", *extra])
+        docs.append((rc, stepper_module.stepper_chunk.launches, json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])))
+    (rc, launches, card), (rc_h, launches_h, host) = docs
+    assert rc == rc_h == 0 and launches > 0 and launches_h == 0
+    assert card["certificate_audit"]["one_minimal_proved"]
+    for k in ("verdict", "final_ops", "rounds", "lanes", "one_minimal",
+              "undecided_neighbors", "history"):
+        assert card[k] == host[k], k
