@@ -266,7 +266,33 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``stepper_chunk`` launch each, timed with CUDA events beside its bound,
    held against the plain version on the card (to completion with the
    memo, over the first 5,000 iterations without); each path's launches
-   read and its first kernels held (``FirstInputs``).
+   read and its first kernels held (``FirstInputs``);
+19. observability, the streaming monitor and trace ingest: (a) 128
+   unique histories each of the CAS headline (8 x 32), the queue
+   headline (8 x 48) and kv16 (16 x 64, per key over the projected
+   register spec) streamed as rows into ``MonitorSession``s of one
+   ``SessionManager`` a family (one window engine a spec, on the card),
+   8 rows a decide (16 for kv16): every final verdict equal to
+   ``CppOracle``'s whole-history verdict, no flip on a history it calls
+   LINEARIZABLE; window-engine calls, lanes a call, BUDGET lanes decided
+   again on the host, s a decide, and the first 8 histories again under
+   ``torch.profiler`` (idle share); (b) ``tools/bench_monitor.py``'s
+   1000-event register stream, 20 rows a decide, on the card and with
+   ``device="cpu"`` in turns (card, host, host, card), then replayed
+   into a fresh session sharing the ``VerdictCache``: ``prefix_hits ==
+   advances``; (c) ``python -m qsm_tpu_torch monitor`` in a subprocess
+   on a Jepsen log of that stream (written by ``emit_trace``) with a
+   third pid's read of a value never written seeded in its middle:
+   exit 1, the flip's repro a VIOLATION by ``CppOracle`` whose
+   certificate verifies, ``check`` of the ``--save`` file a VIOLATION;
+   (d) ``ingest --check`` on the five goldens of ``tests/data/`` on the
+   card, each equal to ``--device cpu``'s line, and ``--emit``
+   byte-stable; (e) an ``Observability`` sink installed (``set_global``)
+   around phase 18 (c)'s ``raise:dispatch@2`` failover on 4096 lanes:
+   the trace log holds ``fault.hit`` and ``failover.degrade``, ``python
+   -m qsm_tpu_torch trace '' --log`` renders them (exit 0), and the
+   registry's exposition parses back to the counts recorded; each
+   path's launches read and its first kernels held (``FirstInputs``).
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
@@ -275,7 +301,7 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
 15 (c), each path of phase 16 over its own, phase 17's in-process
-paths over the phase, and each path of phase 18 over its own; the
+paths over the phase, and each path of phases 18 and 19 over its own; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -4178,6 +4204,361 @@ def phase_resilience(spec, corpus, kv_spec, kv_corpus, dev, tag):
     return launches, err, check_one_rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: observability, the streaming monitor and trace ingest
+# ---------------------------------------------------------------------------
+
+MONITOR_UNIQUE = 128           # (a): unique histories a family
+MONITOR_CHUNK = {"CAS headline": 8, "queue headline": 8, "kv16": 16}
+MONITOR_PROFILED = 8           # (a): histories streamed again, profiled
+STREAM_EVENTS, STREAM_CHUNK = 1000, 20   # (b): tools/bench_monitor.py:52-53
+STREAM_BAD_READ = 4            # (c): a read of a value the stream never
+# writes (it writes 1-3; the register spec's values are 0-4)
+GOLDENS = (("golden_jepsen_register.edn", "jepsen", "register"),
+           ("golden_porcupine_kv.edn", "porcupine", "kv"),
+           ("golden_jepsen_rangeset.edn", "jepsen", "rangeset"),
+           ("golden_jepsen_semaphore.edn", "jepsen", "semaphore"),
+           ("golden_porcupine_txn.edn", "porcupine", "txn"))
+
+
+def monitor_stream_rows(n_ops: int):
+    """``tools/bench_monitor.py:52-77``'s register stream: mostly
+    sequential, with one overlapping pair of pids every 8 ops."""
+    rows = []
+    t = 0
+    for i in range(n_ops):
+        val = (i % 3) + 1
+        if i % 8 == 7:
+            rows.append([0, 1, val, 0, t, t + 3])
+            rows.append([1, 0, 0, val, t + 1, t + 2])
+            t += 4
+        else:
+            cmd = 1 if i % 2 == 0 else 0
+            arg = val if cmd == 1 else 0
+            resp = 0
+            if cmd == 0:
+                resp = next((r[2] for r in reversed(rows) if r[1] == 1), 0)
+            rows.append([0, cmd, arg, resp, t, t + 1])
+            t += 2
+    return rows
+
+
+def seeded_stream(rows):
+    """``rows`` with a third pid's read of a value never written inserted
+    at the first quiescent point past the middle (later rows shifted):
+    a violation in the middle of the stream that shrinks to that one
+    op."""
+    at = next(i for i in range(len(rows) // 2, len(rows))
+              if rows[i][4] > max(r[5] for r in rows[:i]))
+    t = rows[at][4]
+    return (rows[:at] + [[2, 0, 0, STREAM_BAD_READ, t, t + 1]]
+            + [[p, c, a, r, i + 2, o + 2] for p, c, a, r, i, o in rows[at:]])
+
+
+def stream_into(session, rows, chunk):
+    """``rows`` appended ``chunk`` at a time, a decide after each, then
+    closed; (final verdict, decides, verdicts before the close)."""
+    seen = []
+    for i in range(0, len(rows), chunk):
+        session.append(rows[i:i + chunk])
+        seen.append(session.decide())
+    return session.close(), len(seen), seen
+
+
+def phase_monitor(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, dev,
+                  tag):
+    """Phase 19: observability, the streaming monitor and trace ingest on
+    the card; see the module docstring.  Returns (launches of each path,
+    largest error of the kernels held on the paths, the record)."""
+    import tempfile
+
+    from qsm_tpu_torch import obs
+    from qsm_tpu_torch.core.spec import projection_report
+    from qsm_tpu_torch.ingest import emit_trace
+    from qsm_tpu_torch.monitor import MonitorSession, SessionManager
+    from qsm_tpu_torch.serve.cache import VerdictCache
+    from qsm_tpu_torch.utils.report import \
+        history_from_rows as canonical_rows
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p19_"))
+    reg_spec, _ = make_model("register", "atomic")
+    # (c) in a subprocess, beside the in-process paths: the stream with a
+    # violation seeded in its middle, as a Jepsen log the port wrote
+    stream = monitor_stream_rows(STREAM_EVENTS // 2)
+    seeded = seeded_stream(stream)
+    edn = tmp / "stream.edn"
+    edn.write_text(emit_trace("jepsen", canonical_rows(seeded), "register",
+                              reg_spec))
+    saved = tmp / "flip.json"
+    t_c0 = time.perf_counter()
+    proc = cli_proc("monitor", edn, "--format", "jepsen", "--spec",
+                    "register", "--save", saved)
+    counters = (stepper_chunk, compact_carry, stepper_sweep)
+    launches, err, record = {}, 0, {}
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read(name, first, path_spec=None, need=True):
+        nonlocal err
+        got = {c.__name__: c.launches for c in counters}
+        print(f"{tag} path of {name}: " + ", ".join(
+            f"{n} {k}" for k, n in got.items()) + " launches", flush=True)
+        require(not need or got["stepper_chunk"] + got["stepper_sweep"] > 0,
+                f"{name} launched no stepper kernel")
+        launches[name] = got
+        if first is not None:
+            err = max(err, hold_path_kernels(name, first, tag, path_spec))
+
+    try:
+        # (a) monitor parity at the headline shapes, a SessionManager a
+        # family (one window engine a spec, on the card)
+        t_a = time.perf_counter()
+        fams = []
+        for name, fspec, hists in (
+                ("CAS headline", spec, corpus[:MONITOR_UNIQUE]),
+                ("queue headline", q_spec, q_corpus[:MONITOR_UNIQUE]),
+                ("kv16", kv_spec, kv_corpus[:MONITOR_UNIQUE])):
+            proj = (None if projection_report(fspec)
+                    else fspec.projected_spec())
+            want = native.CppOracle(fspec).check_histories(fspec, hists)
+            mgr = SessionManager(max_sessions=len(hists) + 1)
+            chunk = MONITOR_CHUNK[name]
+            bad_final = bad_flip = decides = 0
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with FirstInputs() as first:
+                for k, h in enumerate(hists):
+                    s, _ = mgr.open(f"m{k}", fspec, proj)
+                    v, n, seen = stream_into(s, history_to_rows(h), chunk)
+                    mgr.close(s.sid)
+                    decides += n
+                    bad_final += v != int(want[k])
+                    bad_flip += (int(want[k]) == Verdict.LINEARIZABLE
+                                 and Verdict.VIOLATION in seen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            path = f"the monitor, {name} (19a)"
+            read(path, first, proj or fspec)
+            require(launches[path]["stepper_chunk"] > 0,
+                    f"{path} launched no stepper_chunk")
+            require(bad_final == 0 and bad_flip == 0,
+                    f"{name}: {bad_final} final verdicts differ from "
+                    f"CppOracle's, {bad_flip} flips on a linearizable "
+                    f"history")
+            st = mgr.engines.stats()
+            # a steady window: the first histories again, profiled
+            wall, dev_s, top = profile_device(lambda: [stream_into(
+                mgr.open(f"p{k}", fspec, proj)[0], history_to_rows(h),
+                chunk) for k, h in enumerate(hists[:MONITOR_PROFILED])])
+            rec = dict(histories=len(hists), decides=decides, seconds=dt,
+                       s_per_decide=dt / decides, calls=st["calls"],
+                       lanes=st["lanes"],
+                       lanes_per_call=st["lanes"] / max(1, st["calls"]),
+                       redecided=st["redecided"],
+                       host_windows=st["host_windows"],
+                       window_s=st["seconds"],
+                       violations=int((want == Verdict.VIOLATION).sum()),
+                       idle_share=1 - dev_s / wall if wall else None,
+                       profiled_wall_s=wall, profiled_device_s=dev_s)
+            record[name] = rec
+            fams.append((name, mgr))
+            print(f"{tag} 19a monitor parity, {name}: {len(hists)} "
+                  f"histories streamed {chunk} rows a decide, {decides} "
+                  f"decides in {dt:.3f} s ({dt / decides * 1e3:.3f} ms a "
+                  f"decide), 0 final verdicts off CppOracle's "
+                  f"({rec['violations']} violations), 0 flips on a "
+                  f"linearizable history; window engine: {st['calls']} "
+                  f"calls, {st['lanes']} lanes ({rec['lanes_per_call']:.2f} "
+                  f"a call), {st['redecided']} BUDGET lanes decided again "
+                  f"on the host, {st['host_windows']} windows over the op "
+                  f"cap, {st['seconds']:.3f} s in the engine; "
+                  f"{MONITOR_PROFILED} histories again under the profiler: "
+                  f"{wall:.3f} s wall, {dev_s:.4f} s on the device, idle "
+                  f"{rec['idle_share']:.4f}; top {top}", flush=True)
+        print(f"{tag} 19a took {time.perf_counter() - t_a:.1f} s",
+              flush=True)
+
+        # (b) the 1000-event register stream, on the card and on the host
+        # in turns, then replayed into a session sharing the bank
+        t_b = time.perf_counter()
+        times = {"card": [], "host": []}
+        for where in ("card", "host", "host", "card"):
+            reset()
+            s = MonitorSession("stream", reg_spec,
+                               device="cpu" if where == "host" else None)
+            with (FirstInputs() if where == "card" and not times["card"]
+                  else contextlib.nullcontext()) as first:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                v, n, _ = stream_into(s, stream, STREAM_CHUNK)
+                torch.cuda.synchronize()
+                times[where].append(time.perf_counter() - t0)
+            require(v == Verdict.LINEARIZABLE, f"the stream on the {where}: "
+                    f"verdict {v}")
+            if where == "card" and first is not None:
+                read("the 1000-event stream on the card (19b)", first)
+            counters_of = s.counters()
+        bank = VerdictCache(max_entries=65_536)
+        s1 = MonitorSession("s1", reg_spec, bank=bank)
+        stream_into(s1, stream, STREAM_CHUNK)
+        s2 = MonitorSession("s2", reg_spec, bank=bank)
+        v2, _, _ = stream_into(s2, stream, STREAM_CHUNK)
+        c1, c2 = s1.counters(), s2.counters()
+        require(v2 == Verdict.LINEARIZABLE and c2["advances"] ==
+                c1["advances"] > 0 and c2["prefix_hits"] == c2["advances"],
+                f"the banked replay: {c1} then {c2}")
+        record["stream"] = dict(events=STREAM_EVENTS, rows=len(stream),
+                                decides=n, card_s=times["card"],
+                                host_s=times["host"], counters=counters_of,
+                                replay=c2)
+        print(f"{tag} 19b the {STREAM_EVENTS}-event register stream "
+              f"({len(stream)} rows, {STREAM_CHUNK} a decide, {n} decides): "
+              f"card " + " / ".join(f"{x:.4f}" for x in times["card"])
+              + " s, host loop " + " / ".join(
+                  f"{x:.4f}" for x in times["host"]) + " s (turns card, "
+              f"host, host, card); counters {counters_of}; replayed into a "
+              f"session sharing the bank: prefix_hits {c2['prefix_hits']} "
+              f"== advances {c2['advances']}; (b) took "
+              f"{time.perf_counter() - t_b:.1f} s", flush=True)
+
+        # (d) ingest --check on the goldens, on the card and --device cpu
+        t_d = time.perf_counter()
+        data = REPO / "tests" / "data"
+        verdicts = []
+        reset()
+        for fname, fmt, model in GOLDENS:
+            base = ("ingest", data / fname, "--format", fmt, "--spec", model)
+            rc, out = cli_inproc(*base, "--check")
+            rc_h, out_h = cli_inproc(*base, "--check", "--device", "cpu")
+            require((rc, out[-1:]) == (rc_h, out_h[-1:]),
+                    f"ingest --check {fname}: card rc {rc} {out[-1:]}, "
+                    f"--device cpu rc {rc_h} {out_h[-1:]}")
+            emitted = tmp / f"emit_{fname}"
+            require(cli_inproc(*base, "--emit", "--out", emitted)[0] == 0
+                    and emitted.read_bytes() == (data / fname).read_bytes(),
+                    f"ingest --emit {fname} is not byte-stable")
+            verdicts.append(f"{fname} {json.loads(out[-1])['verdict']} "
+                            f"(rc {rc})")
+        read("ingest --check on the goldens (19d)", None, need=False)
+        print(f"{tag} 19d ingest --check on the card, equal to --device "
+              f"cpu: " + ", ".join(verdicts) + f"; --emit byte-stable on "
+              f"all {len(GOLDENS)}; (d) took "
+              f"{time.perf_counter() - t_d:.1f} s", flush=True)
+
+        # (e) observability: a sink installed, phase 18 (c)'s failover
+        t_e = time.perf_counter()
+        log, fdir = tmp / "obs.jsonl", tmp / "flight"
+        bundle = obs.Observability(trace_log=str(log), flight_dir=str(fdir))
+        events = bundle.metrics.counter("qsm_smoke_events_total",
+                                        "events the sink received")
+        bundle.tracer.add_hook(lambda d: events.inc(1, name=d["name"]))
+        for name, r in record.items():
+            if "calls" in r:
+                fam = name.split()[0].lower()
+                for key in ("calls", "lanes", "redecided"):
+                    bundle.metrics.counter(
+                        f"qsm_monitor_window_{key}_total").inc(
+                            r[key], family=fam)
+        lanes = _replicate(corpus, DEVICE_BATCH)
+        want = native.CppOracle(spec).check_histories(spec, lanes)
+        obs.set_global(bundle)
+        reset()
+        try:
+            with FirstInputs() as first, FaultEnv("raise:dispatch@2"):
+                fo = FailoverBackend(spec, TorchStepper(spec))
+                v = fo.check_histories(spec, lanes)
+        finally:
+            obs.set_global(None)
+            bundle.close()
+        read("FailoverBackend(TorchStepper) under raise:dispatch@2, a sink "
+             "installed (19e)", first)
+        require(v.tolist() == want.tolist() and fo.degradations == 1,
+                f"failover with a sink: {fo.resilience()}")
+        names = [e["name"] for e in obs.load_events(str(log))]
+        require("fault.hit" in names and "failover.degrade" in names,
+                f"the trace log holds {names}")
+        dumps = sorted(p.name for p in fdir.glob("FLIGHT_*.json"))
+        rc_t, out_t = cli_result(cli_proc("trace", "", "--log", log),
+                                 "trace")
+        text = "\n".join(out_t)
+        require(rc_t == 0 and "fault.hit" in text
+                and "failover.degrade" in text,
+                f"trace --log: rc {rc_t}, {out_t[:4]}")
+        vals = obs.parse_exposition(bundle.metrics.render())
+        seen = {n: names.count(n) for n in set(names)}
+        got = {n: vals.get(f'qsm_smoke_events_total{{name="{n}"}}')
+               for n in seen}
+        for name, r in record.items():
+            if "calls" in r:
+                fam = name.split()[0].lower()
+                for key in ("calls", "lanes", "redecided"):
+                    k = f'qsm_monitor_window_{key}_total{{family="{fam}"}}'
+                    require(vals.get(k) == r[key], f"exposition {k}: "
+                            f"{vals.get(k)} against {r[key]}")
+        require(got == seen, f"the exposition's event counts {got} against "
+                f"the log's {seen}")
+        record["obs"] = dict(events=seen, dumps=dumps)
+        print(f"{tag} 19e a sink installed (set_global), FailoverBackend("
+              f"TorchStepper) on {len(lanes)} headline lanes under "
+              f"raise:dispatch@2: verdicts exact, the trace log holds "
+              f"{seen}, flight dumps {dumps}; python -m qsm_tpu_torch trace "
+              f"'' --log: rc 0, the tree:\n" + text + "\n"
+              f"{tag} 19e the registry's exposition parses back to the "
+              f"counts recorded (events by name, the monitor's window "
+              f"calls, lanes and re-decides by family); (e) took "
+              f"{time.perf_counter() - t_e:.1f} s", flush=True)
+
+        # (c) the monitor subcommand's result
+        rc, out = cli_result(proc, "monitor")
+        t_c = time.perf_counter() - t_c0
+        lines = [json.loads(x) for x in out]
+        flip, final = lines[0], lines[-1]
+        require(rc == 1 and flip.get("event") == "session.flip"
+                and final["verdict"] == "VIOLATION",
+                f"monitor: rc {rc}, {out[:1]} ... {out[-1:]}")
+        repro = history_from_rows(flip["repro"])
+        require(int(native.CppOracle(reg_spec).check_histories(
+            reg_spec, [repro])[0]) == Verdict.VIOLATION,
+            "monitor: the flip's repro is not a VIOLATION by CppOracle")
+        audit = verify_certificate(reg_spec, repro, flip["certificate"])
+        require(audit["one_minimal_proved"]
+                and audit["violation_reconfirmed"],
+                f"monitor: the flip's certificate: {audit}")
+        rc_s, out_s = cli_inproc("check", "--trace", saved)
+        require(rc_s == 1 and json.loads(out_s[-1])["verdict"]
+                == "VIOLATION", f"check --trace of the saved repro: rc "
+                f"{rc_s}")
+        record["monitor_cli"] = dict(seconds=t_c, flip={
+            k: flip[k] for k in ("initial_ops", "final_ops",
+                                 "one_minimal", "complete")},
+            final=final)
+        print(f"{tag} 19c python -m qsm_tpu_torch monitor on a Jepsen log "
+              f"of the stream ({len(seeded)} ops, a read of "
+              f"{STREAM_BAD_READ} seeded at op "
+              f"{next(i for i, r in enumerate(seeded) if r[0] == 2)}): rc "
+              f"1, the flip shrunk from {flip['initial_ops']} to "
+              f"{flip['final_ops']} ops (one_minimal {flip['one_minimal']}),"
+              f" a VIOLATION by CppOracle, its certificate verified; "
+              f"check --trace of --save: VIOLATION; final line {final}; "
+              f"{t_c:.1f} s in its subprocess", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    total = {c.__name__: sum(x[c.__name__] for x in launches.values())
+             for c in counters}
+    dt = time.perf_counter() - t_phase
+    record["seconds"] = dt
+    print(f"{tag} phase 19 record: {json.dumps(record)}", flush=True)
+    print(f"{tag} phase 19 launches: " + ", ".join(
+        f"{n} {k}" for k, n in total.items()) + f"; {dt:.1f} s", flush=True)
+    return launches, err, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -4350,6 +4731,11 @@ def main(argv=None) -> int:
         spec, corpus, kv_spec, kv_corpus, dev, tag)
     print(f"{tag} phase resilience and the history shrinker: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mon_launches, mon_err, mon_rec = phase_monitor(
+        spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, dev, tag)
+    print(f"{tag} phase observability, the monitor and ingest: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
@@ -4357,15 +4743,15 @@ def main(argv=None) -> int:
                "generation plane (phase 15)": gen_launches,
                **search_launches,
                "entry points (phase 17)": entry_launches,
-               **res_launches}
+               **res_launches, **mon_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
 
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
-                   entry_err, res_err)
-    search_err = max(search_err, entry_err, res_err)
+                   entry_err, res_err, mon_err)
+    search_err = max(search_err, entry_err, res_err, mon_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare

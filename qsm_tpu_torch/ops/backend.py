@@ -23,6 +23,11 @@ class Verdict(enum.IntEnum):
     BUDGET_EXCEEDED = 2
 
 
+# a verdict's name in JSON documents (the CLI's lines, monitor session
+# snapshots): index == Verdict value
+VERDICT_NAMES = tuple(v.name for v in Verdict)
+
+
 class BackendUnavailable(RuntimeError):
     """A backend lost its substrate mid-run (device gone, runtime torn
     down): the typed signal that callers may degrade on."""

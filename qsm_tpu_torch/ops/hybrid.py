@@ -81,6 +81,14 @@ class HybridDevice:
         self.fallback_engine = getattr(self.tail, "name",
                                        type(self.tail).__name__)
         self.last_error = f"{type(err).__name__}: {err}"[:200]
+        # the same global-sink report as FailoverBackend._degrade: the
+        # flight ring shows a mid-run device loss with no obs handle
+        # plumbed down to the engine layer
+        from ..obs import emit_global
+
+        emit_global("failover.degrade", engine=self.name,
+                    fallback=self.fallback_engine,
+                    error=self.last_error)
 
     def check_histories(self, spec: Spec,
                         histories: Sequence[History]) -> np.ndarray:

@@ -38,8 +38,9 @@ from the caller's CUDA stream when the engine runs on the card.
 :func:`degradable_errors` states the rule once; ``ops/hybrid.py``'s plan
 applies it too.
 
-The reference also reports a degrade to its observability plane, which
-this package does not have yet: here the counters record it.  Counters
+A degrade is reported as a ``failover.degrade`` event through the
+observability plane's global sink (``obs/__init__.py::emit_global``), as
+in the reference, and recorded in the counters.  Counters
 (``degradations``, ``retries``, ``fallback_engine``,
 ``device_histories``, ``fallback_histories``) ride ``search_stats()``
 and :func:`collect_resilience`.
@@ -275,6 +276,13 @@ class FailoverBackend:
         self.fallback_engine = getattr(self.fallback, "name",
                                        type(self.fallback).__name__)
         self.last_error = f"{type(err).__name__}: {err}"[:200]
+        # a degradation is an event of the global observability sink
+        # (obs/__init__.py), if one is installed: one read without it
+        from ..obs import emit_global
+
+        emit_global("failover.degrade", engine=self.name,
+                    fallback=self.fallback_engine,
+                    error=self.last_error)
 
     # ------------------------------------------------------------------
     def resilience(self) -> dict:

@@ -26,9 +26,10 @@ perturbs the system under test.
 Sites in this package: ``dispatch``, at the top of every device entry
 point (``ops/host_contracts.py::DeviceChecker.check_histories`` and
 ``check_witness``, so ``TorchStepper`` and ``TorchGPU``), as the JAX
-package's ``JaxTPU`` has it.  The reference also reports a fired rule to
-its observability plane, which this package does not have yet: here a
-fired rule is counted in :func:`fired_snapshot` only.
+package's ``JaxTPU`` has it.  A fired rule is counted in
+:func:`fired_snapshot` and reported as a ``fault.hit`` event through the
+observability plane's global sink (``obs/__init__.py::emit_global``), a
+flight-recorder dump trigger.
 
 Beside the reference's per-site counts, the plane counts what each site
 did (:func:`acted`): the failover wrapper on a CUDA device degrades on a
@@ -158,6 +159,12 @@ def inject(site: str) -> Optional[str]:
     if not os.environ.get(ENV_VAR):
         return None
     act = active_plane().action_for(site)
+    if act is not None:
+        # before acting: a hang or kill would otherwise erase the
+        # evidence; a no-op without a global sink
+        from ..obs import emit_global
+
+        emit_global("fault.hit", site=site, action=act)
     if act == "raise":
         raise InjectedFault(site, act)
     if act == "hang":

@@ -1,5 +1,6 @@
 """Command line: ``python -m qsm_tpu_torch
-run|replay|check|shrink|list|coverage|explore|fuzz|bench|stats``.
+run|replay|check|shrink|list|coverage|explore|fuzz|bench|stats|trace|ingest|
+monitor``.
 
 * ``run``: ``prop_concurrent`` on a registry model (fault flags, the TCP
   transport, worker processes, a JSONL log and a regression file;
@@ -17,7 +18,14 @@ run|replay|check|shrink|list|coverage|explore|fuzz|bench|stats``.
   the enumerated tree);
 * ``explore``: every interleaving of small programs, the union of their
   distinct histories decided in one backend batch;
-* ``fuzz``: the checkers against the exact oracle on random specs.
+* ``fuzz``: the checkers against the exact oracle on random specs;
+* ``trace``: one request's causal tree from a span log (``--log``);
+* ``ingest``: a Jepsen- or porcupine-style event log decoded into the
+  ``check`` trace format (``--emit``: the canonical log text again;
+  ``--check``: decided by the planned checker on the card);
+* ``monitor``: an event log tailed into a live in-process monitor
+  session (its window re-checks batched on the card); a flip prints the
+  minimised repro with its certificate.
 
 Device backends (``--device cpu`` runs their kernels' plain versions):
 
@@ -49,8 +57,9 @@ native checker), ``segdc`` and ``segdc-cpp`` (segmentation over the
 memoised oracle or the native checker), ``rootsplit`` (root splitting
 over the memoised oracle).
 
-The device backends of ``run``, ``check``, ``shrink``, ``explore`` and
-``fuzz`` run on the card unless ``--device cpu``.  ``stats`` prints one
+The device backends of ``run``, ``check``, ``shrink``, ``explore``,
+``fuzz``, ``ingest --check`` and ``monitor`` run on the card unless
+``--device cpu``.  ``stats`` prints one
 JSON document: a backend's search-cost record on one corpus, the corpus
 profile and the plan ``plan_search`` picks for it;
 ``--planned`` runs ``build_backend(spec, plan_search(spec, profile))``,
@@ -69,6 +78,7 @@ import time
 
 from ..core.property import PropertyConfig, prop_concurrent, replay
 from ..models.registry import MODELS, SutFactory, make
+from ..ops.backend import VERDICT_NAMES
 from ..ops.wing_gong_cpu import WingGongCPU
 from ..sched.runner import run_concurrent
 from ..sched.scheduler import FaultPlan
@@ -82,8 +92,6 @@ BACKENDS = ("auto", "gpu", "stepper", "pcomp-stepper", "hybrid-stepper",
 # host backends that are the resolving oracle themselves: the property
 # layer need not search again what they left undecided
 _ORACLES = ("auto", "cpu", "cpp")
-# index == Verdict value
-_VERDICT_NAMES = ("VIOLATION", "LINEARIZABLE", "BUDGET_EXCEEDED")
 
 
 def make_backend(name: str, spec, device=None):
@@ -352,7 +360,7 @@ def cmd_replay(args) -> int:
     else:
         v = int(WingGongCPU().check_histories(spec, [h])[0])
     print(format_history(spec, h))
-    print(f"verdict: {_VERDICT_NAMES[v]}")
+    print(f"verdict: {VERDICT_NAMES[v]}")
     if w is not None:
         from ..ops.backend import verify_witness
 
@@ -520,7 +528,7 @@ def cmd_check(args) -> int:
         n_und = sum(x == int(Verdict.BUDGET_EXCEEDED) for x in vs)
         print(json.dumps({
             "model": model, "histories": len(hs),
-            "verdicts": [_VERDICT_NAMES[x] for x in vs],
+            "verdicts": [VERDICT_NAMES[x] for x in vs],
             "violations": n_vio, "undecided": n_und}))
         return 1 if n_vio else (2 if n_und else 0)
     if "history" not in doc:
@@ -541,7 +549,7 @@ def cmd_check(args) -> int:
     # the human rendering goes to stderr: stdout stays one JSON line
     print(format_history(spec, h), file=sys.stderr)
     out = {"model": model, "ops": len(h), "pending": h.n_pending,
-           "verdict": _VERDICT_NAMES[v]}
+           "verdict": VERDICT_NAMES[v]}
     if w is not None:
         out["witness"] = w
         out["witness_verifies"] = verify_witness(spec, h, w)
@@ -614,7 +622,7 @@ def cmd_shrink(args) -> int:
     st = collect_shrink_stats(res)
     out = {
         "model": model,
-        "verdict": _VERDICT_NAMES[int(res.verdict)],
+        "verdict": VERDICT_NAMES[int(res.verdict)],
         "initial_ops": res.initial_ops, "final_ops": res.final_ops,
         "ratio": round(res.ratio, 3), "rounds": res.rounds,
         "engine_calls": res.engine_calls, "lanes": res.lanes_checked,
@@ -645,6 +653,233 @@ def cmd_shrink(args) -> int:
     if not res.ok:
         return 2 if res.verdict != int(Verdict.VIOLATION) else 3
     return 0 if res.complete else 1
+
+
+def _planned_checker(spec, histories, device):
+    """The planned checker on ``device`` (``plan_search(platform="cuda")``
+    through ``build_backend``), as ``shrink`` builds it."""
+    from ..search.planner import build_backend, plan_search, profile_corpus
+
+    plan = plan_search(spec, profile_corpus(histories, spec),
+                       platform="cuda")
+    return build_backend(spec, plan, device=device)
+
+
+def _refuse_unported(flag: str, verb: str) -> None:
+    raise SystemExit(f"{verb} {flag} needs the check server, which is not "
+                     f"ported yet (ROADMAP A7); drop {flag} to run in this "
+                     "process")
+
+
+def cmd_trace(args) -> int:
+    """Reconstruct ONE request's causal tree from a span log (``obs/``,
+    docs/OBSERVABILITY.md) as an indented tree (default) or the raw event
+    list (``--json``).  ``--follow`` keeps polling the log and prints each
+    NEW event of the trace as it lands, stopping after ``--max-idle``
+    quiet seconds.  Exit 0 when events were found, 1 when the trace id
+    has none in the log.  Host work only: reading and rendering a log."""
+    from ..obs import build_tree, load_events, render_tree, trace_closure
+
+    if args.addr:
+        _refuse_unported("--addr", "trace")
+    if not args.log:
+        raise SystemExit("trace needs --log PATH")
+
+    def fetch():
+        # the causal closure, so a fleet log read locally renders the
+        # same tree
+        return trace_closure(load_events(args.log), args.trace_id)
+
+    events = fetch()
+    if args.json and not args.follow:
+        print(json.dumps(events))
+    elif args.json:
+        # follow mode streams JSONL: the initial events first, then each
+        # new one as it lands
+        for e in events:
+            print(json.dumps(e), flush=True)
+    elif events:
+        print(f"trace {args.trace_id} ({len(events)} event(s), "
+              f"source: {args.log})")
+        print(render_tree(build_tree(events)))
+    if args.follow:
+        seen = {e.get("span") for e in events}
+        idle_since = time.monotonic()
+        try:
+            while time.monotonic() - idle_since < args.max_idle:
+                time.sleep(max(0.1, args.interval))
+                fresh = [e for e in fetch() if e.get("span") not in seen]
+                if not fresh:
+                    continue
+                idle_since = time.monotonic()
+                for e in fresh:
+                    seen.add(e.get("span"))
+                    events.append(e)
+                    if args.json:
+                        print(json.dumps(e), flush=True)
+                    else:
+                        at = " ".join(
+                            f"{k}={v}" for k, v in
+                            (e.get("attrs") or {}).items())
+                        ms = (f" {e['ms']}ms"
+                              if e.get("ms") is not None else "")
+                        print(f"+ {e.get('name')}{ms}"
+                              + (f" [{at}]" if at else ""), flush=True)
+        except KeyboardInterrupt:
+            pass
+    if not events:
+        print(f"no events for trace {args.trace_id!r} in {args.log} "
+              "(was the sink installed, and has the log rotated twice "
+              "since?)", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    """Turn a foreign event log (``ingest/``, docs/MONITOR.md) into a
+    corpus: Jepsen/Knossos-style (``--format jepsen``) or porcupine-style
+    (``--format porcupine``) EDN event lines decode into the ``check``
+    trace format.  Default: print (or ``--out``) that JSON document.
+    ``--check`` decides it with the planned checker on the card (its
+    undecided answer resolved by the host oracle, as ``check`` does; with
+    ``--device cpu`` the JAX package's host ladder, ``host_fallback``):
+    exit 0 linearizable / 1 violation / 2 undecided.  ``--emit``
+    re-renders the canonical log text (the byte-stable round trip).
+    Parse and domain errors exit 2, loudly."""
+    from ..ingest import EdnError, IngestError, emit_trace, parse_trace
+    from .report import history_from_rows
+
+    if args.submit:
+        _refuse_unported("--submit", "ingest")
+    spec, _ = make(args.spec, "atomic",
+                   json.loads(args.spec_kwargs)
+                   if args.spec_kwargs else None)
+    with open(args.trace) as f:
+        text = f.read()
+    try:
+        rows = parse_trace(args.format, text, args.spec, spec)
+    except (EdnError, IngestError) as e:
+        print(f"ingest: {e}", file=sys.stderr)
+        return 2
+    h = history_from_rows(rows)
+    if args.emit:
+        out_text = emit_trace(args.format, h, args.spec, spec)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(out_text)
+        else:
+            sys.stdout.write(out_text)
+        return 0
+    doc = {"model": args.spec, "spec_kwargs": spec.spec_kwargs(),
+           "format": args.format, "ops": len(h),
+           "pending": h.n_pending,
+           "history": [[o.pid, o.cmd, o.arg, o.resp, o.invoke_time,
+                        o.response_time] for o in h.ops]}
+    if args.check:
+        if args.device == "cpu":
+            from ..resilience.failover import host_fallback
+
+            v = int(host_fallback(spec).check_histories(spec, [h])[0])
+        else:
+            backend = _planned_checker(spec, [h], args.device)
+            v = _resolve_deferred(
+                "planned", spec, [h],
+                [int(backend.check_histories(spec, [h])[0])])[0]
+        print(json.dumps({**{k: doc[k] for k in
+                             ("model", "format", "ops", "pending")},
+                          "verdict": VERDICT_NAMES[v]}))
+        return 0 if v == 1 else (2 if v == 2 else 1)
+    payload = json.dumps(doc)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(payload + "\n")
+        print(json.dumps({"out": args.out, "ops": len(h),
+                          "pending": h.n_pending}))
+    else:
+        print(payload)
+    return 0
+
+
+def cmd_monitor(args) -> int:
+    """Tail a growing foreign event log into a LIVE in-process monitor
+    session (docs/MONITOR.md): each appended line becomes a session
+    event, the session's incremental frontier decides it (its window
+    re-checks one batch on the card a decide; ``--device cpu``: the
+    reference's host loop), and a verdict flip prints the 1-minimal
+    repro with its certificate (``shrink_history`` with the planned
+    checker on the card; ``--device cpu``: the host ladder) the moment
+    it is decidable.  Exit codes: 0 linearizable, 1 violation, 2
+    undecided or a parse error."""
+    from ..core.spec import projection_report
+    from ..ingest import EdnError, EventTailer, IngestError, tail_file
+    from ..monitor import MonitorSession
+
+    if args.addr:
+        _refuse_unported("--addr", "monitor")
+    spec, _ = make(args.spec, "atomic",
+                   json.loads(args.spec_kwargs)
+                   if args.spec_kwargs else None)
+    tailer = EventTailer(args.format, args.spec, spec)
+    proj = None
+    if not projection_report(spec):
+        p = spec.projected_spec()
+        if p.name in MODELS:
+            proj = p
+    s = MonitorSession(args.session or "local", spec, proj_spec=proj,
+                       device=args.device)
+    flip_doc = None
+    try:
+        for line in tail_file(args.trace, follow=args.follow,
+                              max_idle_s=args.max_idle):
+            events = tailer.events_for_line(line)
+            if not events:
+                continue
+            s.append(events)
+            already = s.flip_pushed
+            if s.decide() == 0 and not already:
+                s.flip_pushed = True
+                flip_doc = _flip_doc(spec, s.history(), args)
+                print(json.dumps({"event": "session.flip",
+                                  "session": s.sid, **flip_doc}),
+                      flush=True)
+        v = s.close()
+    except (EdnError, IngestError) as e:
+        print(f"monitor: {e}", file=sys.stderr)
+        return 2
+    verdict = VERDICT_NAMES[v]
+    print(json.dumps({"session": s.sid, "verdict": verdict,
+                      **s.counters()}))
+    if args.save and flip_doc is not None:
+        from ..resilience.checkpoint import atomic_write_json
+
+        atomic_write_json(args.save, {
+            "model": args.spec, "spec_kwargs": spec.spec_kwargs(),
+            "history": flip_doc["repro"]})
+        print(json.dumps({"saved": args.save}), file=sys.stderr)
+    if verdict == "VIOLATION":
+        return 1
+    return 0 if verdict == "LINEARIZABLE" else 2
+
+
+def _flip_doc(spec, history, args) -> dict:
+    """The pushed flip payload: the stream shrunk to a 1-minimal repro
+    with its certificate."""
+    from ..shrink.shrinker import shrink_history
+
+    backend = (None if args.device == "cpu"
+               else _planned_checker(spec, [history], args.device))
+    res = shrink_history(spec, history, backend=backend,
+                         deadline_s=args.deadline, certificate=True)
+    doc = {"verdict": "VIOLATION",
+           "initial_ops": res.initial_ops,
+           "final_ops": res.final_ops,
+           "one_minimal": res.one_minimal,
+           "complete": res.complete,
+           "repro": [[o.pid, o.cmd, o.arg, o.resp, o.invoke_time,
+                      o.response_time] for o in res.history.ops]}
+    if res.certificate is not None:
+        doc["certificate"] = res.certificate
+    return doc
 
 
 def cmd_list(args) -> int:
@@ -1085,6 +1320,91 @@ def main(argv=None) -> int:
                         "the profile says so) instead of --backend")
     p.add_argument("--corpus", type=int, default=64)
     p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser(
+        "trace",
+        help="reconstruct one request's causal tree from a span log "
+             "(docs/OBSERVABILITY.md)")
+    p.add_argument("trace_id",
+                   help="the trace id whose events to render")
+    p.add_argument("--log", default=None,
+                   help="a local span-log path (its .1 rotation "
+                        "predecessor is read too)")
+    p.add_argument("--addr", default=None,
+                   help="a running server or router's address (not "
+                        "ported yet: refused)")
+    p.add_argument("--follow", action="store_true",
+                   help="keep polling and print each NEW event of the "
+                        "trace as it lands (stops after --max-idle quiet "
+                        "seconds)")
+    p.add_argument("--interval", type=float, default=0.5,
+                   help="--follow poll interval seconds")
+    p.add_argument("--max-idle", type=float, default=30.0,
+                   help="--follow: stop after this many seconds without "
+                        "a new event")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw event list instead of the tree")
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser(
+        "ingest",
+        help="decode a Jepsen/Knossos- or porcupine-style event log into "
+             "a `check` trace document")
+    p.add_argument("trace", help="the event-log file (EDN maps, one "
+                                 "event per line)")
+    p.add_argument("--format", required=True,
+                   choices=("jepsen", "porcupine"))
+    p.add_argument("--spec", required=True, choices=sorted(MODELS),
+                   help="the model the trace's ops map onto "
+                        "(ingest/specmap.py owns the vocabulary)")
+    p.add_argument("--spec-kwargs", default=None,
+                   help="JSON spec constructor kwargs (e.g. "
+                        "'{\"n_keys\": 8}')")
+    p.add_argument("--out", default=None,
+                   help="write the decoded trace document here "
+                        "(default: stdout)")
+    p.add_argument("--check", action="store_true",
+                   help="decide it (exit 0/1/2 = linearizable/violation/"
+                        "undecided): the planned checker on the card, or "
+                        "the host ladder with --device cpu")
+    p.add_argument("--submit", default=None, metavar="ADDR",
+                   help="a running check server (not ported yet: "
+                        "refused)")
+    p.add_argument("--emit", action="store_true",
+                   help="re-render the canonical log text (the "
+                        "byte-stable round trip) instead of JSON")
+    _add_device(p)
+    p.set_defaults(fn=cmd_ingest)
+
+    p = sub.add_parser(
+        "monitor",
+        help="tail a growing event log into a live in-process monitor "
+             "session: a verdict flip prints the minimised repro the "
+             "moment it is decidable (docs/MONITOR.md)")
+    p.add_argument("trace", help="the event-log file to tail")
+    p.add_argument("--format", required=True,
+                   choices=("jepsen", "porcupine"))
+    p.add_argument("--spec", required=True, choices=sorted(MODELS))
+    p.add_argument("--spec-kwargs", default=None)
+    p.add_argument("--addr", default=None,
+                   help="a check server or fleet router to serve the "
+                        "session (not ported yet: refused)")
+    p.add_argument("--session", default=None,
+                   help="the session id (default: local)")
+    p.add_argument("--follow", action="store_true",
+                   help="keep tailing as the file grows (stops after "
+                        "--max-idle quiet seconds)")
+    p.add_argument("--max-idle", type=float, default=30.0)
+    p.add_argument("--witness", action="store_true",
+                   help="with --addr: ask for the whole-stream witness at "
+                        "close")
+    p.add_argument("--save", default=None,
+                   help="write the flip's minimised repro here as a "
+                        "`check`-format trace file")
+    p.add_argument("--deadline", type=float, default=None,
+                   help="seconds for the flip's shrink")
+    _add_device(p)
+    p.set_defaults(fn=cmd_monitor)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -34,8 +34,10 @@ against the plain version; ``build_kernel``'s ``check_one`` at budget
 injected fault (its launches from the watchdog's thread on the caller's
 stream) and raising on a real device error (the card's rule), a
 shrinker's frontier batch through ``TorchStepper``, and the ``shrink``
-entry point on the card equal to its host run.  Without CUDA each
-test skips in its fixture."""
+entry point on the card equal to its host run; the monitor's window
+re-check batched on the card equal to the host loop (CAS, KV per key),
+and ``ingest --check`` on the card.  Without CUDA each test skips in its
+fixture."""
 
 from __future__ import annotations
 
@@ -1388,3 +1390,75 @@ def test_shrink_entry_point_runs_on_the_card(cuda, tmp_path, capsys):
     for k in ("verdict", "final_ops", "rounds", "lanes", "one_minimal",
               "undecided_neighbors", "history"):
         assert card[k] == host[k], k
+
+
+def _streamed(session, hists, chunk):
+    """Each history streamed as rows ``chunk`` at a time into a fresh
+    session of ``session()``, a decide after each; the verdicts seen and
+    the counters."""
+    from qsm_tpu_torch.utils.interop import history_to_rows
+
+    out = []
+    for h in hists:
+        s = session()
+        rows = history_to_rows(h)
+        seen = []
+        for i in range(0, len(rows), chunk):
+            s.append(rows[i:i + chunk])
+            seen.append(s.decide())
+        out.append((seen, s.close(), s.counters()))
+    return out
+
+
+@pytest.mark.parametrize("family", ["cas", "kv"])
+def test_batched_window_recheck_on_the_card_equals_the_host_loop(cuda,
+                                                                 family):
+    """The monitor's window re-check as one stepper batch a decide on the
+    card: verdicts after every decide and counters equal to the host
+    loop's (``device="cpu"``), final verdicts equal to ``CppOracle``'s,
+    ``stepper_chunk`` launched."""
+    from qsm_tpu_torch.core.spec import projection_report
+    from qsm_tpu_torch.models.registry import MODELS
+    from qsm_tpu_torch.monitor import MonitorSession, SessionManager
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops import stepper as stepper_module
+
+    entry = MODELS[family]
+    spec = entry.make_spec()
+    hists = build_corpus(spec, (entry.impls["atomic"], entry.impls["racy"]),
+                         n=24, n_pids=6, max_ops=24, seed_base=1000,
+                         seed_prefix="bench")
+    proj = None if projection_report(spec) else spec.projected_spec()
+    mgr = SessionManager(max_sessions=len(hists) + 1)
+    stepper_module.stepper_chunk.launches = 0
+    card = _streamed(lambda: mgr.open(None, spec, proj)[0], hists, 4)
+    assert stepper_module.stepper_chunk.launches > 0
+    assert mgr.engines.stats()["calls"] > 0
+    host = _streamed(lambda: MonitorSession("h", spec, proj_spec=proj,
+                                            device="cpu"), hists, 4)
+    assert card == host
+    want = [int(v) for v in CppOracle(spec).check_histories(spec, hists)]
+    assert [v for _, v, _ in card] == want
+
+
+def test_ingest_check_runs_on_the_card(cuda, capsys):
+    """``ingest --check`` decides the goldens on the card (the planned
+    checker) with the host ladder's JSON line."""
+    import json
+    import pathlib
+
+    from qsm_tpu_torch.utils.cli import main
+
+    data = pathlib.Path(__file__).resolve().parent / "data"
+    for name, fmt, model in (("golden_jepsen_register.edn", "jepsen",
+                              "register"),
+                             ("golden_porcupine_kv.edn", "porcupine", "kv"),
+                             ("golden_porcupine_txn.edn", "porcupine",
+                              "txn")):
+        argv = ["ingest", str(data / name), "--format", fmt, "--spec",
+                model, "--check"]
+        rc = main(argv)
+        card = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        rc_h = main(argv + ["--device", "cpu"])
+        host = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert (rc, card) == (rc_h, host)
