@@ -292,7 +292,42 @@ Phases, in order; any failure exits non-zero and no result is printed:
    the trace log holds ``fault.hit`` and ``failover.degrade``, ``python
    -m qsm_tpu_torch trace '' --log`` renders them (exit 0), and the
    registry's exposition parses back to the counts recorded; each
-   path's launches read and its first kernels held (``FirstInputs``).
+   path's launches read and its first kernels held (``FirstInputs``);
+20. the check server: (a) in-process ``CheckServer`` on the card
+   (``flush_s=0.005``, ``max_lanes=64``), four concurrent
+   ``CheckClient``s sending requests of 64 histories: the CAS headline
+   (512 unique at 4096 lanes, witnesses of 64 lanes replayed), the queue
+   headline (4096 lanes) and kv16 (512, split per key over the projected
+   register spec); each pass's verdicts equal to ``CppOracle``'s
+   (``PComp`` for kv16) and a second pass all cached; histories/s served
+   against the same planned engine called directly on the same lanes,
+   flushes, lanes a flush, padded lanes, BUDGET lanes resolved, request
+   latency by verb (four served shrinks, two served sessions); kv16 again
+   on a server with ``pcomp=False`` (``stepper_sweep``), the unique CAS
+   histories on one with ``engine_factory`` ``TorchGPU`` (``dfs_chunk``),
+   and the CAS pass at ``max_lanes=1024`` under ``torch.profiler``;
+   (b) ``python -m qsm_tpu_torch serve --warm cas,queue,kv --replog-dir
+   --devq-dir --trace-log --metrics-port 0`` in a subprocess (started
+   beside (a)), its banner parsed, then ``submit`` (a subprocess),
+   ``health``, ``stats --serve --watch`` (totals equal to ``/metrics``),
+   ``shrink --addr`` (equal to the in-process planned shrink, its
+   certificate verified), ``monitor --addr`` on phase 19's seeded Jepsen
+   log (the flip of phase 19's subprocess), ``ingest --submit``, ``trace
+   --addr`` and ``fuzz --addr`` (2 rounds of cas and queue, 0 wrong
+   verdicts, exit 0) in this process, ``shutdown``; restarted on the same
+   directories it answers the banked verdicts cached and takes (d)'s
+   ``devq.drain_report``, its ``health`` then carrying
+   ``window_utilization``; (c) under ``raise:serve@2`` one batch degrades
+   with exact verdicts, and an engine on the card raising a real error
+   answers ``ok: false``, nothing decided on the host; (d) one
+   ``DeviceWorkQueue`` (an in-process server's, on (b)'s devq directory)
+   banks an oversize check corpus, the planner's warm-up, a small-budget
+   shrink round's undecided frontier and a monitor flip's re-check;
+   ``DrainScheduler`` drains it on the card with a 10 s deadline: 0 wrong
+   verdicts, every lane banked under its key, ``window_utilization``
+   printed; a second drain handed the same items on the journal
+   re-dispatches none.  Each in-process path's launches read and its
+   first kernels held (``FirstInputs``).
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
@@ -301,7 +336,7 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
 15 (c), each path of phase 16 over its own, phase 17's in-process
-paths over the phase, and each path of phases 18 and 19 over its own; the
+paths over the phase, and each path of phases 18, 19 and 20 over its own; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -753,6 +788,28 @@ def compact_bound(c_in: StepperCarry, c_out: StepperCarry, m: int):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
+# the lane axis of each StepperCarry plane in the table regime
+_LANE_AXIS = dict(taken=1, chosen=1, states=1, dsi=1, keys=0, occ=0, row=0)
+
+
+def cat_carries(cs) -> StepperCarry:
+    """Table-regime carries of one shape joined along the lane axis: one
+    carry whose lanes evolve, lane by lane, as those of its parts (each
+    lane has its own stacks, counters and memo; ``row`` names its
+    history in the shared tables)."""
+    return StepperCarry(*(torch.cat([getattr(c, f) for c in cs],
+                                    dim=_LANE_AXIS[f])
+                          for f in StepperCarry._fields))
+
+
+def split_carry(c: StepperCarry, n: int):
+    """The ``n`` equal parts :func:`cat_carries` joined."""
+    B = c.row.shape[0] // n
+    return [StepperCarry(*(getattr(c, f).narrow(_LANE_AXIS[f], k * B, B)
+                           .contiguous() for f in StepperCarry._fields))
+            for k in range(n)]
+
+
 def clone_carry(c: StepperCarry) -> StepperCarry:
     return StepperCarry(*(t.clone() for t in c))
 
@@ -870,52 +927,79 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
             # the plain version's loop on the card is the phase's cost: the
             # CAS shapes run 2 chunks at full width, the queue headline 3,
             # and from its mid-search carry 4 on a lane sample carried on
-            # the CPU
+            # the CPU.  The plain version is host-bound (a fixed cost an
+            # iteration, whatever the width), and lanes are independent,
+            # so after the first chunk the queue's fresh and mid-search
+            # carries advance as one carry of 2 x B lanes (cat_carries):
+            # every plane of every lane is still compared
             n_full = 3 if name == "queue48" else 2
-            for start, c0 in begins.items():
-                n_sample = HELD_SAMPLE_CHUNKS if start == "mid" else 0
-                ck, cp = clone_carry(c0), clone_carry(c0)
-                running = int((c0.dsi[1] == RUNNING).sum())
-                if n_sample:
-                    sample = LaneSample(c0, len(q_corpus), functools.partial(
-                        stepper_chunk_plain, cpu_tabs, chunk=STEP_CHUNK,
-                        budget=TOTAL_BUDGET))
-                for i in range(max(n_full, n_sample)):
-                    new_stepper(tabs, ck)
-                    if i < n_full:
-                        stepper_chunk_plain(tabs, cp, chunk=STEP_CHUNK,
+            cks = {start: clone_carry(c0) for start, c0 in begins.items()}
+            cps = {start: clone_carry(c0) for start, c0 in begins.items()}
+            running = {start: int((c0.dsi[1] == RUNNING).sum())
+                       for start, c0 in begins.items()}
+            n_sample = HELD_SAMPLE_CHUNKS if "mid" in begins else 0
+            if n_sample:
+                sample = LaneSample(begins["mid"], len(q_corpus),
+                                    functools.partial(
+                                        stepper_chunk_plain, cpu_tabs,
+                                        chunk=STEP_CHUNK,
+                                        budget=TOTAL_BUDGET))
+            joint = len(begins) > 1
+            for i in range(max(n_full, n_sample)):
+                for start in begins:
+                    new_stepper(tabs, cks[start])
+                if i < n_full:
+                    if i == 0 or not joint:
+                        for start in begins:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            stepper_chunk_plain(tabs, cps[start],
+                                                chunk=STEP_CHUNK,
+                                                budget=TOTAL_BUDGET)
+                            torch.cuda.synchronize()
+                            if start == "mid":
+                                # the plain version's time: its first
+                                # chunk from the mid-search carry
+                                plain_ms = (time.perf_counter() - t0) * 1e3
+                    else:
+                        both = cat_carries([cps[k] for k in begins])
+                        stepper_chunk_plain(tabs, both, chunk=STEP_CHUNK,
                                             budget=TOTAL_BUDGET)
-                    if i in (0, n_full - 1):
-                        torch.cuda.synchronize()
+                        cps = dict(zip(begins, split_carry(both,
+                                                           len(begins))))
+                if i in (0, n_full - 1):
+                    torch.cuda.synchronize()
+                    for start in begins:
                         max_err = max(max_err, _compare(
                             f"stepper_chunk {name} B={B} slots={slots} "
-                            f"{start} chunk {i + 1}", ck, cp))
-                    if i < n_sample:
-                        max_err = max(max_err, sample.step_and_check(
-                            ck, f"stepper_chunk {name} slots={slots} {start}"
-                            f" lane sample chunk {i + 1}"))
+                            f"{start} chunk {i + 1}", cks[start],
+                            cps[start]))
+                if i < n_sample:
+                    max_err = max(max_err, sample.step_and_check(
+                        cks["mid"], f"stepper_chunk {name} slots={slots} "
+                        f"mid lane sample chunk {i + 1}"))
+            for start in begins:
                 what = (f"; on a sample of {len(sample.lanes)} lanes "
                         f"({sample.unique} unique histories) after each of "
-                        f"{n_sample}" if n_sample else "")
+                        f"{n_sample}" if start == "mid" else "")
                 print(f"{tag} stepper_chunk == plain on {name} B={B} "
-                      f"slots={slots} from a {start} carry ({running} lanes "
-                      f"running): all 7 planes bit-identical after 1 and "
-                      f"{n_full} chunks of {STEP_CHUNK} at full width{what}; "
-                      f"{int((ck.dsi[1] == RUNNING).sum())} still running",
-                      flush=True)
-                carries[(name, slots, start)] = ck
+                      f"slots={slots} from a {start} carry "
+                      f"({running[start]} lanes running): all 7 planes "
+                      f"bit-identical after 1 and {n_full} chunks of "
+                      f"{STEP_CHUNK} at full width"
+                      + (f" (chunks 2-{n_full} of the plain version on the "
+                         f"fresh and mid carries joined, "
+                         f"{len(begins) * B} lanes)" if joint else "")
+                      + f"{what}; {int((cks[start].dsi[1] == RUNNING).sum())}"
+                      f" still running", flush=True)
+                carries[(name, slots, start)] = cks[start]
             if name != "queue48":
                 continue
             mid = begins["mid"]
             ms = time_stepper(tabs, mid)
             one = new_stepper(tabs, clone_carry(mid))
             bound_ms, bound_by, nbytes, ops = stepper_bound(tabs, mid, one)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stepper_chunk_plain(tabs, clone_carry(mid), chunk=STEP_CHUNK,
-                                budget=TOTAL_BUDGET)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            # plain_ms: the comparison's first plain chunk from ``mid``
             rows[slots] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, mid=mid)
             print(f"{tag} stepper_chunk {name} B={B} slots={slots}: "
@@ -4559,6 +4643,754 @@ def phase_monitor(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, dev,
     return launches, err, record
 
 
+SERVE_LANES = 64               # (a): histories a request; the reference's
+# max_lanes, the flush width
+SERVE_CLIENTS = 4              # (a): concurrent clients a pass
+SERVE_WIDE = 1024              # (a): the CAS pass again at this flush width
+SERVE_DEPTH = 4096             # (a): admission depth (the batcher's: twice)
+SERVE_CACHE = 65_536           # (a): verdict-cache entries
+SERVE_WITNESSES = 64           # (a): lanes whose witnesses are replayed
+DRAIN_WINDOW_S = 10.0          # (d): the drain's deadline
+DRAIN_BUDGET = 8               # (d): the shrink round's budget (undecided)
+FUZZ_ROUNDS = 2                # (b): fuzz --addr rounds a model
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] if xs \
+        else None
+
+
+class ServedPass:
+    """One corpus through a server: ``SERVE_CLIENTS`` concurrent
+    ``CheckClient``s, each sending its share of ``SERVE_LANES``-history
+    requests; the responses in corpus order, each request's latency."""
+
+    def __init__(self, address, model, hists, spec_kwargs=None,
+                 witness_of=()):
+        from qsm_tpu_torch.serve import CheckClient
+
+        reqs = [hists[i:i + SERVE_LANES]
+                for i in range(0, len(hists), SERVE_LANES)]
+        self.docs = [None] * len(reqs)
+        self.latency = []
+        lock = threading.Lock()
+
+        def client(k):
+            with CheckClient(address, timeout_s=600) as c:
+                for j in range(k, len(reqs), SERVE_CLIENTS):
+                    t0 = time.perf_counter()
+                    doc = c.check(model, reqs[j], spec_kwargs=spec_kwargs,
+                                  deadline_s=600,
+                                  witness=j in witness_of)
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        self.latency.append(dt)
+                    self.docs[j] = doc
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+            list(ex.map(client, range(SERVE_CLIENTS)))
+        self.seconds = time.perf_counter() - t0
+        bad = [d or {} for d in self.docs if not (d or {}).get("ok")]
+        if bad:
+            require(False, f"{model}: a served request failed: "
+                    f"{bad[0].get('error') or bad[0]}")
+        self.verdicts = np.array(
+            [Verdict[v] for d in self.docs for v in d["verdicts"]])
+        self.cached = [c for d in self.docs for c in d["cached"]]
+        self.batches = {b["batch"]: b for d in self.docs
+                        for b in d["batches"]}
+
+
+def served_paths(srv):
+    """The server's flush accounting so far (a pass reads it before and
+    after)."""
+    st = srv.stats()
+    return dict(batches=st["batcher"]["batches"], lanes=st["batcher"]["lanes"],
+                padded=st["padded_lanes"],
+                budget_resolved=st["budget_resolved"],
+                serve_faults=st["serve_faults"])
+
+
+def phase_serve(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, mon_rec,
+                tag, device=None):
+    """Phase 20: the check server on the card; see the module docstring.
+    Returns (launches of each path, largest error of the kernels held on
+    the paths, the record).  ``device`` is the servers' (the card when
+    None)."""
+    import tempfile
+    import urllib.request
+
+    from qsm_tpu_torch import obs
+    from qsm_tpu_torch.devq import (DeviceWorkQueue, DrainScheduler,
+                                    global_devq, set_global_devq)
+    from qsm_tpu_torch.ingest import emit_trace
+    from qsm_tpu_torch.monitor import MonitorSession
+    from qsm_tpu_torch.serve import CheckClient, CheckServer, SessionHandle
+    from qsm_tpu_torch.serve.cache import VerdictCache
+    from qsm_tpu_torch.utils.report import \
+        history_from_rows as canonical_rows
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p20_"))
+    d1, d2, tlog = tmp / "replog", tmp / "devq", tmp / "trace.jsonl"
+    dev_args = [] if device is None else ["--device", str(device)]
+    serve_argv = ("serve", "--port", 0, "--warm", "cas,queue,kv",
+                  "--replog-dir", d1, "--devq-dir", d2, "--trace-log", tlog,
+                  "--metrics-port", 0, *dev_args)
+    # (b)'s server starts in a subprocess beside (a)
+    server_proc = cli_proc(*serve_argv)
+    counters = (stepper_chunk, compact_carry, stepper_sweep, dfs_chunk,
+                threefry_draws)
+    launches, err, record = {}, 0, {}
+    kv_kw = kv_spec.spec_kwargs()
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read(name, first, path_spec=None, need=("stepper_chunk",)):
+        nonlocal err
+        got = {c.__name__: c.launches for c in counters}
+        print(f"{tag} path of {name}: " + ", ".join(
+            f"{n} {k}" for k, n in got.items()) + " launches", flush=True)
+        for k in need:
+            require(got[k] > 0, f"{name} launched no {k}")
+        launches[name] = got
+        if first is not None:
+            err = max(err, hold_path_kernels(name, first, tag, path_spec))
+
+    def banner(proc, what):
+        line = proc.stdout.readline()
+        require(line.startswith("{"), f"{what}: no banner: {line!r} "
+                f"{proc.stderr.read()[-600:] if proc.poll() is not None else ''}")
+        return json.loads(line)
+
+    def stop_server(proc, addr, what):
+        if proc.poll() is None and addr:
+            try:
+                with CheckClient(addr, timeout_s=30) as c:
+                    c.shutdown()
+            except (OSError, ConnectionError):
+                pass
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise RuntimeError(f"chip_smoke: {what} did not stop")
+
+    addr1 = addr2 = None
+    proc2 = None
+    try:
+        # (a) the in-process server on the card
+        t_a = time.perf_counter()
+        cpp = native.CppOracle(spec)
+        q_cpp = native.CppOracle(q_spec)
+        lanes = _replicate(corpus, DEVICE_BATCH)
+        q_lanes = _replicate(q_corpus, DEVICE_BATCH)
+        want = cpp.check_histories(spec, lanes)
+        q_want = q_cpp.check_histories(q_spec, q_lanes)
+        kv_want = PComp(kv_spec).check_histories(kv_spec, kv_corpus)
+        # the witness sample: the first request's SERVE_WITNESSES lanes
+        witness_req = set(range(SERVE_WITNESSES // SERVE_LANES))
+        lat = {"check": [], "shrink": [], "session": []}
+        rec_a = {}
+        # a kv16 request of 64 histories is ~1000 per-key sub-lanes: the
+        # batcher's bound (twice the admission depth) must hold the four
+        # clients' requests at once, or it sheds them, and the cache must
+        # hold every sub-history's row beside the whole histories', or
+        # the second pass misses what the LRU evicted
+        srv = CheckServer(flush_s=0.005, max_lanes=SERVE_LANES,
+                          queue_depth=SERVE_DEPTH, cache_entries=SERVE_CACHE,
+                          device=device).start()
+        try:
+            # warm, as `serve --warm` does: a pass times serving, not the
+            # engines' construction
+            t0 = time.perf_counter()
+            for model, kw in (("cas", None), ("queue", None), ("kv", kv_kw),
+                              ("register", None)):
+                srv.warm(model, kw)
+            torch.cuda.synchronize()
+            rec_a["warm_s"] = time.perf_counter() - t0
+            for name, model, s_, hs, w, kw in (
+                    ("CAS headline", "cas", spec, lanes, want, None),
+                    ("queue headline", "queue", q_spec, q_lanes, q_want,
+                     None),
+                    ("kv16 per key", "kv", kv_spec, kv_corpus, kv_want,
+                     kv_kw)):
+                reset()
+                before = served_paths(srv)
+                with FirstInputs() as first:
+                    p = ServedPass(srv.address, model, hs, kw,
+                                   witness_of=witness_req
+                                   if model == "cas" else ())
+                after = served_paths(srv)
+                # a kv16 history whose split does not pay is checked
+                # whole: its lanes take the sweep regime of kv16's spec
+                read(f"the server, {name} (20a)", first, s_)
+                off = int((p.verdicts != np.asarray(w)).sum())
+                require(off == 0, f"served {name}: {off} verdicts off "
+                        f"CppOracle's")
+                lat["check"] += p.latency
+                again = ServedPass(srv.address, model, hs, kw)
+                require(all(again.cached) and
+                        (again.verdicts == p.verdicts).all(),
+                        f"served {name}: the second pass answered "
+                        f"{len(again.cached) - sum(again.cached)} lanes "
+                        f"uncached")
+                flushes = after["batches"] - before["batches"]
+                rec_a[name] = dict(
+                    lanes=len(hs), requests=len(p.docs), seconds=p.seconds,
+                    histories_per_s=len(hs) / p.seconds,
+                    flushes=flushes,
+                    lanes_a_flush=(after["lanes"] - before["lanes"])
+                    / max(flushes, 1),
+                    padded=after["padded"] - before["padded"],
+                    budget_resolved=after["budget_resolved"]
+                    - before["budget_resolved"],
+                    cached_pass_s=again.seconds,
+                    p50_ms=_pct(p.latency, 0.5) * 1e3,
+                    p99_ms=_pct(p.latency, 0.99) * 1e3)
+                if model == "cas":
+                    d = p.docs[0]
+                    n_ok = 0
+                    for h, v, wit in zip(hs[:SERVE_WITNESSES],
+                                         d["verdicts"], d["witnesses"]):
+                        if v == "LINEARIZABLE":
+                            require(wit is not None and verify_witness(
+                                s_, h, [tuple(x) for x in wit]),
+                                "served CAS: a witness does not replay")
+                            n_ok += 1
+                    rec_a[name]["witnesses_replayed"] = n_ok
+                r = rec_a[name]
+                print(f"{tag} 20a served {name}: {r['lanes']} lanes in "
+                      f"{r['requests']} requests of {SERVE_LANES} from "
+                      f"{SERVE_CLIENTS} clients, {r['seconds']:.3f} s = "
+                      f"{r['histories_per_s']:.1f} histories/s; "
+                      f"{r['flushes']} flushes, {r['lanes_a_flush']:.2f} "
+                      f"lanes a flush, {r['padded']} padded lanes; "
+                      f"{r['budget_resolved']} BUDGET lanes resolved by the "
+                      f"oracle; request p50 {r['p50_ms']:.2f} ms, p99 "
+                      f"{r['p99_ms']:.2f} ms; 0 verdicts off CppOracle's"
+                      + (f"; {r['witnesses_replayed']} witnesses of "
+                         f"{SERVE_WITNESSES} lanes replayed"
+                         if "witnesses_replayed" in r else "")
+                      + f"; the second pass all cached in "
+                      f"{again.seconds:.3f} s", flush=True)
+            # the same engine called directly on the same lanes
+            for name, s_, hs in (("CAS headline", spec, lanes),
+                                 ("queue headline", q_spec, q_lanes)):
+                eng = FailoverBackend(s_, build_backend(
+                    s_, plan_search(s_, platform="cuda"), device=device))
+                eng.check_histories(s_, hs[:SERVE_LANES])   # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                v = np.asarray(eng.check_histories(s_, hs))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                rec_a[name]["direct_s"] = dt
+                rec_a[name]["direct_histories_per_s"] = len(hs) / dt
+                rec_a[name]["direct_undecided"] = int(
+                    (v == Verdict.BUDGET_EXCEEDED).sum())
+                print(f"{tag} 20a the same engine called directly on "
+                      f"{name}'s {len(hs)} lanes in one call: {dt:.3f} s = "
+                      f"{len(hs) / dt:.1f} histories/s "
+                      f"({rec_a[name]['direct_undecided']} undecided, "
+                      f"unresolved) against "
+                      f"{rec_a[name]['histories_per_s']:.1f} served",
+                      flush=True)
+            # a served shrink and a served session, on the card
+            vio = [h for h, x in zip(corpus, cpp.check_histories(
+                spec, corpus)) if x == Verdict.VIOLATION]
+            with CheckClient(srv.address, timeout_s=600) as c:
+                for h in vio[:4]:
+                    t0 = time.perf_counter()
+                    r = c.shrink("cas", h, certificate=True, deadline_s=600)
+                    lat["shrink"].append(time.perf_counter() - t0)
+                    require(r["ok"] and r["complete"], f"served shrink: {r}")
+                stream = history_to_rows(vio[0])
+                for rep in range(2):
+                    sess = SessionHandle(c, "cas")
+                    for i in range(0, len(stream), 8):
+                        t0 = time.perf_counter()
+                        sess.append(stream[i:i + 8])
+                        lat["session"].append(time.perf_counter() - t0)
+                    require(sess.close()["verdict"] == "VIOLATION",
+                            "served session: the violation was not found")
+            st = srv.stats()
+            rec_a["latency_ms"] = {
+                k: dict(n=len(v), p50=_pct(v, 0.5) * 1e3,
+                        p99=_pct(v, 0.99) * 1e3)
+                for k, v in lat.items() if v}
+            print(f"{tag} 20a request latency by verb (client side): "
+                  + "; ".join(f"{k} n={x['n']} p50 {x['p50']:.2f} ms p99 "
+                              f"{x['p99']:.2f} ms"
+                              for k, x in rec_a["latency_ms"].items())
+                  + f"; server: {st['requests']} requests, "
+                  f"{st['batcher']['batches']} flushes, mean occupancy "
+                  f"{st['batcher']['mean_occupancy']}, padded lanes "
+                  f"{st['padded_lanes']}, BUDGET resolved "
+                  f"{st['budget_resolved']}, device errors "
+                  f"{st['device_errors']}", flush=True)
+        finally:
+            srv.stop()
+        # kv16 with pcomp=False: whole histories, the sweep regime
+        srv = CheckServer(flush_s=0.005, max_lanes=SERVE_LANES, pcomp=False,
+                          device=device).start()
+        try:
+            reset()
+            before = served_paths(srv)
+            with FirstInputs() as first:
+                p = ServedPass(srv.address, "kv", kv_corpus, kv_kw)
+            after = served_paths(srv)
+            read("the server, kv16 whole (pcomp=False) (20a)", first,
+                 kv_spec, need=("stepper_sweep",))
+            off = int((p.verdicts != np.asarray(kv_want)).sum())
+            require(off == 0, f"served kv16 whole: {off} verdicts off")
+            rec_a["kv16 whole"] = dict(
+                lanes=len(kv_corpus), seconds=p.seconds,
+                histories_per_s=len(kv_corpus) / p.seconds,
+                flushes=after["batches"] - before["batches"],
+                budget_resolved=after["budget_resolved"]
+                - before["budget_resolved"])
+            print(f"{tag} 20a served kv16 whole (pcomp=False): "
+                  f"{len(kv_corpus)} lanes, {p.seconds:.3f} s, "
+                  f"{rec_a['kv16 whole']['flushes']} flushes, "
+                  f"{rec_a['kv16 whole']['budget_resolved']} BUDGET lanes "
+                  f"resolved by the host oracle; 0 verdicts off", flush=True)
+        finally:
+            srv.stop()
+        # the CAS headline's unique histories through TorchGPU (dfs_chunk)
+        srv = CheckServer(flush_s=0.005, max_lanes=SERVE_LANES,
+                          engine_factory=lambda s: TorchGPU(s, device=device),
+                          device=device).start()
+        try:
+            reset()
+            with FirstInputs() as first:
+                p = ServedPass(srv.address, "cas", corpus)
+            read("the server over TorchGPU, CAS headline (20a)", first,
+                 spec, need=("dfs_chunk",))
+            off = int((p.verdicts != cpp.check_histories(spec, corpus)
+                       ).sum())
+            require(off == 0, f"served over TorchGPU: {off} verdicts off")
+            st = srv.stats()
+            rec_a["CAS over TorchGPU"] = dict(
+                lanes=len(corpus), seconds=p.seconds,
+                budget_resolved=st["budget_resolved"])
+            print(f"{tag} 20a served over TorchGPU: {len(corpus)} lanes, "
+                  f"{p.seconds:.3f} s, {st['budget_resolved']} BUDGET lanes "
+                  f"resolved by the oracle; 0 verdicts off", flush=True)
+        finally:
+            srv.stop()
+        # the CAS pass at a flush width of SERVE_WIDE, profiled
+        srv = CheckServer(flush_s=0.005, max_lanes=SERVE_WIDE,
+                          device=device).start()
+        try:
+            reset()
+            box = {}
+            with FirstInputs() as first:
+                wall, dev_s, top = profile_device(
+                    lambda: box.setdefault("p", ServedPass(
+                        srv.address, "cas", lanes)))
+            read(f"the server at max_lanes={SERVE_WIDE}, CAS headline "
+                 f"(20a)", first, spec)
+            p = box["p"]
+            require((p.verdicts == np.asarray(want)).all(),
+                    f"served at {SERVE_WIDE}: verdicts off")
+            st = srv.stats()
+            rec_a[f"CAS at {SERVE_WIDE}"] = dict(
+                seconds=p.seconds, histories_per_s=len(lanes) / p.seconds,
+                flushes=st["batcher"]["batches"],
+                lanes_a_flush=st["batcher"]["lanes"]
+                / max(1, st["batcher"]["batches"]),
+                padded=st["padded_lanes"],
+                idle_share=1 - dev_s / wall if wall else None,
+                profiled_wall_s=wall, profiled_device_s=dev_s)
+            r = rec_a[f"CAS at {SERVE_WIDE}"]
+            print(f"{tag} 20a served CAS headline at max_lanes="
+                  f"{SERVE_WIDE}: {p.seconds:.3f} s = "
+                  f"{r['histories_per_s']:.1f} histories/s, {r['flushes']} "
+                  f"flushes, {r['lanes_a_flush']:.2f} lanes a flush, "
+                  f"{r['padded']} padded lanes; under the profiler "
+                  f"{wall:.3f} s wall, {dev_s:.4f} s on the device, idle "
+                  f"{r['idle_share']:.4f}; top {top}", flush=True)
+        finally:
+            srv.stop()
+        record["a"] = rec_a
+        print(f"{tag} 20a took {time.perf_counter() - t_a:.1f} s",
+              flush=True)
+
+        # (c) the card's rule in the server
+        t_c = time.perf_counter()
+        hs = lanes[:4 * SERVE_LANES]
+        srv = CheckServer(flush_s=0.005, max_lanes=SERVE_LANES,
+                          device=device).start()
+        try:
+            reset()
+            # the rule fires on the 2nd dispatch and every later one: the
+            # first request's batch runs on the card, the second's degrade
+            with FaultEnv("raise:serve@2"), \
+                    CheckClient(srv.address, timeout_s=120) as c:
+                r1 = c.check("cas", hs[:SERVE_LANES])
+                r2 = c.check("cas", hs[SERVE_LANES:2 * SERVE_LANES])
+            read("the server under raise:serve@2 (20c)", None)
+            st = srv.stats()
+            got = [Verdict[v] for r in (r1, r2) for v in r["verdicts"]]
+            n_deg = sum(bool(b.get("degraded")) for b in r2["batches"])
+            require(r1["ok"] and r2["ok"]
+                    and got == list(want[:2 * SERVE_LANES])
+                    and not any(b.get("degraded") for b in r1["batches"])
+                    and n_deg == len(r2["batches"])
+                    == st["serve_faults"] and st["device_errors"] == 0,
+                    f"raise:serve@2: serve_faults {st['serve_faults']}, "
+                    f"{n_deg} of {len(r2['batches'])} batches degraded")
+        finally:
+            srv.stop()
+
+        class _RealError:
+            name = "card_error_stub"
+
+            def __init__(self, s):
+                self.device = torch.device("cuda", 0)
+                self.calls = 0
+
+            def check_histories(self, s, histories):
+                self.calls += 1
+                if torch.cuda.is_available():
+                    torch.zeros(len(histories), device=self.device)
+                raise RuntimeError("CUDA error: an illegal memory access "
+                                   "was encountered (a stub)")
+
+        stubs = []
+        srv = CheckServer(flush_s=0.005, max_lanes=SERVE_LANES,
+                          device=device,
+                          engine_factory=lambda s: stubs.append(
+                              _RealError(s)) or stubs[-1]).start()
+        try:
+            with CheckClient(srv.address, timeout_s=60) as c:
+                bad = c.check("cas", hs[:SERVE_LANES])
+            st = srv.stats()
+            require(not bad["ok"] and bad["error"].startswith(
+                "RuntimeError: CUDA error") and st["device_errors"] == 1
+                and st["budget_resolved"] == 0
+                and st["cache"]["entries"] == 0,
+                f"the card's rule: {bad} {st['device_errors']}")
+        finally:
+            srv.stop()
+        record["c"] = dict(injected_serve_faults=n_deg,
+                           real_error=bad["error"][:80])
+        print(f"{tag} 20c under raise:serve@2 the second request's "
+              f"{n_deg} batch(es) degraded to the host ladder, the first's "
+              f"ran on the card, verdicts exact, serve_faults {n_deg}; a real "
+              f"(non-injected) RuntimeError of an engine on the card "
+              f"answered ok: false ({bad['error'][:60]}...), counted in "
+              f"device_errors, nothing decided on the host or banked; (c) "
+              f"took {time.perf_counter() - t_c:.1f} s", flush=True)
+
+        # (b) the server as users start it
+        t_b = time.perf_counter()
+        b1 = banner(server_proc, "serve")
+        addr1 = b1["serving"]
+        req = tmp / "req.json"
+        req.write_text(json.dumps({"model": "cas", "histories": [
+            history_to_rows(h) for h in corpus[:SERVE_LANES]]}))
+        submit = cli_proc("submit", "--addr", addr1, "--trace", req)
+        rc_h, out_h = cli_inproc("health", "--addr", addr1)
+        require(rc_h == 0 and json.loads(out_h[-1])["status"] == "ok",
+                f"health: rc {rc_h} {out_h[-1:]}")
+        rc_s, out_s = cli_result(submit, "submit")
+        sub = json.loads(out_s[-1])
+        n_vio = sum(v == "VIOLATION" for v in sub["verdicts"])
+        require(rc_s == (1 if n_vio else 0) and sub["ok"]
+                and [Verdict[v] for v in sub["verdicts"]]
+                == cpp.check_histories(spec, corpus[:SERVE_LANES]).tolist(),
+                f"submit: rc {rc_s}")
+        rc_w, out_w = cli_inproc("stats", "--serve", addr1, "--watch",
+                                 "--watch-count", 1)
+        frame = "\n".join(out_w)
+        vals = obs.parse_exposition(urllib.request.urlopen(
+            f"http://{b1['metrics']}/metrics", timeout=30).read().decode())
+        m = re.search(r"requests (\d+)\s+histories (\d+)", frame)
+        require(rc_w == 0 and m is not None
+                and int(m.group(1)) == vals["qsm_serve_requests_total"]
+                and int(m.group(2)) == vals["qsm_serve_histories_total"],
+                f"stats --watch against /metrics: {m and m.groups()} "
+                f"{vals.get('qsm_serve_requests_total')}")
+        # shrink --addr: equal to the in-process planned shrink
+        vio0 = vio[0]
+        shr = tmp / "shrink.json"
+        shr.write_text(json.dumps({"model": "cas",
+                                   "history": history_to_rows(vio0)}))
+        t0 = time.perf_counter()
+        rc_k, out_k = cli_inproc("shrink", "--trace", shr, "--addr", addr1,
+                                 "--certificate")
+        t_shrink = time.perf_counter() - t0
+        sk = json.loads(out_k[-1])
+        plan = plan_search(spec, profile_corpus([vio0], spec),
+                           platform="cuda")
+        t0 = time.perf_counter()
+        inproc = shrink_history(spec, vio0, backend=build_backend(
+            spec, plan, device=device), certificate=False)
+        t_inproc = time.perf_counter() - t0
+        require(rc_k == 0 and sk["one_minimal"] and sk["history"]
+                == history_to_rows(inproc.history)
+                and sk["rounds"] == inproc.rounds
+                and verify_certificate(spec, history_from_rows(
+                    sk["history"]), sk["certificate"])["one_minimal_proved"],
+                f"shrink --addr: rc {rc_k}, {sk.get('final_ops')} ops "
+                f"against {inproc.final_ops}")
+        # monitor --addr: phase 19's seeded Jepsen log, and a stream an
+        # eighth as long
+        reg_spec, _ = make_model("register", "atomic")
+        flips = {}
+        for label, events in (("phase 19's log", STREAM_EVENTS),
+                              ("a short stream", STREAM_EVENTS // 8)):
+            seeded = seeded_stream(monitor_stream_rows(events // 2))
+            edn = tmp / f"stream_{events}.edn"
+            edn.write_text(emit_trace("jepsen", canonical_rows(seeded),
+                                      "register", reg_spec))
+            argv = ("monitor", edn, "--format", "jepsen", "--spec",
+                    "register")
+            t0 = time.perf_counter()
+            rc_m, out_m = cli_inproc(*argv, "--addr", addr1)
+            t_mon = time.perf_counter() - t0
+            served = [json.loads(x) for x in out_m]
+            fl = next(x for x in served if x.get("event") == "session.flip")
+            require(rc_m == 1 and served[-1]["verdict"] == "VIOLATION",
+                    f"monitor --addr {label}: rc {rc_m}")
+            if events == STREAM_EVENTS:
+                # the reference's server answers a flip whose window is
+                # past the largest op bucket (128) unminimised: its input
+                # check is undecided (bucket_for raises in the dispatch)
+                want_flip = ((mon_rec or {}).get("monitor_cli")
+                             or {}).get("flip")
+                require(fl["initial_ops"] > 128
+                        and fl["final_ops"] == fl["initial_ops"]
+                        and (want_flip is None or fl["initial_ops"]
+                             == want_flip["initial_ops"]),
+                        f"monitor --addr {label}: the flip {fl['initial_ops']}"
+                        f" -> {fl['final_ops']} ({fl.get('why')})")
+            else:
+                rc_l, out_l = cli_inproc(*argv, *dev_args)
+                local = next(json.loads(x) for x in out_l
+                             if json.loads(x).get("event") == "session.flip")
+                require(rc_l == 1 and fl["one_minimal"]
+                        and fl["repro"] == local["repro"]
+                        and fl["final_ops"] == local["final_ops"] == 1
+                        and verify_certificate(reg_spec, history_from_rows(
+                            fl["repro"]), fl["certificate"])[
+                                "one_minimal_proved"],
+                        f"monitor --addr {label}: the flip "
+                        f"{fl['initial_ops']} -> {fl['final_ops']} against "
+                        f"{local['initial_ops']} -> {local['final_ops']} in "
+                        f"process")
+            flips[label] = dict(initial_ops=fl["initial_ops"],
+                                final_ops=fl["final_ops"],
+                                one_minimal=fl["one_minimal"], seconds=t_mon)
+        # ingest --submit, trace --addr, fuzz --addr
+        data = REPO / "tests" / "data"
+        rc_i, out_i = cli_inproc("ingest", data / "golden_porcupine_kv.edn",
+                                 "--format", "porcupine", "--spec", "kv",
+                                 "--submit", addr1)
+        require(rc_i == 1 and json.loads(out_i[-1])["verdicts"]
+                == ["VIOLATION"], f"ingest --submit: rc {rc_i}")
+        rc_t, out_t = cli_inproc("trace", sub["trace"], "--addr", addr1)
+        require(rc_t == 0 and any("request" in x for x in out_t),
+                f"trace --addr: rc {rc_t} {out_t[:2]}")
+        reset()
+        t0 = time.perf_counter()
+        rc_f, out_f = cli_inproc("fuzz", "--addr", addr1, "--models",
+                                 "cas,queue", "--rounds", FUZZ_ROUNDS,
+                                 "--seed", 20, *dev_args)
+        t_fuzz = time.perf_counter() - t0
+        fz = json.loads(out_f[-1])
+        read("fuzz --addr (20b)", None, need=("threefry_draws",))
+        require(rc_f == 0 and fz["wrong_verdicts_total"] == 0
+                and fz["exit_code"] == 0,
+                f"fuzz --addr: rc {rc_f}, wrong "
+                f"{fz.get('wrong_verdicts_total')}")
+        with CheckClient(addr1, timeout_s=60) as c:
+            st1 = c.stats()["stats"]
+        stop_server(server_proc, addr1, "serve")
+        addr1 = None
+        record["b"] = dict(
+            submit_rc=rc_s, shrink_s=t_shrink, shrink_inproc_s=t_inproc,
+            shrink=dict(initial_ops=sk["initial_ops"],
+                        final_ops=sk["final_ops"], rounds=sk["rounds"]),
+            monitor=flips,
+            fuzz_s=t_fuzz, fuzz_seqs=fz["seqs_total"],
+            fuzz_flips=fz["flips_total"],
+            server_requests=st1["requests"], banked=st1["cache"]["entries"])
+        print(f"{tag} 20b python -m qsm_tpu_torch serve (banner "
+              f"{json.dumps(b1)}): submit rc {rc_s} ({n_vio} violations, "
+              f"equal to CppOracle); health rc 0; stats --watch totals = "
+              f"/metrics ({m.group(1)} requests, {m.group(2)} histories); "
+              f"shrink --addr {sk['initial_ops']} -> {sk['final_ops']} ops "
+              f"in {sk['rounds']} rounds, 1-minimal, certificate verified, "
+              f"equal to the in-process planned shrink ({t_shrink:.3f} s "
+              f"served, {t_inproc:.3f} s in process); monitor --addr: "
+              + "; ".join(f"{k} flip {v['initial_ops']} -> "
+                          f"{v['final_ops']} ops ({v['seconds']:.1f} s)"
+                          for k, v in flips.items())
+              + " (over 128 ops the served flip stays unminimised, as the "
+              f"reference's server leaves it; the short stream's equals "
+              f"the in-process monitor's); ingest --submit rc 1; trace "
+              f"--addr rc 0 ({len(out_t)} lines); fuzz --addr cas,queue "
+              f"{FUZZ_ROUNDS} rounds: {fz['seqs_total']} histories, "
+              f"{fz['flips_total']} flips, 0 wrong verdicts, exit 0 "
+              f"({t_fuzz:.1f} s); the server banked {st1['cache']['entries']}"
+              f" verdicts in {d1.name}/", flush=True)
+
+        # (d) the device-work queue: one queue on D2, four seams, a drain
+        t_d = time.perf_counter()
+        srv = CheckServer(flush_s=0.005, max_lanes=SERVE_LANES,
+                          devq_dir=str(d2), device=device).start()
+        try:
+            q = srv.devq
+            require(global_devq() is q, "the server did not install its "
+                    "queue")
+            # the admission seam (an oversize corpus) and, at the engine's
+            # first build, the planner's warmup
+            with CheckClient(srv.address, timeout_s=120) as c:
+                require(c.check("queue", q_corpus[:SERVE_LANES])["ok"],
+                        "devq: the oversize check failed")
+            # a shrink round at a small budget leaves its frontier
+            # undecided: the input decided at the default budget, the
+            # rounds at DRAIN_BUDGET iterations
+            engines = [TorchStepper(spec, device=device),
+                       TorchStepper(spec, budget=DRAIN_BUDGET, mid_budget=0,
+                                    rescue_budget=0, device=device)]
+
+            class _Starved:
+                calls = 0
+
+                def check_histories(self, s_, hs_):
+                    eng = engines[min(self.calls, 1)]
+                    self.calls += 1
+                    return eng.check_histories(s_, hs_)
+
+            # the longest violation: its linearizable candidates need
+            # more than DRAIN_BUDGET iterations
+            res = shrink_history(spec, max(vio, key=len),
+                                 backend=_Starved(), certificate=False)
+            require(res.ok, f"devq: the starved shrink: {res.why}")
+            # a monitor flip's re-check
+            s = MonitorSession("devq", spec, device=device)
+            v, _, _ = stream_into(s, history_to_rows(vio[2]), 4)
+            require(v == Verdict.VIOLATION, "devq: no flip")
+            planes = q.snapshot()["pending_by_plane"]
+            # the planner's warm-up comes of a plan for the card
+            require(set(planes) == {"check", "shrink", "monitor"} | (
+                {"warmup"} if device is None else set()),
+                f"devq: banked planes {planes}")
+            items = q.pending_items()
+            docs = [it.to_doc() for it in items]
+            bank = VerdictCache(max_entries=65_536)
+            journal = str(tmp / "drain_journal.jsonl")
+            reset()
+            with FirstInputs() as first:
+                rep = DrainScheduler(q, cache=bank, window_s=DRAIN_WINDOW_S,
+                                     journal_path=journal, window_id="w20",
+                                     devices=None if device is None
+                                     else [device]).drain()
+            read("the drain (20d)", first, spec)
+            require(rep["wrong_verdicts"] == 0 and rep["key_mismatches"] == 0
+                    and rep["drained"] == len(items)
+                    and not rep["deadline_stopped"],
+                    f"drain: {json.dumps(rep)[:400]}")
+            n_keys = 0
+            for it in items:
+                for key in it.lane_keys or []:
+                    require(bank.get(key) is not None,
+                            f"drain: {it.plane} lane not banked under "
+                            f"its key")
+                    n_keys += 1
+            q2 = DeviceWorkQueue()
+            for doc in docs:
+                q2.put_doc(dict(doc))
+            rep2 = DrainScheduler(q2, window_s=DRAIN_WINDOW_S,
+                                  journal_path=journal, window_id="w20",
+                                  resume=True,
+                                  devices=None if device is None
+                                  else [device]).drain()
+            require(rep2["dispatched"] == [] and sorted(rep2["resumed"])
+                    == sorted(rep["dispatched"]),
+                    f"the second drain re-dispatched {rep2['dispatched']}")
+        finally:
+            srv.stop()
+        require(global_devq() is None, "the queue outlived its server")
+        record["d"] = dict(planes=planes, drained=rep["drained"],
+                           banked_rows=rep["banked_rows"],
+                           window_utilization=rep["window_utilization"],
+                           elapsed_s=rep["elapsed_s"], busy_s=rep["busy_s"],
+                           per_plane={k: {x: v[x] for x in (
+                               "items", "lanes", "device_items",
+                               "host_items", "device_s", "host_s")}
+                               for k, v in rep["per_plane"].items()
+                               if v["items"]})
+        print(f"{tag} 20d one DeviceWorkQueue on {d2.name}/: banked "
+              f"{planes}; DrainScheduler on the card, a {DRAIN_WINDOW_S:.0f}"
+              f" s deadline: {rep['drained']} items, {rep['banked_rows']} "
+              f"rows banked under their originating keys ({n_keys} lane "
+              f"keys checked), 0 wrong verdicts, window_utilization "
+              f"{rep['window_utilization']} ({rep['busy_s']} of "
+              f"{rep['elapsed_s']} s); per plane "
+              f"{json.dumps(record['d']['per_plane'])}; a second drain on "
+              f"the journal re-dispatched 0 of {len(items)}; (d) took "
+              f"{time.perf_counter() - t_d:.1f} s", flush=True)
+
+        # (b) again: the restarted server serves the banked verdicts, and
+        # takes (d)'s report
+        t_r = time.perf_counter()
+        proc2 = cli_proc(*serve_argv)
+        b2 = banner(proc2, "serve (restart)")
+        addr2 = b2["serving"]
+        with CheckClient(addr2, timeout_s=120) as c:
+            again = c.check("cas", corpus[:SERVE_LANES])
+            require(again["ok"] and all(again["cached"]),
+                    f"restart: {sum(again['cached'])} of "
+                    f"{len(again['cached'])} cached")
+            rows = [[k, e.verdict, None] for k, e in bank._od.items()]
+            ack = c.devq_drain_report(
+                report={k: rep[k] for k in ("window_id", "drained",
+                                            "window_utilization")},
+                rows=rows, done=rep["dispatched"])
+            h2 = c.health()
+        util = h2["devq"]["window_utilization"]
+        require(ack["ok"] and ack["pending"] == 0 and util["samples"] == 1
+                and util["value"] == rep["window_utilization"],
+                f"drain_report / health: {ack} {util}")
+        stop_server(proc2, addr2, "serve (restart)")
+        addr2 = None
+        print(f"{tag} 20b restarted on the same --replog-dir: "
+              f"{len(again['cached'])} of {len(again['cached'])} lanes "
+              f"cached; 20d devq.drain_report to it: {len(rows)} rows, "
+              f"{ack['done'] if 'done' in ack else len(rep['dispatched'])} "
+              f"done, pending {ack['pending']}; its health carries "
+              f"window_utilization {util['value']} ({util['status']}); "
+              f"{time.perf_counter() - t_r:.1f} s", flush=True)
+    finally:
+        for proc, addr, what in ((server_proc, addr1, "serve"),
+                                 (proc2, addr2, "serve (restart)")):
+            if proc is not None and proc.poll() is None:
+                try:
+                    stop_server(proc, addr, what)
+                except RuntimeError:
+                    pass
+        set_global_devq(None)
+    total = {c.__name__: sum(x[c.__name__] for x in launches.values())
+             for c in counters}
+    dt = time.perf_counter() - t_phase
+    record["seconds"] = dt
+    print(f"{tag} phase 20 record: {json.dumps(record)}", flush=True)
+    print(f"{tag} phase 20 launches: " + ", ".join(
+        f"{n} {k}" for k, n in total.items()) + f"; {dt:.1f} s", flush=True)
+    return launches, err, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -4736,6 +5568,11 @@ def main(argv=None) -> int:
         spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, dev, tag)
     print(f"{tag} phase observability, the monitor and ingest: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    serve_launches, serve_err, serve_rec = phase_serve(
+        spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, mon_rec, tag)
+    print(f"{tag} phase the check server: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
@@ -4743,15 +5580,15 @@ def main(argv=None) -> int:
                "generation plane (phase 15)": gen_launches,
                **search_launches,
                "entry points (phase 17)": entry_launches,
-               **res_launches, **mon_launches}
+               **res_launches, **mon_launches, **serve_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
 
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
-                   entry_err, res_err, mon_err)
-    search_err = max(search_err, entry_err, res_err, mon_err)
+                   entry_err, res_err, mon_err, serve_err)
+    search_err = max(search_err, entry_err, res_err, mon_err, serve_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare
@@ -4808,7 +5645,8 @@ def main(argv=None) -> int:
         # threefry's bits
         "library_ms": None,
         "launches_by_path": {"generation plane (phase 15)":
-                             gen_launches["threefry_draws"]}}]
+                             gen_launches["threefry_draws"],
+                             **paths_of("threefry_draws")}}]
     print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line))

@@ -13,8 +13,12 @@ histories worth asking about:
   nodes per history, verdict flips, corpus shape), with
   ``atomic_write_json`` checkpoints.
 
-The closed loop against a live server (the JAX package's ``gen/fleet.py``
-and ``gen/soak.py``) is not ported yet.  Generation steers, it never
+* :mod:`.fleet`: the closed loop, ``fuzz --addr``: steered corpora sent
+  to a live server as check requests and monitor sessions, every answer
+  re-proved by a fresh host oracle (the reference's ``gen/soak.py`` waits
+  for the fleet tier, ROADMAP A7).
+
+Generation steers, it never
 judges: no counter or score here contributes to a verdict.
 """
 

@@ -337,8 +337,7 @@ class MonitorSession:
         if verdict == int(Verdict.VIOLATION) and not self.flipped:
             self.flipped = True
             self.flip_rows = [list(r) for r in self.rows]
-            # the reference banks the flipped stream in its device-work
-            # queue here; the port has no such queue yet
+            self._bank_recheck()
         return verdict
 
     def close(self) -> int:
@@ -434,6 +433,18 @@ class MonitorSession:
                 fdoc, fspec, bank=bank, node_budget=node_budget,
                 max_states=max_states)
         return s
+
+    # -- the devq seam --------------------------------------------------
+    def _bank_recheck(self) -> None:
+        """The device-work queue's monitor seam (``devq/``): a flip is
+        terminal but was decided incrementally, so the flipped stream is
+        banked for the next drain to re-prove as one whole-history
+        check.  One global read when no queue is installed."""
+        from ..devq.queue import bank_histories, global_devq
+
+        if global_devq() is None or not self.rows:
+            return
+        bank_histories(self.spec, [self.history()], plane="monitor")
 
     # -- introspection --------------------------------------------------
     def history(self) -> History:

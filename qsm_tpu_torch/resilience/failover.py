@@ -150,6 +150,37 @@ def degradable_errors(on_card: bool) -> tuple:
     return device_error_types()
 
 
+def watched_call(fn, timeout_s, cuda: Optional[torch.device],
+                 on_card: bool, watchdog: Optional[Watchdog] = None,
+                 hang_sites: Sequence[str] = ("dispatch",)):
+    """``fn()`` on the process' dispatch watchdog (``watchdog``, by
+    default the one :class:`FailoverBackend` uses), bounded by
+    ``timeout_s``.  With a CUDA device the kernels are built first,
+    outside the watchdog's clock (an abandoned build must never be what a
+    timeout measures), and ``fn`` runs on the caller's current stream,
+    which the watchdog's thread would not otherwise share (the worker
+    keeps the last one it was given).  On the card, a timeout during
+    which a ``hang`` rule of one of ``hang_sites`` fired becomes
+    :class:`InjectedHang`."""
+    call = fn
+    if cuda is not None:
+        _prebuild()
+        stream = torch.cuda.current_stream(cuda)
+
+        def call():
+            if torch.cuda.current_stream(cuda) != stream:
+                torch.cuda.set_stream(stream)
+            return fn()
+    hangs = [acted(site, "hang") for site in hang_sites]
+    try:
+        return (watchdog or _DISPATCH_WATCHDOG)(call, timeout_s)
+    except WatchdogTimeout as e:
+        if on_card and any(acted(site, "hang") > n
+                           for site, n in zip(hang_sites, hangs)):
+            raise InjectedHang(str(e)) from e
+        raise
+
+
 class FailoverBackend:
     """Device majority while the device lives; the host ladder the moment
     it does not.  See the module docstring for the guarantees and for
@@ -231,29 +262,9 @@ class FailoverBackend:
 
     # ------------------------------------------------------------------
     def _watched(self, fn):
-        """``fn()`` under the watchdog.  On the card the kernels are built
-        first, outside the watchdog's clock (an abandoned build must never
-        be what a timeout measures), and ``fn`` runs on the caller's
-        current stream, which the watchdog's thread would not otherwise
-        share (the worker keeps the last one it was given); a timeout
-        during which the plane's ``dispatch`` hang fired becomes
-        :class:`InjectedHang`."""
-        call = fn
-        if self._cuda is not None:
-            _prebuild()
-            stream = torch.cuda.current_stream(self._cuda)
-
-            def call():
-                if torch.cuda.current_stream(self._cuda) != stream:
-                    torch.cuda.set_stream(stream)
-                return fn()
-        hangs = acted("dispatch", "hang")
-        try:
-            return self.watchdog(call, self.policy.timeout_s)
-        except WatchdogTimeout as e:
-            if self.on_card and acted("dispatch", "hang") > hangs:
-                raise InjectedHang(str(e)) from e
-            raise
+        """``fn()`` under the watchdog (:func:`watched_call`)."""
+        return watched_call(fn, self.policy.timeout_s, self._cuda,
+                            self.on_card, self.watchdog)
 
     def _guarded_dispatch(self, spec, hists):
         """One slice through the policy: each attempt bounded by the

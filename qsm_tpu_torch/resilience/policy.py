@@ -145,9 +145,16 @@ def watchdog(fn: Callable, timeout_s: Optional[float],
     return box.get("value")
 
 
+# set on a Watchdog's worker thread: a watched call made from inside
+# another one (the check server's dispatch reaching a FailoverBackend)
+# runs inline, bounded by the outer call, instead of queueing behind it
+_on_worker = threading.local()
+
+
 def _serve(jobs: "queue.SimpleQueue") -> None:
     """A :class:`Watchdog`'s worker: runs the queued calls in order until
     it takes the stop mark (``None``)."""
+    _on_worker.active = True
     while True:
         job = jobs.get()
         if job is None:
@@ -186,8 +193,11 @@ class Watchdog:
 
     def __call__(self, fn: Callable, timeout_s: Optional[float]):
         """``fn()`` bounded by ``timeout_s`` seconds (``None`` or ``<= 0``
-        runs inline); exceptions of ``fn`` re-raise as they are."""
-        if not timeout_s or timeout_s <= 0:
+        runs inline, as does a call made on a worker thread of any
+        instance: the outer call's bound holds it); exceptions of ``fn``
+        re-raise as they are."""
+        if not timeout_s or timeout_s <= 0 or getattr(_on_worker, "active",
+                                                      False):
             return fn()
         with self._lock:
             jobs = self._worker()

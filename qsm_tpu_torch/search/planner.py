@@ -305,6 +305,13 @@ def build_backend(spec, plan: SearchPlan, budget: int = 2_000,
     if plan.mesh_devices != 1:
         raise ValueError(f"plan {plan.name!r} is sized for "
                          f"{plan.mesh_devices} devices: the port runs on one")
+    if plan.name == CUDA_PLAN:
+        # the planner seam (devq/): a device plan says the card pays,
+        # so the next drain warms this plan on a smoke corpus.  One
+        # global read without a queue.
+        from ..devq.queue import note_device_plan
+
+        note_device_plan(spec, plan)
 
     def make_core(s):
         if not plan.decompose:

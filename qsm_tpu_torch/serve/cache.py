@@ -18,9 +18,11 @@ witness, under the history's canonical identity:
 * **Honesty**: only decided verdicts (VIOLATION / LINEARIZABLE) are
   banked; BUDGET_EXCEEDED says something about an engine, not about the
   history.
-* **Store**: ``store=`` takes a segmented bank with the reference's
-  append / compact / load contract in place of the single file; this
-  package has none yet (the reference's is its fleet's replicated log).
+* **Store**: ``store=`` takes a segmented bank
+  (``fleet/replog.py::SegmentedLog``) in place of the single file: the
+  same append / compact discipline, but the bank is content-fingerprinted
+  segments a fleet replicates; :meth:`VerdictCache.adopt_rows` folds
+  replicated rows into the live set without banking them again.
 
 The shrinker (``shrink/shrinker.py``) keys its memo by
 :func:`fingerprint_key` and takes a :class:`VerdictCache` as its bank.
@@ -77,7 +79,7 @@ class VerdictCache:
         self.misses = 0
         self.compactions = 0
         self.bank_appends = 0  # append+fsync flushes (obs metrics feed)
-        self.adopted = 0       # rows a replicated store folded in (none yet)
+        self.adopted = 0       # rows folded in from replicated segments
         self._puts_since_flush = 0
         self._dirty: List[str] = []   # banked rows awaiting one append
         self._file_rows = 0           # rows in the on-disk log
@@ -153,6 +155,52 @@ class VerdictCache:
     @property
     def _persistent(self) -> bool:
         return self.store is not None or bool(self.path)
+
+    def adopt_rows(self, rows) -> int:
+        """Fold replicated rows (``fleet/replog.py`` segment adoption) into
+        the live set WITHOUT re-banking: the rows are already durable in
+        the adopted segment, so marking them dirty would bank each
+        verdict twice.  An existing entry only gains a witness it was
+        missing — local rows stay authoritative (later-row-wins is a
+        local ordering; a remote row for the same key can only agree on
+        the verdict, verdicts being pure functions of (spec, history)).
+        Returns rows actually folded in."""
+        n = 0
+        with self._lock:
+            for row in rows:
+                key, verdict = row.get("key"), row.get("verdict")
+                if not key or verdict not in (0, 1):
+                    continue
+                w = row.get("witness")
+                e = self._od.get(key)
+                if e is not None:
+                    if e.witness is None and w is not None:
+                        e.witness = [tuple(p) for p in w]
+                        n += 1
+                    continue
+                self._od[key] = CacheEntry(
+                    verdict=verdict,
+                    witness=[tuple(p) for p in w] if w is not None
+                    else None)
+                n += 1
+                while len(self._od) > self.max_entries:
+                    self._od.popitem(last=False)
+            self.adopted += n
+        return n
+
+    def holds_all(self, keys) -> bool:
+        """True iff EVERY key is in the live set — the row-level
+        subsumption gate (the ``replog.subsumed`` op): a segment whose keys are all held need not ship its rows.
+        Pure containment: no hit/miss accounting, no LRU touch (a
+        coverage probe must not keep cold entries artificially hot).
+        An empty key list is NOT coverage — there is nothing to
+        subsume, so the segment ships and the fingerprint check
+        decides."""
+        keys = list(keys)
+        if not keys:
+            return False
+        with self._lock:
+            return all(k in self._od for k in keys)
 
     def flush(self) -> None:
         with self._lock:

@@ -169,6 +169,21 @@ class Shrinker:
         return [int(v) for v in out]
 
     # ------------------------------------------------------------------
+    def _bank_undecided(self, hists: List[History]) -> None:
+        """The device-work queue's shrink seam (``devq/``): a round's
+        BUDGET_EXCEEDED candidates are banked for the next drain, which
+        decides them and banks their verdicts where this memo finds them
+        on a retried shrink.  One global read when no queue is
+        installed."""
+        from ..devq.queue import bank_histories, global_devq
+
+        if global_devq() is None:
+            return
+        if getattr(self.spec, "spec_kwargs", None) is None:
+            return  # not rebuildable from the registry: a dead item
+        bank_histories(self.spec, hists, plane="shrink")
+
+    # ------------------------------------------------------------------
     def run(self, history: History) -> ShrinkResult:
         first = self._verdicts([history])
         if first is None:
@@ -219,6 +234,10 @@ class Shrinker:
                 break
             self.rounds += 1
             last_frontier, last_verdicts = cands, verdicts
+            undecided_now = [c.history for c, v in zip(cands, verdicts)
+                             if v == int(Verdict.BUDGET_EXCEEDED)]
+            if undecided_now:
+                self._bank_undecided(undecided_now)
             fail = next((i for i, v in enumerate(verdicts)
                          if v == int(Verdict.VIOLATION)), None)
             if fail is None:

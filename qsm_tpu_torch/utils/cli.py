@@ -1,6 +1,6 @@
 """Command line: ``python -m qsm_tpu_torch
 run|replay|check|shrink|list|coverage|explore|fuzz|bench|stats|trace|ingest|
-monitor``.
+monitor|serve|submit|health``.
 
 * ``run``: ``prop_concurrent`` on a registry model (fault flags, the TCP
   transport, worker processes, a JSONL log and a regression file;
@@ -25,7 +25,13 @@ monitor``.
   ``--check``: decided by the planned checker on the card);
 * ``monitor``: an event log tailed into a live in-process monitor
   session (its window re-checks batched on the card); a flip prints the
-  minimised repro with its certificate.
+  minimised repro with its certificate;
+* ``serve``: the check server (``serve/``) on the card, or with
+  ``--device cpu`` the reference's host ladder; ``submit``, ``health``
+  and ``stats --serve`` talk to it, as do ``shrink --addr``, ``trace
+  --addr``, ``monitor --addr``, ``ingest --submit`` and ``fuzz --addr``
+  (the closed loop of ``gen/fleet.py``).  ``fleet``, ``soak`` and
+  ``stats --fleet`` wait for the fleet tier and are refused.
 
 Device backends (``--device cpu`` runs their kernels' plain versions):
 
@@ -417,13 +423,255 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _fleet_refused(what: str) -> SystemExit:
+    return SystemExit(f"{what} needs the fleet tier (router, membership, "
+                      "gossip, lease), which is not ported yet (ROADMAP "
+                      "A7)")
+
+
+def _refuse_fleet_verb(args) -> int:
+    raise _fleet_refused(f"`{args.cmd}`")
+
+
+def cmd_serve(args) -> int:
+    """Run the check server (``serve/``): warm engines, cross-request
+    micro-batching, the verdict cache, bounded admission.  It serves on
+    the card (the planned checker) unless ``--device cpu``, where
+    ``--engine auto`` is the host ladder and ``planned`` the CPU plan;
+    without a card and without ``--device cpu`` it raises
+    ``BackendUnavailable``.  Prints ONE JSON line with the bound address,
+    then serves until a ``shutdown`` request (or SIGINT)."""
+    from ..serve.server import CheckServer
+
+    if args.peers or args.gossip_s is not None \
+            or args.gossip_fanout is not None:
+        raise _fleet_refused("--peers / --gossip-s / --gossip-fanout")
+    if args.lease_host:
+        raise _fleet_refused("--lease-host")
+    if args.mesh_devices > 1:
+        raise SystemExit("--mesh-devices > 1 waits for the mesh (ROADMAP "
+                         "A8); the port serves on one device")
+    warm = [m.strip() for m in args.warm.split(",")] if args.warm else []
+    warm = [m for m in warm if m]
+    unknown = sorted(set(warm) - set(MODELS))
+    if unknown:
+        # a typo'd --warm must fail loudly, not silently serve cold
+        raise SystemExit(f"--warm: unknown models {unknown}; "
+                         f"one of {sorted(MODELS)}")
+    server = CheckServer(
+        host=args.host, port=args.port, unix_path=args.unix,
+        engine=args.engine, max_lanes=args.max_lanes,
+        flush_s=args.flush_ms / 1000.0, queue_depth=args.queue_depth,
+        cache_path=args.cache, cache_entries=args.cache_entries,
+        workers=args.workers, quarantine_after=args.quarantine_after,
+        pcomp=not args.no_pcomp,
+        trace_log=args.trace_log, flight_dir=args.flight_dir,
+        metrics_port=args.metrics_port,
+        node_id=args.node_id, replog_dir=args.replog_dir,
+        replog_seal_rows=args.replog_seal_rows,
+        max_sessions=args.max_sessions,
+        session_dir=args.session_dir,
+        slo=args.slo, slo_window_s=args.slo_window,
+        devq_dir=args.devq_dir, devq_cap=args.devq_cap,
+        device=args.device)
+    server.start()
+    try:
+        for model in warm:
+            server.warm(model)
+        print(json.dumps({"serving": server.address,
+                          "engine": args.engine,
+                          "node": args.node_id,
+                          "replog": args.replog_dir,
+                          "devq": args.devq_dir,
+                          "peers": None,
+                          "workers": args.workers,
+                          "max_lanes": args.max_lanes,
+                          "mesh_devices": args.mesh_devices,
+                          "flush_ms": args.flush_ms,
+                          "queue_depth": args.queue_depth,
+                          "cache": args.cache,
+                          "trace_log": args.trace_log,
+                          "flight_dir": args.flight_dir,
+                          "metrics": (f"{args.host}:{server.metrics_port}"
+                                      if server.metrics_port is not None
+                                      else None)}), flush=True)
+        server.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
+def cmd_submit(args) -> int:
+    """Submit a trace file (the ``check`` format: a ``history`` or
+    ``histories`` rows array) to a running check server.  Exit 0 all
+    linearizable, 1 some violation, 2 undecided, 3 shed or error."""
+    from ..serve.client import CheckClient
+
+    with open(args.trace) as f:
+        doc = json.load(f)
+    model = args.model or doc.get("model")
+    if not model:
+        raise SystemExit("trace has no 'model'; pass --model")
+    rows = doc.get("histories")
+    if rows is None:
+        if "history" not in doc:
+            raise SystemExit(
+                "trace needs a 'history' (or 'histories') array of "
+                "[pid, cmd, arg, resp, invoke_time, response_time] rows")
+        rows = [doc["history"]]
+    client = CheckClient(args.addr, timeout_s=args.timeout)
+    try:
+        res = client.check(model, rows,
+                           spec_kwargs=doc.get("spec_kwargs") or None,
+                           witness=args.witness,
+                           deadline_s=args.deadline)
+    finally:
+        client.close()
+    print(json.dumps(res))
+    if not res.get("ok"):
+        return 3
+    if res.get("violations"):
+        return 1
+    return 2 if res.get("undecided") else 0
+
+
+def cmd_health(args) -> int:
+    """A running server's SLO health (the ``health`` op, ``obs/slo.py``).
+    Exit 0 ok, 1 degraded, 2 breach, 3 unreachable or error."""
+    from ..obs import HEALTH_EXIT_CODES, HEALTH_EXIT_UNREACHABLE
+    from ..serve.client import CheckClient
+
+    try:
+        client = CheckClient(args.addr, timeout_s=args.timeout)
+    except (OSError, ConnectionError) as e:
+        print(json.dumps({"ok": False, "error": f"{type(e).__name__}: "
+                                                f"{e}"}))
+        return HEALTH_EXIT_UNREACHABLE
+    try:
+        res = client.health()
+    except (OSError, ConnectionError) as e:
+        print(json.dumps({"ok": False, "error": f"{type(e).__name__}: "
+                                                f"{e}"}))
+        return HEALTH_EXIT_UNREACHABLE
+    finally:
+        client.close()
+    print(json.dumps(res))
+    if not res.get("ok"):
+        return HEALTH_EXIT_UNREACHABLE
+    return HEALTH_EXIT_CODES.get(str(res.get("status")),
+                                 HEALTH_EXIT_UNREACHABLE)
+
+
+def _render_stats_watch(doc: dict) -> str:
+    """One refresh frame of ``stats --serve ADDR --watch``: the capacity
+    numbers an operator watches, from the server's ``stats`` verb."""
+    adm = doc.get("admission") or {}
+    bat = doc.get("batcher") or {}
+    cache = doc.get("cache") or {}
+    pool = doc.get("pool")
+    pc = doc.get("pcomp") or {}
+    sh = doc.get("shrink") or {}
+    obs = doc.get("obs") or {}
+    lines = [
+        f"qsm_tpu_torch serve {doc.get('address', '?')}  "
+        f"up {doc.get('uptime_s', 0):.0f}s  engine "
+        f"{doc.get('engine_kind', '?')}  workers "
+        f"{doc.get('workers', 0)}",
+        f"  requests {doc.get('requests', 0)}  histories "
+        f"{doc.get('histories', 0)}  serve_faults "
+        f"{doc.get('serve_faults', 0)}  worker_faults "
+        f"{doc.get('worker_faults', 0)}",
+        f"  admission: in_flight {adm.get('in_flight', 0)}/"
+        f"{adm.get('queue_depth', 0)} (peak "
+        f"{adm.get('peak_in_flight', 0)})  shed queue="
+        f"{adm.get('shed_queue', 0)} deadline="
+        f"{adm.get('shed_deadline', 0)}",
+        f"  batcher: batches {bat.get('batches', 0)}  lanes "
+        f"{bat.get('lanes', 0)}  occupancy "
+        f"{bat.get('mean_occupancy', 0.0)}",
+        f"  cache: entries {cache.get('entries', 0)}  hit_rate "
+        f"{cache.get('hit_rate', 0.0)}  bank_rows "
+        f"{cache.get('bank_rows', 0)}",
+        f"  pcomp: split {pc.get('split', 0)} -> "
+        f"{pc.get('sub_lanes', 0)} sub-lanes ("
+        f"{pc.get('sub_cache_hits', 0)} cached)  shrink: "
+        f"{sh.get('requests', 0)} req / {sh.get('rounds', 0)} rounds",
+    ]
+    sess = doc.get("session")
+    if sess:
+        lines.append(
+            f"  session: live {sess.get('sessions_live', 0)}  events "
+            f"{sess.get('session_events', 0)}  advances "
+            f"{sess.get('frontier_advances', 0)}  prefix_hits "
+            f"{sess.get('prefix_hits', 0)}  flips "
+            f"{sess.get('flips_pushed', 0)}")
+    if pool:
+        live = [w for w in pool.get("workers", []) if w.get("alive")]
+        lines.append(
+            f"  pool: {pool.get('live', 0)}/{pool.get('n_workers', 0)} "
+            f"live  dispatches {pool.get('dispatches', 0)}  respawns "
+            f"{pool.get('respawns', 0)}  quarantines "
+            f"{pool.get('quarantines', 0)}  "
+            + " ".join(f"w{w['wid']}:{w['dispatches']}" for w in live))
+    tracing = obs.get("tracing") or {}
+    flight = obs.get("flight") or {}
+    lines.append(
+        f"  obs: span_events {tracing.get('events', 0)}  flight_dumps "
+        f"{flight.get('dumps', 0) if flight else 0}"
+        + (f"  last_dump {flight.get('last_dump')}"
+           if flight and flight.get("last_dump") else ""))
+    return "\n".join(lines)
+
+
+def _stats_serve(args) -> int:
+    """``stats --serve ADDR``: a running server's aggregate stats as one
+    JSON document, or with ``--watch`` a refreshing text view
+    (``--watch-count N`` frames, then exit 0)."""
+    from ..serve.client import CheckClient
+
+    def fetch() -> dict:
+        client = CheckClient(args.serve)
+        try:
+            return client.stats().get("stats", {})
+        finally:
+            client.close()
+
+    if not args.watch:
+        print(json.dumps(fetch()))
+        return 0
+    n = 0
+    try:
+        while True:
+            frame = _render_stats_watch(fetch())
+            # ANSI clear+home between frames; a pipe still gets
+            # line-parseable frames
+            sys.stdout.write("\x1b[2J\x1b[H" if n else "")
+            print(frame, flush=True)
+            n += 1
+            if args.watch_count and n >= args.watch_count:
+                return 0
+            time.sleep(max(0.2, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
 def cmd_stats(args) -> int:
     """Search-cost accounting of one backend on one corpus as ONE JSON
     document (the JAX package's ``stats`` without ``--serve``):
     the backend's ``SearchStats``, the corpus profile and the plan
     ``plan_search`` picks for it.  ``--planned`` runs the planned checker
     (``build_backend``; on the card unless ``--device cpu``) instead of
-    ``--backend``."""
+    ``--backend``.  ``--serve ADDR`` prints a running server's stats
+    instead (``--watch``: a refreshing view)."""
+    if args.fleet:
+        raise _fleet_refused("stats --fleet")
+    if args.serve:
+        return _stats_serve(args)
+    if args.watch:
+        raise SystemExit("--watch needs --serve ADDR (a running server's "
+                         "stats verb is what refreshes)")
     import numpy as np
 
     from ..resilience.failover import collect_resilience
@@ -575,12 +823,6 @@ def cmd_shrink(args) -> int:
     from .interop import history_to_rows
     from .report import history_from_rows
 
-    if args.addr:
-        # the reference sends --addr to a running check server, which
-        # this package does not have yet: never drop the flag silently
-        raise SystemExit("shrink --addr needs the check server, which is "
-                         "not ported yet (ROADMAP A7); drop --addr to "
-                         "shrink in this process")
     with open(args.trace) as f:
         doc = json.load(f)
     model = args.model or doc.get("model")
@@ -595,6 +837,8 @@ def cmd_shrink(args) -> int:
             "'history' array of [pid, cmd, arg, resp, invoke_time, "
             "response_time] rows")
     h = history_from_rows(doc["history"])
+    if args.addr:
+        return _shrink_remote(args, model, doc)
     spec, _ = make(model, "atomic", doc.get("spec_kwargs") or None)
     from ..shrink import (collect_shrink_stats, shrink_history,
                           verify_certificate)
@@ -655,6 +899,51 @@ def cmd_shrink(args) -> int:
     return 0 if res.complete else 1
 
 
+def _shrink_remote(args, model: str, doc: dict) -> int:
+    """``shrink --addr``: the request served by a running check server's
+    ``shrink`` verb (its frontier lanes ride the server's micro-batches
+    and verdict cache); the reference's exit codes."""
+    # the server runs its own loop: the in-process knobs must fail
+    # loudly, never be dropped
+    if args.max_rounds is not None or args.max_lanes is not None:
+        raise SystemExit("--max-rounds/--max-lanes tune the in-process "
+                         "shrinker; the server uses its own bounds (drop "
+                         "them, or drop --addr)")
+    if args.emit_certificate:
+        raise SystemExit("--emit-certificate is in-process only; with "
+                         "--addr use --certificate (the response carries "
+                         "the witnesses)")
+    if args.backend is not None:
+        raise SystemExit("--backend picks the in-process checker; the "
+                         "server decides with its own engines (drop it, "
+                         "or drop --addr)")
+    from ..serve.client import CheckClient
+
+    client = CheckClient(args.addr, timeout_s=args.timeout)
+    try:
+        out = client.shrink(model, doc["history"],
+                            spec_kwargs=doc.get("spec_kwargs") or None,
+                            certificate=args.certificate,
+                            deadline_s=args.deadline)
+    finally:
+        client.close()
+    print(json.dumps(out))
+    if not out.get("ok"):
+        return 3
+    if args.save and out.get("verdict") == "VIOLATION":
+        from ..resilience.checkpoint import atomic_write_json
+
+        atomic_write_json(args.save, {
+            "model": model,
+            "spec_kwargs": out.get("spec_kwargs")
+            or doc.get("spec_kwargs") or {},
+            "history": out["history"]})
+        print(f"minimized trace saved to {args.save}", file=sys.stderr)
+    if out.get("verdict") != "VIOLATION":
+        return 2
+    return 0 if out.get("complete") else 1
+
+
 def _planned_checker(spec, histories, device):
     """The planned checker on ``device`` (``plan_search(platform="cuda")``
     through ``build_backend``), as ``shrink`` builds it."""
@@ -665,10 +954,37 @@ def _planned_checker(spec, histories, device):
     return build_backend(spec, plan, device=device)
 
 
-def _refuse_unported(flag: str, verb: str) -> None:
-    raise SystemExit(f"{verb} {flag} needs the check server, which is not "
-                     f"ported yet (ROADMAP A7); drop {flag} to run in this "
-                     "process")
+def _trace_poll_timeout() -> float:
+    from ..resilience.policy import preset
+
+    return preset("fleet-probe").timeout_s or 5.0
+
+
+def _trace_fetch(args, client=None):
+    """One fetch of the trace's events: over the wire from a running
+    server's ``obs.trace`` op (``--addr``; ``--follow`` reuses one
+    client across polls), or from the local span log (``--log``), with
+    the causal closure so a fleet log read locally renders the same
+    tree."""
+    from ..obs import load_events, trace_closure
+
+    if args.addr:
+        from ..serve.client import CheckClient
+
+        own = client is None
+        if own:
+            client = CheckClient(args.addr,
+                                 timeout_s=_trace_poll_timeout())
+        try:
+            res = client.trace_events(args.trace_id)
+        finally:
+            if own:
+                client.close()
+        if not res.get("ok"):
+            raise SystemExit(f"obs.trace refused: "
+                             f"{res.get('error') or res}")
+        return res.get("events") or []
+    return trace_closure(load_events(args.log), args.trace_id)
 
 
 def cmd_trace(args) -> int:
@@ -676,20 +992,25 @@ def cmd_trace(args) -> int:
     docs/OBSERVABILITY.md) as an indented tree (default) or the raw event
     list (``--json``).  ``--follow`` keeps polling the log and prints each
     NEW event of the trace as it lands, stopping after ``--max-idle``
-    quiet seconds.  Exit 0 when events were found, 1 when the trace id
-    has none in the log.  Host work only: reading and rendering a log."""
-    from ..obs import build_tree, load_events, render_tree, trace_closure
+    quiet seconds.  With ``--addr`` the events come from a running
+    server's ``obs.trace`` op.  Exit 0 when events were found, 1 when the
+    trace id has none in the log.  Host work only: reading and rendering
+    a log."""
+    from ..obs import build_tree, render_tree
 
-    if args.addr:
-        _refuse_unported("--addr", "trace")
-    if not args.log:
-        raise SystemExit("trace needs --log PATH")
+    if not args.addr and not args.log:
+        raise SystemExit("trace needs --log PATH or --addr ADDR")
+    # in follow mode one client serves the first fetch and every poll
+    client = None
+    if args.addr and args.follow:
+        from ..serve.client import CheckClient
+
+        client = CheckClient(args.addr, timeout_s=_trace_poll_timeout())
 
     def fetch():
-        # the causal closure, so a fleet log read locally renders the
-        # same tree
-        return trace_closure(load_events(args.log), args.trace_id)
+        return _trace_fetch(args, client=client)
 
+    source = args.addr or args.log
     events = fetch()
     if args.json and not args.follow:
         print(json.dumps(events))
@@ -700,7 +1021,7 @@ def cmd_trace(args) -> int:
             print(json.dumps(e), flush=True)
     elif events:
         print(f"trace {args.trace_id} ({len(events)} event(s), "
-              f"source: {args.log})")
+              f"source: {source})")
         print(render_tree(build_tree(events)))
     if args.follow:
         seen = {e.get("span") for e in events}
@@ -727,8 +1048,11 @@ def cmd_trace(args) -> int:
                               + (f" [{at}]" if at else ""), flush=True)
         except KeyboardInterrupt:
             pass
+        finally:
+            if client is not None:
+                client.close()
     if not events:
-        print(f"no events for trace {args.trace_id!r} in {args.log} "
+        print(f"no events for trace {args.trace_id!r} in {source} "
               "(was the sink installed, and has the log rotated twice "
               "since?)", file=sys.stderr)
         return 1
@@ -749,8 +1073,6 @@ def cmd_ingest(args) -> int:
     from ..ingest import EdnError, IngestError, emit_trace, parse_trace
     from .report import history_from_rows
 
-    if args.submit:
-        _refuse_unported("--submit", "ingest")
     spec, _ = make(args.spec, "atomic",
                    json.loads(args.spec_kwargs)
                    if args.spec_kwargs else None)
@@ -775,6 +1097,21 @@ def cmd_ingest(args) -> int:
            "pending": h.n_pending,
            "history": [[o.pid, o.cmd, o.arg, o.resp, o.invoke_time,
                         o.response_time] for o in h.ops]}
+    if args.submit:
+        from ..serve.client import CheckClient
+
+        client = CheckClient(args.submit, timeout_s=args.timeout)
+        try:
+            res = client.check(args.spec, [doc["history"]],
+                               spec_kwargs=spec.spec_kwargs() or None,
+                               witness=args.witness)
+        finally:
+            client.close()
+        print(json.dumps(res))
+        if not res.get("ok"):
+            return 3
+        return 1 if res.get("violations") else (
+            2 if res.get("undecided") else 0)
     if args.check:
         if args.device == "cpu":
             from ..resilience.failover import host_fallback
@@ -814,12 +1151,12 @@ def cmd_monitor(args) -> int:
     from ..ingest import EdnError, EventTailer, IngestError, tail_file
     from ..monitor import MonitorSession
 
-    if args.addr:
-        _refuse_unported("--addr", "monitor")
     spec, _ = make(args.spec, "atomic",
                    json.loads(args.spec_kwargs)
                    if args.spec_kwargs else None)
     tailer = EventTailer(args.format, args.spec, spec)
+    if args.addr:
+        return _monitor_remote(args, spec, tailer)
     proj = None
     if not projection_report(spec):
         p = spec.projected_spec()
@@ -849,6 +1186,61 @@ def cmd_monitor(args) -> int:
     verdict = VERDICT_NAMES[v]
     print(json.dumps({"session": s.sid, "verdict": verdict,
                       **s.counters()}))
+    if args.save and flip_doc is not None:
+        from ..resilience.checkpoint import atomic_write_json
+
+        atomic_write_json(args.save, {
+            "model": args.spec, "spec_kwargs": spec.spec_kwargs(),
+            "history": flip_doc["repro"]})
+        print(json.dumps({"saved": args.save}), file=sys.stderr)
+    if verdict == "VIOLATION":
+        return 1
+    return 0 if verdict == "LINEARIZABLE" else 2
+
+
+def _monitor_remote(args, spec, tailer) -> int:
+    """``monitor --addr``: the session served by a running check server
+    (the ``session.*`` ops, seq-tracked); the reference's exit codes (3:
+    shed or error)."""
+    from ..ingest import EdnError, IngestError, tail_file
+    from ..serve.client import CheckClient, SessionHandle
+
+    flip_doc = None
+    verdict = "LINEARIZABLE"
+    client = CheckClient(args.addr, timeout_s=args.timeout)
+    try:
+        handle = SessionHandle(client, args.spec,
+                               spec_kwargs=spec.spec_kwargs() or None,
+                               session=args.session,
+                               deadline_s=args.deadline)
+        print(json.dumps({"session": handle.sid,
+                          "resumed": handle.last.get("resumed"),
+                          "trace": handle.trace}), file=sys.stderr)
+        for line in tail_file(args.trace, follow=args.follow,
+                              max_idle_s=args.max_idle):
+            events = tailer.events_for_line(line)
+            if not events:
+                continue
+            out = handle.append(events)
+            if not out.get("ok"):
+                print(json.dumps(out))
+                return 3
+            if out.get("flip"):
+                flip_doc = out["flip"]
+                print(json.dumps({"event": "session.flip",
+                                  "session": handle.sid, **flip_doc}),
+                      flush=True)
+        fin = handle.close(witness=args.witness)
+        if not fin.get("ok"):
+            print(json.dumps(fin))
+            return 3
+        verdict = fin.get("verdict", verdict)
+        print(json.dumps(fin))
+    except (EdnError, IngestError) as e:
+        print(f"monitor: {e}", file=sys.stderr)
+        return 2
+    finally:
+        client.close()
     if args.save and flip_doc is not None:
         from ..resilience.checkpoint import atomic_write_json
 
@@ -1092,6 +1484,24 @@ def cmd_explore(args) -> int:
 
 
 def cmd_fuzz(args) -> int:
+    if args.addr:
+        # the closed loop against a live server (gen/fleet.py): steered
+        # corpora as check requests and monitor sessions, every answer
+        # re-proved here.  Wrong verdicts trump everything, else the
+        # server's own health answer (the `health` exit codes).
+        from ..gen.fleet import fuzz_fleet
+
+        rep = fuzz_fleet(
+            args.addr, args.models.split(","), rounds=args.rounds,
+            batch=args.histories, seed=args.seed,
+            session_every=args.session_every,
+            deadline_s=args.deadline, timeout_s=args.timeout,
+            checkpoint_dir=args.checkpoint_dir,
+            log=lambda m: print(m, file=sys.stderr), device=args.device)
+        print(json.dumps(rep))
+        if rep["wrong_verdicts_total"]:
+            return 1
+        return int(rep["exit_code"])
     from .fuzz import fuzz_parity
 
     arms = tuple(args.backends.split(","))
@@ -1205,8 +1615,11 @@ def main(argv=None) -> int:
     p.add_argument("--model", default=None, choices=sorted(MODELS),
                    help="overrides the trace's own 'model' field")
     p.add_argument("--addr", default=None,
-                   help="a running check server's address (not ported "
-                        "yet: refused)")
+                   help="send to a running check server's `shrink` verb "
+                        "instead of shrinking in this process (a,b = "
+                        "multi-address failover)")
+    p.add_argument("--timeout", type=float, default=600.0,
+                   help="client-side response bound (--addr)")
     p.add_argument("--backend", default=None, choices=BACKENDS,
                    help="the checker of the frontier batches (default: "
                         "the planned checker, TorchStepper inside SegDC / "
@@ -1298,6 +1711,25 @@ def main(argv=None) -> int:
                    help="comma list from {memo, cpp, device, segdc, auto, "
                         "hybrid, pallas}: device is TorchStepper, pallas "
                         "TorchGPU (the dfs_chunk kernel)")
+    # the closed loop against a live server (gen/fleet.py)
+    p.add_argument("--addr", default=None,
+                   help="soak a live server instead (comma list = "
+                        "failover set); --device is where the corpora "
+                        "are generated")
+    p.add_argument("--models", default="register,cas",
+                   help="comma list of registry models to fuzz (--addr)")
+    p.add_argument("--rounds", type=int, default=4,
+                   help="steering rounds a model (--addr)")
+    p.add_argument("--session-every", type=int, default=2,
+                   help="stream a monitor session every Nth round; 0 "
+                        "disables (--addr)")
+    p.add_argument("--deadline", type=float, default=30.0,
+                   help="per-request server deadline_s (--addr)")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="client timeout_s (--addr)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="directory for per-model steering checkpoints "
+                        "(--addr)")
     _add_device(p)
     p.set_defaults(fn=cmd_fuzz)
 
@@ -1319,7 +1751,148 @@ def main(argv=None) -> int:
                         "plan: TorchStepper, ordering, SegDC / PComp when "
                         "the profile says so) instead of --backend")
     p.add_argument("--corpus", type=int, default=64)
+    p.add_argument("--serve", default=None, metavar="ADDR",
+                   help="print a running check server's aggregate stats "
+                        "instead of running a corpus (a,b = "
+                        "multi-address failover)")
+    p.add_argument("--watch", action="store_true",
+                   help="with --serve: a refreshing view of the live "
+                        "counters (Ctrl-C exits)")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="--watch refresh interval seconds")
+    p.add_argument("--watch-count", type=int, default=0,
+                   help="--watch: exit after N frames (0 = forever)")
+    p.add_argument("--fleet", action="store_true",
+                   help="a fleet router's per-node view (refused until "
+                        "the fleet tier is ported)")
     p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser(
+        "serve",
+        help="run the check server (warm engines on the card, "
+             "micro-batching, verdict cache, bounded admission)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="TCP port (0 = ephemeral; the bound address is "
+                        "printed as one JSON line)")
+    p.add_argument("--unix", default=None,
+                   help="serve on this UNIX socket path instead of TCP")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "planned"],
+                   help="on the card both are the planned checker; with "
+                        "--device cpu, auto = the host cpp->memo ladder "
+                        "and planned = the CPU plan")
+    _add_device(p)
+    p.add_argument("--workers", type=int, default=0,
+                   help="dispatch micro-batches to N supervised host "
+                        "worker processes (needs --device cpu)")
+    p.add_argument("--quarantine-after", type=int, default=2,
+                   help="a spec whose dispatches crashed this many "
+                        "workers is quarantined to the in-process engine")
+    p.add_argument("--max-lanes", type=int, default=64,
+                   help="micro-batch width: lanes coalesced a dispatch")
+    p.add_argument("--mesh-devices", type=int, default=1,
+                   help="lane-axis mesh width (> 1 refused until the "
+                        "mesh is ported)")
+    p.add_argument("--flush-ms", type=float, default=20.0,
+                   help="micro-batch flush interval (latency floor for "
+                        "a lone client)")
+    p.add_argument("--queue-depth", type=int, default=1024,
+                   help="admission bound on in-flight history lanes; "
+                        "past it requests are SHED")
+    p.add_argument("--cache", default=None,
+                   help="persistent verdict-cache bank path (JSONL; "
+                        "survives kill/restart)")
+    p.add_argument("--cache-entries", type=int, default=4096)
+    p.add_argument("--warm", default=None,
+                   help="comma list of models to pre-build engines for")
+    p.add_argument("--no-pcomp", action="store_true",
+                   help="disable per-key request splitting")
+    p.add_argument("--trace-log", default=None, metavar="PATH",
+                   help="emit request-scoped span events to this JSONL "
+                        "log (`trace <id> --log PATH` renders one)")
+    p.add_argument("--flight-dir", default=None, metavar="DIR",
+                   help="enable the flight recorder's dumps under DIR")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   metavar="PORT",
+                   help="serve Prometheus metrics on GET /metrics at "
+                        "this port (0 = ephemeral; printed in the "
+                        "serving line)")
+    p.add_argument("--node-id", default=None, metavar="ID",
+                   help="node id stamped on every response")
+    p.add_argument("--replog-dir", default=None, metavar="DIR",
+                   help="bank verdicts in the segmented log "
+                        "(fleet/replog.py) instead of --cache's single "
+                        "file, and serve the replog.* ops")
+    p.add_argument("--replog-seal-rows", type=int, default=256,
+                   help="rows a sealed replog segment")
+    p.add_argument("--peers", default=None, metavar="A,B",
+                   help="node-to-node gossip (refused until the fleet "
+                        "tier is ported)")
+    p.add_argument("--gossip-s", type=float, default=None,
+                   help="gossip beat seconds (refused, as --peers)")
+    p.add_argument("--gossip-fanout", type=int, default=None,
+                   help="gossip fan-out (refused, as --peers)")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="SLO objectives, e.g. "
+                        "'check=250ms:p99,shed_rate<0.01' (obs/slo.py): "
+                        "burn-rate gauges, the `health` op, and the "
+                        "slo.breach flight trigger")
+    p.add_argument("--session-dir", default=None, metavar="DIR",
+                   help="durable monitor sessions (monitor/store.py)")
+    p.add_argument("--max-sessions", type=int, default=256,
+                   help="live monitor-session slots")
+    p.add_argument("--lease-host", default=None, metavar="PATH",
+                   help="host the fleet's HA lease (refused until the "
+                        "fleet tier is ported)")
+    p.add_argument("--slo-window", type=float, default=60.0,
+                   help="SLO sliding-window seconds")
+    p.add_argument("--devq-dir", default=None, metavar="DIR",
+                   help="persistent device-work queue (devq/): every "
+                        "plane banks device-worthy work under DIR; a "
+                        "DrainScheduler drains it; serves devq.put / "
+                        "digests / pull / drain_report")
+    p.add_argument("--devq-cap", type=int, default=512,
+                   help="pending device-work items kept (lowest-score "
+                        "eviction past the cap)")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "submit",
+        help="submit a trace file (the `check` format) to a running "
+             "check server")
+    p.add_argument("--addr", required=True,
+                   help="server address: host:port or a UNIX socket "
+                        "path; a comma list (a,b) fails over")
+    p.add_argument("--trace", required=True)
+    p.add_argument("--model", default=None, choices=sorted(MODELS),
+                   help="overrides the trace's own 'model' field")
+    p.add_argument("--witness", action="store_true",
+                   help="include verified linearization orders")
+    p.add_argument("--deadline", type=float, default=None,
+                   help="per-request deadline seconds (default: the "
+                        "'serve' policy preset); past it the server "
+                        "answers SHED")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="client-side response bound")
+    p.set_defaults(fn=cmd_submit)
+
+    p = sub.add_parser(
+        "health",
+        help="SLO health of a running server (exit 0 ok / 1 degraded / "
+             "2 breach / 3 unreachable)")
+    p.add_argument("--addr", required=True,
+                   help="server address (a,b = multi-address failover)")
+    p.add_argument("--timeout", type=float, default=10.0,
+                   help="client-side response bound")
+    p.set_defaults(fn=cmd_health)
+
+    for verb in ("fleet", "soak"):
+        p = sub.add_parser(
+            verb, help=f"the fleet tier's `{verb}` (refused until it is "
+                       "ported)")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+        p.set_defaults(fn=_refuse_fleet_verb)
 
     p = sub.add_parser(
         "trace",
@@ -1331,8 +1904,8 @@ def main(argv=None) -> int:
                    help="a local span-log path (its .1 rotation "
                         "predecessor is read too)")
     p.add_argument("--addr", default=None,
-                   help="a running server or router's address (not "
-                        "ported yet: refused)")
+                   help="ask a running server for the trace (its "
+                        "obs.trace op; a,b = multi-address failover)")
     p.add_argument("--follow", action="store_true",
                    help="keep polling and print each NEW event of the "
                         "trace as it lands (stops after --max-idle quiet "
@@ -1368,8 +1941,12 @@ def main(argv=None) -> int:
                         "undecided): the planned checker on the card, or "
                         "the host ladder with --device cpu")
     p.add_argument("--submit", default=None, metavar="ADDR",
-                   help="a running check server (not ported yet: "
-                        "refused)")
+                   help="submit to a running check server instead "
+                        "(exit codes as `submit`)")
+    p.add_argument("--witness", action="store_true",
+                   help="with --submit: ask for the linearization")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="client-side response bound (--submit)")
     p.add_argument("--emit", action="store_true",
                    help="re-render the canonical log text (the "
                         "byte-stable round trip) instead of JSON")
@@ -1387,8 +1964,10 @@ def main(argv=None) -> int:
     p.add_argument("--spec", required=True, choices=sorted(MODELS))
     p.add_argument("--spec-kwargs", default=None)
     p.add_argument("--addr", default=None,
-                   help="a check server or fleet router to serve the "
-                        "session (not ported yet: refused)")
+                   help="a running check server to serve the session "
+                        "(the session.* ops; exit 3 on shed or error)")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="client-side response bound (--addr)")
     p.add_argument("--session", default=None,
                    help="the session id (default: local)")
     p.add_argument("--follow", action="store_true",

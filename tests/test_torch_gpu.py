@@ -36,8 +36,10 @@ stream) and raising on a real device error (the card's rule), a
 shrinker's frontier batch through ``TorchStepper``, and the ``shrink``
 entry point on the card equal to its host run; the monitor's window
 re-check batched on the card equal to the host loop (CAS, KV per key),
-and ``ingest --check`` on the card.  Without CUDA each test skips in its
-fixture."""
+and ``ingest --check`` on the card; the check server on the card by
+default, its answer to a real device error and its degrade on an injected
+one, and ``DrainScheduler`` on the card.  Without CUDA each test skips in
+its fixture."""
 
 from __future__ import annotations
 
@@ -1462,3 +1464,98 @@ def test_ingest_check_runs_on_the_card(cuda, capsys):
         rc_h = main(argv + ["--device", "cpu"])
         host = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert (rc, card) == (rc_h, host)
+
+
+# --- the check server and the device-work queue on the card ----------------
+
+def test_check_server_serves_on_the_card_by_default(cuda, corpus):
+    """``CheckServer()`` serves on the card (the planned checker behind
+    ``FailoverBackend``, ``stepper_chunk`` launched) with the host
+    oracle's verdicts, and a second request answers cached."""
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk
+    from qsm_tpu_torch.serve import CheckClient, CheckServer
+
+    spec, hists = corpus
+    want = WingGongCPU(memo=True).check_histories(spec, hists[:64])
+    srv = CheckServer(flush_s=0.005, max_lanes=64).start()
+    try:
+        stepper_chunk.launches = 0
+        with CheckClient(srv.address, timeout_s=300) as c:
+            res = c.check("cas", hists[:64])
+            again = c.check("cas", hists[:64])
+        assert res["ok"] and stepper_chunk.launches > 0
+        assert [Verdict[v] for v in res["verdicts"]] == list(want)
+        assert all(again["cached"])
+        assert any("on cuda" in w for w in res["plan_why"])
+        st = srv.stats()
+        assert st["device"] == "cuda" and st["device_errors"] == 0
+    finally:
+        srv.stop()
+
+
+def test_check_server_answers_a_real_device_error(cuda, corpus):
+    """The card's rule in the server: a real error of an engine on the
+    card answers ``ok: false`` with its name and is never decided on the
+    host; an injected one degrades with exact verdicts."""
+    import os
+
+    from qsm_tpu_torch.resilience import faults
+    from qsm_tpu_torch.serve import CheckClient, CheckServer
+
+    spec, hists = corpus
+
+    class _Broken:
+        name = "broken"
+
+        def __init__(self, s):
+            self.device = cuda
+
+        def check_histories(self, s, histories):
+            torch.zeros(len(histories), device=self.device)
+            raise RuntimeError("CUDA error: a stub's failure")
+
+    srv = CheckServer(flush_s=0.005, max_lanes=64,
+                      engine_factory=_Broken).start()
+    try:
+        with CheckClient(srv.address, timeout_s=120) as c:
+            res = c.check("cas", hists[:8])
+        assert not res["ok"] and res["error"].startswith("RuntimeError")
+        st = srv.stats()
+        assert st["device_errors"] == 1 and st["cache"]["entries"] == 0
+    finally:
+        srv.stop()
+    os.environ["QSM_TPU_FAULTS"] = "raise:serve"
+    faults._plane = None
+    srv = CheckServer(flush_s=0.005, max_lanes=64).start()
+    try:
+        with CheckClient(srv.address, timeout_s=300) as c:
+            res = c.check("cas", hists[:16])
+        want = WingGongCPU(memo=True).check_histories(spec, hists[:16])
+        assert res["ok"] and [Verdict[v] for v in res["verdicts"]] \
+            == list(want)
+        assert srv.stats()["serve_faults"] >= 1
+        assert srv.stats()["device_errors"] == 0
+    finally:
+        srv.stop()
+        os.environ.pop("QSM_TPU_FAULTS")
+        faults._plane = None
+
+
+def test_drain_on_the_card_banks_oracle_verdicts(cuda, corpus):
+    """``DrainScheduler`` on the card (its default device): the planned
+    checker decides, a fresh memo oracle re-proves, the bank holds every
+    lane under its key, ``wrong_verdicts`` 0."""
+    from qsm_tpu_torch.devq import DeviceWorkQueue, DrainScheduler
+    from qsm_tpu_torch.devq.queue import bank_histories
+    from qsm_tpu_torch.serve.cache import VerdictCache, fingerprint_key
+
+    spec, hists = corpus
+    q = DeviceWorkQueue()
+    bank_histories(spec, hists[:128], plane="check", queue=q)
+    bank = VerdictCache(max_entries=1024)
+    rep = DrainScheduler(q, cache=bank, window_s=60.0).drain()
+    assert rep["wrong_verdicts"] == 0 and rep["drained"] == 1
+    assert rep["per_plane"]["check"]["device_items"] == 1
+    assert rep["device"].startswith("cuda")
+    for h in hists[:128]:
+        assert bank.get(fingerprint_key(spec, h)) is not None

@@ -227,7 +227,9 @@ def test_cli_ingest_check_runs_on_the_card_unless_device_cpu(capsys):
     with pytest.raises(BackendUnavailable):
         main(["ingest", GOLDEN_JEPSEN, "--format", "jepsen",
               "--spec", "register", "--check"])
-    with pytest.raises(SystemExit, match="not ported"):
+    # --submit goes to a server (the served twin is
+    # test_ingest_submit_to_a_served_port); none listens here
+    with pytest.raises(ConnectionError):
         main(["ingest", GOLDEN_JEPSEN, "--format", "jepsen",
               "--spec", "register", "--submit", "127.0.0.1:1"])
     capsys.readouterr()
@@ -279,3 +281,54 @@ def test_cli_ingest_out_feeds_check_and_shrink(tmp_path, capsys):
     doc = _last_json(capsys)
     assert rc == 0 and doc["verdict"] == "VIOLATION"
     assert doc["final_ops"] <= doc["initial_ops"]
+
+
+def test_ingested_trace_accepted_by_submit_and_serve_shrink():
+    """The served twin of ``tests/test_ingest.py:273``: an ingested
+    corpus goes to the port's server unchanged; ``check`` banks the
+    verdict and the ``shrink`` verb minimises the same rows, to the
+    reference server's answers."""
+    from qsm_tpu.serve import CheckClient as JClient
+    from qsm_tpu.serve import CheckServer as JServer
+    from qsm_tpu_torch.ingest import parse_trace
+    from qsm_tpu_torch.serve import CheckClient, CheckServer
+
+    with open(GOLDEN_PORCUPINE) as f:
+        text = f.read()
+    rows = parse_trace("porcupine", text, "kv", MODELS["kv"].make_spec())
+    assert rows == j_parse_trace("porcupine", text, "kv",
+                                 JMODELS["kv"].make_spec())
+    answers = []
+    for server, client in ((JServer(flush_s=0.005, max_lanes=16), JClient),
+                           (CheckServer(flush_s=0.005, max_lanes=16,
+                                        device="cpu"), CheckClient)):
+        srv = server.start()
+        try:
+            c = client(srv.address)
+            res = c.check("kv", [rows])
+            assert res["ok"] and res["verdicts"] == ["VIOLATION"]
+            sh = c.shrink("kv", rows)
+            assert sh["ok"] and sh["verdict"] == "VIOLATION"
+            assert sh["final_ops"] <= sh["initial_ops"]
+            c.close()
+            answers.append((res["verdicts"], sh["history"],
+                            sh["one_minimal"], sh["rounds"]))
+        finally:
+            srv.stop()
+    assert answers[1] == answers[0]
+
+
+def test_ingest_submit_to_a_served_port(capsys):
+    """``ingest --submit ADDR``: the decoded trace goes to a running
+    server; the exit code is ``submit``'s (1: a violation)."""
+    from qsm_tpu_torch.serve import CheckServer
+    from qsm_tpu_torch.utils.cli import main
+
+    srv = CheckServer(flush_s=0.005, device="cpu").start()
+    try:
+        rc = main(["ingest", GOLDEN_PORCUPINE, "--format", "porcupine",
+                   "--spec", "kv", "--submit", srv.address])
+    finally:
+        srv.stop()
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 1 and doc["ok"] and doc["verdicts"] == ["VIOLATION"]

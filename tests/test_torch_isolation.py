@@ -36,7 +36,10 @@ def test_import_loads_no_jax_and_no_reference_module():
             "qsm_tpu_torch.sched.transport, qsm_tpu_torch.sched.pool, "
             "qsm_tpu_torch.core.sequential, qsm_tpu_torch.utils.report, "
             "qsm_tpu_torch.utils.stats, qsm_tpu_torch.obs, "
-            "qsm_tpu_torch.monitor, qsm_tpu_torch.ingest\n"
+            "qsm_tpu_torch.monitor, qsm_tpu_torch.ingest, "
+            "qsm_tpu_torch.serve, qsm_tpu_torch.serve.worker, "
+            "qsm_tpu_torch.fleet, qsm_tpu_torch.devq, "
+            "qsm_tpu_torch.gen.fleet\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -552,5 +552,211 @@ def test_monitor_cli_flips_and_saves_a_minimal_repro(tmp_path, capsys):
     assert jlines[0]["repro"] == flip["repro"]
     with pytest.raises(BackendUnavailable):
         main(argv)
-    with pytest.raises(SystemExit, match="not ported"):
+    # --addr goes to a server (the served twins are below); none
+    # listens here
+    with pytest.raises(ConnectionError):
         main(argv + ["--addr", "127.0.0.1:1"])
+
+
+# --- served sessions (twins of tests/test_monitor.py:163, :260, :301,
+# :323's served half and :634), on CheckServer(device="cpu") beside the
+# reference's CheckServer() -------------------------------------------------
+
+def _servers(**kw):
+    from qsm_tpu.serve import CheckServer as JServer
+    from qsm_tpu_torch.serve import CheckServer
+
+    kw.setdefault("flush_s", 0.005)
+    kw.setdefault("max_lanes", 16)
+    return JServer(**kw).start(), CheckServer(device="cpu", **kw).start()
+
+
+def _served_witnesses(client, handle_cls, model, rows_list):
+    out = []
+    oneshot = client.check(model, rows_list, witness=True)
+    assert oneshot["ok"]
+    for rows, want_v, want_w in zip(rows_list, oneshot["verdicts"],
+                                    oneshot["witnesses"]):
+        handle = handle_cls(client, model)
+        for row in rows:
+            handle.append([row])
+        fin = handle.close(witness=True)
+        assert fin["ok"] and fin["verdict"] == want_v
+        assert fin.get("witness") == want_w
+        out.append((fin["verdict"], fin.get("witness")))
+    return out
+
+
+def test_served_session_witness_bit_identical_to_check():
+    from qsm_tpu.ops.backend import verify_witness as j_verify
+    from qsm_tpu.serve import CheckClient as JClient
+    from qsm_tpu.serve import SessionHandle as JHandle
+    from qsm_tpu_torch.serve import CheckClient, SessionHandle
+
+    jspec, rows_list = _ref_corpus("cas", 6, 3, 10)
+    jsrv, psrv = _servers()
+    try:
+        with JClient(jsrv.address) as jc:
+            ref = _served_witnesses(jc, JHandle, "cas", rows_list)
+        with CheckClient(psrv.address) as pc:
+            got = _served_witnesses(pc, SessionHandle, "cas", rows_list)
+    finally:
+        jsrv.stop()
+        psrv.stop()
+    assert got == ref
+    from qsm_tpu.utils.report import history_from_rows as j_from_rows
+
+    for rows, (v, w) in zip(rows_list, got):
+        if w is not None:
+            assert j_verify(jspec, j_from_rows(rows),
+                            [tuple(p) for p in w])
+
+
+_FLIP_EVENTS = [[{"type": "invoke", "pid": 0, "cmd": 1, "arg": 1},
+                 {"type": "respond", "pid": 0, "resp": 0}]] * 5 + [
+    [{"type": "invoke", "pid": 1, "cmd": 0, "arg": 0},
+     {"type": "respond", "pid": 1, "resp": 2}]]
+
+
+def _flip_through(client, handle_cls):
+    handle = handle_cls(client, "register")
+    outs = [handle.append(ev) for ev in _FLIP_EVENTS]
+    assert [o["verdict"] for o in outs[:-1]] == ["LINEARIZABLE"] * 5
+    out = outs[-1]
+    assert out["verdict"] == "VIOLATION"
+    flip = out["flip"]
+    assert flip["one_minimal"] and flip["complete"]
+    out2 = handle.append(_FLIP_EVENTS[0])
+    assert out2["verdict"] == "VIOLATION"
+    assert "flip" not in out2 and out2.get("flipped")
+    fin = handle.close()
+    assert fin["verdict"] == "VIOLATION" and fin["flipped"]
+    assert len(handle.flips) == 1
+    assert client.stats()["stats"]["session"]["flips_pushed"] == 1
+    return flip
+
+
+def test_flip_is_pushed_with_minimal_repro_and_certificate():
+    from qsm_tpu.serve import CheckClient as JClient
+    from qsm_tpu.serve import SessionHandle as JHandle
+    from qsm_tpu_torch.ops.backend import verify_witness
+    from qsm_tpu_torch.serve import CheckClient, SessionHandle
+
+    jsrv, psrv = _servers()
+    try:
+        with JClient(jsrv.address) as jc:
+            ref = _flip_through(jc, JHandle)
+        with CheckClient(psrv.address) as pc:
+            got = _flip_through(pc, SessionHandle)
+    finally:
+        jsrv.stop()
+        psrv.stop()
+    assert got == ref       # repro, certificate and counters alike
+    spec = MODELS["register"].make_spec()
+    repro = history_from_rows(got["repro"])
+    assert int(WingGongCPU(memo=True).check_histories(
+        spec, [repro])[0]) == int(Verdict.VIOLATION)
+    for entry in got["certificate"]:
+        keep = [i for i in range(len(repro)) if i != entry["drop"]]
+        assert verify_witness(spec, repro.subhistory(keep),
+                              [tuple(p) for p in entry["witness"]])
+
+
+def test_flip_dump_fires_on_session_flip(tmp_path):
+    from qsm_tpu_torch.serve import CheckClient, CheckServer, SessionHandle
+
+    srv = CheckServer(flush_s=0.005, device="cpu",
+                      trace_log=str(tmp_path / "trace.jsonl"),
+                      flight_dir=str(tmp_path / "flight")).start()
+    try:
+        client = CheckClient(srv.address)
+        handle = SessionHandle(client, "register")
+        handle.append(_FLIP_EVENTS[-1])
+        assert handle.flips
+        dumps = [f for f in (tmp_path / "flight").iterdir()
+                 if "session_flip" in f.name]
+        assert dumps, "no session_flip flight dump"
+        assert handle.trace in dumps[0].read_text()
+        client.close()
+    finally:
+        srv.stop()
+
+
+def test_session_cap_sheds_over_the_wire():
+    from qsm_tpu_torch.serve import CheckClient, CheckServer
+
+    srv = CheckServer(flush_s=0.005, max_sessions=1, device="cpu").start()
+    try:
+        client = CheckClient(srv.address)
+        a = client.session_open("register")
+        assert a["ok"]
+        b = client.session_open("register")
+        assert b.get("shed") and "session cap" in b["reason"]
+        client.close()
+    finally:
+        srv.stop()
+
+
+def test_server_restart_resumes_durable_sessions(tmp_path):
+    from qsm_tpu_torch.core.history import sequential_history
+    from qsm_tpu_torch.serve import CheckClient, CheckServer
+    from qsm_tpu_torch.serve.protocol import history_to_rows
+
+    sdir = str(tmp_path / "sessions")
+    h = sequential_history([(0, 1, 1, 0), (0, 0, 0, 1),
+                            (1, 1, 2, 0), (1, 0, 0, 2)] * 6)
+    rows = history_to_rows(h)
+    half = len(rows) // 2
+    srv = CheckServer(flush_s=0.005, session_dir=sdir, device="cpu").start()
+    client = CheckClient(srv.address)
+    try:
+        opened = client.session_open("register", session="boot")
+        assert opened["ok"] and not opened["resumed"]
+        for r in rows[:half]:
+            assert client.session_append("boot", [r])["ok"]
+    finally:
+        client.close()
+        srv.stop()
+    srv2 = CheckServer(flush_s=0.005, session_dir=sdir,
+                       device="cpu").start()
+    client2 = CheckClient(srv2.address)
+    try:
+        opened = client2.session_open("register", session="boot")
+        assert opened["ok"] and opened["resumed"], opened
+        assert opened["seq"] == half
+        for i, r in enumerate(rows[half:]):
+            out = client2.session_append("boot", [r], seq=half + i)
+            assert out["ok"], out
+        fin = client2.session_close("boot")
+        assert fin["ok"] and fin["verdict"] == "LINEARIZABLE"
+        assert fin["ops"] == len(rows)
+    finally:
+        client2.close()
+        srv2.stop()
+
+
+def test_monitor_addr_cli_equals_the_in_process_monitor(capsys):
+    """``monitor --addr``: the session served by a running server prints
+    the in-process monitor's flip (repro and certificate) and verdict."""
+    from qsm_tpu_torch.serve import CheckServer
+    from qsm_tpu_torch.utils.cli import main
+
+    golden = "tests/data/golden_jepsen_register.edn"
+    argv = ["monitor", golden, "--format", "jepsen", "--spec", "register"]
+    rc_local = main(argv + ["--device", "cpu"])
+    local = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()]
+    srv = CheckServer(flush_s=0.005, device="cpu").start()
+    try:
+        rc = main(argv + ["--addr", srv.address])
+    finally:
+        srv.stop()
+    served = [json.loads(x) for x in
+              capsys.readouterr().out.strip().splitlines()]
+    assert rc == rc_local
+    assert served[-1]["verdict"] == local[-1]["verdict"]
+    flips = [d for d in served if d.get("event") == "session.flip"]
+    lflips = [d for d in local if d.get("event") == "session.flip"]
+    assert len(flips) == len(lflips)
+    for a, b in zip(flips, lflips):
+        assert a["repro"] == b["repro"] and a["final_ops"] == b["final_ops"]

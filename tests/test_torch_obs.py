@@ -531,7 +531,9 @@ def test_trace_follow_prints_new_events(tmp_path, capsys):
     assert "+ late.event" in out
     with pytest.raises(SystemExit):
         main(["trace", "T"])
-    with pytest.raises(SystemExit, match="not ported"):
+    # --addr asks a running server (test_trace_addr_* below); none
+    # listens here
+    with pytest.raises(ConnectionError):
         main(["trace", "T", "--addr", "127.0.0.1:1"])
 
 
@@ -570,3 +572,428 @@ def test_observability_bundle_metrics_round_trip():
     assert texts[0] == texts[1]
     assert np.isclose(pobs.parse_exposition(texts[1])[
         'qsm_unit_events_total{kind="b"}'], 1)
+
+
+# ---------------------------------------------------------------------------
+# the server-bound cases (twins of tests/test_obs.py:167-486 and :562), on
+# the port's CheckServer(device="cpu"); pooled ones with host workers
+# ---------------------------------------------------------------------------
+
+import glob  # noqa: E402
+import urllib.request  # noqa: E402
+
+from qsm_tpu_torch.models.registry import MODELS  # noqa: E402
+from qsm_tpu_torch.obs import (Observability, build_tree,  # noqa: E402
+                               load_dump, load_events, parse_exposition,
+                               recent_events, render_tree)
+from qsm_tpu_torch.serve.client import CheckClient  # noqa: E402
+from qsm_tpu_torch.serve.server import CheckServer  # noqa: E402
+from qsm_tpu_torch.utils.corpus import build_corpus  # noqa: E402
+
+
+def _corpus(model, n, pids, ops, prefix):
+    entry = MODELS[model]
+    spec = entry.make_spec()
+    return spec, build_corpus(
+        spec, (entry.impls["atomic"], entry.impls["racy"]),
+        n=n, n_pids=pids, max_ops=ops, seed_prefix=prefix)
+
+
+def test_stopped_server_unregisters_its_metrics_collector(tmp_path):
+    """A caller-supplied Observability outlives the server: after
+    stop(), a reused registry must not double-emit (or pin) the dead
+    server's series."""
+    obs = Observability()
+    s1 = CheckServer(device="cpu", obs=obs).start()
+    s1.stop()
+    s2 = CheckServer(device="cpu", obs=obs).start()
+    try:
+        _spec, hists = _corpus("cas", 1, 4, 10, "obs_reuse")
+        client = CheckClient(f"127.0.0.1:{s2.port}")
+        assert client.check("cas", hists, deadline_s=60)["ok"]
+        client.close()
+        names = [s[0] for s in obs.metrics.collect()
+                 if s[0] == "qsm_serve_requests_total"]
+        assert len(names) == 1                  # one live server's books
+        assert obs.metrics.values()["qsm_serve_requests_total"] == 1
+    finally:
+        s2.stop()
+
+
+def test_trace_tree_pcomp_pool_end_to_end(tmp_path):
+    """A kv request fanning out through pcomp
+    sub-lanes over a 2-worker pool yields ONE causal tree with
+    admission, every micro-batch (flush reason + worker id), every
+    sub-lane, every recombine, and the cache bank.  The pool is left
+    COLD so the first dispatch holds its worker long enough that the
+    second batch deterministically lands on the other worker."""
+    log = str(tmp_path / "trace.jsonl")
+    # max_lanes=4 < the ~8 sub-lanes: at least two micro-batches are
+    # FORCED, so the cold-worker argument pins both workers
+    srv = CheckServer(device="cpu", workers=2, max_lanes=4, trace_log=log,
+                      flight_dir=str(tmp_path / "flight")).start()
+    try:
+        # both workers spawned before the first dispatch (a port worker
+        # imports torch): the cold-worker argument needs two live ones
+        t0 = time.monotonic()
+        while (srv.pool.snapshot()["live"] < 2
+               and time.monotonic() - t0 < 60):
+            time.sleep(0.05)
+        _spec, hists = _corpus("kv", 2, 8, 64, "obs_tree")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.check("kv", hists, deadline_s=120)
+        assert res["ok"], res
+        trace = res["trace"]
+        client.close()
+    finally:
+        srv.stop()
+    events = load_events(log, trace_id=trace)
+    by_name: dict = {}
+    for ev in events:
+        by_name.setdefault(ev["name"], []).append(ev)
+    # one request root, admission, a lane per history
+    assert len(by_name["request"]) == 1
+    assert len(by_name["admission.admit"]) == 1
+    assert len(by_name["lane"]) == 2
+    splits = by_name["pcomp.split"]
+    subs = by_name["sublane"]
+    assert len(splits) == 2                         # both hists split
+    assert len(subs) == sum(s["attrs"]["keys"] for s in splits)
+    # every sub-lane resolves through exactly one micro-batch — or a
+    # sub-cache hit when two histories share a per-key sub-history —
+    # and every batch stamp names its flush reason AND worker id
+    batches = by_name["batch"]
+    sub_hits = len(by_name.get("cache.hit", ()))
+    assert len(batches) + sub_hits == len(subs)
+    assert all(b["attrs"]["flush"] in
+               ("full", "target", "interval", "deadline", "close")
+               for b in batches)
+    workers = {b["attrs"]["worker"] for b in batches}
+    assert workers == {0, 1}, f"expected both pool workers: {workers}"
+    assert len({b["attrs"]["batch"] for b in batches}) >= 2
+    # the recombine and the cache bank
+    assert len(by_name["pcomp.recombine"]) == 2
+    assert len(by_name["cache.put"]) == len(batches)
+    assert len(by_name["response"]) == 1
+    # the events knit into ONE tree rooted at the request
+    roots = build_tree(events)
+    assert len(roots) == 1 and roots[0]["name"] == "request"
+    rendered = render_tree(roots)
+    for needle in ("admission.admit", "pcomp.split", "sublane",
+                   "flush=", "worker=", "pcomp.recombine", "cache.put",
+                   "response"):
+        assert needle in rendered, f"missing {needle!r} in tree"
+
+
+def test_trace_cli_reconstructs_tree(tmp_path, capsys):
+    from qsm_tpu_torch.utils.cli import main as cli_main
+
+    log = str(tmp_path / "trace.jsonl")
+    srv = CheckServer(device="cpu", trace_log=log).start()
+    try:
+        _spec, hists = _corpus("cas", 2, 4, 10, "obs_cli")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.check("cas", hists, deadline_s=60)
+        assert res["ok"]
+        client.close()
+    finally:
+        srv.stop()
+    rc = cli_main(["trace", res["trace"], "--log", log])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "request" in out and "batch" in out and "response" in out
+    # --json prints the raw event list
+    rc = cli_main(["trace", res["trace"], "--log", log, "--json"])
+    events = json.loads(capsys.readouterr().out)
+    assert rc == 0 and all(e["trace"] == res["trace"] for e in events)
+    # an unknown trace id exits 1 with a hint on stderr
+    rc = cli_main(["trace", "feedbeef00000000", "--log", log])
+    assert rc == 1
+
+
+def test_client_supplied_trace_id_is_adopted(tmp_path):
+    log = str(tmp_path / "trace.jsonl")
+    srv = CheckServer(device="cpu", trace_log=log).start()
+    try:
+        _spec, hists = _corpus("cas", 1, 4, 10, "obs_adopt")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.check("cas", hists, trace="cafef00d12345678",
+                           deadline_s=60)
+        assert res["ok"] and res["trace"] == "cafef00d12345678"
+        client.close()
+    finally:
+        srv.stop()
+    assert load_events(log, trace_id="cafef00d12345678")
+
+
+def test_tracing_off_default_still_answers_trace_id():
+    srv = CheckServer(device="cpu").start()
+    try:
+        _spec, hists = _corpus("cas", 1, 4, 10, "obs_off")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.check("cas", hists, deadline_s=60)
+        assert res["ok"]
+        assert len(res["trace"]) == 16      # minted even with obs off
+        st = client.stats()["stats"]
+        assert st["obs"]["tracing"]["enabled"] is False
+        assert st["obs"]["tracing"]["events"] == 0
+        assert st["obs"]["flight"] is None
+        client.close()
+    finally:
+        srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# e2e: flight recorder triggers
+# ---------------------------------------------------------------------------
+
+def test_sigkilled_worker_dumps_flight_with_doomed_trace(
+        tmp_path, monkeypatch):
+    """kill:worker SIGKILLs the worker
+    mid-batch; the supervisor sheds it, the flight recorder dumps, and
+    the dump's last worker events carry the doomed dispatch's trace
+    id.  The request itself still answers (re-dispatch/fallback)."""
+    monkeypatch.setenv("QSM_TPU_FAULTS", "kill:worker@1")
+    fdir = str(tmp_path / "flight")
+    srv = CheckServer(device="cpu", workers=1, max_lanes=4, flight_dir=fdir,
+                      pcomp=False).start()
+    try:
+        _spec, hists = _corpus("cas", 2, 4, 10, "obs_kill")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.check("cas", hists, deadline_s=60)
+        assert res["ok"], res               # shed + re-dispatch, not lost
+        client.close()
+    finally:
+        srv.stop()
+    dumps = [p for p in glob.glob(os.path.join(fdir, "FLIGHT_*.json"))
+             if "worker_crash" in p]
+    assert dumps, "worker SIGKILL must fire a flight dump"
+    doc = load_dump(sorted(dumps)[0])
+    worker_evs = recent_events(doc, "worker")
+    names = [e["name"] for e in worker_evs]
+    assert "worker.dispatch" in names and "worker.shed" in names
+    doomed = [t for e in worker_evs
+              for t in (e.get("attrs") or {}).get("traces", [])]
+    assert res["trace"] in doomed
+
+
+def test_stop_dumps_flight_baseline(tmp_path):
+    fdir = str(tmp_path / "flight")
+    srv = CheckServer(device="cpu", flight_dir=fdir).start()
+    srv.stop()
+    dumps = glob.glob(os.path.join(fdir, "FLIGHT_*server_stop.json"))
+    assert len(dumps) == 1                  # forced, never rate-limited
+
+
+def test_shed_response_carries_trace_and_flight(tmp_path):
+    """Satellite pin: a SHED answer is actionable — it names the
+    request's trace id, and once a flight dump exists it names the
+    artifact path too."""
+    fdir = str(tmp_path / "flight")
+    srv = CheckServer(device="cpu", queue_depth=1, flight_dir=fdir,
+                      trace_log=str(tmp_path / "t.jsonl")).start()
+    try:
+        _spec, hists = _corpus("cas", 2, 4, 10, "obs_shed")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.check("cas", hists, deadline_s=30)  # 2 > depth 1
+        assert res.get("shed") and res["reason"] == "queue full"
+        assert len(res["trace"]) == 16
+        assert "flight" not in res          # no dump fired yet: honest
+        srv.obs.dump_flight("drill", force=True)
+        res2 = client.check("cas", hists, deadline_s=30)
+        assert res2.get("shed")
+        assert res2["flight"] == srv.obs.flight_path()
+        assert os.path.exists(res2["flight"])
+        client.close()
+    finally:
+        srv.stop()
+    # both sheds landed in the span log under their own trace ids
+    evs = load_events(str(tmp_path / "t.jsonl"), trace_id=res["trace"])
+    assert any(e["name"] == "admission.shed" for e in evs)
+
+
+# ---------------------------------------------------------------------------
+# e2e: metrics endpoint + reconciliation
+# ---------------------------------------------------------------------------
+
+def test_metrics_endpoint_reconciles_with_stats(tmp_path):
+    """The Prometheus exposition and the
+    ``stats`` verb answer from the same books — totals are EQUAL on a
+    quiesced server, not merely close."""
+    srv = CheckServer(device="cpu", metrics_port=0,
+                      trace_log=str(tmp_path / "t.jsonl")).start()
+    try:
+        _spec, hists = _corpus("cas", 4, 4, 10, "obs_recon")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        for _ in range(2):                  # second pass: cache hits
+            assert client.check("cas", hists, deadline_s=60)["ok"]
+        st = client.stats()["stats"]
+        client.close()
+        url = f"http://127.0.0.1:{srv.metrics_port}/metrics"
+        vals = parse_exposition(
+            urllib.request.urlopen(url).read().decode())
+    finally:
+        srv.stop()
+    assert vals["qsm_serve_requests_total"] == st["requests"]
+    assert vals["qsm_serve_histories_total"] == st["histories"]
+    adm = st["admission"]
+    assert vals["qsm_admission_admitted_lanes_total"] == \
+        adm["admitted_lanes"]
+    assert vals['qsm_admission_shed_total{reason="queue_full"}'] == \
+        adm["shed_queue"]
+    assert vals["qsm_batcher_batches_total"] == st["batcher"]["batches"]
+    assert vals["qsm_batcher_lanes_total"] == st["batcher"]["lanes"]
+    cache = st["cache"]
+    assert vals["qsm_cache_hits_total"] == cache["hits"]
+    assert vals["qsm_cache_misses_total"] == cache["misses"]
+    assert cache["hits"] > 0                # the second pass hit
+    assert vals["qsm_obs_span_events_total"] == \
+        st["obs"]["tracing"]["events"] > 0
+    # the request-latency histogram is labeled by verb (the SLO plane
+    # reads per-verb windows); this run was check traffic only
+    assert vals['qsm_serve_request_seconds_count{verb="check"}'] == \
+        st["requests"]
+
+
+def test_pool_dispatch_histogram_and_worker_metrics(tmp_path):
+    srv = CheckServer(device="cpu", workers=1, metrics_port=0).start()
+    try:
+        _spec, hists = _corpus("cas", 2, 4, 10, "obs_poolm")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        assert client.check("cas", hists, deadline_s=60)["ok"]
+        st = client.stats()["stats"]
+        client.close()
+        url = f"http://127.0.0.1:{srv.metrics_port}/metrics"
+        vals = parse_exposition(
+            urllib.request.urlopen(url).read().decode())
+    finally:
+        srv.stop()
+    pool = st["pool"]
+    assert vals["qsm_pool_workers_live"] == pool["live"] == 1
+    assert vals["qsm_pool_dispatches_total"] == pool["dispatches"] >= 1
+    assert vals['qsm_pool_dispatch_seconds_count{wid="0"}'] >= 1
+
+
+def test_stats_watch_renders_and_cli_frames(tmp_path, capsys):
+    from qsm_tpu_torch.utils.cli import _render_stats_watch
+    from qsm_tpu_torch.utils.cli import main as cli_main
+
+    srv = CheckServer(device="cpu", workers=0).start()
+    try:
+        _spec, hists = _corpus("cas", 2, 4, 10, "obs_watch")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        assert client.check("cas", hists, deadline_s=60)["ok"]
+        st = client.stats()["stats"]
+        client.close()
+        frame = _render_stats_watch(st)
+        assert "requests 1" in frame and "cache:" in frame
+        assert "admission: in_flight" in frame
+        rc = cli_main(["stats", "--serve", f"127.0.0.1:{srv.port}",
+                       "--watch", "--watch-count", "2",
+                       "--interval", "0.2"])
+        out = capsys.readouterr().out
+        assert rc == 0 and out.count("qsm_tpu_torch serve") == 2
+    finally:
+        srv.stop()
+    # --watch without --serve is a usage error, not a silent hang
+    with pytest.raises(SystemExit):
+        cli_main(["stats", "--watch"])
+
+
+# ---------------------------------------------------------------------------
+# the span<->stats bridge and the global sink
+# ---------------------------------------------------------------------------
+
+def test_batch_records_carry_obs_event_counts(tmp_path):
+    """span->stats: a traced batch's compact search record says how
+    many trace events the batch emitted (``obe``); stats->span: the
+    serve.dispatch component event carries the compact record."""
+    log = str(tmp_path / "trace.jsonl")
+    srv = CheckServer(device="cpu", trace_log=log).start()
+    try:
+        _spec, hists = _corpus("cas", 2, 4, 10, "obs_bridge")
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.check("cas", hists, deadline_s=60)
+        assert res["ok"]
+        client.close()
+    finally:
+        srv.stop()
+    batches = [b for b in res["batches"] if b.get("search")]
+    assert batches and all(b["search"].get("obe", 0) > 0
+                           for b in batches)
+    dispatch_evs = [e for e in load_events(log)
+                    if e["name"] == "serve.dispatch"]
+    assert dispatch_evs
+    assert dispatch_evs[0]["attrs"]["search"]["nph"] >= 0
+
+
+def test_shrink_request_traces_frontier_rounds(tmp_path):
+    """The shrink verb's tree: a root, shrink.round events (one per
+    greedy frontier round), and batch events for candidate lanes."""
+    from qsm_tpu_torch.sched.runner import run_concurrent
+    from qsm_tpu_torch.models.registry import make
+
+    spec, _ = make("cas", "atomic")
+    # a failing history: seeded racy run until a violation shows
+    from qsm_tpu_torch.ops.wing_gong_cpu import WingGongCPU
+    from qsm_tpu_torch.core.generator import generate_program
+
+    oracle = WingGongCPU(memo=True)
+    failing = None
+    for seed in range(60):
+        _s, sut = make("cas", "racy")
+        prog = generate_program(spec, seed=seed, n_pids=4, max_ops=12)
+        h = run_concurrent(sut, prog, seed=f"obs_shrink:{seed}")
+        if int(oracle.check_histories(spec, [h])[0]) == 0:
+            failing = h
+            break
+    assert failing is not None
+    log = str(tmp_path / "trace.jsonl")
+    srv = CheckServer(device="cpu", trace_log=log).start()
+    try:
+        client = CheckClient(f"127.0.0.1:{srv.port}")
+        res = client.shrink("cas", failing, deadline_s=120)
+        assert res["ok"] and res["verdict"] == "VIOLATION"
+        client.close()
+    finally:
+        srv.stop()
+    evs = load_events(log, trace_id=res["trace"])
+    names = [e["name"] for e in evs]
+    rounds = names.count("shrink.round")
+    # one decide per memo-missing round, plus the input-history check;
+    # fully-memoized rounds dispatch nothing (and emit nothing)
+    assert 1 <= rounds <= res["rounds"] + 1
+    assert "request" in names and "response" in names
+    roots = build_tree(evs)
+    assert len(roots) == 1
+
+
+def test_trace_addr_renders_the_served_tree(tmp_path, capsys):
+    """``trace ID --addr`` asks the running server (its ``obs.trace``
+    op) and renders the same tree as ``--log`` on its span log."""
+    from qsm_tpu_torch.utils.cli import main as cli_main
+
+    log = str(tmp_path / "trace.jsonl")
+    srv = CheckServer(device="cpu", trace_log=log).start()
+    try:
+        _spec, hists = _corpus("cas", 2, 4, 10, "obs_addr")
+        client = CheckClient(srv.address)
+        res = client.check("cas", hists, deadline_s=60)
+        assert res["ok"]
+        client.close()
+        rc = cli_main(["trace", res["trace"], "--addr", srv.address,
+                       "--json"])
+        served = json.loads(capsys.readouterr().out)
+        assert rc == 0
+        rc = cli_main(["trace", res["trace"], "--addr", srv.address])
+        out = capsys.readouterr().out
+        assert rc == 0 and "request" in out and "response" in out
+        assert cli_main(["trace", "feedbeef00000000", "--addr",
+                         srv.address]) == 1
+        capsys.readouterr()
+    finally:
+        srv.stop()
+    assert cli_main(["trace", res["trace"], "--log", log, "--json"]) == 0
+    local = json.loads(capsys.readouterr().out)
+    assert [e["span"] for e in served] == \
+        [e["span"] for e in local][:len(served)]

@@ -11,9 +11,10 @@ reference's row for row, with its rounds, ``lanes_checked`` and
 reference's 8 x 64 takes minutes on the plain versions) and is held
 against the reference on the same input.
 
-Not twinned: the serve cases (``test_shrink.py:333``, ``:380``; the
-check server is not ported) and the lint cases (``:442``, ``:452``; the
-port has no static-analysis plane)."""
+The serve cases (``test_shrink.py:333``, ``:380``) run on the port's
+``CheckServer(device="cpu")`` against the reference's server.  Not
+twinned: the lint cases (``:442``, ``:452``; the port has no
+static-analysis plane)."""
 
 from __future__ import annotations
 
@@ -487,7 +488,15 @@ def test_shrink_cli_runs_on_the_card_unless_device_cpu(tmp_path, capsys):
 def test_shrink_cli_refuses_addr(tmp_path):
     trace = tmp_path / "t.json"
     trace.write_text(json.dumps({"model": "register", "history": []}))
-    with pytest.raises(SystemExit, match="A7"):
+    # the server runs its own loop: in-process knobs are refused with
+    # --addr, never dropped (the served shrink is pinned in
+    # tests/test_torch_serve.py and test_torch_monitor.py)
+    for knob in (["--max-rounds", "3"], ["--max-lanes", "8"],
+                 ["--emit-certificate"], ["--backend", "stepper"]):
+        with pytest.raises(SystemExit):
+            cli_main(["shrink", "--trace", str(trace), "--addr",
+                      "unix:/x", *knob])
+    with pytest.raises(ConnectionError):
         cli_main(["shrink", "--trace", str(trace), "--addr", "unix:/x"])
 
 
@@ -516,3 +525,88 @@ def test_run_minimize_on_the_stepper_round_trips(tmp_path, capsys):
     assert rc == 1
     assert "history reproduced bit-identically: True" in \
         capsys.readouterr().out
+
+
+# --- the served shrink verb (twins of tests/test_shrink.py:333, :380) -------
+
+def _served_shrinks(server_cls, client_cls, spec_kwargs, rows_list, tmp,
+                    **kw):
+    srv = server_cls(unix_path=str(tmp), **kw).start()
+    out = []
+    try:
+        with client_cls(srv.address, timeout_s=120) as c:
+            for rows in rows_list:
+                r = c.shrink("kv", rows, spec_kwargs=spec_kwargs,
+                             certificate=True, deadline_s=120)
+                assert r["ok"] and r["complete"] and r["one_minimal"]
+                out.append((r["history"], r["rounds"], r["lanes"],
+                            r["certificate"]))
+            r2 = c.shrink("kv", rows_list[0], spec_kwargs=spec_kwargs,
+                          certificate=True)
+            assert r2.get("cached") is True
+            st = c.stats()["stats"]["shrink"]
+            assert st["requests"] == len(rows_list) + 1
+            assert st["bank_hits"] == 1 and st["rounds"] > 0
+    finally:
+        srv.stop()
+    return out
+
+
+def test_serve_shrink_identical_to_inprocess_and_banked(tmp_path):
+    from qsm_tpu.serve.client import CheckClient as JClient
+    from qsm_tpu.serve.server import CheckServer as JServer
+    from qsm_tpu_torch.serve.client import CheckClient
+    from qsm_tpu_torch.serve.server import CheckServer
+
+    jspec, jhs, spec, hs = _failing("kv", n=2, pids=8, ops=64)
+    rows_list = [history_to_rows(h) for h in hs]
+    ref = _served_shrinks(JServer, JClient, jspec.spec_kwargs(), rows_list,
+                          tmp_path / "j.sock")
+    got = _served_shrinks(CheckServer, CheckClient, spec.spec_kwargs(),
+                          rows_list, tmp_path / "p.sock", device="cpu")
+    assert got == ref
+    for h, (rows, *_rest, cert) in zip(hs, got):
+        inproc = shrink_history(spec, h, certificate=False)
+        assert rows == history_to_rows(inproc.history)
+        assert verify_certificate(spec, history_from_rows(rows),
+                                  cert)["one_minimal_proved"]
+
+
+class _SlowBackend:
+    """The memo oracle after a fixed stall a dispatch (mid-shrink
+    deadline bait)."""
+
+    name = "slow"
+
+    def __init__(self, stall_s=0.35):
+        self.oracle = WingGongCPU(memo=True)
+        self.stall_s = stall_s
+
+    def check_histories(self, spec, histories):
+        import time
+
+        time.sleep(self.stall_s)
+        return self.oracle.check_histories(spec, histories)
+
+
+def test_serve_shrink_deadline_mid_shrink_returns_best_so_far(tmp_path):
+    from qsm_tpu_torch.serve.client import CheckClient
+    from qsm_tpu_torch.serve.server import CheckServer
+
+    _jspec, _jhs, spec, hs = _failing("kv", pids=8, ops=64)
+    srv = CheckServer(unix_path=str(tmp_path / "sock"), device="cpu",
+                      engine_factory=lambda s: _SlowBackend()).start()
+    try:
+        with CheckClient(srv.address, timeout_s=30) as c:
+            r = c.shrink("kv", hs[0], spec_kwargs=spec.spec_kwargs(),
+                         deadline_s=0.6)
+            assert r["ok"] is True and r["complete"] is False
+            assert r["one_minimal"] is False
+            assert any("shed" in w or "deadline" in w for w in r["why"])
+            assert history_from_rows(r["history"]).fingerprint() \
+                == hs[0].fingerprint()
+            r0 = c.shrink("kv", hs[0], spec_kwargs=spec.spec_kwargs(),
+                          deadline_s=0.0)
+            assert r0["ok"] is False and r0.get("shed") is True
+    finally:
+        srv.stop()
