@@ -328,6 +328,35 @@ Phases, in order; any failure exits non-zero and no result is printed:
    printed; a second drain handed the same items on the journal
    re-dispatches none.  Each in-process path's launches read and its
    first kernels held (``FirstInputs``).
+21. the fleet tier: (a) two ``CheckServer`` nodes on the card (replogs,
+   phase 20's widths) behind a ``FleetRouter`` in this process: the CAS
+   and queue headlines (4096 lanes each) and kv16's 512 routed from four
+   clients in requests of 64, every lane stamped with the node that
+   decided it, both nodes deciding lanes, 0 verdicts off ``CppOracle``'s
+   (``PComp`` for kv16), the paths' first kernels held against the plain
+   versions, histories/s against phase 20's single server and the direct
+   engine, the queue pass under ``torch.profiler`` (idle share), the
+   router building no ladder; (b) the same CAS burst again with both
+   nodes alive on the warm caches, then the busier node stopped mid-way
+   through it: its lanes re-dispatched to the survivor, verdicts equal
+   to (a)'s, the node loss's cost the second burst's time less the
+   first's; then both nodes stopped: the router's ladder (the planned
+   checker behind ``FailoverBackend``) decides the 4096 lanes in this
+   process on the card (``stepper_chunk`` launched), the queue
+   headline's unique histories on a ladder starved to budget 8 have
+   their BUDGET lanes decided again on the exact host checker (verdicts
+   ``CppOracle``'s), and a shrink and a session (its session rung) run
+   through the router with no node alive; (c) two routers on one lease file (TTL 1 s), the active taken
+   down without releasing it: the standby's takeover time, and a client
+   on ``A,B`` getting (a)'s verdicts bit for bit; two nodes given each
+   other as ``peers=`` converge their replogs with no router alive; (d)
+   ``python -m qsm_tpu_torch fleet --nodes 2`` (spawned nodes, each its
+   own CUDA context) with ``submit --addr ROUTER``, ``stats --serve
+   ROUTER --fleet`` (each node ``device cuda`` with searches counted) and
+   ``health --addr ROUTER``; ``soak --sessions 256`` (cut from its
+   default 1000 for the run's time; started after (b)'s timings, it
+   runs beside the starved ladder, (c) and (d)) must report ``gate_ok`` and its fuzz rounds must have drawn
+   on the card.
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
@@ -336,7 +365,7 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
 15 (c), each path of phase 16 over its own, phase 17's in-process
-paths over the phase, and each path of phases 18, 19 and 20 over its own; the
+paths over the phase, and each path of phases 18, 19, 20 and 21 over its own; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -4672,6 +4701,7 @@ class ServedPass:
 
         reqs = [hists[i:i + SERVE_LANES]
                 for i in range(0, len(hists), SERVE_LANES)]
+        self.reqs = reqs
         self.docs = [None] * len(reqs)
         self.latency = []
         lock = threading.Lock()
@@ -5391,6 +5421,523 @@ def phase_serve(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, mon_rec,
     return launches, err, record
 
 
+FLEET_TTL_S = 1.0              # (c): the routers' lease TTL
+# (d): the soak's sessions, cut from its default of 1000 to keep the run
+# within its time (1000 sessions took 160.5 s of phase 21's time on the
+# card; PERF.md)
+FLEET_SOAK_SESSIONS = 256
+FLEET_WAIT_S = 120.0           # (c), (d): bound of every wait on a condition
+
+
+def _fleet_paths(nodes):
+    """The nodes' flush accounting so far, summed (a pass reads it before
+    and after)."""
+    out = {}
+    for srv in nodes:
+        for k, v in served_paths(srv).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _wait_until(cond, what, timeout_s=FLEET_WAIT_S, step_s=0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(step_s)
+    raise RuntimeError(f"chip_smoke: {what} within {timeout_s:.0f} s")
+
+
+def phase_fleet(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus,
+                serve_rec, tag, device=None):
+    """Phase 21: the fleet tier on the card; see the module docstring.
+    Returns (launches of each path, largest error of the kernels held on
+    the paths, the record).  ``device`` is the nodes' and routers' (the
+    card when None)."""
+    import tempfile
+
+    from qsm_tpu_torch.fleet import FleetRouter
+    from qsm_tpu_torch.serve import CheckClient, CheckServer, SessionHandle
+    from qsm_tpu_torch.serve.cache import fingerprint_key
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p21_"))
+    dev_args = [] if device is None else ["--device", str(device)]
+    counters = (stepper_chunk, compact_carry, stepper_sweep, dfs_chunk,
+                threefry_draws)
+    launches, err, record = {}, 0, {}
+    kv_kw = kv_spec.spec_kwargs()
+    ids = ("n0", "n1")
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read(name, first, path_spec=None, need=("stepper_chunk",)):
+        nonlocal err
+        got = {c.__name__: c.launches for c in counters}
+        print(f"{tag} path of {name}: " + ", ".join(
+            f"{n} {k}" for k, n in got.items()) + " launches", flush=True)
+        for k in need:
+            require(got[k] > 0, f"{name} launched no {k}")
+        launches[name] = got
+        if first is not None:
+            err = max(err, hold_path_kernels(name, first, tag, path_spec))
+
+    def node(i, replog, **kw):
+        return CheckServer(node_id=ids[i], replog_dir=str(replog),
+                           flush_s=0.005, max_lanes=SERVE_LANES,
+                           queue_depth=SERVE_DEPTH,
+                           cache_entries=SERVE_CACHE, device=device,
+                           **kw).start()
+
+    def stamped(p, what):
+        """Every lane of every routed answer stamped with the node that
+        decided it; the nodes that decided lanes."""
+        used = set()
+        for d, n in zip(p.docs, (len(x) for x in p.reqs)):
+            require(sum(d["nodes"].values()) == n,
+                    f"{what}: {n} lanes, stamps {d['nodes']}")
+            used |= set(d["nodes"])
+            for b in d["batches"]:
+                require(b.get("node") in d["nodes"],
+                        f"{what}: a batch stamped {b.get('node')!r}")
+        return used
+
+    cpp = native.CppOracle(spec)
+    lanes = _replicate(corpus, DEVICE_BATCH)
+    q_lanes = _replicate(q_corpus, DEVICE_BATCH)
+    want = np.asarray(cpp.check_histories(spec, lanes))
+    q_want = np.asarray(native.CppOracle(q_spec).check_histories(
+        q_spec, q_lanes))
+    kv_want = np.asarray(PComp(kv_spec).check_histories(kv_spec,
+                                                         kv_corpus))
+    replogs = [tmp / f"replog{i}" for i in range(2)]
+    nodes, routers, procs = [], [], []
+    try:
+        # (a) two nodes and a router in this process, on the card
+        t_a = time.perf_counter()
+        rec_a = {}
+        nodes = [node(i, replogs[i]) for i in range(2)]
+        t0 = time.perf_counter()
+        for srv in nodes:
+            for model, kw in (("cas", None), ("queue", None),
+                              ("kv", kv_kw), ("register", None)):
+                srv.warm(model, kw)
+        torch.cuda.synchronize()
+        rec_a["warm_s"] = time.perf_counter() - t0
+        router = FleetRouter([(s.node_id, s.address) for s in nodes],
+                             anti_entropy_s=0.0, queue_depth=SERVE_DEPTH,
+                             device=device).start()
+        routers.append(router)
+        for name, model, s_, hs, w, kw in (
+                ("CAS headline", "cas", spec, lanes, want, None),
+                ("queue headline", "queue", q_spec, q_lanes, q_want, None),
+                ("kv16 per key", "kv", kv_spec, kv_corpus, kv_want,
+                 kv_kw)):
+            reset()
+            before = _fleet_paths(nodes)
+            box = {}
+            with FirstInputs() as first:
+                if model == "queue":
+                    # the idle share of a routed pass (the other passes
+                    # run without the profiler)
+                    wall, dev_s, top = profile_device(
+                        lambda: box.setdefault("p", ServedPass(
+                            router.address, model, hs, kw)))
+                else:
+                    box["p"] = ServedPass(router.address, model, hs, kw)
+            p = box["p"]
+            after = _fleet_paths(nodes)
+            read(f"the fleet, {name} (21a)", first, s_)
+            off = int((p.verdicts != w).sum())
+            require(off == 0, f"routed {name}: {off} verdicts off "
+                    f"CppOracle's")
+            used = stamped(p, f"routed {name}")
+            require(used == set(ids), f"routed {name}: only {used} "
+                    f"decided lanes")
+            flushes = after["batches"] - before["batches"]
+            single = serve_rec["a"].get(name, {})
+            r = rec_a[name] = dict(
+                lanes=len(hs), requests=len(p.docs), seconds=p.seconds,
+                histories_per_s=len(hs) / p.seconds, flushes=flushes,
+                lanes_a_flush=(after["lanes"] - before["lanes"])
+                / max(flushes, 1),
+                by_node={n: sum(d["nodes"].get(n, 0) for d in p.docs)
+                         for n in ids},
+                single_server_histories_per_s=single.get(
+                    "histories_per_s"),
+                direct_histories_per_s=single.get(
+                    "direct_histories_per_s"),
+                p50_ms=_pct(p.latency, 0.5) * 1e3,
+                p99_ms=_pct(p.latency, 0.99) * 1e3)
+            if model == "queue":
+                r.update(idle_share=1 - dev_s / wall if wall else None,
+                         profiled_wall_s=wall, profiled_device_s=dev_s,
+                         under_profiler=True)
+            print(f"{tag} 21a routed {name}: {r['lanes']} lanes in "
+                  f"{r['requests']} requests of {SERVE_LANES} from "
+                  f"{SERVE_CLIENTS} clients through the router to 2 nodes "
+                  f"({r['by_node']}), {r['seconds']:.3f} s = "
+                  f"{r['histories_per_s']:.1f} histories/s"
+                  + (" (under the profiler)" if model == "queue" else "")
+                  + f" against {r['single_server_histories_per_s']} from "
+                  f"phase 20's single server and "
+                  f"{r['direct_histories_per_s']} from the engine called "
+                  f"directly; {flushes} flushes, {r['lanes_a_flush']:.2f} "
+                  f"lanes a flush; p50 {r['p50_ms']:.2f} ms, p99 "
+                  f"{r['p99_ms']:.2f} ms; every lane stamped, 0 verdicts "
+                  f"off CppOracle's"
+                  + (f"; idle {r['idle_share']:.4f} ({wall:.3f} s wall, "
+                     f"{dev_s:.4f} s on the device; top {top})"
+                     if model == "queue" else ""), flush=True)
+        st = router.stats()
+        require(st["ladder_lanes"] == 0 and st["device_errors"] == 0
+                and not router._ladders,
+                f"21a: the router decided lanes itself: {st['ladder_lanes']}")
+        record["a"] = rec_a
+        print(f"{tag} 21a took {time.perf_counter() - t_a:.1f} s; the "
+              f"router built no ladder", flush=True)
+
+        # (b) node loss mid-burst, then no node at all
+        t_b = time.perf_counter()
+        key_owner = [router.membership.node_for(fingerprint_key(spec, h))
+                     for h in lanes]
+        victim = max(ids, key=key_owner.count)
+        vi = ids.index(victim)
+        # the same burst with both nodes alive, on the caches (a) warmed:
+        # the baseline that the burst with a node stopped is held against
+        warm = ServedPass(router.address, "cas", lanes)
+        require((warm.verdicts == want).all(), "21b warm burst: verdicts")
+        st0 = router.stats()
+        reset()
+        # the victim's server stops at the router's third dispatch to it:
+        # mid-burst, whatever the burst's pace, its socket gone before the
+        # dispatch goes out
+        link, box = router.links[victim], {}
+        real_request = link.request
+
+        def request(doc, timeout_s):
+            if doc.get("op") == "check":
+                box["calls"] = box.get("calls", 0) + 1
+                if box["calls"] == 3:
+                    box["t_kill"] = time.perf_counter()
+                    nodes[vi].stop()
+            return real_request(doc, timeout_s)
+
+        link.request = request
+        try:
+            box["p"] = ServedPass(router.address, "cas", lanes)
+        finally:
+            link.request = real_request
+        require("t_kill" in box, "21b: the burst never reached the victim")
+        t_kill = box["t_kill"]
+        p = box["p"]
+        st1 = router.stats()
+        read(f"the fleet, CAS burst with {victim} stopped (21b)", None)
+        require((p.verdicts == want).all(), "21b: verdicts off (a)'s")
+        survivor = ids[1 - vi]
+        late = [d for d in p.docs if victim not in d["nodes"]]
+        redis = st1["redispatches"] - st0["redispatches"]
+        faults = st1["node_faults"] - st0["node_faults"]
+        require(redis > 0 and faults > 0,
+                f"21b: no lane re-dispatched ({redis}, {faults})")
+        require(st1["ladder_lanes"] == 0, "21b: the survivor's lanes "
+                "reached the ladder")
+        rec_b = dict(victim=victim, seconds=p.seconds,
+                     after_kill_s=time.perf_counter() - t_kill,
+                     warm_burst_s=warm.seconds,
+                     node_loss_s=p.seconds - warm.seconds,
+                     redispatches=redis, node_faults=faults,
+                     requests_on_survivor_only=len(late))
+        print(f"{tag} 21b {victim} stopped mid-burst: the burst "
+              f"{p.seconds:.3f} s ({rec_b['after_kill_s']:.3f} s after the "
+              f"stop) against {warm.seconds:.3f} s for the same burst on "
+              f"the same warm caches with both nodes alive: the node loss "
+              f"cost {rec_b['node_loss_s']:.3f} s; {redis} re-dispatches, "
+              f"{faults} node faults, {len(late)} requests decided on "
+              f"{survivor} alone; verdicts equal (a)'s", flush=True)
+        nodes[1 - vi].stop()
+        for link in router.links.values():
+            link.close_all()
+        reset()
+        with FirstInputs() as first:
+            p = ServedPass(router.address, "cas", lanes)
+        read("the router's ladder, every node gone (21b)", first, spec)
+        require((p.verdicts == want).all(), "21b ladder: verdicts off")
+        require(all(d["nodes"] == {"router": len(x)}
+                    for d, x in zip(p.docs, p.reqs)),
+                "21b ladder: a lane not decided by the router")
+        (entry,) = router._ladders.values()
+        require(device is not None
+                or type(entry[1]).__name__ == "FailoverBackend",
+                "21b: the ladder is not the planned checker")
+        rec_b["ladder"] = dict(seconds=p.seconds,
+                               histories_per_s=len(lanes) / p.seconds,
+                               ladder_batches=router.stats()[
+                                   "ladder_batches"])
+        print(f"{tag} 21b the router's ladder on the card, no node alive: "
+              f"{len(lanes)} lanes in {p.seconds:.3f} s = "
+              f"{len(lanes) / p.seconds:.1f} histories/s, "
+              f"{rec_b['ladder']['ladder_batches']} ladder batches "
+              f"(FailoverBackend over the planned checker), "
+              f"{router.ladder_resolved} BUDGET lanes resolved", flush=True)
+        vio = [h for h, x in zip(corpus, cpp.check_histories(spec, corpus))
+               if x == Verdict.VIOLATION]
+        reset()
+        with CheckClient(router.address, timeout_s=600) as c:
+            t0 = time.perf_counter()
+            r = c.shrink("cas", vio[0], deadline_s=600)
+            shrink_s = time.perf_counter() - t0
+            require(r["ok"] and r["verdict"] == "VIOLATION"
+                    and r["node"] == router.node_id
+                    and r["final_ops"] < r["initial_ops"],
+                    f"21b ladder shrink: {json.dumps(r)[:300]}")
+            stream = history_to_rows(vio[0])
+            t0 = time.perf_counter()
+            sess = SessionHandle(c, "cas")
+            for i in range(0, len(stream), 8):
+                out = sess.append(stream[i:i + 8])
+                require(out.get("ok") and out.get("ladder"),
+                        f"21b ladder session: {json.dumps(out)[:300]}")
+            fin = sess.close()
+            session_s = time.perf_counter() - t0
+            require(fin["verdict"] == "VIOLATION" and fin.get("ladder"),
+                    f"21b ladder session close: {json.dumps(fin)[:300]}")
+        read("the router's ladder, shrink and a session (21b)", None)
+        rec_b["ladder"].update(shrink_s=shrink_s,
+                               shrink_ops=[r["initial_ops"],
+                                           r["final_ops"]],
+                               session_s=session_s)
+        print(f"{tag} 21b with no node alive: a shrink on the router's "
+              f"ladder {shrink_s:.3f} s ({r['initial_ops']} -> "
+              f"{r['final_ops']} ops), a session of {len(stream)} events "
+              f"on its session rung {session_s:.3f} s (VIOLATION)",
+              flush=True)
+        # (d)'s soak starts here and runs beside the rest of (b), (c)
+        # and (d)'s fleet: its processes spend most of their time starting
+        # on the card; (a)'s rates, (b)'s node loss, ladder, shrink and
+        # session are timed before it
+        t_soak = time.perf_counter()
+        soak = cli_proc("soak", "--sessions", FLEET_SOAK_SESSIONS,
+                        *dev_args)
+        procs.append(soak)
+        # a routed corpus whose lanes the ladder's planned checker leaves
+        # undecided: the queue headline's unique histories on a queue
+        # ladder built at DRAIN_BUDGET iterations with no mid or rescue
+        # budget.  Its BUDGET lanes are decided again on the exact host
+        # checker, as the server resolves its own.
+        import qsm_tpu_torch.search.planner as planner
+
+        real_build = planner.build_backend
+        planner.build_backend = functools.partial(
+            real_build, budget=DRAIN_BUDGET, mid_budget=0, rescue_budget=0)
+        try:
+            resolved0 = router.ladder_resolved
+            reset()
+            p = ServedPass(router.address, "queue", q_corpus)
+        finally:
+            planner.build_backend = real_build
+        read("the router's ladder at a starved budget, queue (21b)", None)
+        q_unique = np.asarray(native.CppOracle(q_spec).check_histories(
+            q_spec, q_corpus))
+        starved = router.ladder_resolved - resolved0
+        require((p.verdicts == q_unique).all(),
+                "21b starved ladder: verdicts off CppOracle's")
+        require(starved > 0, "21b starved ladder: no BUDGET lane")
+        rec_b["ladder"].update(starved_lanes=len(q_corpus),
+                               starved_resolved=starved,
+                               starved_s=p.seconds)
+        print(f"{tag} 21b (beside the soak) the router's queue ladder at "
+              f"budget {DRAIN_BUDGET} (no mid or rescue budget): "
+              f"{len(q_corpus)} lanes in {p.seconds:.3f} s, {starved} BUDGET "
+              f"lanes decided again on the exact host checker; 0 verdicts "
+              f"off CppOracle's", flush=True)
+        router.stop()
+        record["b"] = rec_b
+        print(f"{tag} 21b took {time.perf_counter() - t_b:.1f} s",
+              flush=True)
+
+        # (c) two routers on one lease; gossip with no router alive
+        t_c = time.perf_counter()
+        nodes = [node(i, replogs[i]) for i in range(2)]
+        lease = str(tmp / "lease.json")
+        ra, rb = (FleetRouter([(s.node_id, s.address) for s in nodes],
+                              node_id=rid, lease_path=lease,
+                              lease_ttl_s=FLEET_TTL_S, anti_entropy_s=0.0,
+                              queue_depth=SERVE_DEPTH,
+                              device=device).start()
+                  for rid in ("rA", "rB"))
+        routers += [ra, rb]
+        require(ra.ha_role == "active" and rb.ha_role == "standby",
+                f"21c roles {ra.ha_role} / {rb.ha_role}")
+        # rA goes down without releasing its lease, as a SIGKILL would
+        ra.lease = None
+        t0 = time.perf_counter()
+        ra.stop()
+        _wait_until(lambda: rb.ha_role == "active",
+                    "21c: the standby took no term")
+        takeover_s = time.perf_counter() - t0
+        reset()
+        p = ServedPass(f"{ra.address},{rb.address}", "cas", lanes)
+        require((p.verdicts == want).all() and all(
+            d.get("term") == rb.term and d.get("node") == "rB"
+            for d in p.docs), "21c: the client on A,B got other verdicts")
+        read("the fleet behind the standby after the takeover (21c)", None,
+             need=())
+        rec_c = dict(takeover_s=takeover_s, ttl_s=FLEET_TTL_S,
+                     term=rb.term, seconds=p.seconds,
+                     cached=sum(p.cached), beside_soak=True)
+        print(f"{tag} 21c (beside the soak) two routers on one lease (TTL "
+              f"{FLEET_TTL_S} s): "
+              f"rA down without releasing, rB active under term {rb.term} "
+              f"after {takeover_s:.3f} s; a client on A,B: {len(lanes)} "
+              f"lanes in {p.seconds:.3f} s, bit-identical to (a)'s, "
+              f"{rec_c['cached']} cached (the nodes reloaded their "
+              f"replogs)", flush=True)
+        rb.stop()
+        for srv in nodes:
+            srv.stop()
+        # gossip: two nodes on unix sockets named up front, each the
+        # other's peer; each decides half the unique corpus, and their
+        # replogs converge node to node
+        socks = [str(tmp / f"g{i}.sock") for i in range(2)]
+        nodes = [node(i, tmp / f"gossip{i}", unix_path=socks[i],
+                      peers=[[ids[1 - i], socks[1 - i]]], gossip_s=0.2,
+                      replog_seal_rows=1) for i in range(2)]
+        reset()
+        half = len(corpus) // 2
+        for i, part in enumerate((corpus[:half], corpus[half:])):
+            with CheckClient(socks[i], timeout_s=600) as c:
+                d = c.check("cas", part, deadline_s=600)
+                require(d["ok"], f"21c gossip node {i}: {d}")
+        read("two gossiping nodes (21c)", None)
+        for s in nodes:
+            s.cache.flush()
+        keys = [fingerprint_key(spec, h) for h in corpus]
+        t0 = time.perf_counter()
+        _wait_until(lambda: all(s.cache.get(k) is not None
+                                for s in nodes for k in keys),
+                    "21c: gossip did not converge", step_s=0.1)
+        converge_s = time.perf_counter() - t0
+        gst = [s.stats()["gossip"] for s in nodes]
+        rec_c["gossip"] = dict(
+            converge_s=converge_s, rows=len(keys),
+            pulled=[g["segments_pulled"] for g in gst],
+            pushed=[g["segments_pushed"] for g in gst],
+            sweeps=[g["sweeps"] for g in gst])
+        for i, s in enumerate(nodes):
+            for k, v in zip(keys, cpp.check_histories(spec, corpus)):
+                require(s.cache.get(k).verdict == int(v),
+                        f"21c gossip: node {i} banked another verdict")
+        print(f"{tag} 21c (beside the soak) gossip with no router alive: "
+              f"{len(keys)} rows "
+              f"on both nodes {converge_s:.3f} s after the last request "
+              f"(beat 0.2 s, segments of 1 row); segments pulled "
+              f"{rec_c['gossip']['pulled']}, pushed "
+              f"{rec_c['gossip']['pushed']} in "
+              f"{rec_c['gossip']['sweeps']} sweeps; every banked verdict "
+              f"CppOracle's", flush=True)
+        for srv in nodes:
+            srv.stop()
+        nodes = []
+        record["c"] = rec_c
+        print(f"{tag} 21c took {time.perf_counter() - t_c:.1f} s",
+              flush=True)
+
+        # (d) the CLI: `fleet --nodes 2` (spawned nodes on the card),
+        # submit / stats --fleet / health through its router; the soak
+        t_d = time.perf_counter()
+        rec_d = {}
+        fleet = cli_proc("fleet", "--nodes", 2, "--port", 0, "--warm",
+                         "cas", "--anti-entropy-s", 0, "--replog-root",
+                         tmp / "cli", *dev_args)
+        procs.append(fleet)
+        line = fleet.stdout.readline()
+        require(line.startswith("{"), f"fleet: no banner {line!r} "
+                f"{fleet.stderr.read()[-600:] if fleet.poll() is not None else ''}")
+        banner = json.loads(line)
+        addr = banner["fleet"]
+        rec_d["fleet_up_s"] = time.perf_counter() - t_d
+        trace = tmp / "cas_trace.json"
+        trace.write_text(json.dumps({"model": "cas", "histories": [
+            history_to_rows(h) for h in corpus]}))
+        t0 = time.perf_counter()
+        rc, out = cli_inproc("submit", "--addr", addr, "--trace", trace)
+        rec_d["submit_s"] = time.perf_counter() - t0
+        res = json.loads(out[-1])
+        require(rc == 1 and res["ok"] and [Verdict[v] for v in
+                                           res["verdicts"]]
+                == list(cpp.check_histories(spec, corpus)),
+                f"submit --addr ROUTER: rc {rc}")
+        require(set(res["nodes"]) == {"n0", "n1"},
+                f"submit: decided by {res['nodes']}")
+        rc, text = cli_inproc("stats", "--serve", addr, "--fleet")
+        rows = [x for x in text if x.strip().startswith(("n0 ", "n1 "))]
+        require(rc == 0 and len(rows) == 2 and all(
+            "[up]" in x and "device cuda" in x for x in rows)
+            if device is None else rc == 0 and len(rows) == 2,
+            f"stats --fleet: {text}")
+        searched = [int(x.split("searched ")[1].split()[0]) for x in rows]
+        require(all(n > 0 for n in searched),
+                f"stats --fleet: searches {searched}")
+        rc_h, _ = cli_inproc("health", "--addr", addr)
+        require(rc_h == 0, f"health --addr ROUTER: exit {rc_h}")
+        with CheckClient(addr, timeout_s=60) as c:
+            c.shutdown()
+        try:
+            fleet.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError("chip_smoke: fleet did not stop")
+        require(fleet.returncode == 0, f"fleet exited {fleet.returncode}")
+        rec_d.update(searched=searched, stats_fleet=text)
+        print(f"{tag} 21d (beside the soak) `fleet --nodes 2`: up in "
+              f"{rec_d['fleet_up_s']:.1f}"
+              f" s (two spawned nodes, each its own CUDA context); `submit "
+              f"--addr ROUTER` {rec_d['submit_s']:.2f} s, {len(corpus)} "
+              f"verdicts CppOracle's, decided by {res['nodes']}; `stats "
+              f"--serve ROUTER --fleet`:", flush=True)
+        for x in text:
+            print(f"    {x}")
+        print(f"{tag} 21d `health --addr ROUTER` exit 0; the fleet stopped "
+              f"on shutdown", flush=True)
+        rc, out = cli_result(soak, "soak")
+        rep = json.loads(out[-1])
+        rec_d["soak_s"] = time.perf_counter() - t_soak
+        rec_d["soak"] = rep
+        require(rc == 0 and rep["gate_ok"],
+                f"soak: rc {rc}, gate {json.dumps(rep)[:600]}")
+        # the soak's fuzz rounds draw their corpora in the soak's own
+        # process: its report carries that process' launches
+        require(device is not None or rep["fuzz"]["draw_launches"] > 0,
+                "the soak's fuzz rounds launched no threefry_draws")
+        print(f"{tag} 21d `soak --sessions {FLEET_SOAK_SESSIONS}` (started "
+              f"after (b)'s timings, beside the rest of (b), (c) and the fleet "
+              f"above) "
+              f"{rec_d['soak_s']:.1f} s, gate_ok: "
+              f"{json.dumps(rep)}", flush=True)
+        record["d"] = rec_d
+        print(f"{tag} 21d took {time.perf_counter() - t_d:.1f} s",
+              flush=True)
+    finally:
+        for r in routers:
+            r.stop()
+        for srv in nodes:
+            srv.stop()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    total = {c.__name__: sum(x[c.__name__] for x in launches.values())
+             for c in counters}
+    dt = time.perf_counter() - t_phase
+    record["seconds"] = dt
+    print(f"{tag} phase 21 record: {json.dumps(record)}", flush=True)
+    print(f"{tag} phase 21 launches: " + ", ".join(
+        f"{n} {k}" for k, n in total.items()) + f"; {dt:.1f} s", flush=True)
+    return launches, err, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -5573,6 +6120,11 @@ def main(argv=None) -> int:
         spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, mon_rec, tag)
     print(f"{tag} phase the check server: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    fleet_launches, fleet_err, _fleet_rec = phase_fleet(
+        spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, serve_rec, tag)
+    print(f"{tag} phase the fleet tier: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
@@ -5580,15 +6132,17 @@ def main(argv=None) -> int:
                "generation plane (phase 15)": gen_launches,
                **search_launches,
                "entry points (phase 17)": entry_launches,
-               **res_launches, **mon_launches, **serve_launches}
+               **res_launches, **mon_launches, **serve_launches,
+               **fleet_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
 
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
-                   entry_err, res_err, mon_err, serve_err)
-    search_err = max(search_err, entry_err, res_err, mon_err, serve_err)
+                   entry_err, res_err, mon_err, serve_err, fleet_err)
+    search_err = max(search_err, entry_err, res_err, mon_err, serve_err,
+                     fleet_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare

@@ -15,8 +15,10 @@ histories worth asking about:
 
 * :mod:`.fleet`: the closed loop, ``fuzz --addr``: steered corpora sent
   to a live server as check requests and monitor sessions, every answer
-  re-proved by a fresh host oracle (the reference's ``gen/soak.py`` waits
-  for the fleet tier, ROADMAP A7).
+  re-proved by a fresh host oracle;
+* :mod:`.soak`: the chaos soak, ``soak``: durable monitor sessions held
+  open through a spawned fleet's rolling restarts, a router takeover and
+  a node leave/join, every verdict re-proved by a fresh memo oracle.
 
 Generation steers, it never
 judges: no counter or score here contributes to a verdict.

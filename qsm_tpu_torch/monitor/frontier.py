@@ -70,7 +70,7 @@ import numpy as np
 
 from ..core.history import History, Op
 from ..core.spec import Spec
-from ..ops.backend import Verdict
+from ..ops.backend import DeviceDispatchError, Verdict
 from ..ops.segdc import _Budget, default_middle_oracle
 from ..ops.segdc import _end_states as _walk_end_states
 from ..sched.runner import PENDING_T
@@ -470,21 +470,25 @@ class WindowEngines:
     ``check_histories(spec, windows, init_states=states)`` call per spec:
     a lane per (window, frontier state).  Windows longer than
     ``max_ops`` (the engine's op cap) are checked by the host loop.
-    Nothing here catches an engine error: a CUDA error raises out of
-    ``decide()``.
+    Nothing here decides around an engine error: with ``on_card`` (the
+    engines run on the card) a failing call raises out of ``decide()`` as
+    ``DeviceDispatchError``, so a server answers it as the card's failure;
+    otherwise the error raises as it is.
 
     Counters: ``calls`` (engine calls), ``lanes`` (lanes sent),
     ``redecided`` (undecided lanes decided again on the host),
     ``host_windows`` (windows over the op cap) and ``seconds`` (wall
     time inside :meth:`check`)."""
 
-    def __init__(self, make_engine: Callable, max_ops: Optional[int] = None):
+    def __init__(self, make_engine: Callable, max_ops: Optional[int] = None,
+                 on_card: bool = False):
         if max_ops is None:
             from ..ops.stepper_kernel import MAX_OPS
 
             max_ops = MAX_OPS
         self.max_ops = int(max_ops)
         self._make = make_engine
+        self.on_card = on_card
         self._engines: Dict[str, object] = {}
         self._lock = threading.Lock()
         self.calls = 0
@@ -528,8 +532,14 @@ class WindowEngines:
                 for _, last, states in items:
                     windows.extend([last] * len(states))
                     inits.extend(np.asarray(st, np.int32) for st in states)
-                verdicts = eng.check_histories(eng.spec, windows,
-                                               init_states=inits)
+                try:
+                    verdicts = eng.check_histories(eng.spec, windows,
+                                                   init_states=inits)
+                except Exception as e:
+                    if not self.on_card:
+                        raise
+                    raise DeviceDispatchError(
+                        f"{type(e).__name__}: {e}") from e
                 self.calls += 1
                 self.lanes += len(windows)
                 at = 0
@@ -564,4 +574,5 @@ def window_engines(device=None, engine=None) -> Optional[WindowEngines]:
         return None
     from ..ops.stepper import TorchStepper
 
-    return WindowEngines(lambda spec: TorchStepper(spec, device=dev))
+    return WindowEngines(lambda spec: TorchStepper(spec, device=dev),
+                         on_card=True)

@@ -33,6 +33,12 @@ class BackendUnavailable(RuntimeError):
     down): the typed signal that callers may degrade on."""
 
 
+class DeviceDispatchError(RuntimeError):
+    """A dispatch failed on the card with an error that must not degrade
+    (a real device error): the requests it served answer ``ok: false``
+    with the original error's name and message, ``str(self)``."""
+
+
 def device_error_types() -> tuple:
     """Every error class that means the device substrate failed, as
     opposed to a bug in the caller's arguments, which must keep crashing.

@@ -75,6 +75,34 @@ def host_fallback(spec: Spec):
     return WingGongCPU(memo=True)
 
 
+def budget_resolver(spec: Spec):
+    """The exact host checker that resolves a device engine's
+    BUDGET_EXCEEDED lanes: the host ladder, per key (``PComp`` over it)
+    when the spec's projection validates.  The reference resolves with
+    the memo oracle; the verdicts are the same, and a device engine's
+    undecided lanes are the hard ones (whole KV histories of 16 keys take
+    the memo oracle minutes)."""
+    from ..core.spec import projection_report
+
+    if projection_report(spec):
+        return host_fallback(spec)
+    from ..ops.pcomp import PComp
+
+    return PComp(spec, make_inner=host_fallback)
+
+
+def resolve_budget_lanes(resolver, spec: Spec, hists, verdicts) -> int:
+    """Decide again on ``resolver`` every lane of ``verdicts`` (a list,
+    changed in place) that is BUDGET_EXCEEDED; returns how many."""
+    todo = [i for i, v in enumerate(verdicts)
+            if int(v) == int(Verdict.BUDGET_EXCEEDED)]
+    if todo:
+        sub = resolver.check_histories(spec, [hists[i] for i in todo])
+        for i, v in zip(todo, sub):
+            verdicts[i] = int(v)
+    return len(todo)
+
+
 # the attributes a combinator keeps its engines under: the per-key split,
 # segmentation and root splitting (inner), the hybrid plan and this
 # wrapper (device), the router (plain, pcomp)

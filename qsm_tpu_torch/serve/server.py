@@ -37,10 +37,14 @@ Where the card needs another design than the reference's:
   own engines and lock (``monitor/frontier.py::WindowEngines``).
 * **Pool workers are host processes**: ``workers > 0`` needs
   ``device="cpu"``.
+* **A device error says so on the wire.**  A check, shrink or session
+  answer that failed on the card carries ``device_error`` beside its
+  ``error``, so a fleet router (``fleet/router.py``) answers it and
+  never re-decides it on its host ladder.
 
-Not ported yet (ROADMAP A7, the fleet tier): node-to-node gossip
-(``peers=``, ``gossip_s=``) and lease hosting (``lease_path=``), which
-raise ``ValueError``; their wire ops answer an error.  A lane-axis mesh
+The fleet tier's node side is the reference's: node-to-node gossip
+(``peers=``, ``gossip_s=``, the ``gossip.peers`` op) and lease hosting
+(``lease_path=``, the ``lease.*`` ops).  A lane-axis mesh
 (``mesh_devices > 1``) raises until ROADMAP A8.
 
 Wire protocol: ``serve/protocol.py`` (JSON lines over TCP or a UNIX
@@ -63,11 +67,12 @@ import torch
 from ..core.history import History
 from ..obs import Observability, new_span_id, new_trace_id
 from ..obs import global_obs, set_global
-from ..ops.backend import Verdict, resolve_device
+from ..ops.backend import DeviceDispatchError, Verdict, resolve_device
 from ..resilience.failover import (FailoverBackend, _engine_leaves,
-                                   collect_resilience, cuda_device,
-                                   degradable_errors, host_fallback,
-                                   host_only, watched_call)
+                                   budget_resolver, collect_resilience,
+                                   cuda_device, degradable_errors,
+                                   host_fallback, host_only,
+                                   resolve_budget_lanes, watched_call)
 from ..resilience.faults import fired_snapshot, inject
 from ..resilience.policy import RetryPolicy, preset
 from ..search.stats import collect_search_stats, stats_delta
@@ -77,20 +82,20 @@ from .cache import VerdictCache, fingerprint_key
 from .protocol import (VERDICT_NAMES, LineChannel, history_to_rows,
                        rows_to_history, send_doc)
 
-# what the fleet tier's ops and arguments wait for
-_FLEET_TIER = "the fleet tier, which is not ported yet (ROADMAP A7)"
-
-
-class DeviceDispatchError(RuntimeError):
-    """A batch's dispatch failed on the card with an error that must not
-    degrade (a real device error): its requests answer ``ok: false`` with
-    the original error's name and message, ``str(self)``."""
-
 
 def _error_text(e: BaseException) -> str:
     if isinstance(e, DeviceDispatchError):
         return str(e)
     return f"{type(e).__name__}: {e}"
+
+
+def _answer_device_error(doc: dict, e: BaseException) -> dict:
+    """``doc`` (an ``ok: false`` answer) with ``device_error`` when
+    ``e`` is a failure on the card, so a router can tell it from a bad
+    request."""
+    if isinstance(e, DeviceDispatchError):
+        return {**doc, "device_error": str(e)}
+    return doc
 
 
 def _batch_error(batches) -> Optional[str]:
@@ -299,12 +304,6 @@ class CheckServer:
         if int(mesh_devices) > 1:
             raise ValueError("mesh_devices > 1 waits for the mesh "
                              "(ROADMAP A8); the port serves on one device")
-        if peers or gossip_s:
-            raise ValueError(f"gossip (peers=, gossip_s=) needs "
-                             f"{_FLEET_TIER}")
-        if lease_path is not None:
-            raise ValueError(f"lease hosting (lease_path=) needs "
-                             f"{_FLEET_TIER}")
         self.host, self.port, self.unix_path = host, port, unix_path
         self.engine_kind = engine
         self.mesh_devices = 1
@@ -391,6 +390,30 @@ class CheckServer:
                                         node_id=node_id or "n0",
                                         cap=devq_cap)
             set_global_devq(self.devq)
+        # peer-to-peer anti-entropy (fleet/gossip.py): with peers and
+        # a replog, this node keeps its banked verdicts converging
+        # with the fleet's NODE-TO-NODE — no router in the loop, so
+        # replication survives every router being dead.  Peers come
+        # from the ctor (static deploys) or the `gossip.peers` op
+        # (`fleet` wires spawned nodes whose addresses are only known
+        # after their banners).  Built after the queue, so a node with
+        # both gossips its devq leg from the start.
+        self.gossip = None
+        self._gossip_interval = float(gossip_s)
+        self._gossip_fanout = int(gossip_fanout)
+        if self.replog is not None and peers:
+            self._make_gossip(peers)
+        # lease hosting (fleet/lease.py): with a lease_path this node
+        # answers the lease.* ops, so routers on OTHER hosts share one
+        # record through a TcpLeaseStore — the flock and the clock both
+        # live here, keeping the single-authority safety argument of
+        # the filesystem lease
+        self.lease_store = None
+        self.lease_ops = 0
+        if lease_path is not None:
+            from ..fleet.lease import FileLeaseStore
+
+            self.lease_store = FileLeaseStore(lease_path)
         self.admission = AdmissionController(
             queue_depth=queue_depth, policy=self.policy,
             pool_state=self.pool.shed_state if self.pool else None)
@@ -473,6 +496,18 @@ class CheckServer:
         return SessionManager(store=session_store, device=self.device,
                               **kw)
 
+    def _make_gossip(self, peers) -> None:
+        from ..fleet.gossip import GossipAgent
+
+        if self.gossip is None:
+            self.gossip = GossipAgent(
+                self.node_id or "n0", self.replog, self.cache,
+                peers=peers, interval_s=self._gossip_interval,
+                fanout=self._gossip_fanout, obs=self.obs,
+                devq=self.devq)
+        else:
+            self.gossip.set_peers(peers)
+
     # -- lifecycle -----------------------------------------------------
     @property
     def address(self) -> str:
@@ -519,6 +554,8 @@ class CheckServer:
                 host=self.host if not self.unix_path else "127.0.0.1",
                 port=self.metrics_port).start()
             self.metrics_port = self._metrics_server.port
+        if self.gossip is not None:
+            self.gossip.start()
         t = threading.Thread(target=self._accept_loop, daemon=True,
                              name="qsm-serve-accept")
         t.start()
@@ -545,6 +582,8 @@ class CheckServer:
         # wait → kill escalation → reap) so no test or caller ever
         # leaks a child process
         self.batcher.stop()
+        if self.gossip is not None:
+            self.gossip.stop()
         if self.pool is not None:
             self.pool.stop()
         if self._sock is not None:
@@ -764,19 +803,24 @@ class CheckServer:
             except Exception as e:  # noqa: BLE001 — answer, don't die
                 self._send(conn, {"id": req.get("id"), "ok": False,
                                   "error": f"{type(e).__name__}: {e}"})
-        elif op in ("gossip.peers", "lease.acquire", "lease.renew",
-                    "lease.release", "lease.read"):
-            self._send(conn, {"id": req.get("id"), "ok": False,
-                              "error": f"{op} needs {_FLEET_TIER}"})
+        elif op == "gossip.peers":
+            self._handle_gossip_peers(conn, req)
+        elif op in ("lease.acquire", "lease.renew", "lease.release",
+                    "lease.read"):
+            self._handle_lease(conn, op, req)
         elif op in ("session.open", "session.append", "session.close"):
             try:
                 self._handle_session(conn, op, req)
             except OSError:
                 raise  # peer gone: let the connection close
             except Exception as e:  # noqa: BLE001 — answer, don't die
-                self._send(conn, {"id": req.get("id"), "ok": False,
-                                  "session": req.get("session"),
-                                  "error": _error_text(e)})
+                # a window re-check that failed on the card raises
+                # DeviceDispatchError (monitor/frontier.py): say so for
+                # a router
+                self._send(conn, _answer_device_error(
+                    {"id": req.get("id"), "ok": False,
+                     "session": req.get("session"),
+                     "error": _error_text(e)}, e))
         elif op == "shutdown":
             if self.allow_shutdown:
                 self._send(conn, {"ok": True, "stopping": True})
@@ -798,8 +842,9 @@ class CheckServer:
                 # no admission slots are held here (_handle_check admits
                 # only after validation and releases on its own errors;
                 # _handle_shrink releases in its finally)
-                self._send(conn, {"id": req.get("id"), "ok": False,
-                                  "error": _error_text(e)})
+                self._send(conn, _answer_device_error(
+                    {"id": req.get("id"), "ok": False,
+                     "error": _error_text(e)}, e))
         else:
             self._send(conn, {"ok": False, "error": f"unknown op {op!r}"})
 
@@ -1067,6 +1112,73 @@ class CheckServer:
                               "rows": len(rows_in), "done": done,
                               "pending": len(self.devq)})
 
+    def _handle_gossip_peers(self, conn: socket.socket,
+                             req: dict) -> None:
+        """(Re)configure this node's gossip peer set at runtime — the
+        wiring op ``fleet`` uses after spawned nodes' addresses are
+        known.  Idempotent; requires a replog (gossip replicates
+        segments, a bankless node has none to exchange)."""
+        if self.replog is None:
+            self._send(conn, {"id": req.get("id"), "ok": False,
+                              "error": "node runs no replicated log "
+                                       "(start with replog_dir)"})
+            return
+        peers = req.get("peers") or []
+        if req.get("interval_s") is not None:
+            self._gossip_interval = float(req["interval_s"])
+        self._make_gossip(peers)
+        self.gossip.interval_s = self._gossip_interval
+        if not self._stop.is_set():
+            # idempotent: also wakes an agent created dormant
+            # (interval 0) that this op just gave a real beat
+            self.gossip.start()
+        self._send(conn, {"id": req.get("id"), "ok": True,
+                          "peers": self.gossip.peer_ids(),
+                          "interval_s": self.gossip.interval_s})
+
+    # -- the lease service (fleet/lease.py TcpLeaseStore) --------------
+    def _handle_lease(self, conn: socket.socket, op: str,
+                      req: dict) -> None:
+        """The lease-hosting surface: each op runs ONE flock-excluded
+        FileLeaseStore transaction on this node's ``lease_path`` —
+        the term/expiry semantics routers see over TCP are byte-for-
+        byte the single-host semantics, with this host's clock as the
+        one authority.  A REFUSED transaction (live foreign term,
+        superseded renew, lost flock beat) is an OK response with the
+        flag false — only transport failure reads as a lost beat on
+        the caller's side, so the two are never conflated."""
+        if self.lease_store is None:
+            self._send(conn, {"id": req.get("id"), "ok": False,
+                              "error": "node hosts no lease record "
+                                       "(start with lease_path)"})
+            return
+        holder = str(req.get("holder", ""))
+        self.lease_ops += 1
+        if op == "lease.read":
+            self._send(conn, {"id": req.get("id"), "ok": True,
+                              "record": self.lease_store.read()})
+            return
+        if op == "lease.acquire":
+            rec = self.lease_store.acquire(
+                holder, ttl_s=float(req.get("ttl_s", 3.0)),
+                grace_s=float(req.get("grace_s", 0.0)))
+            self._send(conn, {"id": req.get("id"), "ok": True,
+                              "acquired": rec is not None,
+                              "record": (rec if rec is not None
+                                         else self.lease_store.read())})
+            return
+        if op == "lease.renew":
+            rec = self.lease_store.renew(
+                holder, int(req.get("term", -1)),
+                ttl_s=float(req.get("ttl_s", 3.0)))
+            self._send(conn, {"id": req.get("id"), "ok": True,
+                              "renewed": rec is not None,
+                              "record": rec})
+            return
+        self.lease_store.release(holder)  # lease.release
+        self._send(conn, {"id": req.get("id"), "ok": True,
+                          "released": True})
+
     # -- the check path ------------------------------------------------
     def _handle_check(self, conn: socket.socket, req: dict) -> None:
         from ..models.registry import MODELS
@@ -1157,10 +1269,10 @@ class CheckServer:
             for j in range(len(hists)):
                 if not pending.lane_submitted[j]:
                     release_lane(j)
-            self._respond(conn, {"id": req.get("id"), "ok": False,
-                                 "trace": trace,
-                                 "error": _error_text(e)},
-                          trace, root, t_req, status="error")
+            self._respond(conn, _answer_device_error(
+                {"id": req.get("id"), "ok": False, "trace": trace,
+                 "error": _error_text(e)}, e),
+                trace, root, t_req, status="error")
 
     def _check_admitted(self, conn, req, entry, spec_key, hists, pending,
                         deadline, want_witness, release_lane, t_req,
@@ -1897,16 +2009,15 @@ class CheckServer:
         # follow the same rule).  Whether it is the ladder is read off
         # the engine, not its name: on the card every engine is a
         # device engine.
-        todo = [i for i, v in enumerate(verdicts)
-                if v == int(Verdict.BUDGET_EXCEEDED)]
-        if todo and not (entry.host_ladder or (
-                self.pool is not None and "worker" in why)):
+        verdicts = [int(v) for v in verdicts]
+        if int(Verdict.BUDGET_EXCEEDED) in verdicts and not (
+                entry.host_ladder or (
+                    self.pool is not None and "worker" in why)):
             with entry.dispatch_lock:
-                sub = self._resolver(entry).check_histories(
-                    entry.spec, [hists[i] for i in todo])
-            for i, v in zip(todo, sub):
-                verdicts[i] = int(v)
-                self.budget_resolved += 1
+                if entry.resolver is None:
+                    entry.resolver = budget_resolver(entry.spec)
+                self.budget_resolved += resolve_budget_lanes(
+                    entry.resolver, entry.spec, hists, verdicts)
         # one bank flush for the whole batch (put_many), then resolve —
         # banking is SUPERVISOR-ONLY by design: a SIGKILLed worker can
         # never leave a torn or wrong bank behind
@@ -1953,25 +2064,6 @@ class CheckServer:
                                         + n_emitted)
         for lane, v in zip(lanes, verdicts):
             lane.resolve(int(v), why)
-
-    @staticmethod
-    def _resolver(entry: _EngineEntry):
-        """The exact host checker that resolves a device engine's BUDGET
-        lanes: the host ladder (native, else the memo oracle), per key
-        when the spec's projection validates.  The reference resolves
-        with the memo oracle; the verdicts are the same, and a device
-        engine's undecided lanes are the hard ones (whole KV histories
-        of 16 keys take the memo oracle minutes)."""
-        if entry.resolver is None:
-            from ..core.spec import projection_report
-
-            if projection_report(entry.spec):
-                entry.resolver = host_fallback(entry.spec)
-            else:
-                from ..ops.pcomp import PComp
-
-                entry.resolver = PComp(entry.spec, make_inner=host_fallback)
-        return entry.resolver
 
     def _dispatch_pool(self, spec_key: str, model: str, spec_kwargs,
                        hists, width: int, why: dict, traces=None):
@@ -2091,6 +2183,9 @@ class CheckServer:
                                   type(entry.engine).__name__),
                 "resilience": collect_resilience(entry.engine),
                 "search": st.to_compact() if st is not None else None,
+                # histories its searches decided (the fleet view's
+                # "searched" column)
+                "searched": st.histories if st is not None else 0,
             }
         return {
             "address": self.address,
@@ -2127,10 +2222,15 @@ class CheckServer:
             "admission": self.admission.snapshot(),
             "batcher": self.batcher.snapshot(),
             "cache": self.cache.stats(),
-            # lease hosting and node-to-node gossip: the fleet tier's
-            # blocks, None until it is ported (ROADMAP A7)
-            "lease_host": None,
-            "gossip": None,
+            # lease hosting (fleet/lease.py): None unless this node
+            # answers the lease.* ops
+            "lease_host": ({"path": self.lease_store.describe(),
+                            "ops": self.lease_ops}
+                           if self.lease_store is not None else None),
+            # node-to-node anti-entropy accounting (fleet/gossip.py):
+            # None unless this node gossips
+            "gossip": (self.gossip.snapshot()
+                       if self.gossip is not None else None),
             # per-worker rows (dispatches, faults, deaths, respawns,
             # quarantines) — what `qsm-tpu stats --serve` aggregates
             "pool": self.pool.snapshot() if self.pool is not None else None,

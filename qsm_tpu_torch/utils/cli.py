@@ -1,6 +1,6 @@
 """Command line: ``python -m qsm_tpu_torch
 run|replay|check|shrink|list|coverage|explore|fuzz|bench|stats|trace|ingest|
-monitor|serve|submit|health``.
+monitor|serve|submit|health|fleet|soak``.
 
 * ``run``: ``prop_concurrent`` on a registry model (fault flags, the TCP
   transport, worker processes, a JSONL log and a regression file;
@@ -30,8 +30,14 @@ monitor|serve|submit|health``.
   ``--device cpu`` the reference's host ladder; ``submit``, ``health``
   and ``stats --serve`` talk to it, as do ``shrink --addr``, ``trace
   --addr``, ``monitor --addr``, ``ingest --submit`` and ``fuzz --addr``
-  (the closed loop of ``gen/fleet.py``).  ``fleet``, ``soak`` and
-  ``stats --fleet`` wait for the fleet tier and are refused.
+  (the closed loop of ``gen/fleet.py``); ``serve --peers`` gossips a
+  node's bank to its peers and ``--lease-host`` serves the routers' HA
+  lease;
+* ``fleet``: N check servers behind a ``FleetRouter`` (``fleet/``): the
+  spawned nodes (``--nodes N``) on the card unless ``--device cpu``, the
+  router's last rungs too; ``stats --serve ROUTER --fleet`` renders its
+  per-node view;
+* ``soak``: the chaos soak of ``gen/soak.py`` against a spawned fleet.
 
 Device backends (``--device cpu`` runs their kernels' plain versions):
 
@@ -423,14 +429,243 @@ def cmd_bench(args) -> int:
     return 0
 
 
-def _fleet_refused(what: str) -> SystemExit:
-    return SystemExit(f"{what} needs the fleet tier (router, membership, "
-                      "gossip, lease), which is not ported yet (ROADMAP "
-                      "A7)")
+def _spawn_node_cmd(i: int, replog_root: str, args) -> list:
+    """The ``serve`` command line of spawned fleet node ``i``: a
+    ``python -m qsm_tpu_torch serve`` process with its own CUDA context
+    and planned checker, ``--device`` passed through (``cpu`` gives host
+    nodes; nothing else does, and nothing hides the card)."""
+    import os
+
+    cmd = [sys.executable, "-m", "qsm_tpu_torch", "serve",
+           "--port", "0", "--node-id", f"n{i}",
+           "--replog-dir", os.path.join(replog_root, f"n{i}")]
+    if args.device is not None:
+        cmd += ["--device", str(args.device)]
+    if args.session_root:
+        cmd += ["--session-dir", os.path.join(args.session_root, f"n{i}"),
+                "--max-sessions", str(args.max_sessions)]
+    if args.devq_root:
+        cmd += ["--devq-dir", os.path.join(args.devq_root, f"n{i}")]
+    if args.workers:
+        cmd += ["--workers", str(args.workers)]
+    if args.warm:
+        cmd += ["--warm", args.warm]
+    if args.collect_dir:
+        # fleet-wide collection needs node span logs to scrape: each
+        # spawned node traces beside its replog (fronted --addrs nodes
+        # bring their own --trace-log)
+        cmd += ["--trace-log",
+                os.path.join(replog_root, f"n{i}_trace.jsonl")]
+    return cmd
 
 
-def _refuse_fleet_verb(args) -> int:
-    raise _fleet_refused(f"`{args.cmd}`")
+def cmd_fleet(args) -> int:
+    """Run a fleet (``fleet/``): N CheckServer node processes behind a
+    :class:`FleetRouter` that speaks the unchanged client protocol —
+    consistent-hash routing by the verdict-cache identity, node-loss
+    re-dispatch, segmented replicated verdict logs with anti-entropy
+    catch-up.  ``--addrs`` fronts nodes you started yourself; otherwise
+    ``--nodes N`` local node processes are spawned (``python -m
+    qsm_tpu_torch serve``, each on the card unless ``--device cpu``) and
+    torn down with the router.  A node that cannot start prints no
+    banner and the fleet exits: it never carries on with fewer nodes or
+    on the host.  The router's own last rungs run on the card unless
+    ``--device cpu``.  Prints ONE JSON line with the router address +
+    node map, then serves until a ``shutdown`` request (or SIGINT)."""
+    import subprocess
+    import tempfile
+
+    from ..fleet.router import FleetRouter
+
+    if args.workers and (args.device is None or str(args.device) != "cpu"):
+        # pool workers are host processes (the serve rule)
+        raise SystemExit("--workers needs --device cpu (pool workers run "
+                         "the host cpp->memo ladder; a card's engine "
+                         "lives in the node process)")
+    nodes: list = []
+    procs: list = []
+    if args.addrs:
+        for i, addr in enumerate(a.strip() for a in args.addrs.split(",")
+                                 if a.strip()):
+            nodes.append((f"n{i}", addr))
+    else:
+        replog_root = args.replog_root or tempfile.mkdtemp(
+            prefix="qsm_fleet_replog_")
+        for i in range(args.nodes):
+            procs.append(subprocess.Popen(
+                _spawn_node_cmd(i, replog_root, args),
+                stdout=subprocess.PIPE, text=True))
+        for i, proc in enumerate(procs):
+            line = proc.stdout.readline()  # the serve banner line
+            try:
+                nodes.append((f"n{i}", json.loads(line)["serving"]))
+            except (ValueError, KeyError):
+                for q in procs:
+                    q.terminate()
+                    try:
+                        q.wait(timeout=5.0)
+                    except subprocess.TimeoutExpired:
+                        q.kill()
+                raise SystemExit(
+                    f"node {i} failed to start (no serve banner)")
+    if args.gossip_s and args.gossip_s > 0:
+        # wire node-to-node gossip: each node gets every OTHER node as
+        # a peer (the gossip.peers op — addresses are only known now).
+        # Replication then no longer depends on any router living.
+        from ..serve.protocol import LineChannel, connect, send_doc
+
+        for nid, addr in nodes:
+            peers = [[pid, paddr] for pid, paddr in nodes
+                     if pid != nid]
+            try:
+                sock = connect(addr, timeout_s=5.0)
+                try:
+                    send_doc(sock, {"op": "gossip.peers",
+                                    "peers": peers,
+                                    "interval_s": args.gossip_s})
+                    LineChannel(sock).read_line(timeout_s=5.0)
+                finally:
+                    sock.close()
+            except (OSError, ValueError):
+                # a node without a replog (--addrs fronting a plain
+                # server) just doesn't gossip; the router sweep still
+                # covers it
+                pass
+    router = FleetRouter(
+        nodes, host=args.host, port=args.port, unix_path=args.unix,
+        queue_depth=args.queue_depth,
+        quarantine_after=args.quarantine_after,
+        heartbeat_s=args.heartbeat_s,
+        anti_entropy_s=args.anti_entropy_s,
+        node_id=args.router_id,
+        session_dir=args.session_journal,
+        lease_path=args.lease_path,
+        lease_ttl_s=args.lease_ttl_s,
+        trace_log=args.trace_log, flight_dir=args.flight_dir,
+        metrics_port=args.metrics_port,
+        collect_dir=args.collect_dir, collect_s=args.collect_s,
+        slo=args.slo, slo_window_s=args.slo_window,
+        device=args.device)
+    router.start()
+    try:
+        print(json.dumps({"fleet": router.address,
+                          "router_id": args.router_id,
+                          "role": router.ha_role,
+                          "term": router.term,
+                          "lease": args.lease_path,
+                          "nodes": dict(nodes),
+                          "spawned": len(procs),
+                          "device": ("cpu" if router.on_cpu else
+                                     str(args.device or "cuda")),
+                          "anti_entropy_s": args.anti_entropy_s,
+                          "gossip_s": args.gossip_s,
+                          "trace_log": args.trace_log,
+                          "collect_dir": args.collect_dir,
+                          "slo": args.slo,
+                          "flight_dir": args.flight_dir}), flush=True)
+        router.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        router.stop()
+        for proc in procs:
+            # deterministic node teardown: terminate → bounded wait →
+            # kill escalation (the pool's reap discipline, fleet level)
+            try:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=5.0)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=5.0)
+            except OSError:
+                pass
+    return 0
+
+
+def _render_stats_fleet(doc: dict) -> str:
+    """The ``stats --serve ROUTER --fleet`` view: the router's own
+    counters (the active/standby lease line first — which brain is
+    live and under which term) plus one row per node, with the device
+    it decides on and the histories its engines searched — fleet health
+    at a glance."""
+    lines = [
+        f"fleet router {doc.get('address', '?')}  uptime "
+        f"{doc.get('uptime_s', 0)}s  requests {doc.get('requests', 0)} "
+        f"histories {doc.get('histories', 0)}",
+    ]
+    lease = doc.get("lease") or {}
+    if lease.get("enabled"):
+        role = lease.get("role", "?")
+        bits = [f"lease: {lease.get('holder', '?')} [{role.upper()}] "
+                f"term {lease.get('term', 0)}  takeovers "
+                f"{lease.get('takeovers', 0)}  ha_sheds "
+                f"{lease.get('ha_sheds', 0)}"]
+        if role == "active":
+            bits.append(f"  expires_in {lease.get('expires_in_s', '?')}s")
+        elif lease.get("active_holder"):
+            bits.append(f"  active: {lease['active_holder']} term "
+                        f"{lease.get('active_term', '?')}")
+        lines.append("".join(bits))
+    else:
+        lines.append("lease: off (single router — no HA standby)")
+    lines.append(
+        f"node_faults {doc.get('node_faults', 0)}  redispatches "
+        f"{doc.get('redispatches', 0)}  ladder_lanes "
+        f"{doc.get('ladder_lanes', 0)}  node_sheds "
+        f"{doc.get('node_sheds', 0)}  device_errors "
+        f"{doc.get('device_errors', 0)}  ladder device "
+        f"{doc.get('device', '?')}")
+    ae = doc.get("anti_entropy") or {}
+    lines.append(f"anti-entropy sweeps {ae.get('sweeps', 0)}  segments "
+                 f"{ae.get('segments_shipped', 0)}  subsumed "
+                 f"{ae.get('segments_subsumed', 0)}  rows "
+                 f"{ae.get('rows_shipped', 0)}")
+    fleet_nodes = doc.get("fleet_nodes") or {}
+    for n in (doc.get("membership") or {}).get("nodes", []):
+        nid = n.get("node")
+        state = ("QUARANTINED" if n.get("quarantined")
+                 else "up" if n.get("healthy") else "DOWN")
+        ns = fleet_nodes.get(nid) or {}
+        if "error" in ns:
+            detail = f"unreachable ({ns['error']})"
+        else:
+            cache = ns.get("cache") or {}
+            replog = cache.get("replog") or {}
+            searched = sum(int(e.get("searched") or 0) for e in
+                           (ns.get("engines") or {}).values())
+            detail = (f"device {ns.get('device', '?')}  requests "
+                      f"{ns.get('requests', 0)}  histories "
+                      f"{ns.get('histories', 0)}  searched {searched}  "
+                      f"device_errors {ns.get('device_errors', 0)}  bank "
+                      f"{cache.get('entries', 0)} rows  segments "
+                      f"{replog.get('sealed_segments', '-')}")
+        lines.append(f"  {nid} [{state}] {n.get('address', '?')}  "
+                     f"{detail}")
+    return "\n".join(lines)
+
+
+def cmd_soak(args) -> int:
+    """The chaos soak (``gen/soak.py``): durable sessions held open
+    through rolling node restarts, an active-router SIGKILL and one node
+    leave/join, with every flip and close verdict re-proved by a fresh
+    memo oracle.  Nodes and routers are spawned on the card unless
+    ``--device cpu``.  Prints the gate report as one JSON line; exit 0
+    only when ``gate_ok`` (zero wrong verdicts, zero lost flips, durable
+    resumes banked, SLO health green)."""
+    from ..gen.soak import soak_sessions
+
+    rep = soak_sessions(
+        sessions=args.sessions, ops_per_session=args.ops,
+        model=args.model, seed=args.seed, workers=args.workers,
+        max_sessions=args.max_sessions, lease_ttl_s=args.lease_ttl_s,
+        fuzz_rounds=args.fuzz_rounds, run_dir=args.run_dir,
+        faults=args.faults, log=lambda m: print(m, file=sys.stderr),
+        device=args.device)
+    print(json.dumps(rep))
+    if not rep.get("gate_ok"):
+        return 1
+    return int(rep.get("exit_code", 0))
 
 
 def cmd_serve(args) -> int:
@@ -443,11 +678,12 @@ def cmd_serve(args) -> int:
     then serves until a ``shutdown`` request (or SIGINT)."""
     from ..serve.server import CheckServer
 
-    if args.peers or args.gossip_s is not None \
-            or args.gossip_fanout is not None:
-        raise _fleet_refused("--peers / --gossip-s / --gossip-fanout")
-    if args.lease_host:
-        raise _fleet_refused("--lease-host")
+    peers = [a.strip() for a in (args.peers or "").split(",")
+             if a.strip()]
+    if peers and not args.replog_dir:
+        raise SystemExit("--peers needs --replog-dir (gossip "
+                         "replicates replog segments; a bankless node "
+                         "has none to exchange)")
     if args.mesh_devices > 1:
         raise SystemExit("--mesh-devices > 1 waits for the mesh (ROADMAP "
                          "A8); the port serves on one device")
@@ -469,8 +705,11 @@ def cmd_serve(args) -> int:
         metrics_port=args.metrics_port,
         node_id=args.node_id, replog_dir=args.replog_dir,
         replog_seal_rows=args.replog_seal_rows,
+        peers=peers or None, gossip_s=args.gossip_s,
+        gossip_fanout=args.gossip_fanout,
         max_sessions=args.max_sessions,
         session_dir=args.session_dir,
+        lease_path=args.lease_host,
         slo=args.slo, slo_window_s=args.slo_window,
         devq_dir=args.devq_dir, devq_cap=args.devq_cap,
         device=args.device)
@@ -483,7 +722,7 @@ def cmd_serve(args) -> int:
                           "node": args.node_id,
                           "replog": args.replog_dir,
                           "devq": args.devq_dir,
-                          "peers": None,
+                          "peers": peers or None,
                           "workers": args.workers,
                           "max_lanes": args.max_lanes,
                           "mesh_devices": args.mesh_devices,
@@ -639,7 +878,13 @@ def _stats_serve(args) -> int:
             client.close()
 
     if not args.watch:
-        print(json.dumps(fetch()))
+        doc = fetch()
+        if args.fleet:
+            # the fleet view: a router's per-node health/traffic table
+            # (a plain server answers too — it just has no node rows)
+            print(_render_stats_fleet(doc))
+        else:
+            print(json.dumps(doc))
         return 0
     n = 0
     try:
@@ -664,11 +909,13 @@ def cmd_stats(args) -> int:
     ``plan_search`` picks for it.  ``--planned`` runs the planned checker
     (``build_backend``; on the card unless ``--device cpu``) instead of
     ``--backend``.  ``--serve ADDR`` prints a running server's stats
-    instead (``--watch``: a refreshing view)."""
-    if args.fleet:
-        raise _fleet_refused("stats --fleet")
+    instead (``--watch``: a refreshing view; ``--fleet``: a router's
+    per-node view)."""
     if args.serve:
         return _stats_serve(args)
+    if args.fleet:
+        raise SystemExit("--fleet needs --serve ADDR (a running fleet "
+                         "router's stats verb is what it renders)")
     if args.watch:
         raise SystemExit("--watch needs --serve ADDR (a running server's "
                          "stats verb is what refreshes)")
@@ -1763,8 +2010,8 @@ def main(argv=None) -> int:
     p.add_argument("--watch-count", type=int, default=0,
                    help="--watch: exit after N frames (0 = forever)")
     p.add_argument("--fleet", action="store_true",
-                   help="a fleet router's per-node view (refused until "
-                        "the fleet tier is ported)")
+                   help="with --serve ROUTER: the fleet router's "
+                        "per-node view (device, traffic, bank)")
     p.set_defaults(fn=cmd_stats)
 
     p = sub.add_parser(
@@ -1827,12 +2074,17 @@ def main(argv=None) -> int:
     p.add_argument("--replog-seal-rows", type=int, default=256,
                    help="rows a sealed replog segment")
     p.add_argument("--peers", default=None, metavar="A,B",
-                   help="node-to-node gossip (refused until the fleet "
-                        "tier is ported)")
-    p.add_argument("--gossip-s", type=float, default=None,
-                   help="gossip beat seconds (refused, as --peers)")
-    p.add_argument("--gossip-fanout", type=int, default=None,
-                   help="gossip fan-out (refused, as --peers)")
+                   help="comma-separated peer node addresses for "
+                        "node-to-node gossip anti-entropy "
+                        "(fleet/gossip.py; needs --replog-dir): banked "
+                        "verdicts keep converging with every router "
+                        "dead")
+    p.add_argument("--gossip-s", type=float, default=2.0,
+                   help="gossip beat seconds (with --peers; 0 = the "
+                        "agent exists but only the gossip.peers op "
+                        "drives it)")
+    p.add_argument("--gossip-fanout", type=int, default=2,
+                   help="random peers contacted per gossip beat")
     p.add_argument("--slo", default=None, metavar="SPEC",
                    help="SLO objectives, e.g. "
                         "'check=250ms:p99,shed_rate<0.01' (obs/slo.py): "
@@ -1843,8 +2095,11 @@ def main(argv=None) -> int:
     p.add_argument("--max-sessions", type=int, default=256,
                    help="live monitor-session slots")
     p.add_argument("--lease-host", default=None, metavar="PATH",
-                   help="host the fleet's HA lease (refused until the "
-                        "fleet tier is ported)")
+                   help="host the fleet HA lease on this node: serve "
+                        "the lease.* ops over a FileLeaseStore at "
+                        "PATH, so routers on OTHER hosts point "
+                        "--lease-store tcp://this-node at it "
+                        "(fleet/lease.py)")
     p.add_argument("--slo-window", type=float, default=60.0,
                    help="SLO sliding-window seconds")
     p.add_argument("--devq-dir", default=None, metavar="DIR",
@@ -1887,12 +2142,146 @@ def main(argv=None) -> int:
                    help="client-side response bound")
     p.set_defaults(fn=cmd_health)
 
-    for verb in ("fleet", "soak"):
-        p = sub.add_parser(
-            verb, help=f"the fleet tier's `{verb}` (refused until it is "
-                       "ported)")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(fn=_refuse_fleet_verb)
+    p = sub.add_parser(
+        "fleet",
+        help="run a multi-node fleet: N CheckServer nodes behind a "
+             "fault-tolerant router (fleet/; nodes and the router's "
+             "ladder on the card unless --device cpu)")
+    p.add_argument("--nodes", type=int, default=2,
+                   help="local node processes to spawn (ignored with "
+                        "--addrs)")
+    p.add_argument("--addrs", default=None,
+                   help="comma-separated addresses of nodes you "
+                        "started yourself (host:port or unix paths)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="router TCP port (0 = ephemeral, printed)")
+    p.add_argument("--unix", default=None,
+                   help="router UNIX socket path instead of TCP")
+    _add_device(p)
+    p.add_argument("--workers", type=int, default=0,
+                   help="worker processes per spawned node "
+                        "(serve --workers; needs --device cpu)")
+    p.add_argument("--warm", default=None,
+                   help="comma-separated models each spawned node "
+                        "warms at start")
+    p.add_argument("--replog-root", default=None, metavar="DIR",
+                   help="root directory for spawned nodes' segmented "
+                        "verdict logs (default: a temp dir)")
+    p.add_argument("--session-root", default=None, metavar="DIR",
+                   help="give each spawned node a durable session "
+                        "store under DIR/<node-id> (serve "
+                        "--session-dir): sessions survive node "
+                        "restarts and cap eviction")
+    p.add_argument("--devq-root", default=None, metavar="DIR",
+                   help="give each spawned node a persistent device-"
+                        "work queue under DIR/<node-id> (serve "
+                        "--devq-dir); with gossip on, banked work "
+                        "converges fleet-wide")
+    p.add_argument("--session-journal", default=None, metavar="DIR",
+                   help="durable ROUTER session journals "
+                        "(monitor/store.py): point the active and "
+                        "standby routers at the SAME dir (like "
+                        "--lease-store) and a takeover rehydrates "
+                        "sessions the standby never served, replaying "
+                        "them onto the ring")
+    p.add_argument("--max-sessions", type=int, default=256,
+                   help="per-spawned-node live session slots (serve "
+                        "--max-sessions; memory bound when "
+                        "--session-root is set)")
+    p.add_argument("--queue-depth", type=int, default=4096,
+                   help="router admission bound (lanes in flight)")
+    p.add_argument("--quarantine-after", type=int, default=3,
+                   help="consecutive failed probes before a node is "
+                        "quarantined one-way (re-admitted on "
+                        "sustained health)")
+    p.add_argument("--heartbeat-s", type=float, default=1.0,
+                   help="membership probe beat seconds")
+    p.add_argument("--anti-entropy-s", type=float, default=3.0,
+                   help="anti-entropy sweep interval seconds (0 = "
+                        "off)")
+    p.add_argument("--trace-log", default=None, metavar="PATH",
+                   help="router span log (`trace <id>` shows "
+                        "router->node hops)")
+    p.add_argument("--flight-dir", default=None, metavar="DIR",
+                   help="router flight-recorder dumps (node death/"
+                        "quarantine/partition)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   metavar="PORT",
+                   help="router Prometheus /metrics port (per-node "
+                        "health + traffic series)")
+    p.add_argument("--lease-path", "--lease-store", dest="lease_path",
+                   default=None, metavar="STORE",
+                   help="router-HA lease store (fleet/lease.py): run "
+                        "several `fleet` routers with the SAME fleet "
+                        "config and lease store — one wins active "
+                        "(term-stamped responses), the rest stand by "
+                        "and take over on lease expiry; clients ride "
+                        "it with a comma --addr list.  A filesystem "
+                        "path flocks a local record; tcp://HOST:PORT "
+                        "speaks the lease.* ops to a node started "
+                        "with --lease-host, so routers span hosts")
+    p.add_argument("--lease-ttl-s", type=float, default=3.0,
+                   help="lease TTL seconds (renewed each beat; a dead "
+                        "active is superseded within ~1.5x this)")
+    p.add_argument("--router-id", default="router",
+                   help="this router's id (the lease holder name and "
+                        "the `node` stamp on router-answered "
+                        "responses)")
+    p.add_argument("--gossip-s", type=float, default=2.0,
+                   help="wire spawned/fronted nodes for node-to-node "
+                        "gossip anti-entropy at this beat (0 = off): "
+                        "replication then survives every router dying")
+    p.add_argument("--collect-dir", default=None, metavar="DIR",
+                   help="fleet-wide span collection (obs/collect.py): "
+                        "the router's beat scrapes every node's span "
+                        "log into DIR/collected.jsonl — `trace <id> "
+                        "--addr ROUTER` then renders the full "
+                        "cross-process causal tree; spawned nodes get "
+                        "--trace-log automatically")
+    p.add_argument("--collect-s", type=float, default=1.0,
+                   help="span-collection sweep interval seconds")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="router SLO objectives (serve --slo grammar) "
+                        "over route latency + sheds; `health --addr "
+                        "ROUTER` folds every node's health in")
+    p.add_argument("--slo-window", type=float, default=60.0,
+                   help="SLO sliding-window seconds")
+    p.set_defaults(fn=cmd_fleet)
+
+    p = sub.add_parser(
+        "soak",
+        help="chaos soak of durable sessions (gen/soak.py): spawn a "
+             "3-node fleet + active/standby routers, hold N monitor "
+             "sessions open through rolling node restarts, a SIGKILL "
+             "of the active router and one node leave/join, every "
+             "verdict re-proved by a fresh memo oracle")
+    p.add_argument("--sessions", type=int, default=1000,
+                   help="concurrent monitor sessions held open "
+                        "through the fault schedule")
+    p.add_argument("--ops", type=int, default=12,
+                   help="events per session stream")
+    p.add_argument("--model", default="register", choices=sorted(MODELS))
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--workers", type=int, default=8,
+                   help="client threads driving the session verbs")
+    p.add_argument("--max-sessions", type=int, default=256,
+                   help="per-node live session slots (the memory "
+                        "bound; the durable store holds the rest)")
+    p.add_argument("--lease-ttl-s", type=float, default=1.0)
+    p.add_argument("--fuzz-rounds", type=int, default=2,
+                   help="closed-loop fuzz rounds run against the "
+                        "surviving router mid-soak (0 = skip)")
+    p.add_argument("--run-dir", default=None, metavar="DIR",
+                   help="keep the fleet's replogs/session stores/"
+                        "lease here (default: a temp dir, removed)")
+    p.add_argument("--faults", default=None, metavar="SPEC",
+                   help="QSM_TPU_FAULTS grammar injected into every "
+                        "spawned node (resilience/faults.py), e.g. "
+                        "'raise:serve:0.01' — the rig's retry riders "
+                        "must still land every verb exactly once")
+    _add_device(p)
+    p.set_defaults(fn=cmd_soak)
 
     p = sub.add_parser(
         "trace",

@@ -38,8 +38,11 @@ entry point on the card equal to its host run; the monitor's window
 re-check batched on the card equal to the host loop (CAS, KV per key),
 and ``ingest --check`` on the card; the check server on the card by
 default, its answer to a real device error and its degrade on an injected
-one, and ``DrainScheduler`` on the card.  Without CUDA each test skips in
-its fixture."""
+one, and ``DrainScheduler`` on the card; two nodes on the card behind a
+``FleetRouter`` routing with ``CppOracle``'s verdicts, the router's
+ladder launching ``stepper_chunk`` once every node is gone, and two nodes
+started at once on a cold build directory loading one library.  Without CUDA
+each test skips in its fixture."""
 
 from __future__ import annotations
 
@@ -1559,3 +1562,129 @@ def test_drain_on_the_card_banks_oracle_verdicts(cuda, corpus):
     assert rep["device"].startswith("cuda")
     for h in hists[:128]:
         assert bank.get(fingerprint_key(spec, h)) is not None
+
+
+def test_fleet_on_the_card_routes_with_cpp_oracle_verdicts(cuda, corpus,
+                                                           tmp_path):
+    """Two ``CheckServer()`` nodes on the card behind a ``FleetRouter()``
+    in one process: the CAS corpus routes across both nodes with 0
+    verdicts off ``CppOracle``'s, every lane stamped with the node that
+    decided it, and the nodes' planned checkers launch ``stepper_chunk``."""
+    from qsm_tpu_torch.fleet import FleetRouter
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk
+    from qsm_tpu_torch.serve import CheckClient, CheckServer
+
+    spec, hists = corpus
+    want = [int(v) for v in CppOracle(spec).check_histories(spec, hists)]
+    nodes = [CheckServer(node_id=f"n{i}", flush_s=0.005, max_lanes=64,
+                         replog_dir=str(tmp_path / f"r{i}")).start()
+             for i in range(2)]
+    router = FleetRouter([(s.node_id, s.address) for s in nodes],
+                         anti_entropy_s=0.0).start()
+    try:
+        stepper_chunk.launches = 0
+        with CheckClient(router.address, timeout_s=600) as c:
+            res = c.check("cas", hists)
+        assert res["ok"], res
+        assert [int(Verdict[v]) for v in res["verdicts"]] == want
+        assert set(res["nodes"]) == {"n0", "n1"}
+        assert sum(res["nodes"].values()) == len(hists)
+        assert all(b["node"] in ("n0", "n1") for b in res["batches"])
+        assert stepper_chunk.launches > 0
+        st = router.stats()
+        assert st["ladder_lanes"] == 0 and st["device_errors"] == 0
+        assert not router._ladders          # the router touched no CUDA
+        for nid in ("n0", "n1"):
+            assert st["fleet_nodes"][nid]["device"] == "cuda"
+    finally:
+        router.stop()
+        for s in nodes:
+            s.stop()
+
+
+def test_fleet_router_ladder_launches_on_the_card(cuda, corpus, tmp_path):
+    """With every node gone the router's ladder decides in its own
+    process on the card: ``stepper_chunk`` launches there, the verdicts
+    are ``CppOracle``'s, and the ladder is ``FailoverBackend`` over the
+    planned checker."""
+    from qsm_tpu_torch.fleet import FleetRouter
+    from qsm_tpu_torch.native import CppOracle
+    from qsm_tpu_torch.ops.stepper_kernel import stepper_chunk
+    from qsm_tpu_torch.serve import CheckClient, CheckServer
+
+    spec, hists = corpus
+    want = [int(v) for v in CppOracle(spec).check_histories(spec,
+                                                            hists[:64])]
+    node = CheckServer(node_id="n0", flush_s=0.005).start()
+    router = FleetRouter([("n0", node.address)], anti_entropy_s=0.0,
+                         heartbeat_s=0.2).start()
+    try:
+        node.stop()
+        router.links["n0"].close_all()
+        stepper_chunk.launches = 0
+        with CheckClient(router.address, timeout_s=600) as c:
+            res = c.check("cas", hists[:64])
+        assert res["ok"], res
+        assert [int(Verdict[v]) for v in res["verdicts"]] == want
+        assert res["nodes"] == {"router": 64}
+        assert stepper_chunk.launches > 0
+        (entry,) = router._ladders.values()
+        assert type(entry[1]).__name__ == "FailoverBackend"
+        assert router.stats()["ladder_lanes"] == 64
+    finally:
+        router.stop()
+        node.stop()
+
+
+def test_two_nodes_on_a_cold_build_directory_load_one_library(cuda,
+                                                              tmp_path):
+    """Two ``serve`` processes started at once from a copy of the
+    package whose build directory is empty: both compile, the atomic
+    rename installs one library a kernel and leaves no temporary file,
+    and both nodes map the same library path."""
+    import json
+    import os
+    import pathlib
+    import shutil
+    import subprocess
+    import sys
+
+    from qsm_tpu_torch.serve import CheckClient
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    root = tmp_path / "cold"
+    shutil.copytree(repo / "qsm_tpu_torch", root / "qsm_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "qsm_tpu_torch", "serve", "--port", "0",
+         "--warm", "cas", "--node-id", f"c{i}"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        env=env) for i in range(2)]
+    try:
+        addrs = [json.loads(p.stdout.readline())["serving"] for p in procs]
+        build = root / "build" / "qsm_tpu_torch"
+        libs = sorted(x.name for x in build.glob("*.so"))
+        assert not [x for x in libs if ".tmp." in x], libs
+        names = [x.rsplit("_", 1)[0] for x in libs]
+        assert len(names) == len(set(names)), libs
+        assert "stepper_chunk" in names
+
+        def mapped(pid):
+            text = pathlib.Path(f"/proc/{pid}/maps").read_text()
+            return {line.split(None, 5)[-1].replace(" (deleted)", "")
+                    for line in text.splitlines()
+                    if "/stepper_chunk_" in line}
+
+        maps = [mapped(p.pid) for p in procs]
+        assert maps[0] and maps[0] == maps[1], maps
+        assert all(pathlib.Path(m).parent == build for m in maps[0])
+        for a in addrs:
+            with CheckClient(a, timeout_s=60) as c:
+                c.shutdown()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()

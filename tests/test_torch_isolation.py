@@ -39,7 +39,9 @@ def test_import_loads_no_jax_and_no_reference_module():
             "qsm_tpu_torch.monitor, qsm_tpu_torch.ingest, "
             "qsm_tpu_torch.serve, qsm_tpu_torch.serve.worker, "
             "qsm_tpu_torch.fleet, qsm_tpu_torch.devq, "
-            "qsm_tpu_torch.gen.fleet\n"
+            "qsm_tpu_torch.gen.fleet, qsm_tpu_torch.fleet.router, "
+            "qsm_tpu_torch.fleet.gossip, qsm_tpu_torch.fleet.lease, "
+            "qsm_tpu_torch.fleet.membership, qsm_tpu_torch.gen.soak\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -629,26 +629,59 @@ def test_server_runs_on_cuda_by_default_and_refuses_without_a_card():
     assert CheckServer(engine="planned").on_cpu is False
 
 
-def test_workers_mesh_and_fleet_arguments_are_refused():
+def test_workers_mesh_and_fleet_arguments_are_refused(tmp_path):
+    """``workers`` without the CPU and a mesh stay refused; the fleet
+    tier's arguments (``peers=``, ``lease_path=``) now build their
+    agent and lease store."""
+    from qsm_tpu_torch.fleet.gossip import GossipAgent
+    from qsm_tpu_torch.fleet.lease import FileLeaseStore
     from qsm_tpu_torch.serve import CheckServer
 
     with pytest.raises(ValueError, match="device='cpu'"):
         CheckServer(workers=2)
     with pytest.raises(ValueError, match="A8"):
         CheckServer(device="cpu", mesh_devices=2)
-    with pytest.raises(ValueError, match="A7"):
-        CheckServer(device="cpu", peers=["a:1"])
-    with pytest.raises(ValueError, match="A7"):
-        CheckServer(device="cpu", lease_path="/nonexistent/lease")
+    srv = CheckServer(device="cpu", node_id="n0", peers=[["n1", "a:1"]],
+                      replog_dir=str(tmp_path / "replog"), gossip_s=0.0)
+    assert isinstance(srv.gossip, GossipAgent)
+    assert srv.gossip.peer_ids() == ["n1"]
+    assert srv.stats()["gossip"]["peers"] == ["n1"]
+    lease = str(tmp_path / "lease.json")
+    srv = CheckServer(device="cpu", lease_path=lease)
+    assert isinstance(srv.lease_store, FileLeaseStore)
+    assert srv.stats()["lease_host"] == {"path": lease, "ops": 0}
 
 
-def test_fleet_ops_answer_an_error_naming_the_fleet_tier():
-    def drive(srv):
+def test_fleet_ops_answer_an_error_naming_the_fleet_tier(tmp_path):
+    """The fleet tier's node ops answer as the reference's: without a
+    replog ``gossip.peers`` names the missing log and without a lease
+    path ``lease.read`` names the missing record; with them both work
+    (the ``gossip.peers`` wiring and a ``lease.read`` of a fresh
+    record)."""
+    def bare(srv):
         with PORT.CheckClient(srv.address) as client:
-            for op in ("gossip.peers", "lease.read"):
-                res = client._round_trip({"op": op})
-                assert res["ok"] is False and "A7" in res["error"], op
-    _run(PORT, drive)
+            res = client._round_trip({"op": "gossip.peers"})
+            assert res["ok"] is False and "replog" in res["error"]
+            res = client._round_trip({"op": "lease.read"})
+            assert res["ok"] is False and "lease" in res["error"]
+            assert "A7" not in res["error"]
+    _run(PORT, bare)
+
+    def wired(srv):
+        with PORT.CheckClient(srv.address) as client:
+            res = client._round_trip({"op": "gossip.peers",
+                                      "peers": [["n1", "a:1"]],
+                                      "interval_s": 0.0})
+            assert res["ok"] and res["peers"] == ["n1"]
+            res = client._round_trip({"op": "lease.read"})
+            assert res["ok"] and res["record"] is None
+            res = client._round_trip({"op": "lease.acquire",
+                                      "holder": "rA", "ttl_s": 5.0})
+            assert res["ok"] and res["acquired"]
+            assert res["record"]["term"] == 1
+        assert srv.stats()["lease_host"]["ops"] == 2
+    _run(PORT, wired, node_id="n0", replog_dir=str(tmp_path / "r"),
+         lease_path=str(tmp_path / "lease.json"))
 
 
 class _CardEngine:
