@@ -356,7 +356,33 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``health --addr ROUTER``; ``soak --sessions 256`` (cut from its
    default 1000 for the run's time; started after (b)'s timings, it
    runs beside the starved ladder, (c) and (d)) must report ``gate_ok`` and its fuzz rounds must have drawn
-   on the card.
+   on the card;
+22. the mesh: (a) ``make_mesh()`` spans ``torch.cuda.device_count()``
+   cards; ``sharded_backend(spec, profile=...)`` at that width gives the
+   CAS headline's 4096 verdicts of phase 16's planned engine (on one card
+   the same plan and engine: an identity there, not a mesh check);
+   ``make_mesh`` and ``CheckServer(mesh_devices=...).start()`` one card
+   wider raise with the count; (b) a logical 4-shard mesh of ``cuda:0``
+   (``card_shard_mesh(4)``, a stream a shard) under ``TorchStepper`` on
+   the CAS and queue headlines and kv16 whole (4096 lanes, the sweep
+   regime), and under ``PComp`` on kv16 per key: verdicts equal to 1
+   device and 0 off ``CppOracle`` (``PComp`` over it for kv16), every
+   lane's status, ``chosen`` and iterations equal to 1 device (kv16 per
+   key: over the sub-histories of its 512 unique histories), 8 witnesses
+   replayed, compactions and the lanes they moved across shards (more
+   than 0 on the queue path), launches by shard, each shard's first
+   ``stepper_chunk``, ``compact_carry`` and ``stepper_sweep`` inputs held
+   against the plain versions (``ShardInputs``), and histories/s at 4
+   shards against 1, the split's cost on one card.  ``--mesh-only`` runs
+   phases 1, 2 and 22 alone and prints no result.
+
+The lane samples of phases 6, 9 and 13-22 advance in worker processes
+(``sample_pool``, spawned at the start; a sample's lanes split among
+them) while this process drives the card; each is compared after the
+chunks it mirrors.  In phases 3, 6 and 9 the plain versions' chunks at
+full width on the card, but the one each case times, run as CUDA graphs
+of their own operations (``graphed_plain``): the host's launches are
+their cost.
 
 Each main path's launch counts are reset just before it and read just
 after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
@@ -365,7 +391,8 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
 15 (c), each path of phase 16 over its own, phase 17's in-process
-paths over the phase, and each path of phases 18, 19, 20 and 21 over its own; the
+paths over the phase, and each path of phases 18, 19, 20, 21 and 22 over
+its own, with phase 22's launches by shard as paths of their own; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -401,6 +428,7 @@ from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
 from qsm_tpu_torch.gen import GenProfile, SteeringLoop, generate_batch
 from qsm_tpu_torch.gen import core as gen_core
 from qsm_tpu_torch.gen import steer as gen_steer
+from qsm_tpu_torch.mesh.shards import cat_lanes, take_lanes
 from qsm_tpu_torch.models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
 from qsm_tpu_torch.models.counter import (AtomicTicketSUT, RacyTicketSUT,
                                           TicketSpec)
@@ -554,6 +582,45 @@ def time_plain(tabs, carry, cs) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+GRAPH_TRIPS = 64               # plain-version trips in one captured CUDA graph
+
+
+def graphed_plain(fn, carry, chunk: int):
+    """``chunk`` trips of a plain version on the card: ``fn(carry, chunk=,
+    early_exit=)`` is the plain version bound to its tables and budget.
+    Its cost is the host launching each trip's small operations, so the
+    trips are captured once as a CUDA graph of ``GRAPH_TRIPS`` trips,
+    without the early exit (a trip after every lane decided is a no-op),
+    and the graph is replayed; the rest run as they are.  The same
+    PyTorch operations on the same tensors: ``carry`` is advanced in
+    place and returned.  The plain times this script reports are of
+    plain runs, never of a graph."""
+    def run(n, early_exit):
+        out = fn(carry, chunk=n, early_exit=early_exit)
+        for dst, src in zip(carry, out):
+            if dst is not src:       # a plain version that returns anew
+                dst.copy_(src)
+
+    trips, rest = divmod(chunk, GRAPH_TRIPS)
+    if trips:
+        # a warm-up on a copy, off the capture: first-use work (tables
+        # cached on the device) must not be captured
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(type(carry)(*(t.clone() for t in carry)), chunk=GRAPH_TRIPS,
+               early_exit=False)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run(GRAPH_TRIPS, False)
+        for _ in range(trips):
+            graph.replay()
+    if rest:
+        run(rest, True)
+    return carry
+
+
 def profile_device(fn):
     """(wall_s, device_s, top) of ``fn()`` under ``torch.profiler``:
     ``device_s`` sums the CUDA kernels' own time (0.0 if the profiler saw
@@ -606,17 +673,18 @@ def phase_kernel(spec, corpus, dev, tag):
     for name, B, tabs, starts in kernel_cases(spec, corpus, dev):
         for cs in (0, 64):
             fresh = fresh_carry(tabs.nreq, starts, N_OPS, cs)
+            plain = functools.partial(dfs_chunk_plain, tabs,
+                                      budget=TOTAL_BUDGET, cache_slots=cs)
             # mid-search: a quarter chunk in, the hard lanes still running
-            mid = dfs_chunk_plain(tabs, fresh, chunk=CHUNK // 4,
-                                  budget=TOTAL_BUDGET, cache_slots=cs)
+            mid = graphed_plain(plain, Carry(*(t.clone() for t in fresh)),
+                                CHUNK // 4)
             running = int((mid.dsi[1] == RUNNING).sum())
             require(running > 0, "mid-search carry has no running lane")
-            ck, cp = mid, mid
+            ck, cp = mid, Carry(*(t.clone() for t in mid))
             for i in range(HELD_DFS_CHUNKS):
                 ck = dfs_chunk(tabs, ck, chunk=CHUNK, budget=TOTAL_BUDGET,
                                cache_slots=cs)
-                cp = dfs_chunk_plain(tabs, cp, chunk=CHUNK,
-                                     budget=TOTAL_BUDGET, cache_slots=cs)
+                graphed_plain(plain, cp, CHUNK)
                 if i in (0, HELD_DFS_CHUNKS - 1):
                     torch.cuda.synchronize()
                     for plane, a, b in zip(Carry._fields, ck, cp):
@@ -951,16 +1019,21 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
             if name == "queue48":
                 # mid-search: 256 plain iterations in, the hard lanes
                 # still running
-                begins["mid"] = stepper_chunk_plain(
-                    tabs, clone_carry(fresh), chunk=256, budget=TOTAL_BUDGET)
-            # the plain version's loop on the card is the phase's cost: the
-            # CAS shapes run 2 chunks at full width, the queue headline 3,
-            # and from its mid-search carry 4 on a lane sample carried on
-            # the CPU.  The plain version is host-bound (a fixed cost an
-            # iteration, whatever the width), and lanes are independent,
-            # so after the first chunk the queue's fresh and mid-search
-            # carries advance as one carry of 2 x B lanes (cat_carries):
-            # every plane of every lane is still compared
+                begins["mid"] = graphed_plain(
+                    functools.partial(stepper_chunk_plain, tabs,
+                                      budget=TOTAL_BUDGET),
+                    clone_carry(fresh), 256)
+            # the plain version's loop on the card is the phase's cost (its
+            # host launching each trip's small operations): the CAS shapes
+            # run 2 chunks at full width, the queue headline 3, and from
+            # its mid-search carry 4 on a lane sample carried on the CPU.
+            # Lanes are independent, so after the first chunk the queue's
+            # fresh and mid-search carries advance as one carry of 2 x B
+            # lanes (cat_carries): every plane of every lane is still
+            # compared.  The chunk timed (the first from ``mid``) runs as
+            # it is, the others as CUDA graphs (graphed_plain)
+            plain = functools.partial(stepper_chunk_plain, tabs,
+                                      budget=TOTAL_BUDGET)
             n_full = 3 if name == "queue48" else 2
             cks = {start: clone_carry(c0) for start, c0 in begins.items()}
             cps = {start: clone_carry(c0) for start, c0 in begins.items()}
@@ -968,6 +1041,9 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                        for start, c0 in begins.items()}
             n_sample = HELD_SAMPLE_CHUNKS if "mid" in begins else 0
             if n_sample:
+                # the sample advances in a worker process beside the
+                # full-width loop below (once its timed chunk is done),
+                # and is compared after it
                 sample = LaneSample(begins["mid"], len(q_corpus),
                                     functools.partial(
                                         stepper_chunk_plain, cpu_tabs,
@@ -980,22 +1056,24 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                 if i < n_full:
                     if i == 0 or not joint:
                         for start in begins:
+                            if start != "mid" or i:
+                                graphed_plain(plain, cps[start], STEP_CHUNK)
+                                continue
                             torch.cuda.synchronize()
                             t0 = time.perf_counter()
-                            stepper_chunk_plain(tabs, cps[start],
-                                                chunk=STEP_CHUNK,
-                                                budget=TOTAL_BUDGET)
+                            plain(cps[start], chunk=STEP_CHUNK)
                             torch.cuda.synchronize()
-                            if start == "mid":
-                                # the plain version's time: its first
-                                # chunk from the mid-search carry
-                                plain_ms = (time.perf_counter() - t0) * 1e3
+                            # the plain version's time: its first chunk
+                            # from the mid-search carry
+                            plain_ms = (time.perf_counter() - t0) * 1e3
                     else:
-                        both = cat_carries([cps[k] for k in begins])
-                        stepper_chunk_plain(tabs, both, chunk=STEP_CHUNK,
-                                            budget=TOTAL_BUDGET)
+                        both = graphed_plain(
+                            plain, cat_carries([cps[k] for k in begins]),
+                            STEP_CHUNK)
                         cps = dict(zip(begins, split_carry(both,
                                                            len(begins))))
+                if i == 0 and n_sample:
+                    sample.start(n_sample)
                 if i in (0, n_full - 1):
                     torch.cuda.synchronize()
                     for start in begins:
@@ -1004,9 +1082,10 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                             f"{start} chunk {i + 1}", cks[start],
                             cps[start]))
                 if i < n_sample:
-                    max_err = max(max_err, sample.step_and_check(
-                        cks["mid"], f"stepper_chunk {name} slots={slots} "
-                        f"mid lane sample chunk {i + 1}"))
+                    sample.keep(cks["mid"])
+            if n_sample:
+                max_err = max(max_err, sample.check(
+                    f"stepper_chunk {name} slots={slots} mid lane sample"))
             for start in begins:
                 what = (f"; on a sample of {len(sample.lanes)} lanes "
                         f"({sample.unique} unique histories) after each of "
@@ -1357,13 +1436,14 @@ def sweep_cases(kv_spec, kv_corpus, dev):
 class LaneSample:
     """A seeded sample of a card carry's RUNNING lanes, held on the CPU:
     one lane of every unique history still running (``row % n_unique``
-    names it), then others up to ``SAMPLE_LANES``.  Lanes are independent
+    names it), then others up to ``size`` lanes.  Lanes are independent
     (each has its own stacks, counters and memo), so the sample, moved by
     ``compact_carry_plain`` at the same slot count and advanced by the
     plain version on the CPU, evolves exactly as those lanes do in the
     card's carry."""
 
-    def __init__(self, carry: StepperCarry, n_unique: int, plain, seed=0):
+    def __init__(self, carry: StepperCarry, n_unique: int, plain, seed=0,
+                 size=SAMPLE_LANES):
         rng = np.random.default_rng(seed)
         status = carry.dsi[1].cpu().numpy()
         rows = carry.row.cpu().numpy()
@@ -1372,7 +1452,7 @@ class LaneSample:
         rest = rng.permutation(np.setdiff1d(order, order[first]))
         self.unique = len(first)
         self.lanes = np.sort(np.concatenate(
-            [order[first], rest[:max(SAMPLE_LANES - len(first), 0)]]))
+            [order[first], rest[:max(size - len(first), 0)]]))
         self.plain = plain
         self.carry = self._cut(carry)
 
@@ -1385,9 +1465,84 @@ class LaneSample:
         """One chunk of the plain version on the sample, then the sampled
         lanes of ``carry`` (the card's, after the same chunk) compared
         plane by plane; the largest error (0, or this raises)."""
-        self.plain(self.carry)
+        self.start(1)
+        self.keep(carry)
+        return self.check(what)
+
+    def start(self, n: int) -> None:
+        """Advance the sample ``n`` chunks in the worker processes
+        (:func:`sample_pool`), its lanes split among them (lanes are
+        independent), while this process drives the card."""
+        parts = np.array_split(np.arange(len(self.lanes)), SAMPLE_WORKERS)
+        self._futures = [
+            sample_pool().submit(_advance_sample, self.plain,
+                                 take_lanes(self.carry, part), n)
+            for part in parts if len(part)]
+        self._card = []
+
+    def keep(self, carry: StepperCarry) -> None:
+        """The sampled lanes of ``carry``, the card's after its next
+        chunk, kept to be compared by :meth:`check`."""
         torch.cuda.synchronize()
-        return _compare(what, self._cut(carry), self.carry)
+        self._card.append(self._cut(carry))
+
+    def check(self, what: str) -> int:
+        """Each kept card snapshot against the worker's sample after the
+        same chunk, plane by plane; the largest error (0, or this
+        raises)."""
+        parts = [f.result(timeout=SAMPLE_TIMEOUT_S) for f in self._futures]
+        mine = [cat_lanes(chunk) for chunk in zip(*parts)]
+        require(len(mine) == len(self._card), f"{what}: {len(self._card)} "
+                f"card chunks kept against {len(mine)} sample chunks")
+        err = 0
+        for i, (card, cpu) in enumerate(zip(self._card, mine)):
+            err = max(err, _compare(f"{what}, chunk {i + 1}" if len(mine) > 1
+                                    else what, card, cpu))
+        self.carry = mine[-1]
+        return err
+
+
+SAMPLE_WORKERS = 4             # processes advancing lane samples
+SAMPLE_TIMEOUT_S = 900.0
+_SAMPLE_POOL = None
+
+
+def sample_pool():
+    """The worker processes that run the plain versions on lane samples
+    on the CPU while this process drives the card (spawned once, on first
+    use; :func:`close_sample_pool` stops them)."""
+    global _SAMPLE_POOL
+    if _SAMPLE_POOL is None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        _SAMPLE_POOL = ProcessPoolExecutor(
+            SAMPLE_WORKERS, initializer=_sample_worker_init,
+            mp_context=multiprocessing.get_context("spawn"))
+    return _SAMPLE_POOL
+
+
+def close_sample_pool():
+    global _SAMPLE_POOL
+    if _SAMPLE_POOL is not None:
+        _SAMPLE_POOL.shutdown(wait=True, cancel_futures=True)
+        _SAMPLE_POOL = None
+
+
+def _sample_worker_init():
+    # a sample's lanes are split over every worker: the host's cores
+    # shared among them
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // SAMPLE_WORKERS))
+
+
+def _advance_sample(plain, carry: StepperCarry, n: int) -> list:
+    """In a worker: ``n`` chunks of ``plain`` on a CPU sample carry, a
+    copy of the carry after each."""
+    out = []
+    for _ in range(n):
+        plain(carry)
+        out.append(StepperCarry(*(t.clone() for t in carry)))
+    return out
 
 
 def sweep_ops_per_iteration(n_ops: int, dim: int, memo: bool) -> int:
@@ -1567,8 +1722,9 @@ def phase_sweep(kv_spec, kv_corpus, dev, tag, against=None):
             fresh = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, N,
                                       slots)
             # mid-search: SWEEP_MID plain iterations in
-            mid = stepper_sweep_plain(spec, tabs, clone_carry(fresh),
-                                      chunk=SWEEP_MID, budget=TOTAL_BUDGET)
+            plain = functools.partial(stepper_sweep_plain, spec, tabs,
+                                      budget=TOTAL_BUDGET)
+            mid = graphed_plain(plain, clone_carry(fresh), SWEEP_MID)
             run_mid = running_lanes(mid)
             running = len(run_mid)
             require(running > 0, f"{name}: no lane running mid-search")
@@ -1581,17 +1737,22 @@ def phase_sweep(kv_spec, kv_corpus, dev, tag, against=None):
             # version on the card; the first plain chunk is its time
             n_full = 2 if name == "kv16" else 1
             ck, cf, cp = (clone_carry(mid) for _ in range(3))
-            sample = LaneSample(mid, n_unique, lambda c: stepper_sweep_plain(
-                spec, cpu_tabs, c, chunk=SWEEP_CHUNK, budget=TOTAL_BUDGET))
+            sample = LaneSample(mid, n_unique, functools.partial(
+                stepper_sweep_plain, spec, cpu_tabs, chunk=SWEEP_CHUNK,
+                budget=TOTAL_BUDGET))
             n_sample = HELD_SAMPLE_CHUNKS if name == "kv16" else 2
             for i in range(max(n_full, n_sample)):
                 main_sweep(model, tabs, ck)
                 if i < n_full:
                     new_sweep(model, tabs, cf)
+                    # the first plain chunk runs as it is, and is timed;
+                    # the second as a CUDA graph (graphed_plain)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    stepper_sweep_plain(spec, tabs, cp, chunk=SWEEP_CHUNK,
-                                        budget=TOTAL_BUDGET)
+                    if i == 0:
+                        plain(cp, chunk=SWEEP_CHUNK)
+                    else:
+                        graphed_plain(plain, cp, SWEEP_CHUNK)
                     torch.cuda.synchronize()
                     if i == 0:
                         plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1600,10 +1761,15 @@ def phase_sweep(kv_spec, kv_corpus, dev, tag, against=None):
                         max_err = max(max_err, _compare(
                             f"stepper_sweep {name} B={B} slots={slots} "
                             f"{label} chunk {i + 1}", c, cp))
+                if i == 0:
+                    # the sample advances in a worker process beside the
+                    # rest of the loop (after the timed chunk), and is
+                    # compared after it
+                    sample.start(n_sample)
                 if i < n_sample:
-                    max_err = max(max_err, sample.step_and_check(
-                        ck, f"stepper_sweep {name} slots={slots} lane "
-                        f"sample chunk {i + 1}"))
+                    sample.keep(ck)
+            max_err = max(max_err, sample.check(
+                f"stepper_sweep {name} slots={slots} lane sample"))
             # timings through the C entry, in turns: every lane, the
             # running lanes alone
             lanes_t = torch.from_numpy(run_mid.astype(np.int32)).to(dev)
@@ -2051,33 +2217,45 @@ class FirstInputs:
 
 def hold_path_kernels(name, first, tag, spec=None):
     """The kernels of a path against their plain versions, on the path's
-    own inputs (``first``, a :class:`FirstInputs`): one chunk of
-    ``stepper_chunk`` from each kept batch's fresh carry at full width
+    own inputs (``first``, a :class:`FirstInputs`): see
+    :func:`hold_start`.  Called after the path's launches are read.
+    Returns the largest error."""
+    return hold_start(name, first, tag, spec)()
+
+
+def hold_start(name, first, tag, spec=None, sample_lanes=SAMPLE_LANES):
+    """Start holding a path's kernels against their plain versions, on
+    the path's own inputs (``first``, a :class:`FirstInputs`): one chunk
+    of ``stepper_chunk`` from each kept batch's fresh carry at full width
     on the card, the plain version on a lane sample on the CPU (as in
-    phase 6), all 7 planes of the sample compared; the path's first
-    compaction against ``compact_carry_plain`` at full width; its first
-    ``stepper_sweep`` launch (lanes as the path listed them) against
-    ``stepper_sweep_plain`` of ``spec`` on a lane sample; its first
-    ``dfs_chunk`` launch against ``dfs_chunk_plain`` at full width on the
-    card.  Called after the path's launches are read.  Returns the
-    largest error."""
+    phase 6, in a worker process), all 7 planes of the sample compared;
+    the path's first compaction against ``compact_carry_plain`` at full
+    width; its first ``stepper_sweep`` launch (lanes as the path listed
+    them) against ``stepper_sweep_plain`` of ``spec`` on a lane sample;
+    its first ``dfs_chunk`` launch against ``dfs_chunk_plain`` at full
+    width on the card.  A sample holds up to ``sample_lanes`` running
+    lanes.  The card's side runs now; returns a function that
+    waits for the samples, compares and prints, and returns the largest
+    error."""
     err = 0
+    pending = []   # (sample, what, line printed once it holds)
     for i, (tabs, c0, kw) in enumerate(first.steps):
         B, N, slots = c0.row.shape[0], tabs.vocab.shape[1], c0.occ.shape[1]
         cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
-        sample = LaneSample(c0, min(SAMPLE_LANES, B), functools.partial(
-            stepper_chunk_plain, cpu_tabs, **kw))
+        sample = LaneSample(c0, min(sample_lanes, B), functools.partial(
+            stepper_chunk_plain, cpu_tabs, **kw), size=sample_lanes)
+        sample.start(1)
         ck = clone_carry(c0)
         stepper_chunk(tabs, ck, **kw)
-        err = max(err, sample.step_and_check(
-            ck, f"stepper_chunk on the path of {name}, batch {i + 1}"))
-        print(f"{tag} stepper_chunk == plain on the path of {name}: its "
-              f"batch {i + 1}, B={B} N={N} slots={slots}, from the fresh "
-              f"carry, one chunk of {kw['chunk']} at budget {kw['budget']}: "
-              f"all 7 planes bit-identical on a sample of "
-              f"{len(sample.lanes)} lanes; "
-              f"{int((ck.dsi[1] == RUNNING).sum())} of {B} still running",
-              flush=True)
+        sample.keep(ck)
+        pending.append((
+            sample, f"stepper_chunk on the path of {name}, batch {i + 1}",
+            f"{tag} stepper_chunk == plain on the path of {name}: its "
+            f"batch {i + 1}, B={B} N={N} slots={slots}, from the fresh "
+            f"carry, one chunk of {kw['chunk']} at budget {kw['budget']}: "
+            f"all 7 planes bit-identical on a sample of "
+            f"{len(sample.lanes)} lanes; "
+            f"{int((ck.dsi[1] == RUNNING).sum())} of {B} still running"))
     if first.comp is not None:
         c, lanes, to, new_slots = first.comp
         got = compact_carry(c, lanes, to, new_slots)
@@ -2098,24 +2276,24 @@ def hold_path_kernels(name, first, tag, spec=None):
         model, tabs, c0, kw = first.sweep
         B, D = c0.row.shape[0], c0.states.shape[2]
         cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
-        sample = LaneSample(c0, min(SAMPLE_LANES, B), lambda c:
-                            stepper_sweep_plain(spec, cpu_tabs, c,
-                                                chunk=kw["chunk"],
-                                                budget=kw["budget"]))
+        sample = LaneSample(c0, min(sample_lanes, B), functools.partial(
+            stepper_sweep_plain, spec, cpu_tabs, chunk=kw["chunk"],
+            budget=kw["budget"]), size=sample_lanes)
+        sample.start(1)
         ck = clone_carry(c0)
         stepper_sweep(model, tabs, ck, **kw)
-        err = max(err, sample.step_and_check(
-            ck, f"stepper_sweep on the path of {name}"))
+        sample.keep(ck)
         starts = c0.states[:, 0].cpu().numpy()
         init = np.asarray(spec.initial_state(), np.int32)
-        print(f"{tag} stepper_sweep == plain on the path of {name}: its "
-              f"first launch, B={B} N={tabs.cmd.shape[1]} D={D} slots="
-              f"{c0.occ.shape[1]}, {int((starts != init).any(1).sum())} "
-              f"lanes starting outside the initial state, "
-              f"{0 if kw.get('lanes') is None else len(kw['lanes'])} lanes "
-              f"listed, one chunk of {kw['chunk']}: all 7 planes "
-              f"bit-identical on a sample of {len(sample.lanes)} lanes",
-              flush=True)
+        pending.append((
+            sample, f"stepper_sweep on the path of {name}",
+            f"{tag} stepper_sweep == plain on the path of {name}: its "
+            f"first launch, B={B} N={tabs.cmd.shape[1]} D={D} slots="
+            f"{c0.occ.shape[1]}, {int((starts != init).any(1).sum())} "
+            f"lanes starting outside the initial state, "
+            f"{0 if kw.get('lanes') is None else len(kw['lanes'])} lanes "
+            f"listed, one chunk of {kw['chunk']}: all 7 planes "
+            f"bit-identical on a sample of {len(sample.lanes)} lanes"))
     if first.dfs is not None:
         tabs, c0, kw = first.dfs
         got = dfs_chunk(tabs, Carry(*(t.clone() for t in c0)), **kw)
@@ -2130,7 +2308,14 @@ def hold_path_kernels(name, first, tag, spec=None):
               f"launch, B={c0.dsi.shape[1]} N={tabs.nxt.shape[1]}, one chunk "
               f"of {kw['chunk']}: all 7 planes bit-identical at full width",
               flush=True)
-    return err
+
+    def finish():
+        out = err
+        for sample, what, line in pending:
+            out = max(out, sample.check(what))
+            print(line, flush=True)
+        return out
+    return finish
 
 
 def phase_pcomp(cases, tag):
@@ -5938,6 +6123,238 @@ def phase_fleet(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus,
     return launches, err, record
 
 
+MESH_SHARDS = 4               # (b): logical shards of one card
+MESH_SAMPLE_LANES = 48         # (b): running lanes a shard's sample holds
+
+
+class ShardInputs(FirstInputs):
+    """:class:`FirstInputs` by shard: the first ``stepper_chunk``,
+    ``compact_carry`` and ``stepper_sweep`` inputs of each logical shard
+    (known by the CUDA stream its launches go on), and each kernel's
+    launches by shard, counted when the wrapper it reaches returns."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.shard_of = {d.stream.cuda_stream: i
+                         for i, d in enumerate(mesh.devices.flat)}
+        self.shards = [FirstInputs() for _ in self.shard_of]
+        self.launches = {}
+
+    def _here(self, kernel):
+        i = self.shard_of[torch.cuda.current_stream().cuda_stream]
+        return i, self.shards[i]
+
+    def _count(self, kernel, i):
+        by = self.launches.setdefault(kernel, [0] * len(self.shards))
+        by[i] += 1
+
+    def _step(self, tabs, carry, **kw):
+        i, rec = self._here("stepper_chunk")
+        if not rec.steps:
+            rec.steps.append((tabs, clone_carry(carry), kw))
+        out = stepper_chunk(tabs, carry, **kw)
+        self._count("stepper_chunk", i)
+        return out
+
+    def _comp(self, carry, lanes, bucket, slots):
+        i, rec = self._here("compact_carry")
+        if rec.comp is None:
+            rec.comp = (clone_carry(carry), np.array(lanes), bucket, slots)
+        out = compact_carry(carry, lanes, bucket, slots)
+        self._count("compact_carry", i)
+        return out
+
+    def _sweep(self, model, tabs, carry, **kw):
+        i, rec = self._here("stepper_sweep")
+        if rec.sweep is None:
+            rec.sweep = (model, tabs, clone_carry(carry), dict(kw))
+        out = stepper_sweep(model, tabs, carry, **kw)
+        self._count("stepper_sweep", i)
+        return out
+
+
+def device_lanes(stepper, hs):
+    """``_run_device`` on ``hs`` a device batch at a time (``MAX_BATCH``):
+    every lane's status, ``chosen`` stack and iterations."""
+    top = min(stepper.MAX_BATCH, stepper.batch_buckets[-1])
+    status, chosen, iters = [], [], []
+    for i in range(0, len(hs), top):
+        st, ch = stepper._run_device(hs[i:i + top], collect_chosen=True)
+        status.append(st)
+        chosen.append(np.pad(ch, ((0, 0), (0, 129 - ch.shape[1])),
+                             constant_values=-1))
+        iters.append(stepper.last_iters.copy())
+    return (np.concatenate(status), np.concatenate(chosen),
+            np.concatenate(iters))
+
+
+def phase_mesh(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, tag):
+    """Phase 22: the mesh on the card.  (a) ``make_mesh()`` spans every
+    card; ``sharded_backend`` at that width decides the CAS headline as
+    phase 16's planned engine does (on one card both are the same plan
+    and engine, so this holds by identity there); a mesh or a server one
+    card wider raises with the count.  (b) a logical 4-shard mesh of ``cuda:0``
+    (``card_shard_mesh``) over the CAS headline, the queue headline, kv16
+    whole (the sweep regime) and kv16 per key: verdicts, ``chosen`` and
+    each lane's iterations equal to width 1, 0 verdicts off
+    ``CppOracle``, compactions and the lanes they moved across shards,
+    each shard's first kernels held against the plain versions, launches
+    by shard, histories/s at 4 shards against 1.  Returns the launches of
+    each path and the largest error."""
+    from qsm_tpu_torch.mesh import (backend_sharding, batch_sharding,
+                                    card_shard_mesh, make_mesh,
+                                    mesh_shape_key, sharded_backend)
+    from qsm_tpu_torch.serve import CheckServer
+
+    launches, err = {}, 0
+    counters = (stepper_chunk, compact_carry, stepper_sweep)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    # (a) the machine's cards
+    t_a = time.perf_counter()
+    count = torch.cuda.device_count()
+    mesh = make_mesh()
+    require(mesh.size == count, f"make_mesh() spans {mesh.size} of "
+            f"{count} cards")
+    lanes = _replicate(corpus, DEVICE_BATCH)
+    profile = profile_corpus(corpus, spec)
+    planned = build_backend(spec, plan_search(spec, profile))
+    v_plan = np.asarray(planned.check_histories(spec, lanes))
+    reset()
+    sb = sharded_backend(spec, profile=profile)
+    v_mesh = np.asarray(sb.check_histories(spec, lanes))
+    launches["CAS headline, make_mesh() (22a)"] = path_launches(
+        f"sharded_backend over make_mesh() ({count} cards)", tag, counters)
+    require(np.array_equal(v_plan, v_mesh), "sharded_backend over the "
+            "machine's cards disagrees with phase 16's planned engine")
+    for what, fn in (
+            ("make_mesh", lambda: make_mesh(count + 1)),
+            ("CheckServer.start", lambda: CheckServer(
+                mesh_devices=count + 1).start())):
+        try:
+            fn()
+        except ValueError as e:
+            require(f"have {count}" in str(e), f"{what}({count + 1}) "
+                    f"raised without the count: {e}")
+            print(f"{tag} 22a {what} with {count + 1} devices raises: {e}",
+                  flush=True)
+        else:
+            raise SystemExit(f"chip_smoke: {what} with {count + 1} devices "
+                             f"did not raise")
+    # at width 1 sharded_backend builds phase 16's plan and engine with no
+    # sharding: the comparison is an identity there, and only a machine
+    # of several cards makes it a check of the mesh
+    same = (" (at width 1 the same plan and engine: an identity, not a "
+            "mesh check)" if count == 1 else "")
+    print(f"{tag} 22a make_mesh(): {count} card(s), "
+          f"mesh_shape_key {mesh_shape_key(backend_sharding(sb))}; "
+          f"sharded_backend's {len(lanes)} verdicts equal phase 16's "
+          f"planned engine's{same}; {time.perf_counter() - t_a:.1f} s",
+          flush=True)
+
+    # (b) a logical 4-shard mesh of one card
+    kv_subs = [s for h in kv_corpus
+               for s in split_history(kv_spec, h).values()]
+    # kv16 whole first: its shards' sweep samples, the longest on the
+    # host, advance in the workers while the other paths run
+    paths = (
+        ("kv16 whole", kv_spec, kv_corpus, None),
+        ("CAS headline", spec, corpus, None),
+        ("queue headline", q_spec, q_corpus, None),
+        ("kv16 per key", kv_spec, kv_corpus, kv_spec.projected_spec()))
+    holds = []
+    for name, pspec, unique, proj in paths:
+        t_path = time.perf_counter()
+        shards = card_shard_mesh(MESH_SHARDS)
+        sharding = batch_sharding(shards)
+        if proj is None:
+            one = TorchStepper(pspec)
+            four = TorchStepper(pspec, sharding=sharding)
+            require((one.regime == "sweep") == (name == "kv16 whole"),
+                    f"{name} took the {one.regime} regime")
+            ov = (native.CppOracle(pspec).check_histories(pspec, unique)
+                  if name != "kv16 whole" else
+                  PComp(pspec, make_inner=native.CppOracle)
+                  .check_histories(pspec, unique))
+            engines = (one, four)
+            lane_hs = _replicate(unique, DEVICE_BATCH)
+            dev_hs = lane_hs
+        else:
+            engines = (PComp(pspec, make_inner=TorchStepper),
+                       PComp(pspec, make_inner=lambda s: TorchStepper(
+                           s, sharding=sharding)))
+            one, four = (e.inner for e in engines)
+            ov = (PComp(pspec, make_inner=native.CppOracle)
+                  .check_histories(pspec, unique))
+            lane_hs = _replicate(unique, DEVICE_BATCH)
+            dev_hs = [x for x in kv_subs if x.n_pending == 0]
+        times = []
+        for e in engines:
+            timed_check(e, pspec, lane_hs)          # cold: the build
+            v, sec = timed_check(e, pspec, lane_hs)
+            times.append((v, sec))
+        (v1, s1), (v4, s4) = times
+        require(np.array_equal(v1, v4), f"{name}: 4 shards decide other "
+                f"verdicts than 1")
+        both, und = against_cpp(f"{name}, 4 shards", v4, ov)
+        st1, ch1, it1 = device_lanes(one, dev_hs)
+        reset()
+        crossed0, comp0 = four.lanes_crossed, four.compactions
+        with ShardInputs(shards) as rec:
+            st4, ch4, it4 = device_lanes(four, dev_hs)
+        key = f"{name}, {MESH_SHARDS} logical shards (22b)"
+        first_kernel = stepper_sweep if name == "kv16 whole" \
+            else stepper_chunk
+        launches[key] = path_launches(
+            f"the {name} on {MESH_SHARDS} logical shards", tag,
+            (first_kernel,) + tuple(c for c in counters
+                                    if c is not first_kernel))
+        for kernel, by in rec.launches.items():
+            require(sum(by) == launches[key][kernel], f"{name}: {kernel} "
+                    f"launches by shard {by} do not add up to "
+                    f"{launches[key][kernel]}")
+            for i, n in enumerate(by):
+                launches.setdefault(f"{key} shard {i}", {})[kernel] = n
+        require(np.array_equal(st1, st4) and np.array_equal(ch1, ch4)
+                and np.array_equal(it1, it4), f"{name}: a lane's status, "
+                f"chosen or iterations differ between 4 shards and 1")
+        crossed = four.lanes_crossed - crossed0
+        comps = four.compactions - comp0
+        require(name != "queue headline" or crossed > 0,
+                "the queue path moved no lane across shards")
+        lin = [h for h, x in zip(unique, v4[:len(unique)])
+               if x == Verdict.LINEARIZABLE][:8]
+        for h in lin:
+            wv, wit = engines[1].check_witness(pspec, h)
+            require(wv == Verdict.LINEARIZABLE
+                    and verify_witness(pspec, h, wit),
+                    f"{name}: a 4-shard witness failed to replay")
+        torch.cuda.synchronize()
+        # every shard's samples advance at once, one worker each, and are
+        # compared once every path has run
+        holds += [hold_start(f"the {name}, shard {i} of {MESH_SHARDS}",
+                             shard, tag, spec=proj or pspec,
+                             sample_lanes=MESH_SAMPLE_LANES)
+                  for i, shard in enumerate(rec.shards)]
+        print(f"{tag} 22b {name} on {MESH_SHARDS} logical shards of "
+              f"cuda:0: {len(lane_hs)} histories, {len(dev_hs)} device "
+              f"lanes compared; verdicts, chosen and iterations of every "
+              f"lane equal to 1 device; vs CppOracle {both} decided by "
+              f"both, 0 off, undecided {und}; {comps} compactions moved "
+              f"{crossed} lanes across shards; launches by shard "
+              f"{json.dumps(rec.launches)}; {len(lin)} witnesses replayed; "
+              f"1 device {s1:.4f} s = {len(lane_hs) / s1:.1f} histories/s, "
+              f"{MESH_SHARDS} shards {s4:.4f} s = {len(lane_hs) / s4:.1f} "
+              f"histories/s: the split costs {s4 / s1:.3f}x on one card; "
+              f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    for finish in holds:
+        err = max(err, finish())
+    return launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -5958,11 +6375,20 @@ def main(argv=None) -> int:
                     help="after phase 9, time stepper_sweep against the "
                          "running lanes launched and against ablation "
                          "builds of its source (kv16)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1-2 and 22 alone (a check of the "
+                         "mesh, not the contract's run: no result is "
+                         "printed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # the lane samples' worker processes start (and import) beside
+    # phases 1-5
+    pool = sample_pool()
+    for _ in range(SAMPLE_WORKERS):
+        pool.submit(os.getpid)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6006,6 +6432,14 @@ def main(argv=None) -> int:
     corpus = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=N_UNIQUE,
                           n_pids=N_PIDS, max_ops=N_OPS, seed_base=1000,
                           seed_prefix="bench")
+    if args.mesh_only:
+        t0 = time.perf_counter()
+        mesh_launches, mesh_err = phase_mesh(spec, corpus, *queue_corpus(),
+                                             *kv16_corpus(), tag)
+        print(f"{tag} phase the mesh: {time.perf_counter() - t0:.1f} s; "
+              f"launches {json.dumps(mesh_launches)}; largest error "
+              f"{mesh_err}; --mesh-only: no result", flush=True)
+        return 0
     t0 = time.perf_counter()
     max_err, timings = phase_kernel(spec, corpus, dev, tag)
     print(f"{tag} phase kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
@@ -6125,6 +6559,11 @@ def main(argv=None) -> int:
         spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, serve_rec, tag)
     print(f"{tag} phase the fleet tier: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    mesh_launches, mesh_err = phase_mesh(spec, corpus, q_spec, q_corpus,
+                                         kv_spec, kv_corpus, tag)
+    print(f"{tag} phase the mesh: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
@@ -6133,16 +6572,17 @@ def main(argv=None) -> int:
                **search_launches,
                "entry points (phase 17)": entry_launches,
                **res_launches, **mon_launches, **serve_launches,
-               **fleet_launches}
+               **fleet_launches, **mesh_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
 
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
-                   entry_err, res_err, mon_err, serve_err, fleet_err)
+                   entry_err, res_err, mon_err, serve_err, fleet_err,
+                   mesh_err)
     search_err = max(search_err, entry_err, res_err, mon_err, serve_err,
-                     fleet_err)
+                     fleet_err, mesh_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare
@@ -6210,4 +6650,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        close_sample_pool()
+    sys.exit(rc)

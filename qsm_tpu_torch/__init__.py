@@ -51,6 +51,11 @@ banks a scan's cells.  The history shrinker (``shrink/``):
 :func:`shrink_history` minimises a failing history to a 1-minimal one
 with a certificate, each frontier decided in one batch, its memo keyed
 as the :class:`VerdictCache` (``serve/cache.py``) keys verdicts.
+
+The mesh (``mesh/``): ``sharded_backend`` and ``TorchStepper(sharding=)``
+split each batch's lanes over CUDA cards (or logical host devices with
+``device="cpu"``) with bit-identical verdicts, witnesses and carries at
+every width; ``parallel/`` is its deprecated re-export.
 """
 
 from .core.generator import Program, ProgOp, generate_program

@@ -184,6 +184,14 @@ int log2_of(int pow2) { return pow2 > 0 ? __builtin_ctz(pow2) : 0; }
 
 }  // namespace
 
+// Makes `device` the current device of this library's CUDA runtime
+// (built static, its own beside PyTorch's): the wrapper calls it
+// before each launch, so that a launch for a shard on card i runs on
+// card i.  Returns the cudaSetDevice error (0 = set).
+extern "C" int set_launch_device(int device) {
+  return static_cast<int>(cudaSetDevice(device));
+}
+
 // Launches one compaction on `stream` into the output planes (`win` is
 // scratch of m * slots ints, read only when the memo is re-hashed; D = 0
 // for a table-regime carry, else its state width), each

@@ -293,6 +293,14 @@ Kernel pick_kernel(int W, bool memo, bool staged) {
 
 }  // namespace
 
+// Makes `device` the current device of this library's CUDA runtime
+// (built static, its own beside PyTorch's): the wrapper calls it
+// before each launch, so that a launch for a shard on card i runs on
+// card i.  Returns the cudaSetDevice error (0 = set).
+extern "C" int set_launch_device(int device) {
+  return static_cast<int>(cudaSetDevice(device));
+}
+
 // Launches one chunk on `stream` with the plan of
 // ops/stepper_kernel.py::stepper_launch_plan (warps a block, grid, table
 // staged or not, shared bytes), updating the carry in place.  Returns

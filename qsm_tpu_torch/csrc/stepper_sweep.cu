@@ -599,6 +599,14 @@ bool model_ok(int kind, int D, int p0, int p1, int p2) {
 
 }  // namespace
 
+// Makes `device` the current device of this library's CUDA runtime
+// (built static, its own beside PyTorch's): the wrapper calls it
+// before each launch, so that a launch for a shard on card i runs on
+// card i.  Returns the cudaSetDevice error (0 = set).
+extern "C" int set_launch_device(int device) {
+  return static_cast<int>(cudaSetDevice(device));
+}
+
 // Launches one chunk on `stream` with the plan of
 // ops/sweep_kernel.py::sweep_launch_plan (warps a block, grid, shared
 // bytes), updating the carry in place.  `data` is the random-vector

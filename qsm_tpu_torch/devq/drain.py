@@ -7,11 +7,13 @@ score order until the queue is empty or the window's deadline passes:
 * **The window is a deadline.**  On the card there is no rare device
   window to seize: the caller gives the drain a length (``window_s``) or
   an end (``window_end``), and every loop iteration reads the time left.
-* **One device.**  Batches go to the port's planned checker
-  (``build_backend(spec, plan_search(spec, platform="cuda"))``) on one
-  torch device, CUDA unless ``devices=["cpu"]``; without a card the
-  constructor raises ``BackendUnavailable``.  A list of more than one
-  device raises until the mesh is ported (ROADMAP A8).
+* **The window's mesh.**  Batches go to the planned checker whose lane
+  axis spans the window's devices
+  (``mesh/dispatch.py::sharded_backend``), the mesh built from the
+  device list the drain was handed (``mesh_from_devices``), never from
+  a count over the machine: every CUDA card when None, logical host
+  devices for ``devices=["cpu"]`` (or ``mesh.host_devices(n)``); without
+  a card the constructor raises ``BackendUnavailable``.
 * **The device never gets the last word.**  Every drained verdict is
   re-proved by a fresh host memo oracle (``WingGongCPU(memo=True)``)
   before it is banked; the banked verdict is the oracle's, under the
@@ -59,8 +61,9 @@ _WARMUP_SEED = 20_000_20
 class DrainScheduler:
     """One window: drain the queue, bank oracle-proved verdicts, report.
 
-    ``devices`` is the window's device list: one torch device (or its
-    name), CUDA when None; ``mesh`` is refused until ROADMAP A8.  ``cache`` is the verdict
+    ``devices`` is the window's device list (``mesh.MeshDevice`` objects,
+    torch devices or their names; every CUDA card when None); ``mesh``
+    may be passed pre-built instead.  ``cache`` is the verdict
     bank (:class:`~qsm_tpu_torch.serve.cache.VerdictCache` or anything with
     its ``put_many``); None still drains and re-proves, it just cannot
     bank.  ``journal_path`` enables kill-mid-drain resume."""
@@ -81,15 +84,17 @@ class DrainScheduler:
         self.min_item_s = float(min_item_s)
         self.window_id = window_id
         self._now = now
-        if mesh is not None or (devices is not None and len(devices) > 1):
-            raise ValueError("a drain over a device mesh waits for the "
-                             "mesh (ROADMAP A8); pass one device")
-        from ..ops.backend import resolve_device
+        from ..mesh.topology import (batch_sharding, lane_devices,
+                                     local_devices, mesh_from_devices)
         from ..resilience.failover import degradable_errors
 
-        self.device = resolve_device(devices[0] if devices else None)
-        self.mesh = None
-        self.n_devices = 1
+        if mesh is None:
+            if devices is None:
+                devices = local_devices()
+            mesh = mesh_from_devices(devices)
+        self.mesh = mesh
+        self.n_devices = int(mesh.size)
+        self.device = lane_devices(batch_sharding(mesh))[0].device
         # the card's rule: on CUDA only an injected fault degrades the
         # window to the host ladder; on the CPU any error does, as in the
         # reference
@@ -149,11 +154,9 @@ class DrainScheduler:
         key = self._spec_key(item)
         be = self._backends.get(key)
         if be is None:
-            from ..search.planner import build_backend, plan_search
+            from ..mesh.dispatch import sharded_backend
 
-            platform = "cpu" if self.device.type == "cpu" else "cuda"
-            be = build_backend(spec, plan_search(spec, platform=platform),
-                               budget=self.budget, device=self.device)
+            be = sharded_backend(spec, mesh=self.mesh, budget=self.budget)
             self._backends[key] = be
         return be
 
@@ -248,7 +251,7 @@ class DrainScheduler:
         return {
             "window_id": self.window_id,
             "devices": self.n_devices,
-            "mesh_axes": [],
+            "mesh_axes": list(getattr(self.mesh, "axis_names", ())),
             "device": str(self.device),
             "pending_at_open": started["pending"],
             "drained": len(dispatched),

@@ -9,7 +9,7 @@ seams:
 * ``shrink``  — a shrink round banks its still-undecided frontier;
 * ``monitor`` — a session's flip banks the whole stream's re-check;
 * ``warmup``  — the planner banks a warm-up item whenever it builds a
-  plan for the card (the reference: a mesh-sized plan),
+  mesh-sized plan (as the reference does) or a plan for the card,
 
 and the drain scheduler (:mod:`.drain`) spends a device window on the
 backlog, banking every verdict under the ``serve.cache.fingerprint_key``
@@ -325,16 +325,18 @@ def bank_histories(spec, histories, *, plane: str,
 
 
 def note_device_plan(spec, plan) -> Optional[str]:
-    """Planner seam (``search/planner.py::build_backend``): a plan for
-    the card (``cuda-h100-v1``) says the device pays, so a ``warmup``
-    item is banked (no lanes; the drain builds the plan's checker and
-    decides a deterministic smoke corpus through it).  The reference
-    banks only mesh-sized plans; the port has no mesh (ROADMAP A8), and
-    its one-device plan is the device's."""
+    """Planner seam (``search/planner.py::build_backend``): a mesh-sized
+    plan (``@meshN``), as in the reference, or a plan for the card
+    (``cuda-h100-v1``) says the device pays, so a ``warmup`` item is
+    banked, keyed by the plan's name and mesh width (no lanes; the drain
+    builds the plan's checker and decides a deterministic smoke corpus
+    through it)."""
     from ..search.planner import CUDA_PLAN
 
     q = global_devq()
-    if q is None or getattr(plan, "name", None) != CUDA_PLAN:
+    name = str(getattr(plan, "name", ""))
+    if q is None or (getattr(plan, "mesh_devices", 1) <= 1
+                     and name != CUDA_PLAN):
         return None
     kwargs = spec.spec_kwargs()
     key = item_fingerprint("warmup", spec.name, kwargs,

@@ -219,10 +219,13 @@ def _row(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def dfs_chunk_plain(tables: Tables, carry: Carry, *, chunk: int,
-                    budget: int, cache_slots: int) -> Carry:
+                    budget: int, cache_slots: int,
+                    early_exit: bool = True) -> Carry:
     """The same function as the CUDA kernel, in plain PyTorch, vectorised
     over lanes: one loop trip per DFS iteration.  Bit-identical to the
-    kernel and to ``build_pallas_chunk``."""
+    kernel and to ``build_pallas_chunk``.  ``early_exit=False`` drops the
+    host sync that ends the loop once no lane runs (the trips after it
+    are no-ops), so that the loop can be captured in a CUDA graph."""
     _check_args(tables, carry, cache_slots)
     nxt, ok, prec, valid, nreq = tables
     S, N, B = nxt.shape
@@ -245,7 +248,8 @@ def dfs_chunk_plain(tables: Tables, carry: Carry, *, chunk: int,
     for it in range(chunk):
         # decided lanes do nothing, so once none runs the rest of the
         # chunk is a no-op (checked every 64 trips: each check syncs)
-        if it % 64 == 0 and not bool((status == RUNNING).any()):
+        if early_exit and it % 64 == 0 and not bool(
+                (status == RUNNING).any()):
             break
         active = status == RUNNING
         state = _row(states, d)

@@ -120,6 +120,22 @@ def ptxas_report(name: str, src: Optional[Path] = None) -> str:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def _bind_device(lib: ctypes.CDLL) -> None:
+    """``set_launch_device(int)``: the device of the library's own CUDA
+    runtime, which the wrapper sets before each launch."""
+    lib.set_launch_device.argtypes = [_I]
+    lib.set_launch_device.restype = _I
+
+
+def launch_device_index(dev) -> int:
+    """The CUDA ordinal of torch device ``dev`` (its current device when
+    it names none)."""
+    import torch
+
+    return dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+
+
 @functools.lru_cache(maxsize=None)
 def dfs_chunk_lib() -> ctypes.CDLL:
     """The built ``dfs_chunk`` library with its entry's signature set:
@@ -137,11 +153,13 @@ def stepper_chunk_lib() -> ctypes.CDLL:
     """The built ``stepper_chunk`` library: 13 device pointers (the six
     tables, the lane rows, the six carry planes updated in place), 9 ints
     of shape and budget, the 4 ints of the launch plan
-    (``stepper_kernel.StepperPlan``), the stream."""
+    (``stepper_kernel.StepperPlan``), the stream; and
+    ``set_launch_device``."""
     lib = ctypes.CDLL(str(build("stepper_chunk")))
     fn = lib.stepper_chunk_launch
     fn.argtypes = [_P] * 13 + [_I] * 13 + [_P]
     fn.restype = _I
+    _bind_device(lib)
     return lib
 
 
@@ -150,11 +168,13 @@ def compact_carry_lib() -> ctypes.CDLL:
     """The built ``compact_carry`` library: 16 device pointers (the seven
     old carry planes, the surviving lanes, the seven new planes, the
     re-hash scratch), 8 ints of shape (the state width D, 0 for a
-    table-regime carry, among them), the card's SM count, the stream."""
+    table-regime carry, among them), the card's SM count, the stream; and
+    ``set_launch_device``."""
     lib = ctypes.CDLL(str(build("compact_carry")))
     fn = lib.compact_carry_launch
     fn.argtypes = [_P] * 16 + [_I] * 9 + [_P]
     fn.restype = _I
+    _bind_device(lib)
     return lib
 
 
@@ -165,11 +185,12 @@ def stepper_sweep_lib() -> ctypes.CDLL:
     in place, the lane list or null, the probe counters or null), 8 ints
     of shape and budget, the model's kind and 3 parameters, the count of
     lanes run, the 3 ints of the launch plan (``sweep_kernel.SweepPlan``),
-    the stream."""
+    the stream; and ``set_launch_device``."""
     lib = ctypes.CDLL(str(build("stepper_sweep")))
     fn = lib.stepper_sweep_launch
     fn.argtypes = [_P] * 16 + [_I] * 16 + [_P]
     fn.restype = _I
+    _bind_device(lib)
     return lib
 
 

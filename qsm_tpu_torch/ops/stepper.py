@@ -13,6 +13,11 @@ as ``JaxTPU`` chooses them (``jax_kernel.py:596-611``):
   itself every iteration.  On CUDA the spec must have a kernel model
   (``Spec.sweep_kernel``); construction raises otherwise.
 
+Under a lane sharding (``sharding=``, ``qsm_tpu_torch/mesh/``) the
+bucket ladder keeps the widths the mesh divides and each device holds an
+equal block of a bucket's lanes (``mesh/shards.py``); the bucket sequence,
+and so each lane's search, is the unsharded one on that ladder.
+
 Host side: ``ops/host_contracts.py`` (the entry points; out-of-domain
 histories deferred to the oracle in the table regime, out-of-bounds start
 states of a shadow deferred, pending ops expanded), split at
@@ -39,7 +44,6 @@ import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..core.history import History, bucket_for, encode_batch
 from ..core.spec import Spec
@@ -108,7 +112,17 @@ class TorchStepper(DeviceChecker):
     once and may not be combined with them.  ``ordering`` permutes each
     history's ops by selectivity before encoding (``search/ordering.py``;
     None: the plan's setting, off without a plan); witnesses map back.
-    ``regime`` says which search a spec takes: "table" or "sweep"."""
+    ``regime`` says which search a spec takes: "table" or "sweep".
+
+    ``sharding`` (a ``mesh.LaneSharding``, the counterpart of
+    ``JaxTPU(sharding=)``) spreads each device batch's lanes over the
+    mesh's devices, CUDA cards, logical shards of one card or logical
+    host devices; the ladder is filtered to widths the mesh divides
+    (``mesh_bucket_ladder`` / ``mesh_slots_table``) and ``device``
+    defaults to the mesh's first device.  Verdicts, witnesses and each
+    lane's iterations are those of the unsharded stepper on the filtered
+    ladder.  ``lanes_crossed`` counts the lanes compactions moved to
+    another shard."""
 
     name = "torch_stepper"
 
@@ -124,7 +138,8 @@ class TorchStepper(DeviceChecker):
                  chunk_schedule: Optional[Sequence[int]] = None,
                  batch_buckets: Optional[Sequence[int]] = None,
                  slots_for_batch: Optional[Dict[int, int]] = None,
-                 plan=None, ordering: Optional[bool] = None):
+                 plan=None, ordering: Optional[bool] = None,
+                 sharding=None):
         if plan is not None:
             if (chunk_schedule is not None or batch_buckets is not None
                     or slots_for_batch is not None):
@@ -137,7 +152,26 @@ class TorchStepper(DeviceChecker):
             slots_for_batch = plan.slots_for_batch
         self.plan = plan
         self.spec = spec
+        # the lane placement, resolved once (mesh/ owns the policy): the
+        # mesh-shape key, the lane sharding and the devices of its blocks
+        from ..mesh.shards import LaneShards
+        from ..mesh.topology import (lane_devices, lane_sharding_of,
+                                     mesh_shape_key)
+
+        self.sharding = sharding
+        self._mesh_key = mesh_shape_key(sharding)
+        self._lane_sharding = None
+        if sharding is not None:
+            self._lane_sharding = lane_sharding_of(sharding)
+            first = lane_devices(self._lane_sharding)[0].device
+            if device is not None and resolve_device(device).type \
+                    != first.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"({first})")
+            device = first
         self.device = resolve_device(device)
+        self._shards = (LaneShards(self._lane_sharding) if sharding is not None
+                        else LaneShards.single(self.device))
         if ordering is None:
             ordering = bool(plan.ordering) if plan is not None else False
         self._ordering_table = None
@@ -162,6 +196,13 @@ class TorchStepper(DeviceChecker):
             slots_for_batch if slots_for_batch is not None
             else {b: default_slots(b, self.kspec.STATE_DIM)
                   for b in self.batch_buckets})
+        if self._shards.n > 1:
+            from ..mesh.dispatch import mesh_bucket_ladder, mesh_slots_table
+
+            self.batch_buckets = mesh_bucket_ladder(self.batch_buckets,
+                                                    self._shards.n)
+            self.slots_for_batch = mesh_slots_table(self.slots_for_batch,
+                                                    self.batch_buckets)
         for b in self.batch_buckets:
             s = self.slots_for_batch[b]
             if s < 0 or s & (s - 1):
@@ -177,11 +218,15 @@ class TorchStepper(DeviceChecker):
         self.rescued = 0       # decided after more than ``budget`` iters
         self.rounds_run = 0    # chunk calls
         self.compactions = 0   # bucket or memo-size changes
+        self.lanes_crossed = 0  # lanes a compaction moved to another shard
         self.memo_prunes = 0   # memo hits (subtrees skipped)
         self.memo_inserts = 0  # configurations proven non-linearizable
         # sum over chunk calls of (largest iterations any lane ran) x
         # bucket: what every lane pays in lockstep, not what it needed
         self.lockstep_cost = 0
+        # each lane's cumulative iterations in the last device batch, in
+        # the batch's flat order (the counterpart of the carry's ``iters``)
+        self.last_iters = np.zeros(0, np.int64)
 
     def search_stats(self):
         """Cumulative :class:`~qsm_tpu_torch.search.stats.SearchStats`:
@@ -274,6 +319,15 @@ class TorchStepper(DeviceChecker):
         active = np.arange(b)          # indices into the flat batch
         lanes = np.arange(b)           # carry lane of each active element
         prev_iters = np.zeros(b, np.int64)
+        # the tables on every device of the mesh; the carry is one
+        # StepperCarry a shard (mesh/shards.py)
+        shards = self._shards
+        tables = shards.replicate(tables)
+        no_rows = np.zeros(0, np.int64)
+
+        def pad(t, width, slots):
+            return fresh(tables[t].nreq, no_rows, inits[no_rows], width,
+                         n_ops, slots)
         carry = None
         cur: Tuple[int, int] = (0, 0)  # (bucket, slots) of the carry
         last = len(self.chunk_schedule) - 1
@@ -283,20 +337,22 @@ class TorchStepper(DeviceChecker):
             slots = self.slots_for_batch[bucket]
             chunk = self.chunk_schedule[min(round_i, last)]
             if carry is None:
-                carry = fresh(tables.nreq, active, inits, bucket, n_ops,
-                              slots)
+                carry = shards.fresh(fresh, tables, active, inits, bucket,
+                                     n_ops, slots)
             elif (bucket, slots) != cur:
-                carry = compact_carry(carry, lanes, bucket, slots)
+                carry, crossed = shards.compact(
+                    compact_carry, pad, carry, lanes, bucket, slots)
+                self.lanes_crossed += crossed
                 lanes = np.arange(active.size)
                 self.compactions += 1
             cur = (bucket, slots)
-            # the sweep kernel runs the active lanes alone, spread evenly
-            # over the SMs
-            carry = step(tables, carry, chunk=chunk,
-                         budget=self.total_budget,
-                         **({} if self._uses_table else {"lanes": lanes}))
-            # the one host sync of the round: every lane's counters
-            dsi = carry.dsi.cpu().numpy()
+            # every shard's launch enqueued before any status is read (the
+            # sweep kernel runs each shard's active lanes alone, spread
+            # evenly over the SMs); then the one host sync of the round
+            carry = shards.step(step, tables, carry, lanes, chunk=chunk,
+                                budget=self.total_budget,
+                                sweep=not self._uses_table)
+            dsi = shards.read_dsi(carry)
             status = dsi[STATUS][lanes]
             iters = dsi[ITERS][lanes].astype(np.int64)
             self.rounds_run += 1
@@ -307,9 +363,8 @@ class TorchStepper(DeviceChecker):
             if done.any():
                 out_status[active[done]] = status[done]
                 if collect_chosen:
-                    out_chosen[active[done]] = carry.chosen[
-                        :, torch.from_numpy(lanes[done]).to(
-                            self.device)].T.cpu().numpy()
+                    out_chosen[active[done]] = shards.chosen(carry,
+                                                             lanes[done])
                 decided = status[done] != BUDGET
                 self.rescued += int(np.sum(decided
                                            & (iters[done] > self.budget)))
@@ -320,6 +375,7 @@ class TorchStepper(DeviceChecker):
             active = active[~done]
             lanes = lanes[~done]
             round_i += 1
+        self.last_iters = prev_iters
         self.device_histories += b
         self.device_batches += 1
         if collect_chosen:

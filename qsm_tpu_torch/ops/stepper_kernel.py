@@ -375,7 +375,8 @@ def stepper_chunk(tables: StepperTables, carry: StepperCarry, *, chunk: int,
         return stepper_chunk_plain(tables, carry, chunk=chunk, budget=budget)
     if dev.type != "cuda":
         raise ValueError(f"stepper_chunk runs on cuda or cpu, not {dev}")
-    from .kernels import KernelLaunchError, stepper_chunk_lib
+    from .kernels import (KernelLaunchError, launch_device_index,
+                          stepper_chunk_lib)
 
     R, N = tables.vocab.shape
     S, V = tables.vnxt.shape
@@ -383,12 +384,16 @@ def stepper_chunk(tables: StepperTables, carry: StepperCarry, *, chunk: int,
     plan = stepper_launch_plan(B, N, S, V, device_sms(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = stepper_chunk_lib().stepper_chunk_launch(
-            *(t.data_ptr() for t in tables), carry.row.data_ptr(),
-            *(t.data_ptr() for t in carry[:6]),
-            B, R, N, S, V, n_words(N), slots, chunk, budget,
-            *(int(x) for x in plan),
-            stream)
+        lib = stepper_chunk_lib()
+        # the library's own runtime launches on the tensors' card
+        rc = lib.set_launch_device(launch_device_index(dev))
+        if rc == 0:
+            rc = lib.stepper_chunk_launch(
+                *(t.data_ptr() for t in tables), carry.row.data_ptr(),
+                *(t.data_ptr() for t in carry[:6]),
+                B, R, N, S, V, n_words(N), slots, chunk, budget,
+                *(int(x) for x in plan),
+                stream)
     if rc != 0:
         raise KernelLaunchError(
             f"stepper_chunk launch failed: CUDA error {rc}")
@@ -406,11 +411,14 @@ def _unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def stepper_chunk_plain(tables: StepperTables, carry: StepperCarry, *,
-                        chunk: int, budget: int) -> StepperCarry:
+                        chunk: int, budget: int,
+                        early_exit: bool = True) -> StepperCarry:
     """The same function as the CUDA kernel, in plain PyTorch, vectorised
     over lanes: one loop trip per DFS iteration, the JAX package's
     ``run_one`` body (``jax_kernel.py:281-401``) line for line.  Updates
-    the carry in place and returns it."""
+    the carry in place and returns it.  ``early_exit=False`` drops the
+    host sync that ends the loop once no lane runs (the trips after it
+    are no-ops), so that the loop can be captured in a CUDA graph."""
     _check_chunk_args(tables, carry)
     if sweep_dim(carry):
         raise ValueError("stepper_chunk_plain runs table-regime carries")
@@ -439,7 +447,8 @@ def stepper_chunk_plain(tables: StepperTables, carry: StepperCarry, *,
         # every running lane gains one iteration a trip, so within the
         # chunk a lane runs while its status does; once none runs the
         # rest is a no-op (checked every 64 trips: each check syncs)
-        if it % 64 == 0 and not bool((status == RUNNING).any()):
+        if early_exit and it % 64 == 0 and not bool(
+                (status == RUNNING).any()):
             break
         act = status == RUNNING
         dl = d.long()
@@ -556,7 +565,8 @@ def compact_carry(carry: StepperCarry, lanes, bucket: int, slots: int
         return compact_carry_plain(carry, idx, bucket, slots)
     if dev.type != "cuda":
         raise ValueError(f"compact_carry runs on cuda or cpu, not {dev}")
-    from .kernels import KernelLaunchError, compact_carry_lib
+    from .kernels import (KernelLaunchError, compact_carry_lib,
+                          launch_device_index)
 
     sd = sweep_dim(carry)
     out = _empty_carry(N, bucket, slots, dev, sd)
@@ -568,11 +578,14 @@ def compact_carry(carry: StepperCarry, lanes, bucket: int, slots: int
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = compact_carry_lib().compact_carry_launch(
-            *(t.data_ptr() for t in carry), idx.data_ptr(),
-            *(t.data_ptr() for t in out), win.data_ptr(),
-            old_b, bucket, m, N, sd, key_words(N, max(sd, 1)), old_slots,
-            slots, device_sms(dev), stream)
+        lib = compact_carry_lib()
+        rc = lib.set_launch_device(launch_device_index(dev))
+        if rc == 0:
+            rc = lib.compact_carry_launch(
+                *(t.data_ptr() for t in carry), idx.data_ptr(),
+                *(t.data_ptr() for t in out), win.data_ptr(),
+                old_b, bucket, m, N, sd, key_words(N, max(sd, 1)),
+                old_slots, slots, device_sms(dev), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"compact_carry launch failed: CUDA error {rc}")

@@ -265,7 +265,8 @@ def stepper_sweep(model: SweepModel, tables: SweepTables,
                               torch.int64 or stats.shape != (2,)):
         raise ValueError("stepper_sweep: stats must be int64 [2] on the "
                          "carry's device")
-    from .kernels import KernelLaunchError, stepper_sweep_lib
+    from .kernels import (KernelLaunchError, launch_device_index,
+                          stepper_sweep_lib)
 
     R, N = tables.cmd.shape
     B, slots = carry.row.shape[0], carry.occ.shape[1]
@@ -273,13 +274,16 @@ def stepper_sweep(model: SweepModel, tables: SweepTables,
     plan = sweep_launch_plan(L, N, D, slots, device_sms(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = stepper_sweep_lib().stepper_sweep_launch(
-            *(t.data_ptr() for t in tables), model.data.data_ptr(),
-            carry.row.data_ptr(), *(t.data_ptr() for t in carry[:6]),
-            None if idx is None else idx.data_ptr(),
-            None if stats is None else stats.data_ptr(),
-            B, R, N, n_words(N), D, slots, chunk, budget, model.kind,
-            *model.params, L, *(int(x) for x in plan), stream)
+        lib = stepper_sweep_lib()
+        rc = lib.set_launch_device(launch_device_index(dev))
+        if rc == 0:
+            rc = lib.stepper_sweep_launch(
+                *(t.data_ptr() for t in tables), model.data.data_ptr(),
+                carry.row.data_ptr(), *(t.data_ptr() for t in carry[:6]),
+                None if idx is None else idx.data_ptr(),
+                None if stats is None else stats.data_ptr(),
+                B, R, N, n_words(N), D, slots, chunk, budget, model.kind,
+                *model.params, L, *(int(x) for x in plan), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"stepper_sweep launch failed: CUDA error {rc}")
@@ -302,11 +306,15 @@ def _step_all(spec, state: torch.Tensor, cmd, arg, resp):
 
 
 def stepper_sweep_plain(spec, tables: SweepTables, carry: StepperCarry, *,
-                        chunk: int, budget: int) -> StepperCarry:
+                        chunk: int, budget: int,
+                        early_exit: bool = True) -> StepperCarry:
     """The same function as the CUDA kernel, in plain PyTorch, vectorised
     over lanes: one loop trip per DFS iteration, the JAX package's
     ``run_one`` body in its sweep regime line for line, stepping with
-    ``spec.step_torch``.  Updates the carry in place and returns it."""
+    ``spec.step_torch``.  Updates the carry in place and returns it.
+    ``early_exit=False`` drops the host sync that ends the loop once no
+    lane runs (the trips after it are no-ops), so that the loop can be
+    captured in a CUDA graph."""
     _check_sweep_args(tables, carry)
     cmd, arg, resp, prec, valid, nreq = tables
     N = cmd.shape[1]
@@ -330,7 +338,8 @@ def stepper_sweep_plain(spec, tables: SweepTables, carry: StepperCarry, *,
                                          for k in range(5))
     for it in range(chunk):
         # checked every 64 trips: each check syncs
-        if it % 64 == 0 and not bool((status == RUNNING).any()):
+        if early_exit and it % 64 == 0 and not bool(
+                (status == RUNNING).any()):
             break
         act = status == RUNNING
         dl = d.long()

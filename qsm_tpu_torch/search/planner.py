@@ -11,8 +11,11 @@ picks them, and the two search modes, from what is known:
   points run on the card) gives the port's own plan, ``cuda-h100-v1``,
   from ``ops/stepper.py``'s defaults (``CHUNK_SCHEDULE``,
   ``BATCH_BUCKETS``, ``default_slots``).  No constant measured on or for
-  a TPU carries over: ``"tpu"`` is refused, and so is a plan for more
-  than one device (the mesh is not ported);
+  a TPU carries over: ``"tpu"`` is refused;
+* **mesh width** (``mesh_devices``): a plan for ``n > 1`` devices keeps
+  the buckets ``n`` divides (``mesh/dispatch.py``), and its name gains
+  ``@mesh{n}``, so that a ladder filtered for one width never serves
+  another;
 * **corpus statistics** (``profile_corpus``): the mean quiescent-cut
   density decides decomposition (wrap the kernel in ``SegDC``:
   exhaustion cost is exponential in segment length), the per-key shape
@@ -150,7 +153,7 @@ class SearchPlan:
     # spec's projection validates and the profiled sub-histories land in
     # smaller op buckets than the whole histories
     decompose_keys: bool = False
-    mesh_devices: int = 1   # always 1: the mesh is not ported
+    mesh_devices: int = 1   # lane-axis mesh width the ladder divides
     why: Tuple[str, ...] = ()
 
     def describe(self) -> Dict:
@@ -206,16 +209,16 @@ def plan_search(spec, profile: Optional[CorpusProfile] = None,
     """The search plan for ``spec`` on ``platform`` (``"cuda"``, or
     ``"cpu"`` for the JAX package's CPU plan; None means ``"cuda"``)
     given optional corpus statistics.  Pure policy: builds no backend and
-    touches no device.  ``"tpu"`` and ``mesh_devices > 1`` raise
-    ``ValueError``."""
+    touches no device.  ``"tpu"`` raises ``ValueError``.
+    ``mesh_devices > 1`` sizes the plan for a mesh of that many devices:
+    the bucket ladder keeps the widths it divides and the name gains an
+    ``@meshN`` suffix; ``mesh_devices=1`` is the identity."""
     platform = "cuda" if platform is None else platform
     if platform not in ("cpu", "cuda"):
         raise ValueError(f"no search plan for platform {platform!r}: the "
                          f"port plans for 'cuda' (its own defaults) and "
                          f"'cpu' (the JAX package's CPU plan)")
-    if int(mesh_devices) != 1:
-        raise ValueError(f"mesh_devices={mesh_devices}: the port plans for "
-                         f"one device (the mesh is not ported)")
+    mesh_devices = max(1, int(mesh_devices))
     why = []
 
     orderable = ordering_table(spec) is not None
@@ -279,15 +282,27 @@ def plan_search(spec, profile: Optional[CorpusProfile] = None,
                    "fine buckets to single-lane")
         name, buckets = CPU_PLAN, _CPU_BUCKETS
         slots = {b: _CPU_SLOTS for b in _CPU_BUCKETS}
+    if mesh_devices > 1:
+        # mesh-shape the plan: divisible buckets, their slot table, the
+        # @meshN name (plan identity = ladder identity)
+        from ..mesh.dispatch import mesh_bucket_ladder, mesh_slots_table
+
+        kept = mesh_bucket_ladder(buckets, mesh_devices)
+        why.append(f"mesh_devices={mesh_devices}: bucket ladder filtered "
+                   f"to mesh-divisible widths ({len(buckets)} -> "
+                   f"{len(kept)} buckets)")
+        name, buckets = f"{name}@mesh{mesh_devices}", kept
+        slots = mesh_slots_table(slots, kept)
     return SearchPlan(
         name=name,
         chunk_schedule=sched,
-        batch_buckets=buckets,
-        slots_for_batch=slots,
+        batch_buckets=tuple(buckets),
+        slots_for_batch=dict(slots),
         ordering=orderable,
         decompose=decompose,
         decompose_keys=decompose_keys,
         unroll=None,
+        mesh_devices=mesh_devices,
         why=tuple(why),
     )
 
@@ -299,19 +314,26 @@ def build_backend(spec, plan: SearchPlan, budget: int = 2_000,
     and the whole wrapped in the per-key combinator (``PComp``) when the
     plan splits per key: outermost, because per-key sub-histories are
     sparser and cut more often.  ``device_kw`` goes to ``TorchStepper``
-    (``device="cpu"`` runs its plain versions)."""
+    (``device="cpu"`` runs its plain versions).
+
+    A mesh-sized plan (``plan.mesh_devices > 1``) implies a sharded
+    engine: without an explicit ``sharding=``, the lane sharding comes
+    from a mesh of exactly that many devices of ``device``'s kind (cards,
+    or logical host devices for ``device="cpu"``), so plan and placement
+    cannot disagree; too few cards raise ``ValueError``."""
     from ..ops.stepper import TorchStepper
 
-    if plan.mesh_devices != 1:
-        raise ValueError(f"plan {plan.name!r} is sized for "
-                         f"{plan.mesh_devices} devices: the port runs on one")
-    if plan.name == CUDA_PLAN:
-        # the planner seam (devq/): a device plan says the card pays,
-        # so the next drain warms this plan on a smoke corpus.  One
-        # global read without a queue.
-        from ..devq.queue import note_device_plan
+    if plan.mesh_devices > 1 and device_kw.get("sharding") is None:
+        from ..mesh.topology import batch_sharding, make_mesh
 
-        note_device_plan(spec, plan)
+        device_kw["sharding"] = batch_sharding(make_mesh(
+            plan.mesh_devices, device=device_kw.get("device")))
+    # the planner seam (devq/): a card plan or a mesh-sized one says the
+    # device pays, so the next drain warms this plan on a smoke corpus.
+    # One global read without a queue.
+    from ..devq.queue import note_device_plan
+
+    note_device_plan(spec, plan)
 
     def make_core(s):
         if not plan.decompose:

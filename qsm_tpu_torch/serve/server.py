@@ -45,7 +45,11 @@ Where the card needs another design than the reference's:
 The fleet tier's node side is the reference's: node-to-node gossip
 (``peers=``, ``gossip_s=``, the ``gossip.peers`` op) and lease hosting
 (``lease_path=``, the ``lease.*`` ops).  A lane-axis mesh
-(``mesh_devices > 1``) raises until ROADMAP A8.
+(``mesh_devices > 1``, ``qsm_tpu_torch/mesh/``) is the reference's: the
+planned engine is built by a mesh-sized plan over that many cards (or
+logical host devices with ``device="cpu"``), the batcher's flush width
+rounds up to a multiple of the mesh, and it is exclusive with
+``workers > 0``.  A machine with fewer cards raises at :meth:`start`.
 
 Wire protocol: ``serve/protocol.py`` (JSON lines over TCP or a UNIX
 socket).
@@ -292,6 +296,12 @@ class CheckServer:
                              "one of ('auto', 'planned')")
         self.device = device
         self.on_cpu = device is not None and str(device) == "cpu"
+        if workers and int(mesh_devices) > 1:
+            # two fan-outs that exclude each other: pool workers run host
+            # ladders (nothing to shard); the mesh belongs to the planned
+            # engine in this process
+            raise ValueError("workers>0 and mesh_devices>1 are exclusive "
+                             "fan-outs (the pool runs host engines)")
         if workers and not self.on_cpu:
             # pool workers are host processes running the host ladder;
             # a card's engine lives in this process (the reference's
@@ -301,12 +311,13 @@ class CheckServer:
         if workers and engine != "auto":
             raise ValueError("workers>0 requires engine='auto' (pool "
                              "workers run the host cpp->memo ladder)")
-        if int(mesh_devices) > 1:
-            raise ValueError("mesh_devices > 1 waits for the mesh "
-                             "(ROADMAP A8); the port serves on one device")
         self.host, self.port, self.unix_path = host, port, unix_path
         self.engine_kind = engine
-        self.mesh_devices = 1
+        # the planned engine's lane-axis mesh width: > 1 plans
+        # mesh-divisible buckets with a sharded engine, and the batcher
+        # rounds its flush target to mesh multiples so that one flush
+        # fills every device
+        self.mesh_devices = max(1, int(mesh_devices))
         self.policy = policy or preset("serve")
         self.max_lanes = max_lanes
         self.allow_shutdown = allow_shutdown
@@ -520,6 +531,12 @@ class CheckServer:
         # no server (BackendUnavailable), never a silent move to the host
         if not self.on_cpu:
             resolve_device(self.device)
+            if self.mesh_devices > 1:
+                # a mesh wider than the machine's cards raises here, with
+                # the count; the server never serves on fewer
+                from ..mesh.topology import make_mesh
+
+                make_mesh(self.mesh_devices, device=self.device)
             if self.monitor is None:
                 self.monitor = self._make_monitor()
         if self.unix_path:
@@ -682,7 +699,8 @@ class CheckServer:
             # host ladder here would be the fallback that hides the card)
             from ..search.planner import build_backend
 
-            plan = plan_search(spec, platform="cuda")
+            plan = plan_search(spec, platform="cuda",
+                               mesh_devices=self.mesh_devices)
             inner = build_backend(spec, plan, device=self.device)
             plan_why = list(plan.why) + [
                 f"engine={self.engine_kind} on cuda: the planned checker "
@@ -691,7 +709,8 @@ class CheckServer:
             # the CPU plan, its kernels' plain versions
             from ..search.planner import build_backend
 
-            plan = plan_search(spec, platform="cpu")
+            plan = plan_search(spec, platform="cpu",
+                               mesh_devices=self.mesh_devices)
             inner = build_backend(spec, plan, device="cpu")
             plan_why = list(plan.why)
         else:

@@ -684,9 +684,6 @@ def cmd_serve(args) -> int:
         raise SystemExit("--peers needs --replog-dir (gossip "
                          "replicates replog segments; a bankless node "
                          "has none to exchange)")
-    if args.mesh_devices > 1:
-        raise SystemExit("--mesh-devices > 1 waits for the mesh (ROADMAP "
-                         "A8); the port serves on one device")
     warm = [m.strip() for m in args.warm.split(",")] if args.warm else []
     warm = [m for m in warm if m]
     unknown = sorted(set(warm) - set(MODELS))
@@ -697,6 +694,7 @@ def cmd_serve(args) -> int:
     server = CheckServer(
         host=args.host, port=args.port, unix_path=args.unix,
         engine=args.engine, max_lanes=args.max_lanes,
+        mesh_devices=args.mesh_devices,
         flush_s=args.flush_ms / 1000.0, queue_depth=args.queue_depth,
         cache_path=args.cache, cache_entries=args.cache_entries,
         workers=args.workers, quarantine_after=args.quarantine_after,
@@ -724,7 +722,7 @@ def cmd_serve(args) -> int:
                           "devq": args.devq_dir,
                           "peers": peers or None,
                           "workers": args.workers,
-                          "max_lanes": args.max_lanes,
+                          "max_lanes": server.batcher.max_lanes,
                           "mesh_devices": args.mesh_devices,
                           "flush_ms": args.flush_ms,
                           "queue_depth": args.queue_depth,
@@ -2039,8 +2037,13 @@ def main(argv=None) -> int:
     p.add_argument("--max-lanes", type=int, default=64,
                    help="micro-batch width: lanes coalesced a dispatch")
     p.add_argument("--mesh-devices", type=int, default=1,
-                   help="lane-axis mesh width (> 1 refused until the "
-                        "mesh is ported)")
+                   help="shard the planned engine's lane axis over a mesh "
+                        "of N devices (qsm_tpu_torch/mesh): N cards, or N "
+                        "logical host devices with --device cpu; plans get "
+                        "mesh-divisible buckets and the batcher's flush "
+                        "target rounds to mesh multiples so one dispatch "
+                        "fills the whole mesh; verdicts are bit-identical "
+                        "at any N; more than the machine's cards raises")
     p.add_argument("--flush-ms", type=float, default=20.0,
                    help="micro-batch flush interval (latency floor for "
                         "a lone client)")

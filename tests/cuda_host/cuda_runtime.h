@@ -29,6 +29,7 @@ inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
 }
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 // the H100's opt-in limit per block
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = 232448;

@@ -130,20 +130,25 @@ def test_four_planes_and_warmup_bank_into_one_queue():
     from qsm_tpu_torch.search.planner import plan_search, profile_corpus
 
     spec, hists = _corpus("kv", n=2)
-    # the port's device plan is its one-card plan (the reference: a
-    # mesh-sized one); a CPU plan banks nothing
+    # a device plan banks a warm-up: the port's card plan, and a
+    # mesh-sized one as in the reference; a CPU plan banks nothing
     assert note_device_plan(spec, plan_search(
         spec, profile_corpus(hists, spec), platform="cpu")) is None
     plan = plan_search(spec, profile_corpus(hists, spec),
                        platform="cuda")
     set_global_devq(q)
     try:
+        assert note_device_plan(spec, plan_search(
+            spec, profile_corpus(hists, spec), platform="cpu")) is None
         assert note_device_plan(spec, plan) is not None
+        mesh = plan_search(spec, profile_corpus(hists, spec),
+                           platform="cpu", mesh_devices=8)
+        assert note_device_plan(spec, mesh) is not None
     finally:
         set_global_devq(None)
     by_plane = q.snapshot()["pending_by_plane"]
     assert by_plane == {"check": 1, "pcomp": 1, "shrink": 1,
-                        "monitor": 1, "warmup": 1}
+                        "monitor": 1, "warmup": 2}
 
 
 # --- drain soundness ------------------------------------------------------
@@ -151,9 +156,8 @@ def test_four_planes_and_warmup_bank_into_one_queue():
 def test_drain_banks_oracle_verdicts_bit_identical_to_host(tmp_path):
     """The window's one promise: every banked verdict IS the fresh host
     memo oracle's, landed under the originating fingerprint — the
-    device path (the planned checker's plain versions on the CPU here;
-    a list of more than one device waits for the mesh) never gets the
-    last word."""
+    device path (the planned checker's plain versions on the CPU here)
+    never gets the last word."""
     q = DeviceWorkQueue()
     corpora = []
     for plane, fam in (("check", "register"), ("shrink", "cas")):
@@ -442,11 +446,14 @@ def test_drain_verdicts_equal_the_references_drain(tmp_path):
 
 
 def test_drain_runs_on_cuda_by_default_and_refuses_a_mesh():
+    """The drain's mesh is its window's device list (every card by
+    default): a list naming one device twice is refused, and without a
+    card the default window raises."""
     import torch
 
     from qsm_tpu_torch.ops.backend import BackendUnavailable
 
-    with pytest.raises(ValueError, match="A8"):
+    with pytest.raises(ValueError, match="duplicate devices"):
         DrainScheduler(DeviceWorkQueue(), devices=["cpu", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(BackendUnavailable):

@@ -1688,3 +1688,73 @@ def test_two_nodes_on_a_cold_build_directory_load_one_library(cuda,
             if p.poll() is None:
                 p.kill()
             p.wait()
+
+
+@pytest.mark.parametrize("model", ["cas", "queue", "kv16"])
+def test_card_shard_mesh_equals_width_one(cuda, model):
+    """A logical 4-shard mesh of one card (each shard its own stream)
+    answers as one device, lane for lane: verdicts, ``chosen`` and each
+    lane's iterations; compactions move lanes across shards, and each
+    shard's launches go on its own stream."""
+    from qsm_tpu_torch.mesh import batch_sharding, card_shard_mesh
+    from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
+    from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
+                                            RacyTwoPhaseQueueSUT)
+    from qsm_tpu_torch.ops import stepper as stepper_module
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+
+    spec, suts, pids, ops = {
+        "cas": (CasSpec(), (AtomicCasSUT, RacyCasSUT), 8, 32),
+        "queue": (QueueSpec(), (AtomicQueueSUT, RacyTwoPhaseQueueSUT), 8,
+                  48),
+        "kv16": (KvSpec(n_keys=16), (AtomicKvSUT, StaleCacheKvSUT), 16,
+                 64)}[model]
+    hs = [h for h in build_corpus(spec, suts, n=256, n_pids=pids,
+                                  max_ops=ops, seed_base=1000,
+                                  seed_prefix="bench") if h.n_pending == 0]
+    plan = dict(chunk_schedule=(256, 2048, 16384), batch_buckets=(32, 256),
+                slots_for_batch={32: 4096, 256: 1024})
+    if model == "kv16":
+        # its hard lanes keep more than 32 running to the end: a ladder
+        # of every 32nd width compacts as soon as 32 lanes decide
+        buckets = tuple(range(32, 257, 32))
+        plan = dict(plan, batch_buckets=buckets, slots_for_batch={
+            b: 4096 if b == 32 else 1024 for b in buckets})
+    one = TorchStepper(spec, device=cuda, **plan)
+    s1, c1 = one._run_device(hs, collect_chosen=True)
+    streams = set()
+    real = stepper_module.stepper_chunk if one.regime == "table" \
+        else stepper_module.stepper_sweep
+
+    def spy(*args, **kw):
+        streams.add(torch.cuda.current_stream().cuda_stream)
+        return real(*args, **kw)
+
+    name = "stepper_chunk" if one.regime == "table" else "stepper_sweep"
+    old = getattr(stepper_module, name)
+    setattr(stepper_module, name, spy)
+    try:
+        four = TorchStepper(spec, sharding=batch_sharding(
+            card_shard_mesh(4)), **plan)
+        s4, c4 = four._run_device(hs, collect_chosen=True)
+    finally:
+        setattr(stepper_module, name, old)
+    assert np.array_equal(s1, s4)
+    assert np.array_equal(c1, c4)
+    assert np.array_equal(one.last_iters, four.last_iters)
+    assert four.compactions == one.compactions
+    assert four.compactions > 0 and four.lanes_crossed > 0
+    assert len(streams) == 4
+
+
+def test_make_mesh_never_spans_more_cards_than_the_machine(cuda):
+    from qsm_tpu_torch.mesh import make_mesh
+    from qsm_tpu_torch.serve import CheckServer
+
+    k = torch.cuda.device_count()
+    assert make_mesh().size == k
+    with pytest.raises(ValueError, match=f"requested {k + 1} devices, "
+                                         f"have {k}"):
+        make_mesh(k + 1)
+    with pytest.raises(ValueError, match=f"have {k}"):
+        CheckServer(mesh_devices=k + 1).start()

@@ -41,7 +41,10 @@ def test_import_loads_no_jax_and_no_reference_module():
             "qsm_tpu_torch.fleet, qsm_tpu_torch.devq, "
             "qsm_tpu_torch.gen.fleet, qsm_tpu_torch.fleet.router, "
             "qsm_tpu_torch.fleet.gossip, qsm_tpu_torch.fleet.lease, "
-            "qsm_tpu_torch.fleet.membership, qsm_tpu_torch.gen.soak\n"
+            "qsm_tpu_torch.fleet.membership, qsm_tpu_torch.gen.soak, "
+            "qsm_tpu_torch.mesh, qsm_tpu_torch.mesh.topology, "
+            "qsm_tpu_torch.mesh.dispatch, qsm_tpu_torch.mesh.shards, "
+            "qsm_tpu_torch.parallel\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -3,7 +3,7 @@
 family, permutations equal, ordered verdicts and node counts equal,
 ordered witnesses replaying in both packages, ``plan_search(...,
 "cpu").describe()`` equal to the reference's, the port's own CUDA plan
-from ``ops/stepper.py``'s defaults (``"tpu"`` and a mesh refused),
+from ``ops/stepper.py``'s defaults (``"tpu"`` refused, a mesh sized),
 ``TorchStepper(device="cpu")`` counters equal to ``JaxTPU``'s at the
 shared CPU plan (hand, ``plan=`` kernel-only, ``ordering=True``), the
 planned composition's ``SearchStats`` and the CAS-32 iters/history ratio
@@ -215,7 +215,8 @@ def test_cpu_plan_describes_as_the_reference(name):
 def test_cuda_plan_is_the_steppers_defaults(name):
     """The port's plan for the card: ``ops/stepper.py``'s schedule,
     buckets and ``default_slots`` at the spec's key width, no unroll;
-    also what ``platform=None`` means.  No TPU plan, no mesh."""
+    also what ``platform=None`` means.  No TPU plan; one device unless
+    ``mesh_devices`` says otherwise."""
     _, tspec, _, tprof = _profiles(name)
     p = plan_search(tspec, tprof)
     assert p == plan_search(tspec, tprof, platform="cuda")
@@ -245,14 +246,26 @@ def test_cuda_plan_first_chunk_covers_the_longest_lane():
 
 
 def test_tpu_platform_and_meshes_are_refused():
+    """No TPU plan; a mesh-sized plan is planned (``@mesh2``), and a mesh
+    the machine's cards cannot hold is refused when the engine is built
+    (a mesh of logical host devices needs ``device="cpu"``)."""
+    import torch
+
+    from qsm_tpu_torch.ops.backend import BackendUnavailable
+
     prof = profile_corpus(_port(_cas_corpus(n=4)))
     with pytest.raises(ValueError, match="tpu"):
         plan_search(TSPEC, prof, platform="tpu")
-    with pytest.raises(ValueError, match="mesh"):
-        plan_search(TSPEC, prof, mesh_devices=2)
-    mesh = dataclasses.replace(plan_search(TSPEC, prof), mesh_devices=2)
-    with pytest.raises(ValueError, match="devices"):
-        build_backend(TSPEC, mesh, device="cpu")
+    mesh = plan_search(TSPEC, prof, mesh_devices=2)
+    assert mesh.name == f"{CUDA_PLAN}@mesh2" and mesh.mesh_devices == 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises((ValueError, BackendUnavailable),
+                           match="devices|CUDA"):
+            build_backend(TSPEC, mesh)
+    from qsm_tpu_torch.mesh import backend_sharding
+
+    cpu = build_backend(TSPEC, mesh, device="cpu")
+    assert backend_sharding(cpu).mesh.size == 2
     with pytest.raises(ValueError, match="plan"):
         TorchStepper(TSPEC, device="cpu", plan=plan_search(TSPEC, prof),
                      chunk_schedule=(64,))

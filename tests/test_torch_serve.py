@@ -630,17 +630,17 @@ def test_server_runs_on_cuda_by_default_and_refuses_without_a_card():
 
 
 def test_workers_mesh_and_fleet_arguments_are_refused(tmp_path):
-    """``workers`` without the CPU and a mesh stay refused; the fleet
-    tier's arguments (``peers=``, ``lease_path=``) now build their
-    agent and lease store."""
+    """``workers`` without the CPU, and ``workers`` with a mesh, stay
+    refused; the fleet tier's arguments (``peers=``, ``lease_path=``) now
+    build their agent and lease store."""
     from qsm_tpu_torch.fleet.gossip import GossipAgent
     from qsm_tpu_torch.fleet.lease import FileLeaseStore
     from qsm_tpu_torch.serve import CheckServer
 
     with pytest.raises(ValueError, match="device='cpu'"):
         CheckServer(workers=2)
-    with pytest.raises(ValueError, match="A8"):
-        CheckServer(device="cpu", mesh_devices=2)
+    with pytest.raises(ValueError, match="exclusive"):
+        CheckServer(device="cpu", workers=2, mesh_devices=2)
     srv = CheckServer(device="cpu", node_id="n0", peers=[["n1", "a:1"]],
                       replog_dir=str(tmp_path / "replog"), gossip_s=0.0)
     assert isinstance(srv.gossip, GossipAgent)
