@@ -375,6 +375,20 @@ Phases, in order; any failure exits non-zero and no result is printed:
    against the plain versions (``ShardInputs``), and histories/s at 4
    shards against 1, the split's cost on one card.  ``--mesh-only`` runs
    phases 1, 2 and 22 alone and prints no result.
+23. the static checks (``qsm_tpu_torch/analysis``): (a)
+   ``run_lint(device="cuda")`` over families a-f, h, m and o with no
+   unwhitelisted error or warning (each family's seconds and the rule
+   counts printed); (b) family a's ``step_py`` / ``step_torch`` parity on
+   the card for every registry model (states and tuples printed); (c) the
+   rebuild guard's three backends (``TorchGPU`` and ``TorchStepper`` on
+   CAS, ``TorchStepper``'s sweep regime on kv16) grow no compile, library
+   load or cache after their warm call, and the seeded
+   ``RebuildingTorchStepper`` is caught; (d) the SMEM/REGS pass over the
+   five ptxas reports of phase 1's build and each kernel launched once at
+   its largest admitted plan, bit-identical to its plain version; (e)
+   ``python -m qsm_tpu_torch lint --json`` in a subprocess (started first,
+   beside (a)-(d)) exits 0.  ``--lint-only`` runs phases 1, 2 and 23
+   alone and prints no result.
 
 The lane samples of phases 6, 9 and 13-22 advance in worker processes
 (``sample_pool``, spawned at the start; a sample's lanes split among
@@ -391,8 +405,9 @@ after (``dfs_chunk`` over phases 4-5, ``stepper_chunk`` and
 own path, each case of phases 13 and 14 over its own, and
 ``threefry_draws``, ``stepper_chunk`` and ``compact_carry`` over phase
 15 (c), each path of phase 16 over its own, phase 17's in-process
-paths over the phase, and each path of phases 18, 19, 20, 21 and 22 over
-its own, with phase 22's launches by shard as paths of their own; the
+paths over the phase, each path of phases 18, 19, 20, 21 and 22 over
+its own, with phase 22's launches by shard as paths of their own, and
+phase 23's (a)-(d) as the path "lint (phase 23)"; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -3486,6 +3501,7 @@ FUZZ_VECTOR = dict(n_specs=4, hists_per_spec=256, n_ops=8, p_pending=0.1,
                    seed=17, vector_bounds=(7,) * 7,
                    backends=("memo", "device", "hybrid"))
 CLI_TIMEOUT_S = 600
+KILL_WAIT_S = 30.0             # bound of the wait on a killed child
 
 
 def cli_proc(*argv, env=None):
@@ -3498,13 +3514,22 @@ def cli_proc(*argv, env=None):
         text=True, env=None if env is None else {**os.environ, **env})
 
 
+def reap(proc):
+    """Kill ``proc`` and wait for it, bounded: a child's own children can
+    hold its pipes open past its death."""
+    proc.kill()
+    try:
+        proc.communicate(timeout=KILL_WAIT_S)
+    except subprocess.TimeoutExpired:
+        pass
+
+
 def cli_result(proc, what):
     """(rc, stdout lines) of a :func:`cli_proc`; killed past its time."""
     try:
         out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
+        reap(proc)
         raise RuntimeError(f"chip_smoke: {what} ran past "
                            f"{CLI_TIMEOUT_S} s")
     if proc.returncode not in (0, 1, 2):
@@ -3867,8 +3892,7 @@ def phase_entry(spec, corpus, tag):
         pool.close()
         for p in procs.values():
             if p.poll() is None:
-                p.kill()
-                p.communicate()
+                reap(p)
     dt = time.perf_counter() - t_phase
     print(f"{tag} phase 17 launches: " + ", ".join(
         f"{n} {k}" for k, n in total.items()) + f"; {dt:.1f} s", flush=True)
@@ -4492,8 +4516,7 @@ def phase_resilience(spec, corpus, kv_spec, kv_corpus, dev, tag):
                   flush=True)
     finally:
         if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+            reap(proc)
     total = {c.__name__: sum(x[c.__name__] for x in launches.values())
              for c in counters}
     dt = time.perf_counter() - t_phase
@@ -4845,8 +4868,7 @@ def phase_monitor(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, dev,
               f"{t_c:.1f} s in its subprocess", flush=True)
     finally:
         if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+            reap(proc)
     total = {c.__name__: sum(x[c.__name__] for x in launches.values())
              for c in counters}
     dt = time.perf_counter() - t_phase
@@ -6355,6 +6377,135 @@ def phase_mesh(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, tag):
     return launches, err
 
 
+LINT_CLI_TIMEOUT_S = 300       # (e): the lint subprocess's bound
+
+
+def phase_lint(tag, device=None):
+    """Phase 23: the port's static checks on the card (``device``: cuda:0
+    unless a rehearsal on the CPU asks for "cpu").  (e)'s subprocess
+    (``python -m qsm_tpu_torch lint --json``) starts first and runs beside
+    (a)-(d).  (a) ``run_lint(device="cuda")`` over families a-f, h, m, o:
+    no unwhitelisted error or warning, each family's seconds and the rule
+    counts printed; (b) family a's parity on the card, the states and
+    tuples a model; (c) the rebuild guard's backends grew nothing after
+    their warm call, and the seeded ``RebuildingTorchStepper`` (a library
+    a call, built by ``nvcc``) is caught; (d) the SMEM/REGS pass over the
+    five real ptxas reports (registers, stack, spills, the estimator's
+    blocks an SM, the edge plan) and each edge plan launched again, bit
+    for bit against its plain version; (e) the subprocess exits 0 with
+    ``ok``.  The kernels' launches of (a)-(d) are the path's.  Returns
+    (launches by kernel, the largest edge error)."""
+    from collections import Counter
+
+    from qsm_tpu_torch.analysis import FAMILIES, run_lint
+    from qsm_tpu_torch.analysis.engine import _rebuild_corpora
+    from qsm_tpu_torch.analysis.fixtures import RebuildingTorchStepper
+    from qsm_tpu_torch.analysis.kernel_passes import (check_kernel_envelope,
+                                                      check_rebuild,
+                                                      launch_edge_plans)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    proc = cli_proc("lint", "--json", *(("--device", "cpu")
+                                        if dev.type == "cpu" else ()))
+    counters = (dfs_chunk, stepper_chunk, compact_carry, stepper_sweep,
+                threefry_draws)
+    try:
+        for c in counters:
+            c.launches = 0
+        # (a)
+        t0 = time.perf_counter()
+        rep = run_lint(device=dev, cache=False)
+        bad = [f for f in rep.findings if f.severity != "info"]
+        require(not bad, "lint on the card: " + "; ".join(
+            f"{f.rule_id} {f.location}: {f.message}" for f in bad))
+        rules = Counter(f.rule_id for f in rep.findings + rep.whitelisted)
+        print(f"{tag} 23a run_lint on {rep.device}: families "
+              f"{','.join(rep.families)} ({len(FAMILIES)} registered), "
+              f"{len(rep.models)} models, 0 errors, 0 warnings, "
+              f"{len(rep.findings)} info, {len(rep.whitelisted)} "
+              f"whitelisted; {time.perf_counter() - t0:.2f} s; seconds by "
+              f"family " + json.dumps({k: round(v, 3)
+                                       for k, v in rep.passes.items()})
+              + "; rules " + json.dumps(dict(sorted(rules.items()))),
+              flush=True)
+        # (b)
+        require(sorted(rep.parity) == sorted(MODELS),
+                f"parity ran on {sorted(rep.parity)}")
+        for name, st in sorted(rep.parity.items()):
+            require(st["device"] == str(dev), f"{name}: parity on "
+                    f"{st['device']}")
+        print(f"{tag} 23b parity step_py vs step_torch on {dev}: " + ", ".join(
+            f"{n} {st['states']} states / {st['tuples']} tuples "
+            f"{'exhaustive' if st['exhaustive'] else 'sampled'}"
+            for n, st in sorted(rep.parity.items())), flush=True)
+        # (c)
+        for label, rec in rep.rebuild.items():
+            require(rec["warm"] == rec["after"],
+                    f"{label} grew after its warm call: {rec}")
+        print(f"{tag} 23c rebuild guard: " + "; ".join(
+            f"{label} {rec['after']}" for label, rec in
+            rep.rebuild.items()) + " after the warm call and after, no "
+            "growth", flush=True)
+        t0 = time.perf_counter()
+        cas = MODELS["cas"].make_spec()
+        seeded = RebuildingTorchStepper(
+            cas, budget=2_000, mid_budget=0, rescue_budget=0,
+            chunk_schedule=(512,), device=dev)
+        rec = {}
+        found = check_rebuild(cas, seeded, _rebuild_corpora(MODELS["cas"],
+                                                            cas),
+                              "fixture:rebuilding_torch_stepper", rec)
+        require([f.rule_id for f in found] == ["QSM-KERN-REBUILD"],
+                f"the seeded rebuild was not caught: {found}")
+        print(f"{tag} 23c seeded RebuildingTorchStepper caught on the card: "
+              f"{found[0].message}; {time.perf_counter() - t0:.2f} s "
+              f"(nvcc twice)", flush=True)
+        # (d)
+        t0 = time.perf_counter()
+        specs = [(n, MODELS[n].make_spec(), f"model:{n}")
+                 for n in sorted(MODELS)]
+        found, rows = check_kernel_envelope(specs, sms=device_sms(dev))
+        require(not found, f"SMEM/REGS findings: {found}")
+        for r in rows:
+            print(f"{tag} 23d {r['kernel']}: {r['entries']} entries, "
+                  f"{r['registers']} registers, stack {r['stack']} B, "
+                  f"spills {r['spills']} B; {r['plans']} plans, the edge "
+                  f"{r['edge']} {r['edge_plan']}: {r['threads']} threads, "
+                  f"{r['smem']} shared bytes a block, {r['blocks_per_sm']} "
+                  f"blocks an SM (shared memory, warps and registers)",
+                  flush=True)
+        found, edges = launch_edge_plans(specs, dev)
+        require(not found, f"edge launches: {found}")
+        err = max(e["max_abs_err"] for e in edges)
+        for e in edges:
+            print(f"{tag} 23d edge launch of {e['kernel']} at {e['edge']} "
+                  f"plan {e['plan']}: bit-identical to plain (max abs err "
+                  f"{e['max_abs_err']})", flush=True)
+        print(f"{tag} 23d {time.perf_counter() - t0:.2f} s", flush=True)
+        launches = {c.__name__: c.launches for c in counters}
+        print(f"{tag} path of lint (phase 23): " + ", ".join(
+            f"{n} {k}" for k, n in launches.items()) + " launches",
+            flush=True)
+        for name, n in launches.items():
+            require(n > 0, f"lint (phase 23) launched no {name}")
+        # (e)
+        rc, lines = cli_result(proc, "lint --json")
+        doc = json.loads(lines[-1])
+        require(rc == 0 and doc["ok"] and doc["errors"] == 0,
+                f"lint --json exited {rc}: {lines[-1][:600]}")
+        print(f"{tag} 23e python -m qsm_tpu_torch lint --json: rc 0, "
+              f"device {doc['device']}, {doc['errors']} errors, "
+              f"{doc['warnings']} warnings, {len(doc['whitelisted'])} "
+              f"whitelisted, {doc['seconds']} s in its run", flush=True)
+    finally:
+        if proc.poll() is None:
+            reap(proc)
+    dt = time.perf_counter() - t_phase
+    print(f"{tag} phase 23 took {dt:.1f} s (target 30 s)", flush=True)
+    return launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -6379,6 +6530,10 @@ def main(argv=None) -> int:
                     help="run phases 1-2 and 22 alone (a check of the "
                          "mesh, not the contract's run: no result is "
                          "printed)")
+    ap.add_argument("--lint-only", action="store_true",
+                    help="run phases 1-2 and 23 alone (a check of the "
+                         "static checks, not the contract's run: no "
+                         "result is printed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6432,6 +6587,11 @@ def main(argv=None) -> int:
     corpus = build_corpus(spec, (AtomicCasSUT, RacyCasSUT), n=N_UNIQUE,
                           n_pids=N_PIDS, max_ops=N_OPS, seed_base=1000,
                           seed_prefix="bench")
+    if args.lint_only:
+        lint_launches, lint_err = phase_lint(tag)
+        print(f"{tag} --lint-only: launches {json.dumps(lint_launches)}; "
+              f"largest error {lint_err}; no result", flush=True)
+        return 0
     if args.mesh_only:
         t0 = time.perf_counter()
         mesh_launches, mesh_err = phase_mesh(spec, corpus, *queue_corpus(),
@@ -6564,6 +6724,7 @@ def main(argv=None) -> int:
                                          kv_spec, kv_corpus, tag)
     print(f"{tag} phase the mesh: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    lint_launches, lint_err = phase_lint(tag)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
@@ -6572,7 +6733,8 @@ def main(argv=None) -> int:
                **search_launches,
                "entry points (phase 17)": entry_launches,
                **res_launches, **mon_launches, **serve_launches,
-               **fleet_launches, **mesh_launches}
+               **fleet_launches, **mesh_launches,
+               "lint (phase 23)": lint_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
@@ -6580,9 +6742,10 @@ def main(argv=None) -> int:
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
                    entry_err, res_err, mon_err, serve_err, fleet_err,
-                   mesh_err)
+                   mesh_err, lint_err)
     search_err = max(search_err, entry_err, res_err, mon_err, serve_err,
-                     fleet_err, mesh_err)
+                     fleet_err, mesh_err, lint_err)
+    draws_err = max(draws_err, lint_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare

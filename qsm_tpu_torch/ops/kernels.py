@@ -66,7 +66,9 @@ def build(name: str, src: Optional[Path] = None,
     processes may build at once: each compiles to a file of its own and
     installs it with an atomic rename.  The compiler's report (for
     ``nvcc``, the ``-Xptxas -v`` lines: registers, shared memory, spills)
-    is kept beside the library as ``<lib>.ptxas.txt``."""
+    is kept beside the library as ``<lib>.ptxas.txt``.  ``build.compiles``
+    counts the compiler runs of the process (the lint's rebuild guard
+    reads it)."""
     src = src or CSRC_DIR / f"{name}.cu"
     out = library_path(name, src, flags)
     if out.exists():
@@ -79,6 +81,8 @@ def build(name: str, src: Optional[Path] = None,
             return out
         return _compile(src, out, compiler, flags, timeout)
 
+
+build.compiles = 0
 
 _locks_guard = threading.Lock()
 _locks: dict = {}
@@ -108,6 +112,8 @@ def _compile(src: Path, out: Path, compiler: Optional[str],
             f"\n{r.stderr[-4000:]}")
     out.with_suffix(".ptxas.txt").write_text(r.stdout + r.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    with _locks_guard:
+        build.compiles += 1
     return out
 
 
@@ -213,6 +219,9 @@ def threefry_draws_lib() -> ctypes.CDLL:
 
 KERNEL_SOURCES = ("dfs_chunk", "stepper_chunk", "compact_carry",
                   "stepper_sweep", "threefry_draws")
+# each source's loader: its ``cache_info().misses`` counts library loads
+KERNEL_LIBS = (dfs_chunk_lib, stepper_chunk_lib, compact_carry_lib,
+               stepper_sweep_lib, threefry_draws_lib)
 
 
 def build_all(names=KERNEL_SOURCES) -> dict:

@@ -1,6 +1,6 @@
 """Command line: ``python -m qsm_tpu_torch
-run|replay|check|shrink|list|coverage|explore|fuzz|bench|stats|trace|ingest|
-monitor|serve|submit|health|fleet|soak``.
+run|replay|check|shrink|list|coverage|explore|fuzz|lint|bench|stats|trace|
+ingest|monitor|serve|submit|health|fleet|soak``.
 
 * ``run``: ``prop_concurrent`` on a registry model (fault flags, the TCP
   transport, worker processes, a JSONL log and a regression file;
@@ -19,6 +19,9 @@ monitor|serve|submit|health|fleet|soak``.
 * ``explore``: every interleaving of small programs, the union of their
   distinct histories decided in one backend batch;
 * ``fuzz``: the checkers against the exact oracle on random specs;
+* ``lint``: the port's static analyzer (``analysis/``; exit 0 clean, 1
+  findings, 2 usage or no card without ``--device cpu``, 3 analyzer
+  trouble);
 * ``trace``: one request's causal tree from a span log (``--log``);
 * ``ingest``: a Jepsen- or porcupine-style event log decoded into the
   ``check`` trace format (``--emit``: the canonical log text again;
@@ -1519,6 +1522,96 @@ def _flip_doc(spec, history, args) -> dict:
     return doc
 
 
+def cmd_lint(args) -> int:
+    """The port's static analysis (``qsm_tpu_torch/analysis``): exit 1 on
+    non-whitelisted error-severity findings, 0 otherwise.  Its semantic
+    passes (spec parity, the rebuild guard, the edge launches) run on the
+    card unless ``--device cpu``; without a card and without that flag it
+    exits 2 with ``BackendUnavailable``'s message and runs nothing."""
+    # Exit-code contract (the reference's cmd_lint): 0 clean, 1 REAL
+    # FINDINGS, 2 usage error (no card without --device cpu included),
+    # 3 analyzer trouble.  EVERYTHING — imports, the run itself — sits
+    # inside the crash guard: a broken analysis module exiting 1 would
+    # read as a real finding.
+    import os
+
+    try:
+        from ..analysis import FAMILIES, render_text, run_lint
+        from ..ops.backend import BackendUnavailable, resolve_device
+
+        wl = args.whitelist
+        if wl is not None and not os.path.exists(wl):
+            print(f"whitelist file not found: {wl}", file=sys.stderr)
+            return 2
+        models = args.models.split(",") if args.models else None
+        if models:
+            # validate HERE, not via a broad except around run_lint: a
+            # ValueError from deep inside an analysis pass is analyzer
+            # trouble (rc 3 with traceback), not a usage error
+            unknown = sorted(set(models) - set(MODELS))
+            if unknown:
+                print(f"unknown model families {unknown}; one of "
+                      f"{sorted(MODELS)}", file=sys.stderr)
+                return 2
+        families = args.family.split(",") if args.family else None
+        if families:
+            unknown = sorted(set(families) - set(FAMILIES))
+            if unknown:
+                print(f"unknown pass families {unknown}; one of "
+                      f"{sorted(FAMILIES)}", file=sys.stderr)
+                return 2
+        try:
+            device = resolve_device(args.device)
+        except BackendUnavailable as e:
+            print(f"BackendUnavailable: {e}", file=sys.stderr)
+            return 2
+        # default-whitelist resolution (.qsmlint-torch at the repo root
+        # when present) happens INSIDE run_lint — one definition; the
+        # report carries the resolved path back for the label
+        rep = run_lint(models=models, retrace=not args.no_retrace,
+                       whitelist=wl, families=families,
+                       changed=args.changed, cache=not args.no_cache,
+                       device=device)
+        doc = rep.to_json()
+        if args.out:
+            # always the JSON form regardless of what stdout renders;
+            # INSIDE the guard: an unwritable --out is analyzer trouble,
+            # not findings
+            from ..resilience.checkpoint import atomic_write_text
+
+            atomic_write_text(args.out, doc + "\n")
+        if args.sarif:
+            # the CI diff-annotation form (SARIF 2.1.0), always archived
+            # to a file: stdout keeps its one-document contract
+            from ..resilience.checkpoint import atomic_write_text
+
+            atomic_write_text(args.sarif, rep.to_sarif() + "\n")
+        if args.json:
+            print(doc)
+        else:
+            print(render_text(rep.findings, rep.whitelisted))
+            scope = ""
+            if rep.changed is not None:
+                n = (len(rep.changed["files"])
+                     if rep.changed["files"] is not None else "all")
+                scope = f"; changed since {rep.changed['ref']}: {n}"
+            if rep.cache is not None:
+                scope += (f"; cache {rep.cache['hits']} hit(s) / "
+                          f"{rep.cache['misses']} miss(es)")
+            print(f"({rep.seconds:.1f}s on {rep.device} over models: "
+                  f"{', '.join(rep.models)}; families: "
+                  f"{','.join(rep.families)};"
+                  f" whitelist: {rep.whitelist_path or 'none'}{scope})")
+    except Exception as e:  # noqa: BLE001 — analyzer trouble, not findings
+        import traceback
+
+        traceback.print_exc()
+        print(f"qsmlint crashed: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        return 3
+    return 0 if rep.ok else 1
+
+
 def cmd_list(args) -> int:
     """Every registry model (sizes and impls), every backend and the
     native oracle's status, as one JSON object.  ``native_status`` builds
@@ -1977,6 +2070,42 @@ def main(argv=None) -> int:
                         "(--addr)")
     _add_device(p)
     p.set_defaults(fn=cmd_fuzz)
+
+    p = sub.add_parser(
+        "lint",
+        help="the port's static spec/kernel/determinism analysis (exit 1 "
+             "on non-whitelisted error findings; its semantic passes run "
+             "on the card unless --device cpu)")
+    p.add_argument("--json", action="store_true",
+                   help="print one JSON document instead of text")
+    p.add_argument("--out", default=None,
+                   help="also write the JSON findings document to this "
+                        "path (CI archive)")
+    p.add_argument("--whitelist", default=None,
+                   help="accepted-findings file (default: .qsmlint-torch "
+                        "at the repo root when present)")
+    p.add_argument("--models", default=None,
+                   help="comma list of registry families (default: all)")
+    p.add_argument("--family", default=None,
+                   help="comma list of registered pass-family ids "
+                        "(a-f, h, m, o; default: all)")
+    p.add_argument("--changed", nargs="?", const="HEAD", default=None,
+                   metavar="REF",
+                   help="lint only modules git-touched since REF "
+                        "(default HEAD); whole families run iff their "
+                        "scan set or triggers changed")
+    p.add_argument("--sarif", default=None, metavar="PATH",
+                   help="also write the findings as a SARIF 2.1.0 "
+                        "document (CI diff annotation)")
+    p.add_argument("--no-cache", action="store_true",
+                   help="disable the on-disk per-file result cache "
+                        "(.qsmlint-torch-cache.json)")
+    p.add_argument("--no-retrace", action="store_true",
+                   help="skip the rebuild guard (the dynamic check that "
+                        "warms the device backends; the reference's "
+                        "retracing check)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_lint)
 
     p = sub.add_parser("bench", help="checker throughput on one model")
     _add_common(p, "cpu")

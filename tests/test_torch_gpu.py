@@ -41,8 +41,12 @@ default, its answer to a real device error and its degrade on an injected
 one, and ``DrainScheduler`` on the card; two nodes on the card behind a
 ``FleetRouter`` routing with ``CppOracle``'s verdicts, the router's
 ladder launching ``stepper_chunk`` once every node is gone, and two nodes
-started at once on a cold build directory loading one library.  Without CUDA
-each test skips in its fixture."""
+started at once on a cold build directory loading one library; and the
+port's static checks on the card: families a and b (parity on the card,
+the rebuild guard's backends, the ptxas reports), each kernel's edge launch
+counted and bit-identical to its plain version, the seeded rebuilding
+backend caught, and ``lint`` on the card by default.  Without CUDA each
+test skips in its fixture."""
 
 from __future__ import annotations
 
@@ -1758,3 +1762,84 @@ def test_make_mesh_never_spans_more_cards_than_the_machine(cuda):
         make_mesh(k + 1)
     with pytest.raises(ValueError, match=f"have {k}"):
         CheckServer(mesh_devices=k + 1).start()
+
+
+# --- the port's static checks on the card (qsm_tpu_torch/analysis) ---------
+
+def test_lint_semantic_families_run_on_the_card(cuda):
+    """Families a and b on the card by default: parity evaluates
+    step_torch there, the rebuild guard's warmed backends grow nothing,
+    the five ptxas reports are read and every edge launch matches its
+    plain version; nothing unwhitelisted but notes."""
+    from qsm_tpu_torch.analysis import run_lint
+    from qsm_tpu_torch.models.registry import MODELS
+
+    rep = run_lint(families=["a", "b"], cache=False)
+    assert rep.device.startswith("cuda")
+    assert [f for f in rep.findings if f.severity != "info"] == []
+    assert sorted(rep.parity) == sorted(MODELS)
+    assert all(st["device"].startswith("cuda")
+               for st in rep.parity.values())
+    assert len(rep.rebuild) == 3
+    for rec in rep.rebuild.values():
+        assert rec["warm"] == rec["after"]
+    assert [r["registers"] is not None for r in rep.kernels] == [True] * 5
+    assert [(e["kernel"], e["max_abs_err"]) for e in rep.edges] == [
+        (k, 0) for k in ("dfs_chunk", "stepper_chunk", "compact_carry",
+                         "stepper_sweep", "threefry_draws")]
+
+
+def test_lint_edge_launches_count_and_match(cuda):
+    """Each kernel launched once at its largest admitted plan, through
+    its wrapper (each count grows), bit-identical to its plain version."""
+    from qsm_tpu_torch.analysis.kernel_passes import (edge_plan,
+                                                      kernel_plans,
+                                                      launch_edge_plans)
+    from qsm_tpu_torch.models.registry import MODELS
+    from qsm_tpu_torch.ops.draws_kernel import threefry_draws
+    from qsm_tpu_torch.ops.stepper_kernel import (compact_carry,
+                                                  device_sms, stepper_chunk)
+    from qsm_tpu_torch.ops.sweep_kernel import stepper_sweep
+
+    specs = [(n, MODELS[n].make_spec(), f"model:{n}") for n in sorted(MODELS)]
+    wrappers = (dfs_chunk, stepper_chunk, compact_carry, stepper_sweep,
+                threefry_draws)
+    before = [w.launches for w in wrappers]
+    found, rows = launch_edge_plans(specs, cuda)
+    assert found == []
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 5
+    plans = kernel_plans(specs, device_sms(cuda))
+    for r in rows:
+        assert r["max_abs_err"] == 0
+        assert r["smem"] == edge_plan(plans[r["kernel"]]).smem
+
+
+def test_lint_catches_a_rebuilding_backend_on_the_card(cuda):
+    """The seeded RebuildingTorchStepper, its nonce library built by nvcc,
+    is caught; the real TorchStepper on the same corpora is not."""
+    from qsm_tpu_torch.analysis.engine import _rebuild_corpora
+    from qsm_tpu_torch.analysis.fixtures import RebuildingTorchStepper
+    from qsm_tpu_torch.analysis.kernel_passes import check_rebuild
+    from qsm_tpu_torch.models.registry import MODELS
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+
+    spec = MODELS["cas"].make_spec()
+    corpora = _rebuild_corpora(MODELS["cas"], spec)
+    knobs = dict(budget=2_000, mid_budget=0, rescue_budget=0,
+                 chunk_schedule=(512,))
+    assert check_rebuild(spec, TorchStepper(spec, **knobs), corpora,
+                         "ops/stepper.py") == []
+    found = check_rebuild(spec, RebuildingTorchStepper(spec, **knobs),
+                          corpora, "fixture:rebuilding")
+    assert [f.rule_id for f in found] == ["QSM-KERN-REBUILD"]
+
+
+def test_lint_subcommand_runs_on_the_card_by_default(cuda, capsys):
+    import json
+
+    from qsm_tpu_torch.utils.cli import main
+
+    rc = main(["lint", "--json", "--models", "cas", "--family", "a,b",
+               "--no-cache"])
+    doc = json.loads(capsys.readouterr().out.strip())
+    assert rc == 0 and doc["ok"] and doc["device"].startswith("cuda")

@@ -44,7 +44,11 @@ def test_import_loads_no_jax_and_no_reference_module():
             "qsm_tpu_torch.fleet.membership, qsm_tpu_torch.gen.soak, "
             "qsm_tpu_torch.mesh, qsm_tpu_torch.mesh.topology, "
             "qsm_tpu_torch.mesh.dispatch, qsm_tpu_torch.mesh.shards, "
-            "qsm_tpu_torch.parallel\n"
+            "qsm_tpu_torch.parallel, qsm_tpu_torch.analysis, "
+            "qsm_tpu_torch.analysis.engine, "
+            "qsm_tpu_torch.analysis.kernel_passes, "
+            "qsm_tpu_torch.analysis.spec_passes, "
+            "qsm_tpu_torch.analysis.fixtures\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
