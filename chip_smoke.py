@@ -376,7 +376,7 @@ Phases, in order; any failure exits non-zero and no result is printed:
    shards against 1, the split's cost on one card.  ``--mesh-only`` runs
    phases 1, 2 and 22 alone and prints no result.
 23. the static checks (``qsm_tpu_torch/analysis``): (a)
-   ``run_lint(device="cuda")`` over families a-f, h, m and o with no
+   ``run_lint(device="cuda")`` over all fifteen families a-o with no
    unwhitelisted error or warning (each family's seconds and the rule
    counts printed); (b) family a's ``step_py`` / ``step_torch`` parity on
    the card for every registry model (states and tuples printed); (c) the
@@ -387,8 +387,16 @@ Phases, in order; any failure exits non-zero and no result is printed:
    five ptxas reports of phase 1's build and each kernel launched once at
    its largest admitted plan, bit-identical to its plain version; (e)
    ``python -m qsm_tpu_torch lint --json`` in a subprocess (started first,
-   beside (a)-(d)) exits 0.  ``--lint-only`` runs phases 1, 2 and 23
-   alone and prints no result.
+   beside (a)-(d), (f) and (g)) exits 0 over the fifteen families; (f)
+   each seeded stub of families g, i, j, k, l and n caught on this
+   machine, and the protocol extraction equal to the committed
+   ``PROTOCOL_TORCH.json`` byte for byte; (g) family n's claim held on
+   the card: one warm batch of the CAS headline (the table regime) and
+   one of kv16 whole (the sweep regime) on ``card_shard_mesh(4)`` under
+   ``torch.profiler``, their device-to-host copies a round printed
+   beside the one status read a round the whitelist allows (the table
+   regime must read once a round), and every lane equal to 1 device.
+   ``--lint-only`` runs phases 1, 2 and 23 alone and prints no result.
 
 The lane samples of phases 6, 9 and 13-22 advance in worker processes
 (``sample_pool``, spawned at the start; a sample's lanes split among
@@ -407,7 +415,7 @@ own path, each case of phases 13 and 14 over its own, and
 15 (c), each path of phase 16 over its own, phase 17's in-process
 paths over the phase, each path of phases 18, 19, 20, 21 and 22 over
 its own, with phase 22's launches by shard as paths of their own, and
-phase 23's (a)-(d) as the path "lint (phase 23)"; the
+phase 23's (a)-(d), (f) and (g) as the path "lint (phase 23)"; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -5691,7 +5699,7 @@ def phase_fleet(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus,
         if first is not None:
             err = max(err, hold_path_kernels(name, first, tag, path_spec))
 
-    def node(i, replog, **kw):
+    def start_node(i, replog, **kw):
         return CheckServer(node_id=ids[i], replog_dir=str(replog),
                            flush_s=0.005, max_lanes=SERVE_LANES,
                            queue_depth=SERVE_DEPTH,
@@ -5725,7 +5733,7 @@ def phase_fleet(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus,
         # (a) two nodes and a router in this process, on the card
         t_a = time.perf_counter()
         rec_a = {}
-        nodes = [node(i, replogs[i]) for i in range(2)]
+        nodes = [start_node(i, replogs[i]) for i in range(2)]
         t0 = time.perf_counter()
         for srv in nodes:
             for model, kw in (("cas", None), ("queue", None),
@@ -5967,7 +5975,7 @@ def phase_fleet(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus,
 
         # (c) two routers on one lease; gossip with no router alive
         t_c = time.perf_counter()
-        nodes = [node(i, replogs[i]) for i in range(2)]
+        nodes = [start_node(i, replogs[i]) for i in range(2)]
         lease = str(tmp / "lease.json")
         ra, rb = (FleetRouter([(s.node_id, s.address) for s in nodes],
                               node_id=rid, lease_path=lease,
@@ -6009,7 +6017,7 @@ def phase_fleet(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus,
         # other's peer; each decides half the unique corpus, and their
         # replogs converge node to node
         socks = [str(tmp / f"g{i}.sock") for i in range(2)]
-        nodes = [node(i, tmp / f"gossip{i}", unix_path=socks[i],
+        nodes = [start_node(i, tmp / f"gossip{i}", unix_path=socks[i],
                       peers=[[ids[1 - i], socks[1 - i]]], gossip_s=0.2,
                       replog_seal_rows=1) for i in range(2)]
         reset()
@@ -6379,30 +6387,138 @@ def phase_mesh(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, tag):
 
 LINT_CLI_TIMEOUT_S = 300       # (e): the lint subprocess's bound
 
+# (f): what each new family's seeded stubs in analysis/fixtures.py fire,
+# by rule (family k's count is of its session stubs alone: the file's
+# seed-pool and work-queue stubs trip its class scan too)
+LINT_SEEDED = {
+    "g": {"QSM-RACE-ORDER": 1, "QSM-RACE-UNGUARDED": 1,
+          "QSM-THREAD-LIFECYCLE": 1, "QSM-RES-LEAK": 1},
+    "i": {"QSM-OBS-SPAN": 1, "QSM-OBS-CARDINALITY": 2},
+    "j": {"QSM-FLEET-REDISPATCH": 2, "QSM-FLEET-LEASE": 2,
+          "QSM-FLEET-HANDOFF": 2},
+    "k": {"QSM-MON-UNBOUNDED": 2},
+    "l": {"QSM-PROTO-UNHANDLED": 2, "QSM-PROTO-FIELDS": 1,
+          "QSM-PROTO-EGRESS": 1, "QSM-PROTO-RETRY-IDEMPOTENT": 1},
+    "n": {"QSM-MESH-HARDCODE": 5, "QSM-MESH-TRANSFER": 2},
+}
+# (g): the one status read a round the whitelist allows TorchStepper's
+# round (the entry the reads are printed beside)
+ROUND_READ_ENTRY = ("QSM-KERN-HOST-XFER",
+                    "qsm_tpu_torch/ops/stepper.py:_run_device")
 
-def phase_lint(tag, device=None):
+
+def seeded_stub_findings():
+    """Family id -> rule -> findings of the new families over the port's
+    seeded fixtures (phase 23 (f))."""
+    from collections import Counter
+
+    from qsm_tpu_torch.analysis import fixtures as lint_fixtures
+    from qsm_tpu_torch.analysis.fleet_passes import check_fleet_file
+    from qsm_tpu_torch.analysis.mesh_passes import check_mesh_file
+    from qsm_tpu_torch.analysis.monitor_passes import check_monitor_file
+    from qsm_tpu_torch.analysis.obs_passes import check_obs_file
+    from qsm_tpu_torch.analysis.protocol_passes import \
+        check_protocol_project
+    from qsm_tpu_torch.analysis.race_passes import check_race_project
+
+    path = lint_fixtures.__file__
+    return {
+        "g": Counter(f.rule_id for f in check_race_project([path])),
+        "i": Counter(f.rule_id for f in check_obs_file(path)),
+        "j": Counter(f.rule_id for f in check_fleet_file(path)),
+        "k": Counter(f.rule_id for f in check_monitor_file(path)
+                     if "SessionBufferStub" in f.location),
+        "l": Counter(f.rule_id for f in check_protocol_project([path])),
+        "n": Counter(f.rule_id for f in check_mesh_file(path)),
+    }
+
+
+def d2h_copies(fn):
+    """(result, device-to-host copies) of ``fn()`` under
+    ``torch.profiler``: the CUDA ``Memcpy DtoH`` records it traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    copies = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "Memcpy DtoH" in e.name)
+    return out, copies
+
+
+def mesh_round_reads(name, pspec, unique, tag):
+    """Phase 23 (g) for one path: ``unique`` replicated to the device
+    batch on ``card_shard_mesh(MESH_SHARDS)``; every lane's status,
+    ``chosen`` and iterations (the call that also warms the path) against
+    1 device, then one warm batch's device-to-host copies, rounds and
+    device batches.  Returns the record."""
+    from qsm_tpu_torch.mesh import batch_sharding, card_shard_mesh
+
+    lanes = _replicate(unique, DEVICE_BATCH)
+    four = TorchStepper(pspec, sharding=batch_sharding(
+        card_shard_mesh(MESH_SHARDS)))
+    st4, ch4, it4 = device_lanes(four, lanes)
+    st1, ch1, it1 = device_lanes(TorchStepper(pspec), lanes)
+    require(np.array_equal(st1, st4) and np.array_equal(ch1, ch4)
+            and np.array_equal(it1, it4), f"{name}: a lane's status, "
+            f"chosen or iterations differ between {MESH_SHARDS} shards "
+            f"and 1")
+    r0, b0 = four.rounds_run, four.device_batches
+    _, copies = d2h_copies(lambda: four.check_histories(pspec, lanes))
+    rounds, batches = four.rounds_run - r0, four.device_batches - b0
+    rec = {"regime": four.regime, "lanes": len(lanes), "rounds": rounds,
+           "device_batches": batches, "d2h_copies": copies,
+           "copies_a_round": copies / max(rounds, 1)}
+    print(f"{tag} 23g {name} ({four.regime} regime) on {MESH_SHARDS} "
+          f"logical shards of cuda:0: every lane's status, chosen and "
+          f"iterations equal to 1 device; one warm batch of {len(lanes)} "
+          f"lanes under torch.profiler: {copies} device-to-host copies "
+          f"over {rounds} rounds in {batches} device batch(es) = "
+          f"{rec['copies_a_round']:.3f} a round (the whitelist allows 1 a "
+          f"round: {' '.join(ROUND_READ_ENTRY)})", flush=True)
+    return rec
+
+
+def phase_lint(tag, spec, corpus, kv_spec, kv_corpus, device=None):
     """Phase 23: the port's static checks on the card (``device``: cuda:0
     unless a rehearsal on the CPU asks for "cpu").  (e)'s subprocess
     (``python -m qsm_tpu_torch lint --json``) starts first and runs beside
-    (a)-(d).  (a) ``run_lint(device="cuda")`` over families a-f, h, m, o:
-    no unwhitelisted error or warning, each family's seconds and the rule
-    counts printed; (b) family a's parity on the card, the states and
+    (a)-(d), (f) and (g).  (a) ``run_lint(device="cuda")`` over the
+    fifteen families a-o: no unwhitelisted error or warning, each
+    family's seconds and the rule counts printed; (b) family a's parity on the card, the states and
     tuples a model; (c) the rebuild guard's backends grew nothing after
     their warm call, and the seeded ``RebuildingTorchStepper`` (a library
     a call, built by ``nvcc``) is caught; (d) the SMEM/REGS pass over the
     five real ptxas reports (registers, stack, spills, the estimator's
     blocks an SM, the edge plan) and each edge plan launched again, bit
     for bit against its plain version; (e) the subprocess exits 0 with
-    ``ok``.  The kernels' launches of (a)-(d) are the path's.  Returns
-    (launches by kernel, the largest edge error)."""
+    ``ok``; (f) the seeded stubs of families g, i, j, k, l and n caught
+    here, and the protocol extraction equal to the committed
+    ``PROTOCOL_TORCH.json``; (g) the mesh's reads a round on the card,
+    the CAS headline (``spec``, ``corpus``: the table regime) and kv16
+    whole (``kv_spec``, ``kv_corpus``: the sweep regime) on 4 logical
+    shards (on the CPU it is skipped: it needs the card).  The kernels'
+    launches of (a)-(d), (f) and (g) are the path's.  Returns (launches by
+    kernel, the largest edge error)."""
     from collections import Counter
 
-    from qsm_tpu_torch.analysis import FAMILIES, run_lint
-    from qsm_tpu_torch.analysis.engine import _rebuild_corpora
+    import hashlib
+    import platform
+
+    from qsm_tpu_torch.analysis import (DEFAULT_PROTOCOL_FILES, FAMILIES,
+                                        Whitelist, default_whitelist_path,
+                                        run_lint)
+    from qsm_tpu_torch.analysis.engine import REPO_ROOT, _rebuild_corpora
     from qsm_tpu_torch.analysis.fixtures import RebuildingTorchStepper
     from qsm_tpu_torch.analysis.kernel_passes import (check_kernel_envelope,
                                                       check_rebuild,
                                                       launch_edge_plans)
+    from qsm_tpu_torch.analysis.protocol_model import (PROTOCOL_ARTIFACT,
+                                                       ProtocolModel,
+                                                       render_protocol_json)
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0) if device is None else torch.device(device)
@@ -6419,6 +6535,11 @@ def phase_lint(tag, device=None):
         bad = [f for f in rep.findings if f.severity != "info"]
         require(not bad, "lint on the card: " + "; ".join(
             f"{f.rule_id} {f.location}: {f.message}" for f in bad))
+        require(rep.families == sorted(FAMILIES) == list("abcdefghijklmno"),
+                f"lint ran families {rep.families}")
+        require(rep.protocol and rep.protocol["ops"] ==
+                rep.protocol["handled_ops"] == rep.protocol["called_ops"],
+                f"the protocol summary: {rep.protocol}")
         rules = Counter(f.rule_id for f in rep.findings + rep.whitelisted)
         print(f"{tag} 23a run_lint on {rep.device}: families "
               f"{','.join(rep.families)} ({len(FAMILIES)} registered), "
@@ -6483,6 +6604,50 @@ def phase_lint(tag, device=None):
                   f"plan {e['plan']}: bit-identical to plain (max abs err "
                   f"{e['max_abs_err']})", flush=True)
         print(f"{tag} 23d {time.perf_counter() - t0:.2f} s", flush=True)
+        # (f)
+        t0 = time.perf_counter()
+        caught = seeded_stub_findings()
+        for fid, want in LINT_SEEDED.items():
+            require(dict(caught[fid]) == want, f"family {fid}'s seeded "
+                    f"stubs fired {dict(caught[fid])}, not {want}")
+        paths = [os.path.join(REPO_ROOT, r) for r in DEFAULT_PROTOCOL_FILES
+                 if r.endswith(".py")]
+        fresh = render_protocol_json(ProtocolModel(paths, root=REPO_ROOT))
+        with open(os.path.join(REPO_ROOT, PROTOCOL_ARTIFACT)) as f:
+            committed = f.read()
+        require(fresh == committed, f"the protocol extraction under Python "
+                f"{platform.python_version()} differs from the committed "
+                f"{PROTOCOL_ARTIFACT}")
+        print(f"{tag} 23f seeded stubs caught: " + "; ".join(
+            f"{fid} " + ", ".join(f"{r} {n}" for r, n in sorted(
+                caught[fid].items())) for fid in sorted(LINT_SEEDED))
+            + f"; the protocol extraction under Python "
+              f"{platform.python_version()} equals the committed "
+              f"{PROTOCOL_ARTIFACT} byte for byte ({len(fresh)} bytes, "
+              f"sha256 {hashlib.sha256(fresh.encode()).hexdigest()[:16]}); "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        # (g)
+        if dev.type == "cuda":
+            t0 = time.perf_counter()
+            require(ROUND_READ_ENTRY in Whitelist.load(
+                default_whitelist_path()).entries, "the whitelist no longer "
+                "allows TorchStepper's round its one status read")
+            table = mesh_round_reads("CAS headline", spec, corpus, tag)
+            sweep = mesh_round_reads("kv16 whole", kv_spec, kv_corpus, tag)
+            require(table["regime"] == "table" and sweep["regime"] ==
+                    "sweep", f"the regimes: {table['regime']}, "
+                    f"{sweep['regime']}")
+            require(table["d2h_copies"] == table["rounds"] > 0,
+                    f"the table regime on {MESH_SHARDS} shards made "
+                    f"{table['d2h_copies']} device-to-host copies over "
+                    f"{table['rounds']} rounds, not one a round")
+            print(f"{tag} 23g the table regime reads once a round on "
+                  f"{MESH_SHARDS} shards; the sweep regime "
+                  f"{sweep['copies_a_round']:.3f} a round; "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        else:
+            print(f"{tag} 23g skipped on {dev}: the shards of a card and "
+                  f"the profiler's copies need the card", flush=True)
         launches = {c.__name__: c.launches for c in counters}
         print(f"{tag} path of lint (phase 23): " + ", ".join(
             f"{n} {k}" for k, n in launches.items()) + " launches",
@@ -6494,6 +6659,8 @@ def phase_lint(tag, device=None):
         doc = json.loads(lines[-1])
         require(rc == 0 and doc["ok"] and doc["errors"] == 0,
                 f"lint --json exited {rc}: {lines[-1][:600]}")
+        require(doc["families"] == list("abcdefghijklmno"),
+                f"lint --json ran families {doc['families']}")
         print(f"{tag} 23e python -m qsm_tpu_torch lint --json: rc 0, "
               f"device {doc['device']}, {doc['errors']} errors, "
               f"{doc['warnings']} warnings, {len(doc['whitelisted'])} "
@@ -6588,7 +6755,8 @@ def main(argv=None) -> int:
                           n_pids=N_PIDS, max_ops=N_OPS, seed_base=1000,
                           seed_prefix="bench")
     if args.lint_only:
-        lint_launches, lint_err = phase_lint(tag)
+        lint_launches, lint_err = phase_lint(tag, spec, corpus,
+                                             *kv16_corpus())
         print(f"{tag} --lint-only: launches {json.dumps(lint_launches)}; "
               f"largest error {lint_err}; no result", flush=True)
         return 0
@@ -6724,7 +6892,11 @@ def main(argv=None) -> int:
                                          kv_spec, kv_corpus, tag)
     print(f"{tag} phase the mesh: {time.perf_counter() - t0:.1f} s",
           flush=True)
-    lint_launches, lint_err = phase_lint(tag)
+    t0 = time.perf_counter()
+    lint_launches, lint_err = phase_lint(tag, spec, corpus, kv_spec,
+                                         kv_corpus)
+    print(f"{tag} phase the static checks: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},

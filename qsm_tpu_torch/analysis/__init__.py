@@ -19,9 +19,27 @@ family ids and rule ids wherever a rule carries over:
   enumeration outside a watchdog, subprocess waits without a timeout,
   scattered probe-timeout literals;
 * serve (``serve_passes``, e), pool (``pool_passes``, f), shrink
-  (``shrink_passes``, h), generation (``gen_passes``, m) and the
-  device-work queue (``devq_passes``, o): unbounded loops, queues,
-  worker lifecycles and accumulators.
+  (``shrink_passes``, h), monitor (``monitor_passes``, k), generation
+  (``gen_passes``, m) and the device-work queue (``devq_passes``, o):
+  unbounded loops, queues, worker lifecycles, session buffers and
+  accumulators;
+* race (``race_passes`` over ``callgraph``, g; whole-program):
+  lock-order cycles, unguarded shared writes, thread lifecycles and
+  leaked descriptors across the serving stack, the resilience plane,
+  the kernel builds and the scripts that drive them on the card;
+* obs (``obs_passes``, i): spans closed by a ``with``, bounded metric
+  identity;
+* fleet (``fleet_passes``, j): bounded re-dispatch with failed-node
+  exclusion, term/expiry-gated lease promotion, seeded joins and
+  migrated leaves;
+* protocol (``protocol_model`` + ``protocol_passes``, l;
+  whole-program): the port's wire contract extracted as its own
+  committed artifact (``PROTOCOL_TORCH.json`` / ``PROTOCOL_TORCH.md``)
+  and enforced — unhandled or caller-less ops, field drift,
+  ``_send``-bypassing egress, non-idempotent ops on retry paths, SHED
+  docs carrying verdict keys, artifact drift;
+* mesh (``mesh_passes``, n): no literal device count or slot, no host
+  read inside a function that places shards.
 
 The semantic families (a, b) run on the card unless the caller asks for
 the CPU.  Families are registered declaratively in ``engine.FAMILIES``
@@ -41,6 +59,7 @@ from .findings import (ERROR, INFO, WARNING, Finding, Whitelist,
                        sort_findings, split_whitelisted)
 from .engine import (DEFAULT_DEVQ_FILES, DEFAULT_GEN_FILES,
                      DEFAULT_OPS_FILES, DEFAULT_POOL_FILES,
+                     DEFAULT_PROTOCOL_FILES, DEFAULT_RACE_FILES,
                      DEFAULT_RESILIENCE_FILES, DEFAULT_SCHED_FILES,
                      DEFAULT_SERVE_FILES, DEFAULT_SHRINK_FILES, FAMILIES,
                      Family, LintReport, default_whitelist_path, run_lint)
@@ -53,5 +72,5 @@ __all__ = [
     "DEFAULT_OPS_FILES", "DEFAULT_SCHED_FILES",
     "DEFAULT_RESILIENCE_FILES", "DEFAULT_SERVE_FILES",
     "DEFAULT_POOL_FILES", "DEFAULT_SHRINK_FILES", "DEFAULT_GEN_FILES",
-    "DEFAULT_DEVQ_FILES",
+    "DEFAULT_DEVQ_FILES", "DEFAULT_RACE_FILES", "DEFAULT_PROTOCOL_FILES",
 ]

@@ -7,10 +7,12 @@ registry: each family declares its id (the ``--family`` letter, the
 reference's), its scan set and how it runs — ``per_file`` (independent
 single-module checks, cacheable per file) or ``whole`` (semantic runs:
 the spec and kernel families, which execute code).  Nothing
-special-cases the engine.  The families the port has are a–f, h, m and
-o; the reference's whole-program race (g) and protocol (l) families and
-its obs (i), fleet (j), monitor (k) and mesh (n) families are not
-registered here yet, and selecting one is a usage error.
+special-cases the engine.  The port has all fifteen of the
+reference's families, a–o, under the reference's ids and keys; the
+whole-program race (g) and protocol (l) families read their scan sets as
+one closed program, and family (l) compares the extraction with the
+port's own committed contract, ``PROTOCOL_TORCH.json`` (never the
+reference's ``PROTOCOL.json``).
 
 The semantic families run on the lint's device — the card unless the
 caller asks for the CPU (``device="cpu"``); without a card and without
@@ -104,6 +106,110 @@ DEFAULT_GEN_FILES = (
 # flush) and is deliberately NOT here.
 DEFAULT_DEVQ_FILES = (
     "qsm_tpu_torch/devq/queue.py", "qsm_tpu_torch/devq/drain.py")
+# the race family's whole-program scan set (family g) — the widest
+# beat: every module where threads, locks and child processes
+# coordinate, analyzed as ONE closed program, not file by file.  The
+# serving stack and its resilience layers; the split plane (server
+# sub-lane fan-out joins across connection and dispatcher threads) and
+# the combinator/planner it rides; the shrink plane (a connection
+# thread's greedy loop, candidate lanes resolved on dispatcher
+# threads); the fleet tier (router connection/group threads, the
+# membership probe thread, the lease/gossip beat loops); the monitor
+# plane (sessions driven from connection threads, the durable store's
+# per-session locks); the fleet-observability plane (the collector's
+# sweep on the router's beat thread, SLO reads from health ops); the
+# chaos soak; the device-work queue; the scripts that drive all of it
+# on the card (the reference's tools/); and the nvcc build locks, which
+# whichever thread first launches a kernel takes (no reference
+# counterpart)
+DEFAULT_RACE_FILES = (
+    "qsm_tpu_torch/serve/server.py", "qsm_tpu_torch/serve/batcher.py",
+    "qsm_tpu_torch/serve/admission.py", "qsm_tpu_torch/serve/cache.py",
+    "qsm_tpu_torch/serve/client.py", "qsm_tpu_torch/serve/protocol.py",
+    "qsm_tpu_torch/serve/pool.py", "qsm_tpu_torch/serve/worker.py",
+    "qsm_tpu_torch/serve/frames.py",
+    "qsm_tpu_torch/resilience/policy.py",
+    "qsm_tpu_torch/resilience/failover.py",
+    "qsm_tpu_torch/resilience/faults.py",
+    "qsm_tpu_torch/resilience/checkpoint.py",
+    "qsm_tpu_torch/ops/pcomp.py", "qsm_tpu_torch/search/planner.py",
+    "qsm_tpu_torch/shrink/frontier.py", "qsm_tpu_torch/shrink/shrinker.py",
+    "qsm_tpu_torch/fleet/router.py", "qsm_tpu_torch/fleet/membership.py",
+    "qsm_tpu_torch/fleet/replog.py", "qsm_tpu_torch/fleet/lease.py",
+    "qsm_tpu_torch/fleet/gossip.py",
+    "qsm_tpu_torch/monitor/frontier.py", "qsm_tpu_torch/monitor/session.py",
+    "qsm_tpu_torch/monitor/store.py",
+    "qsm_tpu_torch/obs/collect.py", "qsm_tpu_torch/obs/slo.py",
+    "qsm_tpu_torch/gen/soak.py",
+    "qsm_tpu_torch/devq/queue.py", "qsm_tpu_torch/devq/drain.py",
+    "chip_smoke.py", "tools/torch_property_turns.py",
+    "qsm_tpu_torch/ops/kernels.py")
+# the fleet-tier modules the re-dispatch + lease + handoff passes cover
+# (family j): the tier itself and the durable-session chaos soak
+DEFAULT_FLEET_FILES = (
+    "qsm_tpu_torch/fleet/router.py", "qsm_tpu_torch/fleet/membership.py",
+    "qsm_tpu_torch/fleet/replog.py", "qsm_tpu_torch/fleet/lease.py",
+    "qsm_tpu_torch/fleet/gossip.py", "qsm_tpu_torch/gen/soak.py")
+# the monitor-plane modules the session-bound pass covers (family k):
+# the streaming sessions, frontiers and store, and the ingest adapters
+# that feed them
+DEFAULT_MONITOR_FILES = (
+    "qsm_tpu_torch/monitor/frontier.py", "qsm_tpu_torch/monitor/session.py",
+    "qsm_tpu_torch/monitor/store.py",
+    "qsm_tpu_torch/ingest/adapters.py", "qsm_tpu_torch/ingest/edn.py",
+    "qsm_tpu_torch/ingest/specmap.py", "qsm_tpu_torch/ingest/tail.py")
+# the trace-plane discipline beat (family i): everything that opens
+# spans or writes metrics — the obs plane itself, the serving stack
+# that emits through it, the resilience layers that report into the
+# global sink, the fleet tier, the monitor sessions, the ingest
+# adapters and the device-work queue
+DEFAULT_OBS_FILES = (
+    "qsm_tpu_torch/obs/__init__.py", "qsm_tpu_torch/obs/trace.py",
+    "qsm_tpu_torch/obs/metrics.py", "qsm_tpu_torch/obs/flight.py",
+    "qsm_tpu_torch/obs/collect.py", "qsm_tpu_torch/obs/slo.py",
+    "qsm_tpu_torch/serve/server.py", "qsm_tpu_torch/serve/batcher.py",
+    "qsm_tpu_torch/serve/admission.py", "qsm_tpu_torch/serve/cache.py",
+    "qsm_tpu_torch/serve/client.py", "qsm_tpu_torch/serve/protocol.py",
+    "qsm_tpu_torch/serve/pool.py", "qsm_tpu_torch/serve/worker.py",
+    "qsm_tpu_torch/serve/frames.py",
+    "qsm_tpu_torch/resilience/policy.py",
+    "qsm_tpu_torch/resilience/failover.py",
+    "qsm_tpu_torch/resilience/faults.py",
+    "qsm_tpu_torch/resilience/checkpoint.py",
+    "qsm_tpu_torch/fleet/router.py", "qsm_tpu_torch/fleet/membership.py",
+    "qsm_tpu_torch/fleet/replog.py", "qsm_tpu_torch/fleet/lease.py",
+    "qsm_tpu_torch/fleet/gossip.py",
+    "qsm_tpu_torch/monitor/frontier.py", "qsm_tpu_torch/monitor/session.py",
+    "qsm_tpu_torch/monitor/store.py",
+    "qsm_tpu_torch/ingest/adapters.py", "qsm_tpu_torch/ingest/edn.py",
+    "qsm_tpu_torch/ingest/specmap.py", "qsm_tpu_torch/ingest/tail.py",
+    "qsm_tpu_torch/devq/queue.py", "qsm_tpu_torch/devq/drain.py")
+# the mesh-dispatch scan set (family n): the substrate itself and the
+# consumers that thread a sharding through buckets and flush targets
+# (ops/stepper.py for the reference's jax_kernel.py).  topology.py is
+# IN the set on purpose: the one place device enumeration may live must
+# itself scan clean (parameters only, no literal counts or slots).
+DEFAULT_MESH_FILES = (
+    "qsm_tpu_torch/mesh/topology.py", "qsm_tpu_torch/mesh/dispatch.py",
+    "qsm_tpu_torch/mesh/shards.py", "qsm_tpu_torch/ops/stepper.py",
+    "qsm_tpu_torch/search/planner.py", "qsm_tpu_torch/serve/batcher.py")
+# the wire-contract scan set (family l): the contract source, every
+# module that dispatches or sends protocol ops, the helpers whose
+# return docs become responses, and the CLI consumer paths.  The worker
+# pipe (serve/pool.py + serve/worker.py) is a DIFFERENT plane and
+# deliberately outside the socket contract.  The port's committed
+# artifact, ``PROTOCOL_TORCH.json``, is listed so ``--changed`` re-runs
+# the drift gate when only it moved; the extractor skips non-``.py``
+# entries.
+DEFAULT_PROTOCOL_FILES = (
+    "qsm_tpu_torch/serve/protocol.py", "qsm_tpu_torch/serve/server.py",
+    "qsm_tpu_torch/serve/client.py", "qsm_tpu_torch/serve/admission.py",
+    "qsm_tpu_torch/serve/frames.py",
+    "qsm_tpu_torch/fleet/router.py", "qsm_tpu_torch/fleet/gossip.py",
+    "qsm_tpu_torch/fleet/membership.py", "qsm_tpu_torch/fleet/lease.py",
+    "qsm_tpu_torch/obs/collect.py", "qsm_tpu_torch/monitor/session.py",
+    "qsm_tpu_torch/utils/cli.py",
+    "PROTOCOL_TORCH.json")
 
 
 def default_whitelist_path() -> str:
@@ -130,6 +236,9 @@ class _LintRun:
         self.rebuild: Dict[str, dict] = {}
         self.kernels: List[dict] = []
         self.edges: List[dict] = []
+        # family (l) stashes its contract summary here so the report
+        # can carry a ``protocol`` block without a second extraction
+        self.protocol_summary: Optional[dict] = None
 
     @property
     def specs(self) -> List[tuple]:
@@ -301,10 +410,34 @@ def _per_file_pool(path: str, root: str) -> List[Finding]:
     return check_pool_file(path, root=root)
 
 
+def _run_race(_ctx: _LintRun, files: List[str]) -> List[Finding]:
+    from .race_passes import check_race_project
+
+    return check_race_project(files, root=REPO_ROOT)
+
+
 def _per_file_shrink(path: str, root: str) -> List[Finding]:
     from .shrink_passes import check_shrink_file
 
     return check_shrink_file(path, root=root)
+
+
+def _per_file_obs(path: str, root: str) -> List[Finding]:
+    from .obs_passes import check_obs_file
+
+    return check_obs_file(path, root=root)
+
+
+def _per_file_fleet(path: str, root: str) -> List[Finding]:
+    from .fleet_passes import check_fleet_file
+
+    return check_fleet_file(path, root=root)
+
+
+def _per_file_monitor(path: str, root: str) -> List[Finding]:
+    from .monitor_passes import check_monitor_file
+
+    return check_monitor_file(path, root=root)
 
 
 def _per_file_gen(path: str, root: str) -> List[Finding]:
@@ -313,10 +446,30 @@ def _per_file_gen(path: str, root: str) -> List[Finding]:
     return check_gen_file(path, root=root)
 
 
+def _per_file_mesh(path: str, root: str) -> List[Finding]:
+    from .mesh_passes import check_mesh_file
+
+    return check_mesh_file(path, root=root)
+
+
 def _per_file_devq(path: str, root: str) -> List[Finding]:
     from .devq_passes import check_devq_file
 
     return check_devq_file(path, root=root)
+
+
+def _run_protocol(ctx: _LintRun, files: List[str]) -> List[Finding]:
+    # one extraction serves both the conformance passes and the
+    # report's ``protocol`` summary block; not cacheable so the summary
+    # is present on every run and the drift verdict always reflects the
+    # committed artifact
+    from . import protocol_passes
+    from .protocol_model import ProtocolModel
+
+    model = ProtocolModel([p for p in files if p.endswith(".py")],
+                          root=REPO_ROOT)
+    ctx.protocol_summary = model.summary()
+    return protocol_passes.check_model(model, root=REPO_ROOT)
 
 
 _AN = "qsm_tpu_torch/analysis/"
@@ -361,23 +514,65 @@ FAMILIES: Dict[str, Family] = {f.fid: f for f in (
            title="worker-process lifecycle",
            files=DEFAULT_POOL_FILES, per_file=_per_file_pool,
            triggers=(_AN + "pool_passes.py", _AN + "astutil.py")),
+    Family(fid="g", key="race",
+           title="interprocedural lock/thread races (whole-program)",
+           files=DEFAULT_RACE_FILES, whole=_run_race,
+           triggers=(_AN + "callgraph.py", _AN + "race_passes.py",
+                     _AN + "astutil.py")),
     Family(fid="h", key="shrink",
            title="shrink-plane frontier bounds",
            files=DEFAULT_SHRINK_FILES, per_file=_per_file_shrink,
            triggers=(_AN + "shrink_passes.py", _AN + "astutil.py")),
+    Family(fid="i", key="obs",
+           title="trace-plane discipline (span close, metric "
+                 "cardinality)",
+           files=DEFAULT_OBS_FILES, per_file=_per_file_obs,
+           triggers=(_AN + "obs_passes.py", _AN + "astutil.py")),
+    Family(fid="j", key="fleet",
+           title="fleet re-dispatch + lease + handoff discipline "
+                 "(bounded attempts, failed-node exclusion, "
+                 "term/expiry-gated promotion, seeded joins, migrated "
+                 "leaves)",
+           files=DEFAULT_FLEET_FILES, per_file=_per_file_fleet,
+           triggers=(_AN + "fleet_passes.py", _AN + "astutil.py")),
+    Family(fid="k", key="monitor",
+           title="monitor-session bounds (capped buffers, "
+                 "decided-prefix eviction)",
+           files=DEFAULT_MONITOR_FILES, per_file=_per_file_monitor,
+           triggers=(_AN + "monitor_passes.py", _AN + "astutil.py")),
+    Family(fid="l", key="protocol",
+           title="wire-contract conformance (unhandled ops, field "
+                 "drift, egress stamping, retry idempotency, SHED "
+                 "purity)",
+           files=DEFAULT_PROTOCOL_FILES,
+           whole=_run_protocol, cacheable=False,
+           triggers=("qsm_tpu_torch/serve/", "qsm_tpu_torch/fleet/",
+                     _AN + "protocol_model.py", _AN + "protocol_passes.py",
+                     _AN + "callgraph.py", _AN + "astutil.py",
+                     "PROTOCOL_TORCH.json")),
     Family(fid="m", key="gen",
            title="generation-campaign bounds (capacity-evicted seed "
                  "pools, tail-windowed flip logs)",
            files=DEFAULT_GEN_FILES, per_file=_per_file_gen,
-           triggers=(_AN + "gen_passes.py", _AN + "astutil.py")),
+           triggers=(_AN + "gen_passes.py",
+                     # family m's scan shares family k's definition of
+                     # "bounded" (the class scan in astutil)
+                     _AN + "monitor_passes.py", _AN + "astutil.py")),
+    Family(fid="n", key="mesh",
+           title="mesh-dispatch discipline (no hardcoded device "
+                 "counts or slots, no host read inside sharded "
+                 "placement)",
+           files=DEFAULT_MESH_FILES, per_file=_per_file_mesh,
+           triggers=(_AN + "mesh_passes.py", _AN + "astutil.py")),
     Family(fid="o", key="devq",
            title="device-work-queue discipline (bounded banked work, "
                  "deadline-consulting drain loops)",
            files=DEFAULT_DEVQ_FILES, per_file=_per_file_devq,
            triggers=(_AN + "devq_passes.py",
-                     # family o's scan shares family m's ownership
-                     # refinement and the class scan in astutil
-                     _AN + "gen_passes.py", _AN + "astutil.py")),
+                     # family o's scan shares family k's class scan and
+                     # family m's ownership refinement
+                     _AN + "monitor_passes.py", _AN + "gen_passes.py",
+                     _AN + "astutil.py")),
 )}
 
 
@@ -397,6 +592,7 @@ class LintReport:
     rebuild: Optional[dict] = None   # family (b): backend -> states
     kernels: Optional[list] = None   # family (b): a row a kernel
     edges: Optional[list] = None     # family (b): the edge launches
+    protocol: Optional[dict] = None  # family (l): contract summary
 
     @property
     def errors(self) -> List[Finding]:
@@ -416,7 +612,7 @@ class LintReport:
                 "families": self.families,
                 "device": self.device}
         for key in ("cache", "changed", "parity", "rebuild", "kernels",
-                    "edges"):
+                    "edges", "protocol"):
             val = getattr(self, key)
             if val:
                 meta[key] = val
@@ -528,7 +724,8 @@ def run_lint(models: Optional[Sequence[str]] = None,
                       cache=(lint_cache.stats() if lint_cache else None),
                       changed=changed_meta, device=str(dev),
                       parity=ctx.parity, rebuild=ctx.rebuild,
-                      kernels=ctx.kernels, edges=ctx.edges)
+                      kernels=ctx.kernels, edges=ctx.edges,
+                      protocol=ctx.protocol_summary)
 
 
 def _run_family(fam: Family, ctx: _LintRun,

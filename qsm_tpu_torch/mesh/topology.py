@@ -151,12 +151,12 @@ def local_devices(device=None, n: Optional[int] = None) -> list:
 def card_shard_mesh(n_shards: int, device=None,
                     axis: str = LANE_AXIS) -> Mesh:
     """A 1-D lane mesh of ``n_shards`` logical shards of one CUDA card
-    (default ``cuda:0``), each with a CUDA stream of its own.  The one way
+    (default: the current card), each with a CUDA stream of its own.  The one way
     a sharded launch runs on a machine with one card: it measures the
     split's cost, not scaling."""
     from ..ops.backend import resolve_device
 
-    dev = resolve_device(device if device is not None else "cuda:0")
+    dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"card_shard_mesh shards a CUDA card, not {dev}")
     if dev.index is None:

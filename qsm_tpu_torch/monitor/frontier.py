@@ -510,21 +510,30 @@ class WindowEngines:
 
     def check(self, frontiers: Sequence["IncrementalFrontier"]) -> None:
         """Re-check the windows of ``frontiers`` (none of them at
-        VIOLATION after its advance), one engine call per spec."""
+        VIOLATION after its advance), one engine call per spec.
+
+        The frontiers are the caller's: its session's lock guards them,
+        so their windows are read and their verdicts settled outside
+        ``_lock``, which guards only what sessions share here — the
+        engines, their calls and the counters."""
         t0 = time.perf_counter()
+        groups: Dict[str, list] = {}
+        host = []
+        for f in frontiers:
+            lanes = f.window_lanes()
+            if lanes is None:
+                continue
+            last, states = lanes
+            if len(last) > self.max_ops:
+                host.append((f, last))
+                continue
+            groups.setdefault(self._identity(f.spec), []).append(
+                (f, last, states))
+        for f, last in host:
+            f._check_on_host(last)
+        answered = []
         with self._lock:
-            groups: Dict[str, list] = {}
-            for f in frontiers:
-                lanes = f.window_lanes()
-                if lanes is None:
-                    continue
-                last, states = lanes
-                if len(last) > self.max_ops:
-                    self.host_windows += 1
-                    f._check_on_host(last)
-                    continue
-                groups.setdefault(self._identity(f.spec), []).append(
-                    (f, last, states))
+            self.host_windows += len(host)
             for items in groups.values():
                 eng = self.engine_for(items[0][0].spec)
                 windows: List[History] = []
@@ -542,13 +551,18 @@ class WindowEngines:
                         f"{type(e).__name__}: {e}") from e
                 self.calls += 1
                 self.lanes += len(windows)
-                at = 0
-                for f, last, states in items:
-                    n = len(states)
-                    self.redecided += f.settle_lanes(
-                        last, states, verdicts[at:at + n])
-                    at += n
-        self.seconds += time.perf_counter() - t0
+                answered.append((items, verdicts))
+        redecided = 0
+        for items, verdicts in answered:
+            at = 0
+            for f, last, states in items:
+                n = len(states)
+                redecided += f.settle_lanes(last, states,
+                                            verdicts[at:at + n])
+                at += n
+        with self._lock:
+            self.redecided += redecided
+            self.seconds += time.perf_counter() - t0
 
     def stats(self) -> Dict[str, float]:
         with self._lock:

@@ -150,14 +150,19 @@ def watchdog(fn: Callable, timeout_s: Optional[float],
 # runs inline, bounded by the outer call, instead of queueing behind it
 _on_worker = threading.local()
 
+# the stop mark a Watchdog's worker ends on when it takes it off its
+# queue: put behind a stuck call when the worker is abandoned, and by
+# the finalizer when its instance is collected
+_STOP = None
+
 
 def _serve(jobs: "queue.SimpleQueue") -> None:
     """A :class:`Watchdog`'s worker: runs the queued calls in order until
-    it takes the stop mark (``None``)."""
+    it takes the stop mark (:data:`_STOP`)."""
     _on_worker.active = True
     while True:
         job = jobs.get()
-        if job is None:
+        if job is _STOP:
             return
         fn, box, done = job
         try:
@@ -187,7 +192,7 @@ class Watchdog:
             threading.Thread(target=_serve, args=(jobs,), daemon=True,
                              name=f"watchdog:{self.label}").start()
             # the worker holds its queue only, never the instance
-            weakref.finalize(self, jobs.put, None)
+            weakref.finalize(self, jobs.put, _STOP)
             self._jobs = jobs
         return self._jobs
 
@@ -205,7 +210,7 @@ class Watchdog:
             done = threading.Event()
             jobs.put((fn, box, done))
             if not done.wait(timeout_s):
-                jobs.put(None)
+                jobs.put(_STOP)
                 self._jobs = None
                 raise WatchdogTimeout(
                     f"{self.label} exceeded {timeout_s:.1f}s and was "

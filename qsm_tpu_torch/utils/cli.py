@@ -2088,7 +2088,7 @@ def main(argv=None) -> int:
                    help="comma list of registry families (default: all)")
     p.add_argument("--family", default=None,
                    help="comma list of registered pass-family ids "
-                        "(a-f, h, m, o; default: all)")
+                        "(a-o; default: all)")
     p.add_argument("--changed", nargs="?", const="HEAD", default=None,
                    metavar="REF",
                    help="lint only modules git-touched since REF "

@@ -1789,6 +1789,54 @@ def test_lint_semantic_families_run_on_the_card(cuda):
                          "stepper_sweep", "threefry_draws")]
 
 
+def test_lint_all_fifteen_families_run_on_the_card(cuda):
+    """Every family a-o on the card by default: nothing unwhitelisted but
+    notes, the protocol summary total (every op handled and called)."""
+    from qsm_tpu_torch.analysis import FAMILIES, run_lint
+
+    rep = run_lint(cache=False)
+    assert rep.device.startswith("cuda")
+    assert rep.families == sorted(FAMILIES) == list("abcdefghijklmno")
+    assert list(rep.passes) == [FAMILIES[f].key for f in rep.families]
+    assert [f for f in rep.findings if f.severity != "info"] == []
+    assert rep.protocol["ops"] == rep.protocol["handled_ops"] == \
+        rep.protocol["called_ops"] == 27
+
+
+def _d2h_copies(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "Memcpy DtoH" in e.name)
+
+
+def test_card_shard_mesh_reads_once_a_round(cuda, corpus):
+    """Family n's claim on the card: TorchStepper's table regime on 4
+    logical shards of one card copies to the host once a round (the one
+    status read the whitelist allows), with the verdicts of 1 device."""
+    from qsm_tpu_torch.mesh import batch_sharding, card_shard_mesh
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+
+    spec, hs = corpus
+    lanes = (hs * 4)[:1024]
+    four = TorchStepper(spec, sharding=batch_sharding(card_shard_mesh(4)))
+    assert four.regime == "table"
+    four.check_histories(spec, lanes)
+    r0 = four.rounds_run
+    v4, copies = _d2h_copies(lambda: np.asarray(
+        four.check_histories(spec, lanes)))
+    rounds = four.rounds_run - r0
+    assert rounds > 0 and copies == rounds
+    assert np.array_equal(v4, np.asarray(
+        TorchStepper(spec).check_histories(spec, lanes)))
+
+
 def test_lint_edge_launches_count_and_match(cuda):
     """Each kernel launched once at its largest admitted plan, through
     its wrapper (each count grows), bit-identical to its plain version."""

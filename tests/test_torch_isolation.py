@@ -48,6 +48,14 @@ def test_import_loads_no_jax_and_no_reference_module():
             "qsm_tpu_torch.analysis.engine, "
             "qsm_tpu_torch.analysis.kernel_passes, "
             "qsm_tpu_torch.analysis.spec_passes, "
+            "qsm_tpu_torch.analysis.callgraph, "
+            "qsm_tpu_torch.analysis.race_passes, "
+            "qsm_tpu_torch.analysis.protocol_model, "
+            "qsm_tpu_torch.analysis.protocol_passes, "
+            "qsm_tpu_torch.analysis.obs_passes, "
+            "qsm_tpu_torch.analysis.fleet_passes, "
+            "qsm_tpu_torch.analysis.monitor_passes, "
+            "qsm_tpu_torch.analysis.mesh_passes, "
             "qsm_tpu_torch.analysis.fixtures\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -1,7 +1,8 @@
 """The port's qsmlint (``qsm_tpu_torch/analysis``) held against the
 reference's (``qsm_tpu/analysis``) on the same inputs, and the port's own
-twins of tests/test_lint.py for the families it has (a-f, h, m, o).  CPU
-only: every semantic pass runs with ``device="cpu"`` (the plain versions);
+twins of tests/test_lint.py for its per-file and semantic families (the
+whole-program families g and l are tests/test_torch_lint_program.py's).
+CPU only: every semantic pass runs with ``device="cpu"`` (the plain versions);
 the card's rebuild guard and edge launches are cases of
 tests/test_torch_gpu.py.
 
@@ -11,11 +12,12 @@ Parity with the reference:
   ``check_step_dtypes`` and the port's give the same multiset of
   ``(severity, rule_id, location)``; the broken-parity fixture is caught
   by both, on ``step_jax`` and on ``step_torch``;
-* families c, e, f, h, m, o — the same source text gives the same
-  ``(rule_id, line, severity)`` in both packages; where a rule is bound to
-  an idiom (torch's global generator, ``torch.cuda`` enumeration, a host
-  read in a launch loop) the port's torch fixture flags the translated
-  line;
+* families c, e, f, h, i, j, k, m, n, o — the same source text gives
+  the same ``(rule_id, line, severity)`` in both packages; where a rule
+  is bound to an idiom (torch's global generator, ``torch.cuda``
+  enumeration, a host read in a launch loop, a literal card, a host read
+  where shards are placed) the port's torch fixture flags the translated
+  line, and the reference's jax-only line is recorded;
 * rendering — the same findings and whitelist text render byte for byte
   alike as text and JSON, and as SARIF but for the tool's name.
 """
@@ -43,7 +45,11 @@ from qsm_tpu.models.registry import MODELS as REF_MODELS
 from qsm_tpu_torch.analysis import (ERROR, FAMILIES, INFO, WARNING, Finding,
                                     Whitelist, run_lint)
 from qsm_tpu_torch.analysis.engine import (DEFAULT_DEVQ_FILES,
+                                           DEFAULT_FLEET_FILES,
                                            DEFAULT_GEN_FILES,
+                                           DEFAULT_MESH_FILES,
+                                           DEFAULT_MONITOR_FILES,
+                                           DEFAULT_OBS_FILES,
                                            DEFAULT_OPS_FILES,
                                            DEFAULT_POOL_FILES,
                                            DEFAULT_RESILIENCE_FILES,
@@ -128,13 +134,14 @@ def test_parity_grid_is_recorded():
     assert stats["tuples"] > stats["states"]
 
 
-# --- families c, e, f, h, m, o: the same source, the same findings --------
+# --- the per-file families: the same source, the same findings ------------
 
 def _ref_pass(fid):
     import importlib
 
     mod = {"c": "sched", "e": "serve", "f": "pool", "h": "shrink",
-           "m": "gen", "o": "devq"}[fid]
+           "i": "obs", "j": "fleet", "k": "monitor", "m": "gen",
+           "n": "mesh", "o": "devq"}[fid]
     ref = importlib.import_module(f"qsm_tpu.analysis.{mod}_passes")
     port = importlib.import_module(f"qsm_tpu_torch.analysis.{mod}_passes")
     return (getattr(ref, f"check_{mod}_file"),
@@ -180,6 +187,76 @@ _INLINE = {
             while True:
                 out.append(h)
         """,
+    "i": """
+        class S:
+            def __init__(self, tracer, registry):
+                self.tracer = tracer
+                self.registry = registry
+            def opened(self, t):
+                sp = self.tracer.span("x", t)
+                return sp
+            def closed(self, t):
+                with self.tracer.span("y", t) as sp:
+                    sp.add(ok=True)
+                return self.tracer.span("z", t)
+            def metrics(self, h, t, wid):
+                self.registry.counter(f"hits_{t}").inc()
+                self.registry.gauge("depth_" + t)
+                self.registry.histogram("lat_total")
+                h.observe(1.0, key="k:%s" % t)
+                h.inc(wid=str(wid))
+                h.set(2, who="{}".format(t))
+        """,
+    "j": """
+        class R:
+            def route(self, link, doc):
+                while True:
+                    try:
+                        return link.request(doc, 1.0)
+                    except OSError:
+                        continue
+            def route_some(self, links, doc):
+                for link in links:
+                    try:
+                        return link.dispatch(doc)
+                    except OSError:
+                        continue
+            def route_tried(self, ring, key, doc):
+                tried = set()
+                for _ in range(3):
+                    node = ring.node_for(key, exclude=tried)
+                    try:
+                        return node.request(doc, 1.0)
+                    except OSError:
+                        tried.add(node)
+                        continue
+            def promote(self):
+                return self.lease.acquire()
+            def promote_gated(self, rec):
+                if self.lease.expired(rec, 1.0):
+                    return self.lease.acquire()
+            def join(self, nid):
+                self.ring.add_node(nid)
+            def leave(self, nid):
+                self.ring.remove_node(nid)
+        """,
+    "k": """
+        import heapq
+        class Session:
+            def __init__(self):
+                self.events = []
+                self.heap = []
+                self.kept = []
+                self.window = []
+            def push(self, e):
+                self.events.append(e)
+                heapq.heappush(self.heap, e)
+                self.kept.append(e)
+                if len(self.kept) > 8:
+                    self.kept.pop(0)
+                self.window.insert(0, e)
+                self.window = self.window[:4]
+        """,
     "m": """
         class Campaign:
             def __init__(self):
@@ -188,6 +265,15 @@ _INLINE = {
             def round(self, entry):
                 self.pool.add(entry)
                 self.seen.append(entry)
+        """,
+    "n": """
+        import jax
+        def build(devs):
+            a = make_mesh(8)
+            b = make_mesh_2d(2, 4)
+            c = Mesh(devs, 2)
+            d = make_mesh(len(devs))
+            return jax.local_devices()[1], a, b, c, d
         """,
     "o": """
         class Drainer:
@@ -200,32 +286,54 @@ _INLINE = {
 }
 
 
+# The reference's lines its port does not flag, by family: the reference's
+# jax idiom of a rule whose port form is torch's (family n's sharding is
+# applied by ``jax.device_put`` there, by the LaneShards methods here).
+_REF_ONLY = {
+    "n": [("QSM-MESH-TRANSFER", "for s in shards]   # <-- bug: host pull",
+           ERROR)],
+}
+
+
 @pytest.mark.parametrize("fid", sorted(_INLINE))
 @pytest.mark.parametrize("source", ["reference fixtures", "inline"])
 def test_per_file_family_matches_the_reference(fid, source, tmp_path):
     ref_check, port_check = _ref_pass(fid)
+    ref_only = []
     if source == "inline":
         path = tmp_path / "stub.py"
         path.write_text(textwrap.dedent(_INLINE[fid]))
         path = str(path)
     else:
         path = ref_fixtures.__file__
+        ref_only = [(rule, _line_of(path, needle), sev)
+                    for rule, needle, sev in _REF_ONLY.get(fid, ())]
     ref, port = ref_check(path), port_check(path)
     assert ref, "the source must exercise the family"
-    assert _lines(port) == _lines(ref)
+    assert sorted(_lines(port) + ref_only) == _lines(ref)
 
 
 @pytest.mark.parametrize("fid", sorted(_INLINE))
 def test_port_fixtures_match_the_reference_but_the_torch_lines(fid):
     """On the port's own fixture file the reference's pass and the port's
     agree, but for the lines written in torch's idiom: the port's family
-    c also flags the draw from torch's global generator."""
+    c also flags the draw from torch's global generator, and its family n
+    the literal cards and the host reads where shards are placed."""
     ref_check, port_check = _ref_pass(fid)
     path = fixtures.__file__
     extra = []
     if fid == "c":
         extra = [("QSM-DET-RANDOM",
                   _line_of(path, "torch.rand(()) < 0.5"), ERROR)]
+    if fid == "n":
+        extra = [("QSM-MESH-HARDCODE", _line_of(path, needle), ERROR)
+                 for needle in ("local_devices(device)[0]",
+                                'torch.device("cuda", 0)',
+                                'carry.to("cuda:1")',
+                                "card_shard_mesh(4)")]
+        extra += [("QSM-MESH-TRANSFER", _line_of(path, needle), ERROR)
+                  for needle in ("carries[0].dsi.cpu()",
+                                 "torch.cuda.synchronize()  ")]
     assert _lines(port_check(path)) == sorted(_lines(ref_check(path))
                                               + extra)
 
@@ -383,6 +491,165 @@ def test_unbounded_frontier_is_caught():
     assert "frontier_forever" in findings[0].location
 
 
+def test_unclosed_span_and_unbounded_metric_are_caught():
+    """Family i's bulb check: the hand-entered span fires QSM-OBS-SPAN
+    once, the fingerprint-minted metric name and the concatenated label
+    value fire QSM-OBS-CARDINALITY twice; the with-statement and
+    delegating-return spans and the str(wid)-labelled metrics are
+    clean."""
+    from qsm_tpu_torch.analysis.obs_passes import check_obs_file
+
+    by_rule = {}
+    for f in check_obs_file(fixtures.__file__):
+        by_rule.setdefault(f.rule_id, []).append(f)
+    span = by_rule.pop("QSM-OBS-SPAN")
+    assert len(span) == 1 and span[0].severity == ERROR
+    assert ":work:" in span[0].location
+    card = by_rule.pop("QSM-OBS-CARDINALITY")
+    assert len(card) == 2 and {f.severity for f in card} == {ERROR}
+    assert not by_rule
+
+
+def test_fleet_redispatch_is_caught():
+    """Family j: the while-True re-dispatch loop and the bounded loop that
+    never excludes the failed node each fire QSM-FLEET-REDISPATCH once;
+    the tried-set + exclude= twin is clean."""
+    from qsm_tpu_torch.analysis.fleet_passes import check_fleet_file
+
+    by_rule = {}
+    for f in check_fleet_file(fixtures.__file__):
+        by_rule.setdefault(f.rule_id, []).append(f)
+    hits = by_rule.pop("QSM-FLEET-REDISPATCH")
+    assert len(hits) == 2 and {f.severity for f in hits} == {ERROR}
+    assert "no bounded attempt budget" in hits[0].message
+    assert "never excludes the failed node" in hits[1].message
+    by_rule.pop("QSM-FLEET-LEASE")
+    by_rule.pop("QSM-FLEET-HANDOFF")
+    assert not by_rule
+
+
+def test_fleet_lease_is_caught():
+    """Family j: the while-True promote loop and the term/expiry-blind
+    acquire each fire QSM-FLEET-LEASE once; the beat-driven twin is
+    clean."""
+    from qsm_tpu_torch.analysis.fleet_passes import check_fleet_file
+
+    found = [f for f in check_fleet_file(fixtures.__file__)
+             if f.rule_id == "QSM-FLEET-LEASE"]
+    assert len(found) == 2 and {f.severity for f in found} == {ERROR}
+    assert "promote_forever" in found[0].location
+    assert "unbounded standby-promote loop" in found[0].message
+    assert "promote_blind" in found[1].location
+    assert "never consults lease term/expiry" in found[1].message
+    assert not any("beat" in f.location for f in found)
+
+
+def test_fleet_handoff_is_caught():
+    """Family j: the join that never seeds the newcomer and the leave that
+    never migrates the retiree's sessions each fire QSM-FLEET-HANDOFF
+    once; the sweep-on-join, invalidate-on-leave twin is clean."""
+    from qsm_tpu_torch.analysis.fleet_passes import check_fleet_file
+
+    found = [f for f in check_fleet_file(fixtures.__file__)
+             if f.rule_id == "QSM-FLEET-HANDOFF"]
+    assert len(found) == 2 and {f.severity for f in found} == {ERROR}
+    assert "join_cold" in found[0].location
+    assert "without replog handoff" in found[0].message
+    assert "leave_sticky" in found[1].location
+    assert "without session migration" in found[1].message
+    assert not any(":join:" in f.location or ":leave:" in f.location
+                   for f in found)
+
+
+def test_monitor_unbounded_buffer_is_caught():
+    """Family k: the session stub whose event buffer and window grow with
+    no cap or eviction fires QSM-MON-UNBOUNDED once an attribute; the
+    capped / decided-prefix-evicting twin is clean."""
+    from qsm_tpu_torch.analysis.monitor_passes import check_monitor_file
+
+    found = [f for f in check_monitor_file(fixtures.__file__)
+             if "SessionBufferStub" in f.location]
+    assert len(found) == 2 and {f.severity for f in found} == {ERROR}
+    assert all("UnboundedSessionBufferStub" in f.location for f in found)
+    assert {"self.events", "self.window"} == {
+        w for f in found for w in ("self.events", "self.window")
+        if w in f.message}
+
+
+def test_mesh_hardcode_is_caught():
+    """Family n in the port's form: the slot pinned by indexing the
+    device enumeration, the literal card of a device constructor and of
+    a device string, and the literal counts of make_mesh and
+    card_shard_mesh each fire QSM-MESH-HARDCODE; the threaded twin (a
+    count and a card taken as parameters, the enumeration counted) is
+    clean."""
+    from qsm_tpu_torch.analysis.mesh_passes import check_mesh_file
+
+    path = fixtures.__file__
+    found = [f for f in check_mesh_file(path)
+             if f.rule_id == "QSM-MESH-HARDCODE" and "MeshStub" in f.location]
+    assert {f.severity for f in found} == {ERROR}
+    assert all("HardcodedMeshStub" in f.location for f in found)
+    assert _lines(found) == sorted(
+        ("QSM-MESH-HARDCODE", _line_of(path, needle), ERROR)
+        for needle in ("local_devices(device)[0]", 'torch.device("cuda", 0)',
+                       'carry.to("cuda:1")', "make_mesh(8)",
+                       "card_shard_mesh(4)"))
+    assert not any("ShapePolymorphicMeshStub" in f.location
+                   for f in check_mesh_file(path))
+
+
+def test_mesh_transfer_is_caught():
+    """QSM-MESH-TRANSFER fires on each function that both places shards
+    (a LaneShards method on a shard-named handle, a per-shard
+    ``.to(device)``) and reads to the host (``.cpu()``,
+    ``torch.cuda.synchronize``); the split twin, whose index upload
+    places nothing, is clean."""
+    from qsm_tpu_torch.analysis.mesh_passes import check_mesh_file
+
+    found = [f for f in check_mesh_file(fixtures.__file__)
+             if f.rule_id == "QSM-MESH-TRANSFER"]
+    assert [f.location.split(":")[-2] for f in found] == [
+        "TransferringDispatchStub.step_then_read",
+        "TransferringDispatchStub.place_then_sync"]
+    assert {f.severity for f in found} == {ERROR}
+    assert "shards.step" in found[0].message and ".cpu()" in \
+        found[0].message
+    assert "torch.cuda.synchronize" in found[1].message
+
+
+def test_mesh_scope_is_the_function_not_the_module(tmp_path):
+    """Placement in one function and the host read in another must not
+    co-occur into a finding (the mesh/shards.py step / read_dsi split);
+    a dtype cast and a numpy conversion of host data are no placement
+    and no read."""
+    from qsm_tpu_torch.analysis.mesh_passes import check_mesh_file
+
+    p = tmp_path / "stub.py"
+    p.write_text(textwrap.dedent("""
+        import numpy as np
+        import torch
+
+        def place(shards, step, tables, carries, lanes):
+            return shards.step(step, tables, carries, lanes)
+
+        def read(carries):
+            return [c.dsi.cpu().numpy() for c in carries]
+
+        def cast_and_convert(shards, tables, inits):
+            tables = shards.replicate(tables)
+            rows = np.asarray(inits, np.int32)
+            return tables, rows, tables[0].nreq.to(torch.int32)
+
+        def convert_a_tensor(shards, tables):
+            copies = shards.replicate(tables)
+            return np.asarray(copies[0].nreq.cpu())
+    """))
+    found = check_mesh_file(str(p))
+    assert [(f.rule_id, f.location.split(":")[-2]) for f in found] == [
+        ("QSM-MESH-TRANSFER", "convert_a_tensor")]
+
+
 def test_gen_unbounded_pool_is_caught():
     from qsm_tpu_torch.analysis.gen_passes import check_gen_file
 
@@ -409,7 +676,9 @@ def test_devq_stubs_are_caught():
 @pytest.mark.parametrize("fid,files", [
     ("c", DEFAULT_SCHED_FILES), ("e", DEFAULT_SERVE_FILES),
     ("f", DEFAULT_POOL_FILES), ("h", DEFAULT_SHRINK_FILES),
-    ("m", DEFAULT_GEN_FILES), ("o", DEFAULT_DEVQ_FILES)])
+    ("i", DEFAULT_OBS_FILES), ("j", DEFAULT_FLEET_FILES),
+    ("k", DEFAULT_MONITOR_FILES), ("m", DEFAULT_GEN_FILES),
+    ("n", DEFAULT_MESH_FILES), ("o", DEFAULT_DEVQ_FILES)])
 def test_live_plane_is_clean(fid, files):
     """Each plane keeps the discipline its family gates (only the one
     pinned timing read of the explore pool is accepted)."""
@@ -586,8 +855,8 @@ def test_in_tree_corpus_is_clean(report):
     assert len(DEFAULT_SCHED_FILES) == 4
     assert len(DEFAULT_RESILIENCE_FILES) >= 12
     assert len(DEFAULT_SERVE_FILES) == 14
-    assert sorted(FAMILIES) == list("abcdefhmo")
-    assert report.families == list("abcdefhmo")
+    assert sorted(FAMILIES) == list("abcdefghijklmno")
+    assert report.families == list("abcdefghijklmno")
     assert report.device == "cpu"
     assert report.ok, "\n".join(
         f"{f.rule_id} {f.location}: {f.message}" for f in report.errors)
@@ -636,7 +905,7 @@ def test_family_registry_is_declarative():
     rep = run_lint(models=["cas"], retrace=False, families=["c"],
                    cache=False, device="cpu")
     assert rep.families == ["c"] and list(rep.passes) == ["sched"]
-    for missing in ("g", "z"):
+    for missing in ("p", "z"):
         with pytest.raises(ValueError):
             run_lint(models=["cas"], retrace=False, families=[missing],
                      device="cpu")
@@ -920,7 +1189,7 @@ def test_report_json_shape(report):
     assert set(doc) >= {"tool", "errors", "warnings", "findings",
                         "whitelisted", "ok", "seconds", "passes", "models",
                         "families", "device", "parity", "rebuild",
-                        "kernels"}
+                        "kernels", "protocol"}
     assert doc["tool"] == "qsmlint"
     for f in doc["findings"] + doc["whitelisted"]:
         assert set(f) == {"severity", "rule_id", "location", "message",
@@ -959,7 +1228,7 @@ def test_cli_lint_findings_exit_1(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,err", [
     (["--models", "nope"], "unknown model"),
-    (["--family", "g"], "unknown pass families"),
+    (["--family", "p"], "unknown pass families"),
     (["--whitelist", "/nonexistent/qsmlint"], "whitelist file not found"),
 ])
 def test_cli_lint_usage_errors_exit_2(argv, err, capsys):
