@@ -394,9 +394,25 @@ Phases, in order; any failure exits non-zero and no result is printed:
    the card: one warm batch of the CAS headline (the table regime) and
    one of kv16 whole (the sweep regime) on ``card_shard_mesh(4)`` under
    ``torch.profiler``, their device-to-host copies a round printed
-   beside the one status read a round the whitelist allows (the table
-   regime must read once a round), and every lane equal to 1 device.
+   beside the one status read a round the whitelist allows (both regimes
+   must read once a round), and every lane equal to 1 device.
    ``--lint-only`` runs phases 1, 2 and 23 alone and prints no result.
+24. the double-buffered tail (``TorchStepper(double_buffer=)``, the
+   reference's ``DOUBLE_BUFFER``): (a) on one card, warm, 4096 lanes, the
+   CAS and queue headlines and kv16 whole with the tail off and on: every
+   lane's status, ``chosen`` and iterations, the search counters and
+   witnesses equal; the tail's counters (speculated, wasted, the host's
+   seconds waiting for status); histories/s in three pairs taken in
+   turns; the idle share of both under ``torch.profiler``; the snapshot
+   copy a tail round makes, timed beside its bound by bytes; (b) the
+   short schedule ``(64, 256)`` reaches the tail on the CAS headline and
+   kv16 whole (speculated > 0, 0 <= consumed <= rounds), and each one's
+   first speculative launch with a running lane and first compaction
+   after a wasted chunk are held against the plain versions; (c) on
+   ``card_shard_mesh(4)``, the CAS headline and kv16 whole with the tail
+   off and on: every lane equal to one device, and one device-to-host
+   copy a round in both regimes under ``torch.profiler``.
+   ``--tail-only`` runs phases 1, 2 and 24 alone and prints no result.
 
 The lane samples of phases 6, 9 and 13-22 advance in worker processes
 (``sample_pool``, spawned at the start; a sample's lanes split among
@@ -415,7 +431,8 @@ own path, each case of phases 13 and 14 over its own, and
 15 (c), each path of phase 16 over its own, phase 17's in-process
 paths over the phase, each path of phases 18, 19, 20, 21 and 22 over
 its own, with phase 22's launches by shard as paths of their own, and
-phase 23's (a)-(d), (f) and (g) as the path "lint (phase 23)"; the
+phase 23's (a)-(d), (f) and (g) as the path "lint (phase 23)", and
+phase 24's (a)-(c) as the path "the tail (phase 24)"; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -451,7 +468,7 @@ from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
 from qsm_tpu_torch.gen import GenProfile, SteeringLoop, generate_batch
 from qsm_tpu_torch.gen import core as gen_core
 from qsm_tpu_torch.gen import steer as gen_steer
-from qsm_tpu_torch.mesh.shards import cat_lanes, take_lanes
+from qsm_tpu_torch.mesh.shards import LaneShards, cat_lanes, take_lanes
 from qsm_tpu_torch.models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
 from qsm_tpu_torch.models.counter import (AtomicTicketSUT, RacyTicketSUT,
                                           TicketSpec)
@@ -2246,12 +2263,14 @@ def hold_path_kernels(name, first, tag, spec=None):
     return hold_start(name, first, tag, spec)()
 
 
-def hold_start(name, first, tag, spec=None, sample_lanes=SAMPLE_LANES):
+def hold_start(name, first, tag, spec=None, sample_lanes=SAMPLE_LANES,
+               start="the fresh carry"):
     """Start holding a path's kernels against their plain versions, on
     the path's own inputs (``first``, a :class:`FirstInputs`): one chunk
-    of ``stepper_chunk`` from each kept batch's fresh carry at full width
-    on the card, the plain version on a lane sample on the CPU (as in
-    phase 6, in a worker process), all 7 planes of the sample compared;
+    of ``stepper_chunk`` from each kept batch's first carry (``start``
+    names it in the line printed) at full width on the card, the plain
+    version on a lane sample on the CPU (as in phase 6, in a worker
+    process), all 7 planes of the sample compared;
     the path's first compaction against ``compact_carry_plain`` at full
     width; its first ``stepper_sweep`` launch (lanes as the path listed
     them) against ``stepper_sweep_plain`` of ``spec`` on a lane sample;
@@ -2274,8 +2293,8 @@ def hold_start(name, first, tag, spec=None, sample_lanes=SAMPLE_LANES):
         pending.append((
             sample, f"stepper_chunk on the path of {name}, batch {i + 1}",
             f"{tag} stepper_chunk == plain on the path of {name}: its "
-            f"batch {i + 1}, B={B} N={N} slots={slots}, from the fresh "
-            f"carry, one chunk of {kw['chunk']} at budget {kw['budget']}: "
+            f"batch {i + 1}, B={B} N={N} slots={slots}, from {start}, "
+            f"one chunk of {kw['chunk']} at budget {kw['budget']}: "
             f"all 7 planes bit-identical on a sample of "
             f"{len(sample.lanes)} lanes; "
             f"{int((ck.dsi[1] == RUNNING).sum())} of {B} still running"))
@@ -6637,13 +6656,14 @@ def phase_lint(tag, spec, corpus, kv_spec, kv_corpus, device=None):
             require(table["regime"] == "table" and sweep["regime"] ==
                     "sweep", f"the regimes: {table['regime']}, "
                     f"{sweep['regime']}")
-            require(table["d2h_copies"] == table["rounds"] > 0,
-                    f"the table regime on {MESH_SHARDS} shards made "
-                    f"{table['d2h_copies']} device-to-host copies over "
-                    f"{table['rounds']} rounds, not one a round")
-            print(f"{tag} 23g the table regime reads once a round on "
-                  f"{MESH_SHARDS} shards; the sweep regime "
-                  f"{sweep['copies_a_round']:.3f} a round; "
+            for regime, rec in (("table", table), ("sweep", sweep)):
+                require(rec["d2h_copies"] == rec["rounds"] > 0,
+                        f"the {regime} regime on {MESH_SHARDS} shards made "
+                        f"{rec['d2h_copies']} device-to-host copies over "
+                        f"{rec['rounds']} rounds, not one a round")
+            print(f"{tag} 23g both regimes read once a round on "
+                  f"{MESH_SHARDS} shards (the sweep regime's lane checks "
+                  f"are counted on the card and read with the status); "
                   f"{time.perf_counter() - t0:.2f} s", flush=True)
         else:
             print(f"{tag} 23g skipped on {dev}: the shards of a card and "
@@ -6670,6 +6690,316 @@ def phase_lint(tag, spec, corpus, kv_spec, kv_corpus, device=None):
             reap(proc)
     dt = time.perf_counter() - t_phase
     print(f"{tag} phase 23 took {dt:.1f} s (target 30 s)", flush=True)
+    return launches, err
+
+
+TAIL_PAIRS = 3                 # (a): histories/s pairs, off and on in turns
+TAIL_SHORT = (64, 256)         # (b): tests/test_kernel_driver.py:64's schedule
+TAIL_SNAPSHOT_REPS = 20        # (a): snapshot copies timed a path
+TAIL_WITNESSES = 4             # (a): witnesses replayed a path
+TAIL_KV_BUDGET = 4_000         # (b): kv16's budget at the short schedule
+# (a), (b): what the tail must leave as it was
+TAIL_COUNTERS = ("rounds_run", "compactions", "lockstep_cost", "rescued",
+                 "memo_prunes", "memo_inserts", "device_histories")
+
+
+class TailInputs(FirstInputs):
+    """Inside ``with``: the inputs of the first speculative launch of the
+    double-buffered tail (the chunk ``TorchStepper`` enqueues on a spare
+    carry before reading its round's status) and of the first compaction
+    after a wasted one (from the round's untouched carry), cloned before
+    the launch, for :func:`hold_start`.  ``LaneShards``' methods are
+    wrapped to tell those launches apart; nothing else is kept."""
+
+    def __init__(self):
+        super().__init__()
+        self.spec_next = False     # the next launches are speculative
+        self.spec_pending = False  # a speculative chunk is in flight
+
+    def _wanted(self, carry) -> bool:
+        # a speculative launch with a lane to run (the last round's is
+        # often a launch over decided lanes alone: nothing to hold)
+        return self.spec_next and bool((carry.dsi[1] == RUNNING).any())
+
+    def _step(self, tabs, carry, **kw):
+        if not self.steps and self._wanted(carry):
+            self.steps.append((tabs, clone_carry(carry), kw))
+        return stepper_chunk(tabs, carry, **kw)
+
+    def _sweep(self, model, tabs, carry, **kw):
+        if self.sweep is None and self._wanted(carry):
+            self.sweep = (model, tabs, clone_carry(carry), dict(kw))
+        return stepper_sweep(model, tabs, carry, **kw)
+
+    def _comp(self, carry, lanes, bucket, slots):
+        if self.spec_pending and self.comp is None:
+            self.comp = (clone_carry(carry), np.array(lanes), bucket, slots)
+        return compact_carry(carry, lanes, bucket, slots)
+
+    def __enter__(self):
+        super().__enter__()
+        self._real = {k: getattr(LaneShards, k) for k in
+                      ("fresh", "step", "compact", "read_status",
+                       "snapshot")}
+        rec, real = self, self._real
+
+        def fresh(shards, *a, **kw):
+            rec.spec_pending = False
+            return real["fresh"](shards, *a, **kw)
+
+        def snapshot(shards, *a, **kw):
+            rec.spec_next = True
+            return real["snapshot"](shards, *a, **kw)
+
+        def step(shards, *a, **kw):
+            out = real["step"](shards, *a, **kw)
+            if rec.spec_next:
+                rec.spec_next, rec.spec_pending = False, True
+            return out
+
+        def compact(shards, *a, **kw):
+            out = real["compact"](shards, *a, **kw)
+            rec.spec_pending = False
+            return out
+
+        def read_status(shards, *a, **kw):
+            # a round with no launch of its own consumed the chunk
+            rec.spec_pending = False
+            return real["read_status"](shards, *a, **kw)
+
+        for k, fn in (("fresh", fresh), ("snapshot", snapshot),
+                      ("step", step), ("compact", compact),
+                      ("read_status", read_status)):
+            setattr(LaneShards, k, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._real.items():
+            setattr(LaneShards, k, fn)
+        return super().__exit__(*exc)
+
+
+def tail_counts(t) -> str:
+    return (f"speculated {t.speculated_chunks}, wasted {t.wasted_chunks}, "
+            f"host_sync_s {t.host_sync_s:.6f}")
+
+
+def path_carry(t: TorchStepper, lanes) -> StepperCarry:
+    """A fresh carry of ``lanes`` at the shape ``t``'s main path gives its
+    widest bucket (its regime, the port's memo slots for that bucket)."""
+    n_ops = bucket_for(max(len(h) for h in lanes))
+    B, slots = len(lanes), t.slots_for_batch[t.batch_buckets[-1]]
+    if t.regime == "table":
+        tabs, starts = stepper_inputs(t.spec, lanes, n_ops, t.device)
+        return fresh_stepper_carry(tabs.nreq, np.arange(B), starts, B,
+                                   n_ops, slots)
+    tabs, starts = sweep_inputs(t.spec, lanes, n_ops, t.device)
+    return fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, n_ops,
+                             slots)
+
+
+def snapshot_cost(carry: StepperCarry):
+    """(ms, bound_ms, bytes) of ``LaneShards.snapshot`` of ``carry`` into
+    its spare, the copy a tail round makes: CUDA events over
+    ``TAIL_SNAPSHOT_REPS`` warm copies; the bound every plane read once
+    and written once over the card's memory rate."""
+    shards = LaneShards.single(carry.row.device)
+    lanes = np.arange(carry.row.shape[0])
+    spare = shards.snapshot([carry], None, lanes)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TAIL_SNAPSHOT_REPS):
+        spare = shards.snapshot([carry], spare, lanes)
+    end.record()
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(spare[0], carry)),
+            "the snapshot's spare differs from its carry")
+    nbytes = 2 * _tensor_bytes(carry)
+    return (start.elapsed_time(end) / TAIL_SNAPSHOT_REPS,
+            nbytes / HBM_BYTES_PER_S * 1e3, nbytes)
+
+
+def same_lanes(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_tail(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, tag):
+    """Phase 24: the double-buffered tail on the card (``TorchStepper``'s
+    counterpart of ``JaxTPU``'s, ``double_buffer``).  (a) one card, warm,
+    4096 lanes, the uncut budget: the CAS and queue headlines (the table
+    regime) and kv16 whole (the sweep regime), each on a stepper with the
+    tail off and one with it on: every lane's status, ``chosen`` and
+    iterations, the search counters and replayed witnesses equal; the
+    tail's counters of both; histories/s in ``TAIL_PAIRS`` pairs taken in
+    turns; the idle share of both under ``torch.profiler``; the snapshot
+    copy a tail round makes, timed beside its bound by bytes.  (b) the
+    short schedule ``TAIL_SHORT`` on the CAS headline and on kv16 whole
+    (its budget cut to ``TAIL_KV_BUDGET``) reaches the tail: speculated >
+    0, 0 <= speculated - wasted <= rounds, verdicts and counters as
+    without it; the first speculative launch with a running lane and the
+    first compaction after a wasted chunk held against the plain versions
+    (``TailInputs``; the default schedule's tail chunk of 65536
+    iterations is too long for the plain version's lane sample).
+    (c) on ``card_shard_mesh(4)``, the CAS headline and kv16 whole with
+    the tail off and on: every lane equal to one device's, and one warm
+    batch's device-to-host copies under ``torch.profiler`` (the end of
+    the batch folds verdicts from the status reads, and no ``chosen`` is
+    read) exactly one a round in both regimes.  Returns (launches by
+    kernel, the largest error)."""
+    from qsm_tpu_torch.mesh import batch_sharding, card_shard_mesh
+
+    t_phase = time.perf_counter()
+    counters = (stepper_chunk, compact_carry, stepper_sweep)
+    for c in counters:
+        c.launches = 0
+    one_device, holds = {}, []
+    auto = TorchStepper(spec)._double_buffer_on()
+    print(f"{tag} 24 TorchStepper's double_buffer auto on this card: "
+          f"{'on' if auto else 'off'}", flush=True)
+    # (a)
+    for name, pspec, unique in (("CAS headline", spec, corpus),
+                                ("queue headline", q_spec, q_corpus),
+                                ("kv16 whole", kv_spec, kv_corpus)):
+        t_path = time.perf_counter()
+        lanes = _replicate(unique, DEVICE_BATCH)
+        steppers = {"off": TorchStepper(pspec, double_buffer=False),
+                    "on": TorchStepper(pspec, double_buffer=True)}
+        got, counts = {}, {}
+        for label, t in steppers.items():
+            got[label] = device_lanes(t, lanes)
+            counts[label] = tail_counts(t)
+        off, on = steppers["off"], steppers["on"]
+        require(same_lanes(got["off"], got["on"]), f"{name}: a lane's "
+                f"status, chosen or iterations differ with the tail on")
+        for k in TAIL_COUNTERS:
+            require(getattr(on, k) == getattr(off, k), f"{name}: {k} "
+                    f"{getattr(on, k)} with the tail, {getattr(off, k)} "
+                    f"without")
+        require(off.speculated_chunks == off.wasted_chunks == 0,
+                f"{name}: the tail ran while off")
+        require(0 <= on.speculated_chunks - on.wasted_chunks
+                <= on.rounds_run, f"{name}: {tail_counts(on)} over "
+                f"{on.rounds_run} rounds")
+        lin = [h for h, x in zip(unique, got["on"][0][:len(unique)])
+               if x == Verdict.LINEARIZABLE][:TAIL_WITNESSES]
+        for h in lin:
+            wv, wit = on.check_witness(pspec, h)
+            require(wv == Verdict.LINEARIZABLE
+                    and verify_witness(pspec, h, wit)
+                    and (wv, wit) == off.check_witness(pspec, h),
+                    f"{name}: a witness differs with the tail or fails "
+                    f"to replay")
+        one_device[name] = got["off"]
+        sync0 = {k: t.host_sync_s for k, t in steppers.items()}
+        rates = {"off": [], "on": []}
+        for i in range(TAIL_PAIRS):
+            for label in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                _, sec = timed_check(steppers[label], pspec, lanes)
+                rates[label].append(len(lanes) / sec)
+        sync = {k: (t.host_sync_s - sync0[k]) / TAIL_PAIRS
+                for k, t in steppers.items()}
+        idle = {}
+        for label, t in steppers.items():
+            wall, busy, _ = profile_device(
+                lambda: t.check_histories(pspec, lanes))
+            idle[label] = (f"{1 - busy / wall:.4f}" if busy
+                           else "not measured")
+        ms, bound, nbytes = snapshot_cost(path_carry(on, lanes))
+        print(f"{tag} 24a {name} ({on.regime} regime), {len(lanes)} lanes, "
+              f"one card, warm: every lane's status, chosen and iterations, "
+              f"{', '.join(TAIL_COUNTERS)} and {len(lin)} witnesses equal "
+              f"with the tail on and off; rounds {on.rounds_run}, "
+              f"compactions {on.compactions} a batch; off: {counts['off']}; "
+              f"on: {counts['on']}; histories/s in turns off "
+              f"{', '.join(f'{r:.1f}' for r in rates['off'])}, on "
+              f"{', '.join(f'{r:.1f}' for r in rates['on'])} (on / off "
+              f"{np.mean(rates['on']) / np.mean(rates['off']):.4f}); "
+              f"host_sync_s a batch off {sync['off']:.6f}, on "
+              f"{sync['on']:.6f}; idle share off {idle['off']}, on "
+              f"{idle['on']}; the snapshot copy {ms:.4f} ms a round "
+              f"({nbytes} B read and written) against {bound:.6f} ms by "
+              f"bytes ({ms / bound:.2f}x); "
+              f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    # (b); kv16 at TAIL_KV_BUDGET: the uncut budget at this schedule is
+    # thousands of rounds, and the tail is reached in its third
+    for name, pspec, unique, knobs in (
+            ("CAS headline", spec, corpus, {}),
+            ("kv16 whole", kv_spec, kv_corpus, dict(
+                budget=TAIL_KV_BUDGET, mid_budget=0, rescue_budget=0))):
+        t0 = time.perf_counter()
+        lanes = _replicate(unique, DEVICE_BATCH)
+        short = {db: TorchStepper(pspec, double_buffer=db,
+                                  chunk_schedule=TAIL_SHORT, **knobs)
+                 for db in (False, True)}
+        with TailInputs() as rec:
+            v = {db: t.check_histories(pspec, lanes)
+                 for db, t in short.items()}
+        holds.append((f"{name} at the schedule {TAIL_SHORT}", rec, pspec))
+        s_off, s_on = short[False], short[True]
+        require(np.array_equal(v[False], v[True]), f"(b) {name}: verdicts "
+                f"differ with the tail on")
+        for k in TAIL_COUNTERS:
+            require(getattr(s_on, k) == getattr(s_off, k), f"(b) {name}: "
+                    f"{k} differs with the tail on")
+        consumed = s_on.speculated_chunks - s_on.wasted_chunks
+        require(s_on.speculated_chunks > 0
+                and 0 <= consumed <= s_on.rounds_run,
+                f"(b) {name}: {tail_counts(s_on)} over {s_on.rounds_run} "
+                f"rounds")
+        print(f"{tag} 24b {name} at the schedule {TAIL_SHORT}"
+              f"{f', budget {TAIL_KV_BUDGET}' if knobs else ''}: "
+              f"{tail_counts(s_on)} ({consumed} consumed as the next "
+              f"round) over {s_on.rounds_run} rounds and "
+              f"{s_on.compactions} compactions, verdicts and counters "
+              f"equal to the run without the tail; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # (c)
+    t0 = time.perf_counter()
+    for name, pspec, unique in (("CAS headline", spec, corpus),
+                                ("kv16 whole", kv_spec, kv_corpus)):
+        lanes = _replicate(unique, DEVICE_BATCH)
+        reads = []
+        for db in (False, True):
+            four = TorchStepper(pspec, double_buffer=db,
+                                sharding=batch_sharding(
+                                    card_shard_mesh(MESH_SHARDS)))
+            require(same_lanes(device_lanes(four, lanes), one_device[name]),
+                    f"(c) {name}: a lane differs on {MESH_SHARDS} shards "
+                    f"with the tail {'on' if db else 'off'}")
+            r0 = four.rounds_run
+            _, copies = d2h_copies(lambda: four.check_histories(pspec, lanes))
+            rounds = four.rounds_run - r0
+            require(copies == rounds > 0, f"(c) {name}, tail "
+                    f"{'on' if db else 'off'}: {copies} device-to-host "
+                    f"copies over {rounds} rounds, not one a round")
+            reads.append(f"tail {'on' if db else 'off'} {copies} over "
+                         f"{rounds} rounds ({tail_counts(four)})")
+        print(f"{tag} 24c {name} ({four.regime} regime) on {MESH_SHARDS} "
+              f"logical shards of cuda:0: every lane equal to one device "
+              f"with the tail off and on; one warm batch's device-to-host "
+              f"copies under torch.profiler: {'; '.join(reads)}: one a "
+              f"round", flush=True)
+    print(f"{tag} 24c {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"{tag} path of the tail (phase 24): " + ", ".join(
+        f"{n} {k}" for k, n in launches.items()) + " launches", flush=True)
+    for kname, n in launches.items():
+        require(n > 0, f"the tail (phase 24) launched no {kname}")
+    err = 0
+    finishes = []
+    for what, rec, pspec in holds:
+        require(rec.steps or rec.sweep, f"(b) {what}: no speculative "
+                f"launch ran a lane")
+        finishes.append(hold_start(
+            f"the tail on the {what} (its first speculative launch with "
+            f"a running lane; its first compaction after a wasted chunk)",
+            rec, tag, spec=pspec, start="the spare carry"))
+    for finish in finishes:
+        err = max(err, finish())
+    dt = time.perf_counter() - t_phase
+    print(f"{tag} phase 24 took {dt:.1f} s (target 30 s)", flush=True)
     return launches, err
 
 
@@ -6701,6 +7031,10 @@ def main(argv=None) -> int:
                     help="run phases 1-2 and 23 alone (a check of the "
                          "static checks, not the contract's run: no "
                          "result is printed)")
+    ap.add_argument("--tail-only", action="store_true",
+                    help="run phases 1-2 and 24 alone (a check of the "
+                         "double-buffered tail, not the contract's run: "
+                         "no result is printed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6759,6 +7093,12 @@ def main(argv=None) -> int:
                                              *kv16_corpus())
         print(f"{tag} --lint-only: launches {json.dumps(lint_launches)}; "
               f"largest error {lint_err}; no result", flush=True)
+        return 0
+    if args.tail_only:
+        tail_launches, tail_err = phase_tail(spec, corpus, *queue_corpus(),
+                                             *kv16_corpus(), tag)
+        print(f"{tag} --tail-only: launches {json.dumps(tail_launches)}; "
+              f"largest error {tail_err}; no result", flush=True)
         return 0
     if args.mesh_only:
         t0 = time.perf_counter()
@@ -6897,6 +7237,11 @@ def main(argv=None) -> int:
                                          kv_corpus)
     print(f"{tag} phase the static checks: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tail_launches, tail_err = phase_tail(spec, corpus, q_spec, q_corpus,
+                                         kv_spec, kv_corpus, tag)
+    print(f"{tag} phase the double-buffered tail: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
@@ -6906,7 +7251,8 @@ def main(argv=None) -> int:
                "entry points (phase 17)": entry_launches,
                **res_launches, **mon_launches, **serve_launches,
                **fleet_launches, **mesh_launches,
-               "lint (phase 23)": lint_launches}
+               "lint (phase 23)": lint_launches,
+               "the tail (phase 24)": tail_launches}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
@@ -6914,9 +7260,9 @@ def main(argv=None) -> int:
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
                    entry_err, res_err, mon_err, serve_err, fleet_err,
-                   mesh_err, lint_err)
+                   mesh_err, lint_err, tail_err)
     search_err = max(search_err, entry_err, res_err, mon_err, serve_err,
-                     fleet_err, mesh_err, lint_err)
+                     fleet_err, mesh_err, lint_err, tail_err)
     draws_err = max(draws_err, lint_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)

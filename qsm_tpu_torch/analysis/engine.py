@@ -327,7 +327,12 @@ def _rebuild_corpora(entry, spec):
 # spec-independent, so one representative spec a kernel path is enough —
 # the CAS register through TorchGPU (dfs_chunk) and TorchStepper's table
 # regime (stepper_chunk, compact_carry), a KV map of 16 keys through its
-# sweep regime (stepper_sweep), as chip_smoke.py's paths run them.
+# sweep regime (stepper_sweep), as chip_smoke.py's paths run them.  The
+# steppers keep the double-buffered tail at its default (on for the
+# card), unlike the reference's guard, which turns it off: there the
+# tail's chunk is a second, non-donated jit, a compile of its own; here
+# it launches the same kernels on a spare carry, which builds nothing and
+# loads no library.
 REBUILD_KV_KEYS = 16
 
 

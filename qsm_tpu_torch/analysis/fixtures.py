@@ -1122,7 +1122,7 @@ class TransferringDispatchStub:
 
 class DeviceResidentDispatchStub:
     """The sanctioned twin: placement and the one host read live in
-    DIFFERENT functions (the mesh/shards.py ``step`` / ``read_dsi``
+    DIFFERENT functions (the mesh/shards.py ``step`` / ``read_status``
     split), and an index uploaded from the host places nothing — must
     stay CLEAN under QSM-MESH-TRANSFER."""
 

@@ -34,7 +34,7 @@ classes break that contract silently:
   shard's stream there: the sharded round keeps one shard's
   wall-clock while reporting an N-shard mesh.  Scope is the function:
   the sanctioned shape keeps placement and host reads in different
-  functions (``mesh/shards.py``'s ``read_dsi`` and ``chosen``: one
+  functions (``mesh/shards.py``'s ``read_status`` and ``chosen``: one
   status read a round, after every shard's launch is enqueued).
 
 Both rules are deliberately structural (AST only, no imports
@@ -304,5 +304,5 @@ def check_mesh_file(path: str, root: Optional[str] = None
                 "shard's stream here, keeping one shard's wall-clock",
                 "split the function: place the shards in one function "
                 "and read the host copy in another, once a round "
-                "(mesh/shards.py's read_dsi / chosen shape)"))
+                "(mesh/shards.py's read_status / chosen shape)"))
     return out

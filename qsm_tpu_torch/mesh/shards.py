@@ -15,7 +15,12 @@ hand for ``ops/stepper.py::TorchStepper``:
   the host share it), so a lane's ``row`` stays valid on any shard;
 * **launches**: every shard's kernel is enqueued, each on its own stream,
   before any status is read; then every shard's ``dsi`` is copied into one
-  buffer and read in one host transfer;
+  buffer and read in one host transfer, into pinned memory behind an
+  event, so that a speculative chunk enqueued after it (the driver's
+  double-buffered tail) runs while the host waits for that event alone;
+  the tail's chunk runs on a spare of each shard's carry
+  (:meth:`LaneShards.snapshot`), which leaves the round's own carry as
+  it was for a compaction or a ``chosen`` read;
 * **compaction**: the survivors are renumbered 0..m-1 into the new global
   bucket, so a lane may move to another shard.  Each destination shard
   gathers its survivors' planes from their source shards (a plain copy on
@@ -60,6 +65,7 @@ class LaneShards:
             None if self.n == 1 or d.device.type != "cuda" else
             (d.stream if d.stream is not None else torch.cuda.Stream(d.device))
             for d in devs]
+        self._side = {}  # str(device) -> the stream chosen is read on
 
     @classmethod
     def single(cls, device: torch.device) -> "LaneShards":
@@ -122,49 +128,119 @@ class LaneShards:
     # -- launches ------------------------------------------------------
     def step(self, step: Callable, tables: Sequence, carries: list,
              lanes: np.ndarray, *, chunk: int, budget: int,
-             sweep: bool) -> list:
+             sweep: bool, missing=None) -> list:
         """One chunk on every shard that holds an active lane (``lanes``:
         the global carry lanes still running), each enqueued on its own
         stream; the sweep regime runs each shard's active lanes alone, in
-        shard-local indices."""
+        shard-local indices, its lane check counted into the shard's
+        counter of ``missing`` (:meth:`lane_flags`) when there is one."""
         L = carries[0].row.shape[0]
         owner = lanes // L
         for t in range(self.n):
             local = lanes[owner == t] % L
             if not local.size:
                 continue
+            kw = {}
+            if sweep:
+                kw["lanes"] = local
+                if missing is not None:
+                    kw["missing"] = missing[t]
             with self.on(t):
                 carries[t] = step(tables[t], carries[t], chunk=chunk,
-                                  budget=budget,
-                                  **({"lanes": local} if sweep else {}))
+                                  budget=budget, **kw)
         return carries
 
-    def read_dsi(self, carries: list) -> np.ndarray:
-        """Every shard's ``dsi`` as one ``[5, B]`` array: each copied into
-        one buffer on the first device, then one host read (one shard's is
-        read as it is)."""
-        if self.n == 1:
-            return carries[0].dsi.cpu().numpy()
+    def lane_flags(self) -> list:
+        """One int32 ``[1]`` counter a shard, on its device, zero: the
+        RUNNING lanes the sweep launches' lane lists left out
+        (``stepper_sweep``'s ``missing``), read with each round's status
+        (:meth:`read_status`)."""
+        out = []
+        for t, dev in enumerate(self.torch_devices):
+            with self.on(t):
+                out.append(torch.zeros(1, dtype=torch.int32, device=dev))
+        return out
+
+    def read_status(self, carries: list, flags=None) -> "StatusRead":
+        """Start the round's one status read: every shard's ``dsi`` (and
+        its lane-check counter, ``flags``) copied into one buffer on the
+        first device, that buffer copied into pinned host memory without
+        blocking, and an event recorded after it.  Work enqueued later (a
+        speculative chunk) is not waited for: :meth:`StatusRead.wait`
+        waits on the event alone."""
         L = carries[0].row.shape[0]
-        buf = torch.empty((5, L * self.n), dtype=torch.int32,
+        B = L * self.n
+        n_flags = 0 if flags is None else len(flags)
+        buf = torch.empty(5 * B + n_flags, dtype=torch.int32,
                           device=self.primary)
+        planes = buf[:5 * B].view(5, B)
         for t, c in enumerate(carries):
             with self.on(t):
-                buf[:, t * L:(t + 1) * L].copy_(c.dsi, non_blocking=True)
-        return buf.cpu().numpy()
+                planes[:, t * L:(t + 1) * L].copy_(c.dsi, non_blocking=True)
+                if flags is not None:
+                    buf[5 * B + t:5 * B + t + 1].copy_(flags[t],
+                                                       non_blocking=True)
+        if self.primary.type != "cuda":
+            return StatusRead(buf, None, B)
+        host = torch.empty(buf.shape, dtype=torch.int32, pin_memory=True)
+        with torch.cuda.device(self.primary):
+            host.copy_(buf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.primary))
+        return StatusRead(host, done, B)
 
-    def chosen(self, carries: list, lanes: np.ndarray) -> np.ndarray:
+    def snapshot(self, carries: list, spares, lanes: np.ndarray) -> list:
+        """Each shard's carry copied into its spare on the shard's stream,
+        for a speculative chunk that must leave ``carries`` as they are
+        (``spares``: the last call's result, or None; a spare is made
+        when there is none).  A shard without an active lane (``lanes``:
+        the global carry lanes still running) is not launched, so its
+        spare is its carry itself."""
+        L = carries[0].row.shape[0]
+        busy = set((lanes // L).tolist())
+        out = []
+        for t, c in enumerate(carries):
+            s = None if spares is None else spares[t]
+            if t not in busy:
+                out.append(c)
+                continue
+            with self.on(t):
+                if s is None or s is c:
+                    s = type(c)(*(torch.empty_like(p) for p in c))
+                for dst, src in zip(s, c):
+                    dst.copy_(src, non_blocking=True)
+            out.append(s)
+        return out
+
+    def chosen(self, carries: list, lanes: np.ndarray,
+               after: "StatusRead" = None) -> np.ndarray:
         """The ``chosen`` stacks of global carry lanes ``lanes``,
-        ``[len(lanes), N + 1]``."""
+        ``[len(lanes), N + 1]``.  With ``after`` (the round's status read)
+        on the card, each shard is read on a side stream that waits for
+        that read's event alone, not behind work enqueued since (a
+        speculative chunk on another carry)."""
         L = carries[0].row.shape[0]
         out = np.empty((len(lanes), carries[0].chosen.shape[0]), np.int32)
         for t in np.unique(lanes // L):
             sel = np.nonzero(lanes // L == t)[0]
-            with self.on(int(t)):
+            with self._reading(int(t), after):
                 idx = torch.from_numpy(lanes[sel] % L).to(
                     self.torch_devices[t])
                 out[sel] = carries[t].chosen[:, idx].T.cpu().numpy()
         return out
+
+    def _reading(self, t: int, after):
+        """Shard ``t``'s read context: its own stream, or, after a status
+        read on the card, a side stream of its device ordered after that
+        read's event."""
+        dev = self.torch_devices[t]
+        if after is None or after.event is None:
+            return self.on(t)
+        side = self._side.get(str(dev))
+        if side is None:
+            side = self._side[str(dev)] = torch.cuda.Stream(dev)
+        side.wait_event(after.event)
+        return torch.cuda.stream(side)
 
     # -- compaction ----------------------------------------------------
     def compact(self, compact: Callable, pad: Callable, carries: list,
@@ -207,6 +283,26 @@ class LaneShards:
                             x.record_stream(self.streams[t])
                 out.append(compact(staged, np.arange(sel.size), L, slots))
         return out, int((src != dst).sum())
+
+
+class StatusRead:
+    """A round's status read in flight (:meth:`LaneShards.read_status`):
+    ``host`` the buffer the read lands in, ``event`` recorded after the
+    copy (None on the CPU), ``width`` the global bucket."""
+
+    def __init__(self, host: torch.Tensor, event, width: int):
+        self.host, self.event, self.width = host, event, width
+
+    def wait(self):
+        """``(dsi, left_out)``: the ``[5, B]`` planes as numpy and the
+        RUNNING lanes the round's lane lists left out (0 without lane
+        checks), once the read has landed; nothing enqueued after the
+        read is waited for."""
+        if self.event is not None:
+            self.event.synchronize()
+        got = self.host.numpy().copy()
+        B = self.width
+        return got[:5 * B].reshape(5, B), int(got[5 * B:].sum())
 
 
 def _lane_axes(c) -> tuple:

@@ -30,7 +30,10 @@ states of a shadow deferred, pending ops expanded), split at
    history's ops and predecessor words (``sweep_tables``);
 2. ``stepper_chunk`` (or ``stepper_sweep``) runs a chunk of the schedule
    on every lane, and one status read per chunk tells the host which
-   lanes decided;
+   lanes decided; the sweep regime's lane list is checked on the device
+   and read with that status.  Once the schedule settles, the
+   double-buffered tail (``double_buffer``) enqueues the next chunk, on
+   a spare of the carry, before the status is read;
 3. decided lanes leave; when the survivors fit a smaller bucket of the
    ladder, or the bucket's memo size differs, ``compact_carry`` moves them
    into the new width and re-hashes their memo entries into the new table;
@@ -41,6 +44,7 @@ states of a shadow deferred, pending ops expanded), split at
 from __future__ import annotations
 
 import functools
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,8 +58,8 @@ from .stepper_kernel import (BUDGET, INSERTS, ITERS, MAX_OPS, PRUNES,
                              RUNNING, STATUS, compact_carry,
                              fresh_stepper_carry, key_words, stepper_chunk,
                              stepper_tables)
-from .sweep_kernel import (fresh_sweep_carry, stepper_sweep, sweep_model,
-                           sweep_tables)
+from .sweep_kernel import (fresh_sweep_carry, lanes_left_out, stepper_sweep,
+                           sweep_model, sweep_tables)
 
 # The port's defaults, chosen for one H100 (80 GB).
 #
@@ -122,7 +126,17 @@ class TorchStepper(DeviceChecker):
     defaults to the mesh's first device.  Verdicts, witnesses and each
     lane's iterations are those of the unsharded stepper on the filtered
     ladder.  ``lanes_crossed`` counts the lanes compactions moved to
-    another shard."""
+    another shard.
+
+    ``double_buffer`` (the reference's ``DOUBLE_BUFFER``; None: on for a
+    CUDA device, off on the CPU) runs the double-buffered tail: once the
+    chunk schedule settles, each round copies the carry into a spare and
+    enqueues the next chunk on it before reading its own status, so that
+    the card computes while the host reads and decides.  It changes no
+    verdict, witness, iteration or counter of the search;
+    ``speculated_chunks`` counts those chunks, ``wasted_chunks`` the ones
+    a compaction or the batch's end dropped, and ``host_sync_s`` the
+    seconds the host waited for round status."""
 
     name = "torch_stepper"
 
@@ -139,7 +153,7 @@ class TorchStepper(DeviceChecker):
                  batch_buckets: Optional[Sequence[int]] = None,
                  slots_for_batch: Optional[Dict[int, int]] = None,
                  plan=None, ordering: Optional[bool] = None,
-                 sharding=None):
+                 sharding=None, double_buffer: Optional[bool] = None):
         if plan is not None:
             if (chunk_schedule is not None or batch_buckets is not None
                     or slots_for_batch is not None):
@@ -227,6 +241,13 @@ class TorchStepper(DeviceChecker):
         # each lane's cumulative iterations in the last device batch, in
         # the batch's flat order (the counterpart of the carry's ``iters``)
         self.last_iters = np.zeros(0, np.int64)
+        # the double-buffered tail: None = auto (on for a CUDA device, off
+        # on the CPU, where a wasted chunk costs the cores the next one
+        # needs); True / False force it (the reference's DOUBLE_BUFFER)
+        self.double_buffer = double_buffer
+        self.speculated_chunks = 0
+        self.wasted_chunks = 0
+        self.host_sync_s = 0.0  # seconds the host waited for round status
 
     def search_stats(self):
         """Cumulative :class:`~qsm_tpu_torch.search.stats.SearchStats`:
@@ -249,6 +270,11 @@ class TorchStepper(DeviceChecker):
             ordering=self._ordering_table is not None,
             plan=self.plan.name if self.plan is not None else "",
         )
+
+    def _double_buffer_on(self) -> bool:
+        if self.double_buffer is not None:
+            return self.double_buffer
+        return self.device.type == "cuda"
 
     # -- the chunked, lane-compacting driver ---------------------------
     def _run_device(self, flat: Sequence[History],
@@ -328,18 +354,34 @@ class TorchStepper(DeviceChecker):
         def pad(t, width, slots):
             return fresh(tables[t].nreq, no_rows, inits[no_rows], width,
                          n_ops, slots)
-        carry = None
+        # the double-buffered tail (the reference's jax_kernel.py:1036-
+        # 1060): once the schedule settles, the next round's chunk is
+        # enqueued, on a spare of the carry, before this round's status
+        # is read, so that the card is not idle while the host reads it
+        # and decides.  Decided lanes are frozen in the kernels, so the
+        # speculative chunk IS the next round unless that round compacts
+        # (then the compaction starts from the untouched carry) or the
+        # batch ends; either way it is wasted.
+        speculate = self._double_buffer_on()
+        # the sweep launches' lane checks, counted on the stream and read
+        # with the round's status
+        flags = None if self._uses_table else shards.lane_flags()
+        carry = spare = pending = None
         cur: Tuple[int, int] = (0, 0)  # (bucket, slots) of the carry
         last = len(self.chunk_schedule) - 1
         round_i = 0
         while active.size:
             bucket = batch_bucket(active.size, self.batch_buckets)
             slots = self.slots_for_batch[bucket]
-            chunk = self.chunk_schedule[min(round_i, last)]
+            sched_i = min(round_i, last)
             if carry is None:
                 carry = shards.fresh(fresh, tables, active, inits, bucket,
                                      n_ops, slots)
             elif (bucket, slots) != cur:
+                if pending is not None:
+                    pending = None
+                    self.wasted_chunks += 1
+                spare = None  # the old width's
                 carry, crossed = shards.compact(
                     compact_carry, pad, carry, lanes, bucket, slots)
                 self.lanes_crossed += crossed
@@ -349,10 +391,28 @@ class TorchStepper(DeviceChecker):
             # every shard's launch enqueued before any status is read (the
             # sweep kernel runs each shard's active lanes alone, spread
             # evenly over the SMs); then the one host sync of the round
-            carry = shards.step(step, tables, carry, lanes, chunk=chunk,
-                                budget=self.total_budget,
-                                sweep=not self._uses_table)
-            dsi = shards.read_dsi(carry)
+            launch = functools.partial(
+                shards.step, step, tables,
+                chunk=self.chunk_schedule[sched_i], budget=self.total_budget,
+                sweep=not self._uses_table, missing=flags)
+            if pending is not None:
+                # the speculative chunk is this round's; the carry it
+                # started from is the next spare
+                carry, spare, pending = pending, carry, None
+            else:
+                carry = launch(carry, lanes)
+            read = shards.read_status(carry, flags)
+            if speculate and sched_i == last:
+                # this round's lane list holds every lane still RUNNING
+                # after it: the next round's may only be shorter
+                spare = shards.snapshot(carry, spare, lanes)
+                pending = launch(spare, lanes)
+                self.speculated_chunks += 1
+            t_sync = time.perf_counter()
+            dsi, left_out = read.wait()
+            self.host_sync_s += time.perf_counter() - t_sync
+            if left_out:
+                raise lanes_left_out(left_out)
             status = dsi[STATUS][lanes]
             iters = dsi[ITERS][lanes].astype(np.int64)
             self.rounds_run += 1
@@ -363,8 +423,8 @@ class TorchStepper(DeviceChecker):
             if done.any():
                 out_status[active[done]] = status[done]
                 if collect_chosen:
-                    out_chosen[active[done]] = shards.chosen(carry,
-                                                             lanes[done])
+                    out_chosen[active[done]] = shards.chosen(
+                        carry, lanes[done], after=read)
                 decided = status[done] != BUDGET
                 self.rescued += int(np.sum(decided
                                            & (iters[done] > self.budget)))
@@ -375,6 +435,8 @@ class TorchStepper(DeviceChecker):
             active = active[~done]
             lanes = lanes[~done]
             round_i += 1
+        if pending is not None:
+            self.wasted_chunks += 1  # the batch ended under the gamble
         self.last_iters = prev_iters
         self.device_histories += b
         self.device_batches += 1

@@ -210,29 +210,42 @@ def sweep_launch_plan(L: int, N: int, D: int, slots: int,
 # stepper_sweep
 # ---------------------------------------------------------------------------
 
-def _check_lanes(carry: StepperCarry, lanes) -> torch.Tensor:
+def lanes_left_out(n: int) -> ValueError:
+    """The refusal of a lane list that leaves out ``n`` RUNNING lanes."""
+    return ValueError(f"stepper_sweep: the lane list leaves out {n} "
+                      f"RUNNING lane(s)")
+
+
+def _check_lanes(carry: StepperCarry, lanes,
+                 missing: torch.Tensor = None) -> torch.Tensor:
     """``lanes`` as an int32 tensor on the carry's device, after checking
-    that they are distinct lanes of the carry and that every RUNNING lane
-    is among them (one read of the status plane)."""
+    on the host that they are distinct lanes of the carry, and that every
+    RUNNING lane is among them: read here (one read of the status plane),
+    or, with ``missing``, counted into it on the stream for the caller to
+    read later."""
     B, dev = carry.row.shape[0], carry.row.device
     idx = torch.from_numpy(np.array(lanes, np.int64).reshape(-1))
     if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= B
                         or idx.unique().numel() != idx.numel()):
         raise ValueError(f"stepper_sweep: the lane list must hold distinct "
                          f"lanes of [0, {B})")
-    idx = idx.to(dev)
-    missing = carry.dsi[1] == RUNNING
-    missing[idx] = False
-    if bool(missing.any()):
-        raise ValueError(
-            f"stepper_sweep: the lane list leaves out "
-            f"{int(missing.sum())} RUNNING lane(s)")
+    # from pinned memory, not waiting for the stream (a blocking upload
+    # would wait for every launch queued before it; so would ``left[idx]
+    # = False``, which uploads its Python scalar)
+    idx = (idx.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda"
+           else idx.to(dev))
+    left = (carry.dsi[1] == RUNNING).index_fill_(0, idx, False)
+    if missing is not None:
+        missing += left.sum(dtype=torch.int32)
+    elif bool(left.any()):
+        raise lanes_left_out(int(left.sum()))
     return idx.to(torch.int32)
 
 
 def stepper_sweep(model: SweepModel, tables: SweepTables,
                   carry: StepperCarry, *, chunk: int, budget: int,
-                  lanes=None, stats: torch.Tensor = None) -> StepperCarry:
+                  lanes=None, stats: torch.Tensor = None,
+                  missing: torch.Tensor = None) -> StepperCarry:
     """Advance every RUNNING lane by at most ``chunk`` DFS iterations (it
     stops earlier when it decides or its cumulative iterations reach
     ``budget``).  The carry is updated in place and returned.
@@ -240,6 +253,11 @@ def stepper_sweep(model: SweepModel, tables: SweepTables,
     ``lanes`` (optional) lists the carry lanes to run, every RUNNING lane
     among them (checked; a list that leaves one out raises): the kernel
     spreads exactly those over the SMs.  The result does not depend on it.
+    ``missing`` (optional, int32 ``[1]`` on the carry's device, with
+    ``lanes``) defers that check to the caller: the count of RUNNING lanes
+    the list leaves out is added to it on the stream, and the launch goes
+    ahead without a host read (``TorchStepper`` reads it with the round's
+    status and raises :func:`lanes_left_out` there).
     ``stats`` (optional, int64 ``[2]`` on the card) gains the launch's
     memo probes and the probes whose filter tag matched.
 
@@ -247,7 +265,13 @@ def stepper_sweep(model: SweepModel, tables: SweepTables,
     each launch); CPU tensors to :func:`stepper_sweep_plain`.  A failed
     build or launch raises; there is no fallback."""
     _check_sweep_args(tables, carry)
-    idx = _check_lanes(carry, lanes) if lanes is not None else None
+    if missing is not None and (
+            lanes is None or missing.device != carry.row.device
+            or missing.dtype != torch.int32 or missing.shape != (1,)):
+        raise ValueError("stepper_sweep: missing must be int32 [1] on the "
+                         "carry's device, beside a lane list")
+    idx = (_check_lanes(carry, lanes, missing) if lanes is not None
+           else None)
     dev = tables.cmd.device
     if dev.type == "cpu":
         return stepper_sweep_plain(model.spec, tables, carry, chunk=chunk,

@@ -45,8 +45,11 @@ started at once on a cold build directory loading one library; and the
 port's static checks on the card: families a and b (parity on the card,
 the rebuild guard's backends, the ptxas reports), each kernel's edge launch
 counted and bit-identical to its plain version, the seeded rebuilding
-backend caught, and ``lint`` on the card by default.  Without CUDA each
-test skips in its fixture."""
+backend caught, and ``lint`` on the card by default; the double-buffered
+tail on one card and on 4 logical shards of it equal to the run without
+it, one device-to-host copy a round in both regimes, and the sweep
+regime's lane check raising at the round's status read.  Without CUDA
+each test skips in its fixture."""
 
 from __future__ import annotations
 
@@ -1891,3 +1894,77 @@ def test_lint_subcommand_runs_on_the_card_by_default(cuda, capsys):
                "--no-cache"])
     doc = json.loads(capsys.readouterr().out.strip())
     assert rc == 0 and doc["ok"] and doc["device"].startswith("cuda")
+
+
+def _tail_corpus(model):
+    from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
+
+    spec, suts, pids, ops = {
+        "cas": (CasSpec(), (AtomicCasSUT, RacyCasSUT), 8, 32),
+        "kv16": (KvSpec(n_keys=16), (AtomicKvSUT, StaleCacheKvSUT), 16,
+                 64)}[model]
+    return spec, [h for h in build_corpus(
+        spec, suts, n=256, n_pids=pids, max_ops=ops, seed_base=1000,
+        seed_prefix="bench") if h.n_pending == 0]
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("model", ["cas", "kv16"])
+def test_tail_on_equals_off_on_the_card(cuda, model, shards):
+    """The double-buffered tail on the card, on one card and on 4 logical
+    shards of it (a short schedule, so that it runs): every lane's
+    status, ``chosen`` and iterations and the search counters equal the
+    run without it, speculative chunks consumed as the next round, and
+    one device-to-host copy a round in both regimes."""
+    from qsm_tpu_torch.mesh import batch_sharding, card_shard_mesh
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+
+    spec, hs = _tail_corpus(model)
+    plan = dict(chunk_schedule=(64, 256))
+    runs = []
+    for db in (False, True):
+        t = TorchStepper(spec, double_buffer=db, **plan, **(
+            {"sharding": batch_sharding(card_shard_mesh(shards))}
+            if shards > 1 else {}))
+        st, ch = t._run_device(hs, collect_chosen=True)
+        runs.append((st, ch, t.last_iters.copy(), t))
+    (s0, c0, i0, off), (s1, c1, i1, on) = runs
+    assert np.array_equal(s0, s1) and np.array_equal(c0, c1)
+    assert np.array_equal(i0, i1)
+    for k in ("rounds_run", "compactions", "lockstep_cost", "rescued",
+              "memo_prunes", "memo_inserts"):
+        assert getattr(on, k) == getattr(off, k), k
+    assert off.speculated_chunks == 0
+    assert on.speculated_chunks > on.wasted_chunks
+    assert on.speculated_chunks - on.wasted_chunks <= on.rounds_run
+    assert on.host_sync_s > 0
+    r0 = on.rounds_run
+    _, copies = _d2h_copies(lambda: on.check_histories(spec, hs))
+    assert copies == on.rounds_run - r0 > 0
+
+
+def test_sweep_lane_check_raises_at_the_round_read_on_the_card(
+        cuda, monkeypatch):
+    """A driver launch whose lane list leaves out a RUNNING lane goes
+    ahead (its check is counted on the card), and the round's status
+    read raises with the direct call's message; nothing is retried."""
+    from qsm_tpu_torch.mesh.shards import LaneShards
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.ops.sweep_kernel import stepper_sweep
+
+    spec, hs = _tail_corpus("kv16")
+    t = TorchStepper(spec, chunk_schedule=(64, 256), double_buffer=True)
+    assert t.regime == "sweep"
+    real, calls = LaneShards.step, []
+
+    def short_list(self, step, tables, carries, lanes, **kw):
+        calls.append(len(lanes))
+        return real(self, step, tables, carries,
+                    lanes[1:] if len(calls) == 2 else lanes, **kw)
+
+    monkeypatch.setattr(LaneShards, "step", short_list)
+    before = stepper_sweep.launches
+    with pytest.raises(ValueError, match="leaves out 1 RUNNING"):
+        t.check_histories(spec, hs)
+    assert stepper_sweep.launches - before == len(calls) == 3
+    assert t.device_histories == 0

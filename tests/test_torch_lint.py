@@ -620,7 +620,7 @@ def test_mesh_transfer_is_caught():
 
 def test_mesh_scope_is_the_function_not_the_module(tmp_path):
     """Placement in one function and the host read in another must not
-    co-occur into a finding (the mesh/shards.py step / read_dsi split);
+    co-occur into a finding (the mesh/shards.py step / read_status split);
     a dtype cast and a numpy conversion of host data are no placement
     and no read."""
     from qsm_tpu_torch.analysis.mesh_passes import check_mesh_file
