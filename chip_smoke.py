@@ -380,11 +380,12 @@ Phases, in order; any failure exits non-zero and no result is printed:
    unwhitelisted error or warning (each family's seconds and the rule
    counts printed); (b) family a's ``step_py`` / ``step_torch`` parity on
    the card for every registry model (states and tuples printed); (c) the
-   rebuild guard's three backends (``TorchGPU`` and ``TorchStepper`` on
-   CAS, ``TorchStepper``'s sweep regime on kv16) grow no compile, library
+   rebuild guard's four backends (``TorchGPU`` and ``TorchStepper`` on
+   CAS, ``TorchStepper``'s sweep regime on kv16 and on kv16 with its
+   kernel model withheld, the generic route) grow no compile, library
    load or cache after their warm call, and the seeded
    ``RebuildingTorchStepper`` is caught; (d) the SMEM/REGS pass over the
-   five ptxas reports of phase 1's build and each kernel launched once at
+   six ptxas reports of phase 1's build and each kernel launched once at
    its largest admitted plan, bit-identical to its plain version; (e)
    ``python -m qsm_tpu_torch lint --json`` in a subprocess (started first,
    beside (a)-(d), (f) and (g)) exits 0 over the fifteen families; (f)
@@ -413,6 +414,30 @@ Phases, in order; any failure exits non-zero and no result is printed:
    off and on: every lane equal to one device, and one device-to-host
    copy a round in both regimes under ``torch.profiler``.
    ``--tail-only`` runs phases 1, 2 and 24 alone and prints no result.
+25. the sweep regime's generic route (``ops/sweep_generic.py``: a spec
+   without a kernel model, or wider than 28 words, steps by its own
+   ``step_torch`` on the card and ``sweep_advance``): (a)
+   ``sweep_advance`` against its plain version, bit for bit, at 4096
+   lanes, 64 ops, memo on, on kv16 with its kind withheld and a KV map
+   of 32 keys, timed queued and through the wrapper beside its bound by
+   bytes, the plain version once, the split of a trip (gather,
+   ``step_torch``, ``sweep_advance``) and a whole trip's host time, and
+   a compaction of the 32-key carry (keys of 34 words) against its plain
+   version; (b) the kv16 headline corpus through ``TorchStepper`` with
+   its kind withheld against the kernel route at a total budget cut to
+   9,216 (rounds 1 and 2): every carry plane equal after each round, and
+   the counters and verdicts, tail off and on; histories/s of each route
+   with the tail on; (c)
+   the 32-key map (16 pids x 64 ops, 4096 lanes; the corpus and each of
+   its histories with its first-answered GET misread) through the
+   planned checker at a budget cut to 9,216: 0 mismatches against
+   ``CppOracle`` wherever both decided, and violations among them, every
+   LINEARIZABLE witness replayed; (d) the
+   unbounded ticket dispenser (one state word, no bound, no kind) in
+   ``prop_concurrent``: the racy SUT's counterexample equal to the
+   ``device="cpu"`` run's; (e) ``fuzz_parity`` vector specs at
+   ``(7,) * 7`` with the kind withheld, 0 mismatches.
+   ``--generic-only`` runs phases 1, 2 and 25 alone and prints no result.
 
 The lane samples of phases 6, 9 and 13-22 advance in worker processes
 (``sample_pool``, spawned at the start; a sample's lanes split among
@@ -431,8 +456,9 @@ own path, each case of phases 13 and 14 over its own, and
 15 (c), each path of phase 16 over its own, phase 17's in-process
 paths over the phase, each path of phases 18, 19, 20, 21 and 22 over
 its own, with phase 22's launches by shard as paths of their own, and
-phase 23's (a)-(d), (f) and (g) as the path "lint (phase 23)", and
-phase 24's (a)-(c) as the path "the tail (phase 24)"; the
+phase 23's (a)-(d), (f) and (g) as the path "lint (phase 23)",
+phase 24's (a)-(c) as the path "the tail (phase 24)", and each of
+phase 25 (b)-(e) as a path of its own; the
 kernels record lists those of phases 7-8 under
 ``launches``
 and every path's under ``launches_by_path``).  The second-to-last stdout line is the
@@ -445,6 +471,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -465,6 +492,7 @@ from qsm_tpu_torch import native
 from qsm_tpu_torch.core.generator import generate_program as gen_program
 from qsm_tpu_torch.core.history import bucket_for, encode_batch
 from qsm_tpu_torch.core.property import PropertyConfig, prop_concurrent
+from qsm_tpu_torch.core.spec import without_sweep_kernel
 from qsm_tpu_torch.gen import GenProfile, SteeringLoop, generate_batch
 from qsm_tpu_torch.gen import core as gen_core
 from qsm_tpu_torch.gen import steer as gen_steer
@@ -472,7 +500,8 @@ from qsm_tpu_torch.mesh.shards import LaneShards, cat_lanes, take_lanes
 from qsm_tpu_torch.models.cas import AtomicCasSUT, CasSpec, RacyCasSUT
 from qsm_tpu_torch.models.counter import (AtomicTicketSUT, RacyTicketSUT,
                                           TicketSpec)
-from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
+from qsm_tpu_torch.models.kv import (GET, PUT, AtomicKvSUT, KvSpec,
+                                     StaleCacheKvSUT)
 from qsm_tpu_torch.models.queue import (AtomicQueueSUT, QueueSpec,
                                         RacyTwoPhaseQueueSUT)
 from qsm_tpu_torch.models.registry import MODELS, SutFactory
@@ -484,6 +513,7 @@ from qsm_tpu_torch.models.txn import (AtomicTxnSUT, TornCopyTxnSUT,
 from qsm_tpu_torch.ops import kernels
 from qsm_tpu_torch.ops import gpu_backend as gpu_module
 from qsm_tpu_torch.ops import stepper as stepper_module
+from qsm_tpu_torch.ops import sweep_generic as generic_module
 from qsm_tpu_torch.ops.backend import (BackendUnavailable, Verdict,
                                        verify_witness)
 from qsm_tpu_torch.ops.dfs_kernel import (MEMO_GLOBAL, MEMO_SHARED, RUNNING,
@@ -514,6 +544,11 @@ from qsm_tpu_torch.ops.stepper_kernel import (ITERS, STATUS, StepperCarry,
                                               stepper_chunk_plain,
                                               stepper_launch_plan,
                                               stepper_tables, table_bytes)
+from qsm_tpu_torch.ops.sweep_generic import (advance_launch_plan,
+                                             step_planes,
+                                             stepper_sweep_generic,
+                                             sweep_advance,
+                                             sweep_advance_plain)
 from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry, stepper_sweep,
                                             stepper_sweep_plain,
                                             sweep_launch_plan, sweep_model,
@@ -1052,7 +1087,8 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
         if name == "queue48":
             q_tabs = tabs
             cpu_tabs = type(tabs)(*(t.cpu() for t in tabs))
-        for slots in (0, default_slots(B)):
+        big_slots = default_slots(B)
+        for slots in (0, big_slots):
             fresh = fresh_stepper_carry(tabs.nreq, np.arange(B), starts, B,
                                         N, slots)
             begins = {"fresh": fresh}
@@ -1066,12 +1102,14 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
             # the plain version's loop on the card is the phase's cost (its
             # host launching each trip's small operations): the CAS shapes
             # run 2 chunks at full width, the queue headline 3, and from
-            # its mid-search carry 4 on a lane sample carried on the CPU.
+            # its mid-search carry HELD_SAMPLE_CHUNKS on a lane sample
+            # carried on the CPU.
             # Lanes are independent, so after the first chunk the queue's
             # fresh and mid-search carries advance as one carry of 2 x B
             # lanes (cat_carries): every plane of every lane is still
-            # compared.  The chunk timed (the first from ``mid``) runs as
-            # it is, the others as CUDA graphs (graphed_plain)
+            # compared.  The chunk timed (the first from ``mid`` at the
+            # headline's memo size) runs as it is, the others as CUDA
+            # graphs (graphed_plain)
             plain = functools.partial(stepper_chunk_plain, tabs,
                                       budget=TOTAL_BUDGET)
             n_full = 3 if name == "queue48" else 2
@@ -1096,7 +1134,7 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                 if i < n_full:
                     if i == 0 or not joint:
                         for start in begins:
-                            if start != "mid" or i:
+                            if start != "mid" or i or slots != big_slots:
                                 graphed_plain(plain, cps[start], STEP_CHUNK)
                                 continue
                             torch.cuda.synchronize()
@@ -1104,7 +1142,8 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
                             plain(cps[start], chunk=STEP_CHUNK)
                             torch.cuda.synchronize()
                             # the plain version's time: its first chunk
-                            # from the mid-search carry
+                            # from the mid-search carry, at the memo size
+                            # the kernels record reports
                             plain_ms = (time.perf_counter() - t0) * 1e3
                     else:
                         both = graphed_plain(
@@ -1148,13 +1187,15 @@ def phase_stepper(q_spec, q_corpus, dev, tag):
             one = new_stepper(tabs, clone_carry(mid))
             bound_ms, bound_by, nbytes, ops = stepper_bound(tabs, mid, one)
             # plain_ms: the comparison's first plain chunk from ``mid``
-            rows[slots] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            rows[slots] = dict(ms=ms, plain_ms=plain_ms if slots == big_slots
+                               else None, bound_ms=bound_ms,
                                bound_by=bound_by, mid=mid)
+            timed = (f"plain {plain_ms:.1f} ms" if slots == big_slots
+                     else "plain not timed: its chunks ran as CUDA graphs")
             print(f"{tag} stepper_chunk {name} B={B} slots={slots}: "
                   f"{ms:.4f} ms/launch of {STEP_CHUNK} iterations from the "
                   f"mid-search carry (bound {bound_ms:.6f} ms by {bound_by}: "
-                  f"{nbytes} B, {ops} ops; plain {plain_ms:.1f} ms)",
-                  flush=True)
+                  f"{nbytes} B, {ops} ops; {timed})", flush=True)
 
     # compact_carry out of the queue headline's carries after 3 chunks,
     # running lanes first: (label, old slots, new bucket, new slots)
@@ -1529,8 +1570,12 @@ class LaneSample:
     def check(self, what: str) -> int:
         """Each kept card snapshot against the worker's sample after the
         same chunk, plane by plane; the largest error (0, or this
-        raises)."""
+        raises).  The time this process waits for the workers adds to
+        ``SAMPLE_WAIT``."""
+        t0 = time.perf_counter()
         parts = [f.result(timeout=SAMPLE_TIMEOUT_S) for f in self._futures]
+        SAMPLE_WAIT["s"] += time.perf_counter() - t0
+        SAMPLE_WAIT["samples"] += 1
         mine = [cat_lanes(chunk) for chunk in zip(*parts)]
         require(len(mine) == len(self._card), f"{what}: {len(self._card)} "
                 f"card chunks kept against {len(mine)} sample chunks")
@@ -1543,6 +1588,9 @@ class LaneSample:
 
 
 SAMPLE_WORKERS = 4             # processes advancing lane samples
+# what the lane samples cost the run: seconds this process waited for the
+# workers, over how many samples
+SAMPLE_WAIT = {"s": 0.0, "samples": 0}
 SAMPLE_TIMEOUT_S = 900.0
 _SAMPLE_POOL = None
 
@@ -1776,20 +1824,23 @@ def phase_sweep(kv_spec, kv_corpus, dev, tag, against=None):
             # running lanes alone) and over every lane, against the plain
             # version on the card; the first plain chunk is its time
             n_full = 2 if name == "kv16" else 1
+            headline = name == "kv16" and slots > 0
             ck, cf, cp = (clone_carry(mid) for _ in range(3))
             sample = LaneSample(mid, n_unique, functools.partial(
                 stepper_sweep_plain, spec, cpu_tabs, chunk=SWEEP_CHUNK,
                 budget=TOTAL_BUDGET))
-            n_sample = HELD_SAMPLE_CHUNKS if name == "kv16" else 2
+            n_sample = HELD_SAMPLE_CHUNKS if name == "kv16" else 1
             for i in range(max(n_full, n_sample)):
                 main_sweep(model, tabs, ck)
                 if i < n_full:
                     new_sweep(model, tabs, cf)
-                    # the first plain chunk runs as it is, and is timed;
-                    # the second as a CUDA graph (graphed_plain)
+                    # the headline's first plain chunk runs as it is, and
+                    # is timed (the kernels record's plain time); every
+                    # other chunk as a CUDA graph (graphed_plain), the
+                    # first of them timed too
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    if i == 0:
+                    if i == 0 and headline:
                         plain(cp, chunk=SWEEP_CHUNK)
                     else:
                         graphed_plain(plain, cp, SWEEP_CHUNK)
@@ -1847,7 +1898,8 @@ def phase_sweep(kv_spec, kv_corpus, dev, tag, against=None):
                   f"longest lane {longest} iterations, {cycles:.0f} cycles an"
                   f" iteration at {mhz:.0f} MHz (bound {bound_ms:.6f} ms by "
                   f"{bound_by}: {nbytes} B, {ops} ops; plain {plain_ms:.1f} "
-                  f"ms){filt}; {int((ck.dsi[1] == RUNNING).sum())} still "
+                  f"ms{'' if headline else ' as a CUDA graph'}){filt}; "
+                  f"{int((ck.dsi[1] == RUNNING).sum())} still "
                   f"running; case {time.perf_counter() - t_case:.1f} s",
                   flush=True)
             if old is not None:
@@ -3258,6 +3310,12 @@ def planned_host_stages(spec, lanes, oracle):
     return t1 - t0, t2 - t1, time.perf_counter() - t2
 
 
+def timed_call(fn, *args):
+    """``(fn(*args), seconds it took)``."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
 def phase_search(spec, corpus, kv_spec, kv_corpus, tag):
     """Phase 16: the search plane on the card.  (a) the CAS headline at
     4096 lanes through ``TorchStepper(spec)`` ("hand") and the planned
@@ -3274,7 +3332,6 @@ def phase_search(spec, corpus, kv_spec, kv_corpus, tag):
     path and the largest error."""
     launches, err = {}, 0
     counters = (stepper_chunk, compact_carry, stepper_sweep)
-
     def reset():
         for c in counters + (dfs_chunk,):
             c.launches = 0
@@ -3382,11 +3439,22 @@ def phase_search(spec, corpus, kv_spec, kv_corpus, tag):
           f"(one run), undecided {und}, {both} decided by both, 0 "
           f"mismatches, witnesses replayed", flush=True)
 
-    # (b) per-history routing
+    # (b) per-history routing: the cases' CppOracle verdicts computed on a
+    # thread beside (b)'s cases before each (kv16's whole histories take
+    # the oracle tens of seconds), after (a)'s timings
     cases = [("CAS headline", spec, corpus)] + list(long_corpora()) + [
         ("kv16", kv_spec, kv_corpus)]
+    oracle_pool = ThreadPoolExecutor(max_workers=1)
+    oracle_v = {name: oracle_pool.submit(functools.partial(
+        timed_call, native.CppOracle(sp).check_histories, sp, cs))
+        for name, sp, cs in cases}
+    oracle_pool.shutdown(wait=False)
+    oracle_s = oracle_wait_s = 0.0
     for name, sp, cs in cases:
-        ov = native.CppOracle(sp).check_histories(sp, cs)
+        t0 = time.perf_counter()
+        ov, sec = oracle_v[name].result()
+        oracle_wait_s += time.perf_counter() - t0
+        oracle_s += sec
         lanes_b = _replicate(cs, DEVICE_BATCH)
         reset()
         auto = AutoDevice(sp)
@@ -3416,6 +3484,9 @@ def phase_search(spec, corpus, kv_spec, kv_corpus, tag):
             cap = (auto.NATIVE_WIDTH_CAP if auto._native_mid
                    else auto.WIDTH_CAP)
             routes_by_width(name, sp, cs, cap, tag)
+    print(f"{tag} 16b the cases' CppOracle verdicts: {oracle_s:.1f} s on a "
+          f"thread beside (b)'s timings, of which (b) waited "
+          f"{oracle_wait_s:.1f} s", flush=True)
 
     # (c) root splitting, escalation: the inner pass alone first, for its
     # undecided lanes, then the path (its whole pass and the children)
@@ -6544,7 +6615,7 @@ def phase_lint(tag, spec, corpus, kv_spec, kv_corpus, device=None):
     proc = cli_proc("lint", "--json", *(("--device", "cpu")
                                         if dev.type == "cpu" else ()))
     counters = (dfs_chunk, stepper_chunk, compact_carry, stepper_sweep,
-                threefry_draws)
+                threefry_draws, sweep_advance)
     try:
         for c in counters:
             c.launches = 0
@@ -7003,6 +7074,486 @@ def phase_tail(spec, corpus, q_spec, q_corpus, kv_spec, kv_corpus, tag):
     return launches, err
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 25: the sweep regime's generic route
+# ---------------------------------------------------------------------------
+
+GENERIC_MID = 256              # (a): generic trips before the held carry
+GENERIC_REPS = 50              # (a): launches timed, queued behind a spin
+GENERIC_ROUNDS = (1024, 8192)  # (b): the rounds held, and their budget
+GENERIC_KV32_BUDGET = 9_216    # (c): rounds 1 and 2 of the schedule (cut)
+GENERIC_SPLIT_TRIPS = 200      # (b): calls timed for the split of a trip
+GENERIC_PROP = dict(n_trials=30, n_pids=3, max_ops=12, seed=0)   # (d)
+GENERIC_FUZZ = dict(n_specs=4, hists_per_spec=256, n_ops=8,      # (e)
+                    vector_bounds=(7,) * 7)
+
+
+class UnboundedTicketSpec(TicketSpec):
+    """``docs/EXTENDING.md``'s counter as a user first writes it: one state
+    word, no ``scalar_state_bound`` and no kernel model."""
+
+    def scalar_state_bound(self, n_ops):
+        return None
+
+
+class RoundCarries:
+    """Inside ``with``: each round's carries (every shard's, cloned on the
+    stream when the round's status read starts, after its chunk) of every
+    ``TorchStepper`` batch, in order."""
+
+    def __enter__(self):
+        self.rounds = []
+        self._real = real = LaneShards.read_status
+        rec = self
+
+        def read_status(shards, carries, flags=None):
+            rec.rounds.append([clone_carry(c) for c in carries])
+            return real(shards, carries, flags)
+
+        LaneShards.read_status = read_status
+        return self
+
+    def __exit__(self, *exc):
+        LaneShards.read_status = self._real
+        return False
+
+
+def kv32_corpus():
+    spec = KvSpec(n_keys=32, n_values=4)
+    return spec, build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT),
+                              n=N_UNIQUE, n_pids=KV_PIDS, max_ops=KV_OPS,
+                              seed_base=1000, seed_prefix="bench")
+
+
+def misread_first_get(spec, h):
+    """``h`` with its first-answered GET reading a value that neither the
+    initial state nor any PUT invoked before that answer gives its key:
+    a violation in every order.  The search proves it by exhausting only
+    the ops that may precede that GET, so (c) holds decided violations
+    of 16 pids x 64 ops (the corpus's own take the search past any cut
+    budget).  None where every value is taken."""
+    gets = [i for i, o in enumerate(h.ops) if o.cmd == GET
+            and not o.is_pending]
+    if not gets:
+        return None
+    i = min(gets, key=lambda k: h.ops[k].response_time)
+    g = h.ops[i]
+    seen = {0} | {o.arg % spec.n_values for o in h.ops if o.cmd == PUT
+                  and o.arg // spec.n_values == g.arg
+                  and o.invoke_time < g.response_time}
+    free = [v for v in range(spec.n_values) if v not in seen]
+    if not free:
+        return None
+    ops = list(h.ops)
+    ops[i] = dataclasses.replace(g, resp=free[0])
+    return dataclasses.replace(h, ops=ops)
+
+
+def advance_bound(tabs, lanes: torch.Tensor, carry: StepperCarry):
+    """(bound_ms, bound_by, bytes) of one ``sweep_advance`` launch over
+    ``lanes`` of ``carry``: each running lane's ok row, one ``nxt`` row,
+    its predecessor and valid words, taken column, chosen, dsi, row and
+    nreq words, one state row read and one written, the next state
+    written and one memo key and occupancy word; the operations (a few
+    hundred integer ops a lane) are far below the card's rate."""
+    N, W = tabs.cmd.shape[1], tabs.prec.shape[1]
+    D, slots = carry.states.shape[2], carry.occ.shape[1]
+    running = int((carry.dsi[1, lanes.long()] == RUNNING).sum())
+    per_lane = (N + 4 * D + 4 * W * (N + 1) + 4 * N + 4 * (2 + 5 + 5 + 2)
+                + 3 * 4 * D + (4 * (W + D + 1) if slots else 0))
+    nbytes = running * per_lane
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def queued_ms(make_calls) -> float:
+    """ms a call of the thunks ``make_calls()`` returns, CUDA events, the
+    calls queued behind a spin of the card long enough for the host to
+    enqueue them all (``time_queued``'s method; the spin doubles, and the
+    thunks are made anew, until it is): the card's time alone."""
+    spin = 20_000_000
+    while True:
+        calls = make_calls()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / len(calls)
+        spin *= 2
+
+
+def time_advance(tabs, carry, lanes, nxt, ok, state, reps=GENERIC_REPS):
+    """ms per ``sweep_advance`` launch through the wrapper, queued
+    (:func:`queued_ms`), each launch on its own copy of the carry's
+    stacks and counters (the memo planes are shared: an insert of one
+    launch may turn a later launch's descent into a prune); and the
+    host's ms a launch back to back.  The launches are not the path's."""
+    def make_calls():
+        out = []
+        for _ in range(reps):
+            c = carry._replace(**{k: getattr(carry, k).clone() for k in (
+                "taken", "chosen", "states", "dsi")})
+            out.append(functools.partial(
+                sweep_advance, tabs, c, lanes, nxt, ok, budget=TOTAL_BUDGET,
+                state_out=state.clone()))
+        return out
+
+    launches = sweep_advance.launches
+    ms = queued_ms(make_calls)
+    calls = make_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for call in calls:
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    sweep_advance.launches = launches
+    return ms, host_ms
+
+
+def host_us(fn, reps=GENERIC_SPLIT_TRIPS) -> float:
+    """Host microseconds a call of ``fn()``, the calls enqueued back to
+    back and synchronised once at the end (the card keeps up or the
+    number is the card's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def generic_inputs(spec, corpus, dev):
+    """(tables, fresh carry, model) of ``corpus`` replicated to the
+    device batch, at the port's memo slots for that bucket."""
+    lanes = _replicate(corpus, DEVICE_BATCH)
+    tabs, starts = sweep_inputs(spec, lanes, KV_OPS, dev)
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(DEVICE_BATCH), starts,
+                              DEVICE_BATCH, KV_OPS,
+                              default_slots(DEVICE_BATCH, spec.STATE_DIM))
+    return tabs, carry, sweep_model(spec, dev)
+
+
+def phase_generic(kv_spec, kv_corpus, dev, tag):
+    """Phase 25: the sweep regime's generic route (``ops/sweep_generic.py``:
+    the spec's own ``step_torch`` on the card, then ``sweep_advance``)
+    for a spec without a kernel model or wider than 28 words.  (a)
+    ``sweep_advance`` against ``sweep_advance_plain``, bit for bit, at
+    4096 lanes, 64 ops, memo on, on the running lanes of a carry
+    ``GENERIC_MID`` generic trips in: kv16 with its kind withheld and a KV
+    map of 32 keys; each timed queued and through the wrapper, the plain
+    version once, beside its bound by bytes; the split of a trip (the
+    state gather, ``step_torch`` with its casts, ``sweep_advance``) in
+    host microseconds a call and a whole trip's; one compaction of the
+    kv32 carry (keys of 34 words) against ``compact_carry_plain``.  (b)
+    the kv16 headline corpus at 4096 lanes through ``TorchStepper`` with
+    its kind withheld against the built-in kernel, at the schedule
+    ``GENERIC_ROUNDS`` and their total budget: every carry plane after
+    each round, the counters and the verdicts equal, tail off and on;
+    histories/s of each route with the tail on.  (c) the KV map of 32 keys
+    (only the generic route runs it) at 16 pids x 64 ops, 4096 lanes, its
+    corpus and each history of it with its first-answered GET misread
+    (:func:`misread_first_get`), through the planned checker
+    (``build_backend(spec, plan_search(spec, platform="cuda"))``, its
+    budget cut to ``GENERIC_KV32_BUDGET``): 0 verdict mismatches against
+    ``CppOracle`` (native kind 2) wherever both decided, violations among
+    them, every LINEARIZABLE witness replayed.  (d) the unbounded
+    ticket dispenser (one state word, no bound, no kind) in
+    ``prop_concurrent`` on the card: the racy SUT convicted with the
+    counterexample of the same run with ``device="cpu"``, the atomic one
+    passed.  (e) ``fuzz_parity`` vector specs at ``GENERIC_FUZZ`` with
+    the kind withheld through the ``device`` arm: 0 mismatches.  The
+    launches of (b)-(e) are the path's.  Returns (launches by path, the
+    largest error, the kernels line's row)."""
+    t_phase = time.perf_counter()
+    err = 0
+    kindless = without_sweep_kernel(KvSpec)(n_keys=KV_KEYS, n_values=4)
+    k32_spec, k32_corpus = kv32_corpus()
+    # (a)
+    row = None
+    for name, spec, corpus in (("kv16 without its kind", kindless,
+                                kv_corpus), ("kv32", k32_spec, k32_corpus)):
+        t0 = time.perf_counter()
+        tabs, carry, model = generic_inputs(spec, corpus, dev)
+        require(model.route == "generic", f"{name}: route {model.route}")
+        stepper_sweep_generic(model, tabs, carry, chunk=GENERIC_MID,
+                              budget=TOTAL_BUDGET)
+        run = torch.from_numpy(running_lanes(carry).astype(np.int32)).to(dev)
+        il = run.long()
+        state = carry.states[il, carry.dsi[0, il].long()]
+        ops = tuple(t[carry.row[il].long()] for t in tabs[:3])
+        nxt, ok = step_planes(spec, state, *ops)
+        got, want = clone_carry(carry), clone_carry(carry)
+        s_got, s_want = state.clone(), state.clone()
+        sweep_advance(tabs, got, run, nxt, ok, budget=TOTAL_BUDGET,
+                      state_out=s_got)
+        sweep_advance_plain(tabs, want, run, nxt, ok, budget=TOTAL_BUDGET,
+                            state_out=s_want)
+        torch.cuda.synchronize()
+        err = max(err, _compare(f"25a {name}", got, want))
+        require(torch.equal(s_got, s_want), f"25a {name}: the next states "
+                f"differ from plain")
+        ms, wrapper_ms = time_advance(tabs, carry, run, nxt, ok, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sweep_advance_plain(tabs, clone_carry(carry), run, nxt, ok,
+                            budget=TOTAL_BUDGET, state_out=state.clone())
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        bound_ms, bound_by, nbytes = advance_bound(tabs, run, carry)
+        split = {
+            "gather": host_us(lambda: carry.states[
+                il, carry.dsi[0, il].long()]),
+            "step_torch": host_us(lambda: step_planes(spec, state, *ops)),
+            # the launch as the generic loop makes it (its arguments
+            # checked once a chunk, not each trip)
+            "sweep_advance": host_us(
+                lambda: generic_module.advance_unchecked(
+                    tabs, got, run, nxt, ok, TOTAL_BUDGET, s_got)),
+        }
+        torch.cuda.synchronize()
+        trip_c = clone_carry(carry)
+        t1 = time.perf_counter()
+        stepper_sweep_generic(model, tabs, trip_c, chunk=GENERIC_MID,
+                              budget=TOTAL_BUDGET, lanes=running_lanes(
+                                  carry))
+        torch.cuda.synchronize()
+        trip_us = (time.perf_counter() - t1) / GENERIC_MID * 1e6
+        step_ms = queued_ms(lambda: [functools.partial(
+            step_planes, spec, state, *ops)] * GENERIC_REPS)
+        print(f"{tag} 25a {name}: sweep_advance on the {run.numel()} "
+              f"running lanes of {DEVICE_BATCH} after {GENERIC_MID} generic "
+              f"trips (N={KV_OPS}, D={spec.STATE_DIM}, "
+              f"{carry.occ.shape[1]} memo slots, plan "
+              f"{tuple(advance_launch_plan(run.numel(), device_sms(dev)))}) "
+              f"bit-identical to sweep_advance_plain (max abs err 0); "
+              f"{ms:.4f} ms a launch queued ({wrapper_ms:.4f} ms of host a "
+              f"launch through the wrapper), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.6f} ms by {bound_by} ({nbytes} B, "
+              f"{ms / bound_ms:.1f}x); step_torch glue {step_ms:.4f} ms a "
+              f"trip queued; host us a call: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in split.items())
+              + f"; a whole trip {trip_us:.1f} us of host; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if spec is kindless:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, wrapper_ms=wrapper_ms,
+                       step_torch_ms=step_ms, trip_us=trip_us,
+                       split_us=split)
+        else:
+            # keys of W + D = 34 words through the compaction's re-hash
+            lanes = np.arange(COMPACT_TO)
+            slots = default_slots(COMPACT_TO, spec.STATE_DIM)
+            cg = compact_carry(trip_c, lanes, COMPACT_TO, slots)
+            cw = compact_carry_plain(trip_c, torch.from_numpy(
+                lanes.astype(np.int32)).to(dev), COMPACT_TO, slots)
+            torch.cuda.synchronize()
+            err = max(err, _compare("25a kv32 compaction", cg, cw))
+            print(f"{tag} 25a kv32: compact_carry of {len(lanes)} lanes "
+                  f"({int((trip_c.dsi[1, :COMPACT_TO] == RUNNING).sum())} "
+                  f"running), {trip_c.occ.shape[1]} -> {slots} slots (keys of "
+                  f"{trip_c.keys.shape[2]} words re-hashed), bit-identical "
+                  f"to compact_carry_plain", flush=True)
+        del tabs, carry, got, want, trip_c, nxt, ok
+    # the path: (b)-(e)
+    counters = (sweep_advance, stepper_sweep, compact_carry)
+    for c in counters:
+        c.launches = 0
+    paths = {}
+    # (b)
+    t0 = time.perf_counter()
+    lanes = _replicate(kv_corpus, DEVICE_BATCH)
+    cut = dict(budget=sum(GENERIC_ROUNDS), mid_budget=0, rescue_budget=0)
+    rates, verdicts = {}, {}
+    for db in (False, True):
+        held, counts = {}, {}
+        for label, spec in (("kernel", kv_spec), ("generic", kindless)):
+            t = TorchStepper(spec, double_buffer=db,
+                             chunk_schedule=GENERIC_ROUNDS, **cut)
+            require(t.sweep_route == label, f"25b {label}: route "
+                    f"{t.sweep_route}")
+            with RoundCarries() as rec:
+                v, sec = timed_check(t, spec, lanes)
+            held[label] = rec.rounds
+            verdicts[(label, db)] = v
+            counts[label] = (t.rounds_run, t.compactions, t.memo_prunes,
+                             t.memo_inserts, t.lockstep_cost)
+            if db:   # the tail on, as TorchStepper runs on the card
+                rates[label] = len(lanes) / sec
+        require(len(held["kernel"]) == len(held["generic"]) >= 2,
+                f"25b: {len(held['kernel'])} rounds on the kernel route, "
+                f"{len(held['generic'])} on the generic one")
+        for r, (a, b) in enumerate(zip(held["kernel"], held["generic"])):
+            for x, y in zip(a, b):
+                bad = [k for k, p, q in zip(StepperCarry._fields, x, y)
+                       if not torch.equal(p, q)]
+                require(not bad, f"25b round {r + 1}, tail "
+                        f"{'on' if db else 'off'}: {bad} differ between "
+                        f"the routes")
+        require(counts["kernel"] == counts["generic"], f"25b tail "
+                f"{'on' if db else 'off'}: counters {counts['kernel']} on "
+                f"the kernel route, {counts['generic']} on the generic one")
+        print(f"{tag} 25b kv16 whole at the schedule {GENERIC_ROUNDS}, "
+              f"total budget {sum(GENERIC_ROUNDS)}, tail "
+              f"{'on' if db else 'off'}: every carry plane (taken, chosen, "
+              f"states, dsi, keys, occ, row) of the {len(held['kernel'])} "
+              f"rounds, and the counters (rounds, compactions, prunes, "
+              f"inserts, lockstep) {counts['generic']}, equal on the kernel "
+              f"and the generic route", flush=True)
+        del held
+    v = verdicts[("generic", True)]
+    require(all(np.array_equal(x, v) for x in verdicts.values()),
+            "25b: verdicts differ between the routes or the tail settings")
+    paths["kv16 without its kind (phase 25 (b))"] = {
+        c.__name__: c.launches for c in counters}
+    print(f"{tag} 25b kv16 whole, {len(lanes)} lanes: verdicts equal on "
+          f"both routes, tail off and on: "
+          f"{int((v == Verdict.LINEARIZABLE).sum())} linearizable, "
+          f"{int((v == Verdict.VIOLATION).sum())} violations, "
+          f"{int((v == Verdict.BUDGET_EXCEEDED).sum())} undecided at "
+          f"{sum(GENERIC_ROUNDS)} iterations; histories/s with the tail "
+          f"on (carries cloned each round): kernel route "
+          f"{rates['kernel']:.1f}, generic route {rates['generic']:.1f} "
+          f"(kernel / generic {rates['kernel'] / rates['generic']:.1f}x); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # (c): the corpus and each of its histories with its first-answered
+    # GET misread; their CppOracle verdicts on the host beside (c) alone
+    t0 = time.perf_counter()
+    k32_cases = k32_corpus + [m for m in (misread_first_get(k32_spec, h)
+                                          for h in k32_corpus) if m]
+    cpp = native.CppOracle(k32_spec)
+    oracle_out = {}
+
+    def run_oracle():
+        t1 = time.perf_counter()
+        oracle_out["v"] = np.asarray(cpp.check_histories(k32_spec,
+                                                         k32_cases))
+        oracle_out["s"] = time.perf_counter() - t1
+
+    worker = threading.Thread(target=run_oracle, name="kv32-oracle")
+    worker.start()
+    for c in counters:
+        c.launches = 0
+    plan = plan_search(k32_spec, platform="cuda")
+    backend = build_backend(k32_spec, plan, budget=GENERIC_KV32_BUDGET,
+                            mid_budget=0, rescue_budget=0)
+    require(isinstance(backend, stepper_module.TorchStepper)
+            and backend.sweep_route == "generic",
+            f"25c: the plan {plan.name} built {type(backend).__name__}")
+    k32_lanes = _replicate(k32_cases, DEVICE_BATCH)
+    v32, sec = timed_check(backend, k32_spec, k32_lanes)
+    uv = v32[:len(k32_cases)]
+    lin = [h for h, x in zip(k32_cases, uv) if x == Verdict.LINEARIZABLE]
+    require(all(not h.n_pending for h in lin), "25c: a pending op")
+    _, chosen, _ = device_lanes(backend, lin)
+    for h, ch in zip(lin, chosen):
+        wit = [(int(j), h.ops[int(j)].resp) for j in ch[:len(h.ops)]]
+        require(verify_witness(k32_spec, h, wit), "25c: a LINEARIZABLE "
+                "witness failed to replay")
+    t1 = time.perf_counter()
+    worker.join()
+    join_s = time.perf_counter() - t1
+    ov = oracle_out["v"]
+    both = (uv != Verdict.BUDGET_EXCEEDED) & (ov != Verdict.BUDGET_EXCEEDED)
+    mism = int(((uv != ov) & both).sum())
+    require(mism == 0, f"25c: {mism} verdict mismatches vs CppOracle")
+    require(cpp.native_histories > 0, "25c: CppOracle decided nothing "
+            "natively")
+    # the exhausted -> insert -> backtrack -> FAILURE path, keys of 34
+    # words, held against the oracle at the cell's width
+    n_vio = int(((uv == Verdict.VIOLATION) & both).sum())
+    require(n_vio > 0, "25c: no violation decided by both")
+    paths["kv32 planned (phase 25 (c))"] = {
+        c.__name__: c.launches for c in counters}
+    print(f"{tag} 25c kv32 ({k32_spec.STATE_DIM} words) through the planned "
+          f"checker (plan {plan.name}, decompose_keys "
+          f"{plan.decompose_keys}, budget cut to {GENERIC_KV32_BUDGET}): "
+          f"{len(k32_lanes)} histories ({len(k32_corpus)} unique and "
+          f"{len(k32_cases) - len(k32_corpus)} with their first-answered "
+          f"GET misread) in "
+          f"{sec:.3f} s = {len(k32_lanes) / sec:.1f} histories/s (cold), "
+          f"rounds {backend.rounds_run}, compactions "
+          f"{backend.compactions}; {int((uv == Verdict.LINEARIZABLE).sum())}"
+          f" linearizable, {int((uv == Verdict.VIOLATION).sum())} "
+          f"violations, {int((uv == Verdict.BUDGET_EXCEEDED).sum())} "
+          f"undecided; vs CppOracle (native kind 2, "
+          f"{cpp.native_histories} native, {oracle_out['s']:.2f} s on a "
+          f"thread beside (c)'s checker, which then waited {join_s:.2f} "
+          f"s for it): 0 mismatches over {int(both.sum())} "
+          f"decided by both ({n_vio} violations); {len(lin)} witnesses "
+          f"replayed; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # (d)
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    tspec = UnboundedTicketSpec()
+    card = TorchStepper(tspec)
+    require((card.regime, card.sweep_route) == ("sweep", "generic"),
+            f"25d: {card.regime} / {card.sweep_route}")
+    cfg = PropertyConfig(**GENERIC_PROP)
+    res = prop_concurrent(tspec, RacyTicketSUT(), cfg, backend=card)
+    paths["unbounded ticket property (phase 25 (d))"] = {
+        c.__name__: c.launches for c in counters}
+    host = prop_concurrent(tspec, RacyTicketSUT(), cfg,
+                           backend=TorchStepper(tspec, device="cpu"))
+    require(not res.ok and not host.ok, "25d: the racy ticket dispenser "
+            "was not convicted")
+    cx, hx = res.counterexample, host.counterexample
+    require((cx.program, cx.trial_seed, cx.shrink_steps,
+             history_to_rows(cx.history)) == (
+        hx.program, hx.trial_seed, hx.shrink_steps,
+        history_to_rows(hx.history)),
+        "25d: the counterexample differs from the run with device='cpu'")
+    ok_run = prop_concurrent(tspec, AtomicTicketSUT(), cfg,
+                             backend=TorchStepper(tspec))
+    require(ok_run.ok and ok_run.undecided == 0, f"25d: the atomic ticket "
+            f"dispenser: ok={ok_run.ok}, undecided {ok_run.undecided}")
+    print(f"{tag} 25d unbounded ticket dispenser ({GENERIC_PROP}): racy "
+          f"convicted after {res.trials_run} trials, counterexample of "
+          f"{len(cx.program)} ops after {cx.shrink_steps} shrink steps, "
+          f"equal to the run with device='cpu'; atomic passed "
+          f"({ok_run.trials_run} trials, 0 undecided); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # (e)
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    rep = fuzz_parity(backends=("device",), device=dev,
+                      vector_spec=without_sweep_kernel(RandomVectorSpec),
+                      **GENERIC_FUZZ)
+    got = {c.__name__: c.launches for c in counters}
+    paths["vector fuzz without kinds (phase 25 (e))"] = got
+    require(rep.ok, f"25e: {len(rep.mismatches)} mismatches: "
+            f"{rep.mismatches[:4]}")
+    require(got["sweep_advance"] > 0 and got["stepper_sweep"] == 0,
+            f"25e: launches {got}: the generic route was not taken")
+    print(f"{tag} 25e fuzz_parity {GENERIC_FUZZ} with the kind withheld, "
+          f"device arm: {rep.histories} histories, 0 mismatches "
+          f"({rep.linearizable} linearizable, {rep.violations} violations, "
+          f"{rep.budget_exceeded} undecided by the oracle); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, got in paths.items():
+        require(got["sweep_advance"] > 0, f"{name} launched no "
+                f"sweep_advance")
+    print(f"{tag} path of the generic route (phase 25): " + "; ".join(
+        f"{name}: {got['sweep_advance']} sweep_advance, "
+        f"{got['compact_carry']} compact_carry" for name, got in
+        paths.items()) + " launches", flush=True)
+    print(f"{tag} phase 25 took {time.perf_counter() - t_phase:.1f} s "
+          f"(target 60 s)", flush=True)
+    return paths, err, row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -7035,6 +7586,10 @@ def main(argv=None) -> int:
                     help="run phases 1-2 and 24 alone (a check of the "
                          "double-buffered tail, not the contract's run: "
                          "no result is printed)")
+    ap.add_argument("--generic-only", action="store_true",
+                    help="run phases 1-2 and 25 alone (a check of the "
+                         "sweep regime's generic route, not the contract's "
+                         "run: no result is printed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7099,6 +7654,11 @@ def main(argv=None) -> int:
                                              *kv16_corpus(), tag)
         print(f"{tag} --tail-only: launches {json.dumps(tail_launches)}; "
               f"largest error {tail_err}; no result", flush=True)
+        return 0
+    if args.generic_only:
+        gen_paths, gen_err, _ = phase_generic(*kv16_corpus(), dev, tag)
+        print(f"{tag} --generic-only: launches {json.dumps(gen_paths)}; "
+              f"largest error {gen_err}; no result", flush=True)
         return 0
     if args.mesh_only:
         t0 = time.perf_counter()
@@ -7242,6 +7802,11 @@ def main(argv=None) -> int:
                                          kv_spec, kv_corpus, tag)
     print(f"{tag} phase the double-buffered tail: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    generic_paths, generic_err, advance = phase_generic(kv_spec, kv_corpus,
+                                                        dev, tag)
+    print(f"{tag} phase the generic route: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     by_path = {"queue (phases 7-8)": {"stepper_chunk": step_launches,
                                       "compact_carry": comp_launches},
                **{f"{k} per key": x for k, x in pcomp_launches.items()},
@@ -7252,7 +7817,7 @@ def main(argv=None) -> int:
                **res_launches, **mon_launches, **serve_launches,
                **fleet_launches, **mesh_launches,
                "lint (phase 23)": lint_launches,
-               "the tail (phase 24)": tail_launches}
+               "the tail (phase 24)": tail_launches, **generic_paths}
 
     def paths_of(kernel):
         return {k: x[kernel] for k, x in by_path.items() if kernel in x}
@@ -7260,10 +7825,12 @@ def main(argv=None) -> int:
     # phase 6 and the paths of phases 13-17, each on its own inputs
     step_err = max(step_err, pcomp_err, hybrid_err, gen_err, search_err,
                    entry_err, res_err, mon_err, serve_err, fleet_err,
-                   mesh_err, lint_err, tail_err)
+                   mesh_err, lint_err, tail_err, generic_err)
     search_err = max(search_err, entry_err, res_err, mon_err, serve_err,
                      fleet_err, mesh_err, lint_err, tail_err)
     draws_err = max(draws_err, lint_err)
+    # sweep_advance: phase 25 (a) and the edge launch of phase 23
+    advance_err = max(generic_err, lint_err)
     head = next(r for r in timings if r["tables"] == "cas"
                 and r["B"] == 4096 and r["slots"] == 64)
     # how each "ms" was taken, so that lines of different versions compare
@@ -7321,7 +7888,24 @@ def main(argv=None) -> int:
         "library_ms": None,
         "launches_by_path": {"generation plane (phase 15)":
                              gen_launches["threefry_draws"],
-                             **paths_of("threefry_draws")}}]
+                             **paths_of("threefry_draws")}}, {
+        "name": "sweep_advance", "route": "cuda",
+        "timing": "cuda events, launches queued behind a spin of the card "
+                  "(queued_ms); wrapper_ms: the host's time a launch "
+                  "through the wrapper, back to back",
+        "source": "qsm_tpu_torch/csrc/sweep_advance.cu",
+        "replaces": "qsm_tpu/ops/jax_kernel.py:303 (build_stepper -> "
+                    "run_one, sweep regime: the vmapped step_jax sweep and "
+                    "the choice after it, for a spec without step code in "
+                    "stepper_sweep.cu)",
+        "launches": sum(x["sweep_advance"] for x in generic_paths.values()),
+        "matches_plain": advance_err == 0, "max_abs_err": advance_err,
+        **advance, "library_ms": None,
+        "launches_by_path": paths_of("sweep_advance")}]
+    print(f"{tag} lane samples ({SAMPLE_LANES} lanes a sample, "
+          f"{SAMPLE_WORKERS} worker processes): {SAMPLE_WAIT['samples']} "
+          f"samples checked, {SAMPLE_WAIT['s']:.1f} s waited for them",
+          flush=True)
     print(f"{tag} total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels_line))

@@ -19,10 +19,12 @@ import ast
 import os
 from typing import Dict, Iterator, List, Optional, Set, Tuple
 
-# The port's kernel wrappers (``ops/*_kernel.py``): a loop that reaches
-# one of these names launches a kernel every trip.
+# The port's kernel wrappers (``ops/*_kernel.py``, ``ops/sweep_generic.py``
+# and its launch on arguments already checked): a loop that reaches one of
+# these names launches a kernel every trip.
 LAUNCH_WRAPPERS = frozenset(("dfs_chunk", "stepper_chunk", "stepper_sweep",
-                             "compact_carry", "threefry_draws"))
+                             "compact_carry", "threefry_draws",
+                             "sweep_advance", "advance_unchecked"))
 
 
 def parse_module(path: str) -> ast.Module:

@@ -56,8 +56,9 @@ REPO_ROOT = os.path.dirname(_PKG_DIR)
 # and the combinators
 DEFAULT_OPS_FILES = ("ops/stepper.py", "ops/gpu_backend.py",
                      "ops/dfs_kernel.py", "ops/stepper_kernel.py",
-                     "ops/sweep_kernel.py", "ops/draws_kernel.py",
-                     "ops/segdc.py", "ops/rootsplit.py", "ops/pcomp.py")
+                     "ops/sweep_kernel.py", "ops/sweep_generic.py",
+                     "ops/draws_kernel.py", "ops/segdc.py",
+                     "ops/rootsplit.py", "ops/pcomp.py")
 # the scheduler plane the determinism passes cover
 DEFAULT_SCHED_FILES = ("sched/scheduler.py", "sched/pool.py",
                        "sched/transport.py", "sched/runner.py")
@@ -327,7 +328,9 @@ def _rebuild_corpora(entry, spec):
 # spec-independent, so one representative spec a kernel path is enough —
 # the CAS register through TorchGPU (dfs_chunk) and TorchStepper's table
 # regime (stepper_chunk, compact_carry), a KV map of 16 keys through its
-# sweep regime (stepper_sweep), as chip_smoke.py's paths run them.  The
+# sweep regime (stepper_sweep), and the same map with its kernel model
+# withheld through the sweep regime's generic route (its step_torch and
+# sweep_advance), as chip_smoke.py's paths run them.  The
 # steppers keep the double-buffered tail at its default (on for the
 # card), unlike the reference's guard, which turns it off: there the
 # tail's chunk is a second, non-donated jit, a compile of its own; here
@@ -339,6 +342,7 @@ REBUILD_KV_KEYS = 16
 def rebuild_backends(device) -> List[tuple]:
     """``(label, spec, backend, corpora, location)`` for the rebuild
     guard, every backend on ``device``."""
+    from ..core.spec import without_sweep_kernel
     from ..models.kv import KvSpec
     from ..models.registry import MODELS
     from ..ops.gpu_backend import TorchGPU
@@ -348,7 +352,9 @@ def rebuild_backends(device) -> List[tuple]:
                  device=device)
     cas = MODELS["cas"].make_spec()
     kv16 = KvSpec(n_keys=REBUILD_KV_KEYS)
+    kindless = without_sweep_kernel(KvSpec)(n_keys=REBUILD_KV_KEYS)
     cas_corpora = _rebuild_corpora(MODELS["cas"], cas)
+    kv_corpora = _rebuild_corpora(MODELS["kv"], kv16)
     # one chunk shape: any build or cache growth is a real rebuild
     return [
         ("TorchGPU cas", cas, TorchGPU(cas, **knobs), cas_corpora,
@@ -357,9 +363,11 @@ def rebuild_backends(device) -> List[tuple]:
          TorchStepper(cas, chunk_schedule=(512,), **knobs), cas_corpora,
          "qsm_tpu_torch/ops/stepper.py"),
         ("TorchStepper kv16 (sweep)", kv16,
-         TorchStepper(kv16, chunk_schedule=(512,), **knobs),
-         _rebuild_corpora(MODELS["kv"], kv16),
+         TorchStepper(kv16, chunk_schedule=(512,), **knobs), kv_corpora,
          "qsm_tpu_torch/ops/stepper.py"),
+        ("TorchStepper kindless kv16 (sweep, generic)", kindless,
+         TorchStepper(kindless, chunk_schedule=(512,), **knobs), kv_corpora,
+         "qsm_tpu_torch/ops/sweep_generic.py"),
     ]
 
 

@@ -47,6 +47,7 @@ import numpy as np
 from ..core.spec import Spec
 from ..ops.dfs_kernel import LANES_PER_BLOCK
 from ..ops.stepper_kernel import MAX_WARPS_PER_BLOCK
+from ..ops.sweep_generic import ADVANCE_WARPS
 from .astutil import (attr_chain, iter_launch_loop_bodies, parse_module,
                       relpath_of)
 from .findings import ERROR, INFO, WARNING, Finding
@@ -235,7 +236,11 @@ LAUNCH_BOUND_THREADS = {"dfs_chunk": LANES_PER_BLOCK,
                         "stepper_chunk": 32 * MAX_WARPS_PER_BLOCK,
                         "compact_carry": COMPACT_THREADS,
                         "stepper_sweep": 32 * MAX_WARPS_PER_BLOCK,
-                        "threefry_draws": DRAWS_MAX_THREADS}
+                        "threefry_draws": DRAWS_MAX_THREADS,
+                        "sweep_advance": 32 * ADVANCE_WARPS}
+# the generic route's own ceiling: the widest op bucket at the state width
+# of a KV map of 32 keys, past the sweep kernel's 28 words
+ADVANCE_EDGE_DIM = 32
 
 
 class PtxasEntry(NamedTuple):
@@ -314,11 +319,12 @@ def _domain_ops(spec: Spec) -> List[Tuple[int, int, int]]:
 
 def kernel_plans(specs: Sequence[Tuple[str, Spec, str]], sms: int
                  ) -> Dict[str, List[KernelPlan]]:
-    """Every plan the five kernels would be given for the registry specs
+    """Every plan the six kernels would be given for the registry specs
     ``(name, spec, location)`` at the kernels' op ceiling on a card of
     ``sms`` SMs, each kernel's own ceiling included."""
     from ..ops import dfs_kernel as dk
     from ..ops import stepper_kernel as sk
+    from ..ops import sweep_generic as wg
     from ..ops import sweep_kernel as wk
     from ..ops.gpu_backend import TorchGPU
     from ..ops.scalarize import scalar_shadow
@@ -326,8 +332,18 @@ def kernel_plans(specs: Sequence[Tuple[str, Spec, str]], sms: int
 
     out: Dict[str, List[KernelPlan]] = {k: [] for k in (
         "dfs_chunk", "stepper_chunk", "compact_carry", "stepper_sweep",
-        "threefry_draws")}
+        "threefry_draws", "sweep_advance")}
     cs = TorchGPU.CACHE_SLOTS
+
+    def advance(loc, name, D, buckets=BATCH_BUCKETS):
+        for L in buckets:
+            plan = wg.advance_launch_plan(L, sms)
+            out["sweep_advance"].append(KernelPlan(
+                "sweep_advance", loc, name, tuple(plan),
+                32 * plan.warps_per_block, 0,
+                min(dk.BLOCKS_SM_MAX,
+                    sk.WARPS_SM_MAX // plan.warps_per_block),
+                dict(L=L, N=N, D=D, slots=default_slots(L, D))))
 
     def dfs(loc, name, S):
         plan = dk.launch_plan(TorchGPU.LANES, dk.MAX_OPS, S, cs)
@@ -351,7 +367,11 @@ def kernel_plans(specs: Sequence[Tuple[str, Spec, str]], sms: int
                 "stepper_chunk", loc, name, tuple(plan),
                 32 * plan.warps_per_block, plan.smem_bytes,
                 sk.stepper_blocks_per_sm(plan), dict(S=S, V=V, N=N)))
-        if spec.sweep_kernel() is not None:
+        sweeps = not (kspec.STATE_DIM == 1
+                      and kspec.scalar_state_bound(1) is not None)
+        if sweeps and wk.sweep_model(spec, "cpu").route == "generic":
+            advance(loc, name, spec.STATE_DIM)
+        elif spec.sweep_kernel() is not None:
             D = spec.STATE_DIM
             for L in BATCH_BUCKETS:
                 slots = default_slots(L, D)
@@ -361,6 +381,8 @@ def kernel_plans(specs: Sequence[Tuple[str, Spec, str]], sms: int
                     32 * plan.warps_per_block, plan.smem_bytes,
                     _sweep_blocks_per_sm(plan),
                     dict(L=L, N=N, D=D, slots=slots)))
+    advance("qsm_tpu_torch/ops/sweep_generic.py:ADVANCE_WARPS", None,
+            ADVANCE_EDGE_DIM, (B,))
     out["compact_carry"].append(KernelPlan(
         "compact_carry", "qsm_tpu_torch/csrc/compact_carry.cu:THREADS",
         None, (COMPACT_THREADS,), COMPACT_THREADS, 0,
@@ -592,6 +614,45 @@ def _edge_sweep(p: KernelPlan, spec: Spec, dev) -> int:
     return _max_err(got, want)
 
 
+def _edge_advance(p: KernelPlan, spec: Optional[Spec], dev) -> int:
+    """One ``sweep_advance`` launch at plan ``p`` on a mid-search carry
+    (the plain sweep's first ``EDGE_CHUNK`` trips from a fresh carry of
+    random ops), against ``sweep_advance_plain`` on the same inputs; a
+    plan of no registry spec runs a KV map of ``D`` keys."""
+    import torch
+
+    from ..models.kv import KvSpec
+    from ..ops.stepper_kernel import StepperCarry
+    from ..ops.sweep_generic import (step_planes, sweep_advance,
+                                     sweep_advance_plain)
+    from ..ops.sweep_kernel import (fresh_sweep_carry, stepper_sweep_plain,
+                                    sweep_tables)
+
+    L, N, D = p.params["L"], p.params["N"], p.params["D"]
+    spec = spec if spec is not None else KvSpec(n_keys=D)
+    rng = np.random.default_rng(17)
+    ops = np.asarray(_domain_ops(spec), np.int32)
+    pick = ops[rng.integers(0, len(ops), (L, N))]
+    tabs = sweep_tables(pick[..., 0], pick[..., 1], pick[..., 2],
+                        np.ones((L, N), bool), _prec(rng, L, N), dev)
+    init = np.tile(np.asarray(spec.initial_state(), np.int32), (L, 1))
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(L), init, L, N,
+                              p.params["slots"])
+    stepper_sweep_plain(spec, tabs, carry, chunk=EDGE_CHUNK, budget=10 ** 6,
+                        early_exit=False)
+    lanes = torch.arange(L, dtype=torch.int32, device=dev)
+    state = carry.states[lanes.long(), carry.dsi[0].long()]
+    nxt, ok = step_planes(spec, state, *tabs[:3])
+    got, want = (StepperCarry(*(t.clone() for t in carry)) for _ in "ab")
+    s_got, s_want = state.clone(), state.clone()
+    sweep_advance(tabs, got, lanes, nxt, ok, budget=10 ** 6,
+                  state_out=s_got)
+    sweep_advance_plain(tabs, want, lanes, nxt, ok, budget=10 ** 6,
+                        state_out=s_want)
+    torch.cuda.synchronize(dev)
+    return _max_err((*got, s_got), (*want, s_want))
+
+
 def _edge_draws(p: KernelPlan, dev) -> Tuple[int, tuple]:
     import torch
 
@@ -614,8 +675,9 @@ def launch_edge_plans(specs: Sequence[Tuple[str, Spec, str]], device
     version: the dfs table at the largest admitted state bound, the
     stepper's largest staged table (every op of the spec's domain in its
     vocabulary, 16 warps a block), the sweep's largest memo, a compaction
-    of the stepper's lanes with a memo re-hash, and a draw table whose
-    plan takes a whole SM's warps a block.  Returns ``(findings, rows)``:
+    of the stepper's lanes with a memo re-hash, a draw table whose plan
+    takes a whole SM's warps a block, and the generic route's iteration
+    at 4096 lanes of 128 ops over a state of 32 words.  Returns ``(findings, rows)``:
     a failed or disagreeing launch is a QSM-KERN-SMEM error."""
     import torch
 
@@ -629,7 +691,7 @@ def launch_edge_plans(specs: Sequence[Tuple[str, Spec, str]], device
     rows: List[dict] = []
     stepper_carry = None
     for kernel in ("dfs_chunk", "stepper_chunk", "compact_carry",
-                   "stepper_sweep", "threefry_draws"):
+                   "stepper_sweep", "threefry_draws", "sweep_advance"):
         if not plans[kernel] or (kernel == "compact_carry"
                                  and stepper_carry is None):
             continue  # no spec of the run reaches it
@@ -646,6 +708,8 @@ def launch_edge_plans(specs: Sequence[Tuple[str, Spec, str]], device
                 err = _edge_compact(stepper_carry, dev)
             elif kernel == "stepper_sweep":
                 err = _edge_sweep(edge, spec, dev)
+            elif kernel == "sweep_advance":
+                err = _edge_advance(edge, spec, dev)
             else:
                 err, plan = _edge_draws(edge, dev)
                 row["plan"] = list(plan)

@@ -22,6 +22,7 @@ on a trailing axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -135,8 +136,9 @@ class Spec:
         the ``stepper_sweep`` kernel (``csrc/stepper_sweep.cu``), or None.
         ``params`` is a tuple of at most three ints, ``data`` None or an
         int32 array the kernel reads from device memory.  A spec without
-        one runs the sweep regime only through the plain version, on the
-        CPU."""
+        one (or wider than the kernel's 28 words) runs the sweep regime by
+        its generic route, its own ``step_torch`` beside the
+        ``sweep_advance`` kernel (``ops/sweep_generic.py``)."""
         return None
 
     def native_kernel(self) -> Optional[Tuple[int, int, int]]:
@@ -190,6 +192,18 @@ class Spec:
 
     def resp_domain(self, cmd: int) -> range:
         return range(self.CMDS[cmd].n_resps)
+
+
+@functools.lru_cache(maxsize=None)
+def without_sweep_kernel(cls: type) -> type:
+    """``cls`` with its kernel model withheld: a subclass whose
+    ``sweep_kernel()`` returns None, so that the sweep regime runs it by
+    its generic route, as it runs a user's new spec.  One class for each
+    ``cls``."""
+    return type(f"{cls.__name__}WithoutKernel", (cls,), {
+        "__module__": cls.__module__,
+        "__doc__": f"{cls.__name__} with its kernel model withheld.",
+        "sweep_kernel": lambda self: None})
 
 
 def broadcast_vector(state, *ops):

@@ -217,11 +217,27 @@ def threefry_draws_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def sweep_advance_lib() -> ctypes.CDLL:
+    """The built ``sweep_advance`` library: 14 device pointers (the three
+    tables it reads, the lane rows, the lane list, the step planes
+    ``nxt`` and ``ok``, the six carry planes updated in place, the next
+    states), 8 ints of shape and budget, the 2 ints of the
+    launch plan (``sweep_generic.AdvancePlan``), the stream; and
+    ``set_launch_device``."""
+    lib = ctypes.CDLL(str(build("sweep_advance")))
+    fn = lib.sweep_advance_launch
+    fn.argtypes = [_P] * 14 + [_I] * 10 + [_P]
+    fn.restype = _I
+    _bind_device(lib)
+    return lib
+
+
 KERNEL_SOURCES = ("dfs_chunk", "stepper_chunk", "compact_carry",
-                  "stepper_sweep", "threefry_draws")
+                  "stepper_sweep", "threefry_draws", "sweep_advance")
 # each source's loader: its ``cache_info().misses`` counts library loads
 KERNEL_LIBS = (dfs_chunk_lib, stepper_chunk_lib, compact_carry_lib,
-               stepper_sweep_lib, threefry_draws_lib)
+               stepper_sweep_lib, threefry_draws_lib, sweep_advance_lib)
 
 
 def build_all(names=KERNEL_SOURCES) -> dict:

@@ -10,8 +10,11 @@ as ``JaxTPU`` chooses them (``jax_kernel.py:596-611``):
 * the sweep regime: any other spec (a vector spec whose packed domain is
   too large for a table, such as a KV map of 16 keys), searched by
   ``stepper_sweep`` (``ops/sweep_kernel.py``), which steps the model
-  itself every iteration.  On CUDA the spec must have a kernel model
-  (``Spec.sweep_kernel``); construction raises otherwise.
+  itself every iteration: by the model's code in the kernel for a spec
+  with a kernel model (``Spec.sweep_kernel``) of at most 28 state words,
+  else by the generic route (``ops/sweep_generic.py``: the spec's own
+  ``step_torch`` and the ``sweep_advance`` kernel), so that any spec the
+  reference's ``JaxTPU`` accepts runs on the card (``sweep_route``).
 
 Under a lane sharding (``sharding=``, ``qsm_tpu_torch/mesh/``) the
 bucket ladder keeps the widths the mesh divides and each device holds an
@@ -116,7 +119,10 @@ class TorchStepper(DeviceChecker):
     once and may not be combined with them.  ``ordering`` permutes each
     history's ops by selectivity before encoding (``search/ordering.py``;
     None: the plan's setting, off without a plan); witnesses map back.
-    ``regime`` says which search a spec takes: "table" or "sweep".
+    ``regime`` says which search a spec takes: "table" or "sweep";
+    ``sweep_route`` which route of the sweep regime: "kernel" (the
+    model's code in ``stepper_sweep``) or "generic" (its ``step_torch``
+    and ``sweep_advance``), None in the table regime.
 
     ``sharding`` (a ``mesh.LaneSharding``, the counterpart of
     ``JaxTPU(sharding=)``) spreads each device batch's lanes over the
@@ -145,6 +151,10 @@ class TorchStepper(DeviceChecker):
     @property
     def regime(self) -> str:
         return "table" if self._uses_table else "sweep"
+
+    @property
+    def sweep_route(self) -> Optional[str]:
+        return None if self._sweep is None else self._sweep.route
 
     def __init__(self, spec: Spec, budget: int = 2_000,
                  max_expansions: int = 128, rescue_budget: int = 500_000,
@@ -201,7 +211,7 @@ class TorchStepper(DeviceChecker):
             self._start_in_bounds = self._shadow.in_bounds
         self._uses_table = (self.kspec.STATE_DIM == 1
                             and self.kspec.scalar_state_bound(1) is not None)
-        # the sweep regime's model on the card (refused there without one)
+        # the sweep regime's model: its kernel's, or the generic route's
         self._sweep = (None if self._uses_table
                        else sweep_model(spec, self.device))
         self.chunk_schedule = tuple(chunk_schedule or CHUNK_SCHEDULE)

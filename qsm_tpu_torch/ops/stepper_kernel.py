@@ -669,7 +669,9 @@ def build_kernel(spec, n_ops: int, budget: int, cache_slots: int = 0,
     one fresh carry and one launch whose chunk is the whole ``budget``
     (``stepper_chunk``, or ``stepper_sweep`` for a spec without a scalar
     state bound, which steps the state itself as the reference's
-    ``build_kernel`` does), so every lane ends SUCCESS, FAILURE or BUDGET.
+    ``build_kernel`` does: by its kernel model, or by the generic route
+    for any other spec, whose chunk ends once every lane decided), so
+    every lane ends SUCCESS, FAILURE or BUDGET.
 
     ``cache_slots`` (0 or a power of two) is the memo a lane.
     ``cache_write`` exists only for the reference's signature: it is

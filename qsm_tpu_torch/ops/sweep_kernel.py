@@ -24,17 +24,21 @@ Inputs, all int32:
 On the card the model's step is code inside the kernel, chosen by a kind
 and up to three integer parameters that the spec gives
 (``Spec.sweep_kernel``): 1 queue, 2 kv and multireg, 3 stack, 4 multicas,
-5 txn, 6 a random vector spec whose tables ride a device buffer.  A spec
-without a kind runs only on the CPU, through :func:`stepper_sweep_plain`,
-which steps with ``spec.step_torch``.  The kernel takes ``D <=
-MAX_SWEEP_DIM``: state word i lives in thread i of a warp, and a memo key
-holds W + D <= 32 words, W <= 4.
+5 txn, 6 a random vector spec whose tables ride a device buffer.  The
+kernel takes ``D <= MAX_SWEEP_DIM``: state word i lives in thread i of a
+warp, and a memo key holds W + D <= 32 words, W <= 4.  Any other spec (no
+kind, or a wider state) takes the regime's generic route
+(``ops/sweep_generic.py``), as the reference vmaps any spec's
+``step_jax``: each iteration evaluates the spec's own ``step_torch`` on
+the card, then ``csrc/sweep_advance.cu`` does the rest of it.  The
+model's ``route`` says which: "kernel" or "generic".
 
-``stepper_sweep`` launches ``csrc/stepper_sweep.cu`` for CUDA tensors with
-the shape from :func:`sweep_launch_plan` (over every lane, or over a list
-of lanes that holds every RUNNING one, spread evenly over the SMs), and
-takes :func:`stepper_sweep_plain` only for CPU tensors.  It counts its
-launches (``stepper_sweep.launches``).
+``stepper_sweep`` launches ``csrc/stepper_sweep.cu`` for CUDA tensors and
+a kernel model, with the shape from :func:`sweep_launch_plan` (over every
+lane, or over a list of lanes that holds every RUNNING one, spread evenly
+over the SMs), and takes :func:`stepper_sweep_plain` only for CPU
+tensors; a generic model goes to ``stepper_sweep_generic`` on either
+device.  It counts the kernel's launches (``stepper_sweep.launches``).
 """
 
 from __future__ import annotations
@@ -67,32 +71,34 @@ class SweepTables(NamedTuple):
 
 
 class SweepModel(NamedTuple):
-    """A spec and its step code on the card: ``kind`` (0 = none),
-    ``params`` (three ints), ``data`` (int32, at least one element)."""
+    """A spec and its step code on the card: ``kind`` (0 = none: the
+    generic route), ``params`` (three ints), ``data`` (int32, at least
+    one element; on the device for a kernel model, a host placeholder
+    that nothing reads for the generic route)."""
 
     spec: object
     kind: int
     params: tuple
     data: torch.Tensor
 
+    @property
+    def route(self) -> str:
+        """"kernel" (``csrc/stepper_sweep.cu`` steps the model) or
+        "generic" (``spec.step_torch`` and ``csrc/sweep_advance.cu``)."""
+        return "kernel" if self.kind else "generic"
+
 
 def sweep_model(spec, device) -> SweepModel:
-    """The spec's kernel model on ``device``.  On CUDA a spec without a
-    kind, or wider than ``MAX_SWEEP_DIM``, is refused (``ValueError``):
-    the sweep regime has no other path there."""
+    """The spec's model for the sweep regime on ``device``: its kernel
+    model when it has a kind (``Spec.sweep_kernel``) and a state of at
+    most ``MAX_SWEEP_DIM`` words, else a model of the generic route (kind
+    0), which runs any spec with a ``step_torch``."""
     device = torch.device(device)
     found = spec.sweep_kernel()
-    if device.type == "cuda":
-        if found is None:
-            raise ValueError(
-                f"{spec.name}: no step code for the stepper_sweep kernel "
-                f"(Spec.sweep_kernel); its sweep regime runs only with "
-                f"device='cpu'")
-        if not 1 <= spec.STATE_DIM <= MAX_SWEEP_DIM:
-            raise ValueError(
-                f"{spec.name}: the stepper_sweep kernel takes state vectors "
-                f"of 1..{MAX_SWEEP_DIM} words, not {spec.STATE_DIM}")
-    kind, params, data = found or (0, (), None)
+    if found is None or not 1 <= spec.STATE_DIM <= MAX_SWEEP_DIM:
+        return SweepModel(spec, 0, (0, 0, 0),
+                          torch.zeros(1, dtype=torch.int32))
+    kind, params, data = found
     params = tuple(int(p) for p in params) + (0,) * (3 - len(params))
     data = np.zeros(1, np.int32) if data is None else np.asarray(data,
                                                                  np.int32)
@@ -242,6 +248,14 @@ def _check_lanes(carry: StepperCarry, lanes,
     return idx.to(torch.int32)
 
 
+def _check_missing(carry: StepperCarry, lanes, missing) -> None:
+    if missing is not None and (
+            lanes is None or missing.device != carry.row.device
+            or missing.dtype != torch.int32 or missing.shape != (1,)):
+        raise ValueError("stepper_sweep: missing must be int32 [1] on the "
+                         "carry's device, beside a lane list")
+
+
 def stepper_sweep(model: SweepModel, tables: SweepTables,
                   carry: StepperCarry, *, chunk: int, budget: int,
                   lanes=None, stats: torch.Tensor = None,
@@ -262,14 +276,21 @@ def stepper_sweep(model: SweepModel, tables: SweepTables,
     memo probes and the probes whose filter tag matched.
 
     CUDA tensors go to the CUDA kernel (``stepper_sweep.launches`` counts
-    each launch); CPU tensors to :func:`stepper_sweep_plain`.  A failed
-    build or launch raises; there is no fallback."""
+    each launch); CPU tensors to :func:`stepper_sweep_plain`.  A model of
+    the generic route goes to ``sweep_generic.stepper_sweep_generic`` on
+    either device (``stats`` is refused there: it counts no probes).  A
+    failed build or launch raises; there is no fallback."""
+    if model.route == "generic":
+        if stats is not None:
+            raise ValueError("stepper_sweep: the generic route counts no "
+                             "memo probes (stats)")
+        from .sweep_generic import stepper_sweep_generic
+
+        return stepper_sweep_generic(model, tables, carry, chunk=chunk,
+                                     budget=budget, lanes=lanes,
+                                     missing=missing)
     _check_sweep_args(tables, carry)
-    if missing is not None and (
-            lanes is None or missing.device != carry.row.device
-            or missing.dtype != torch.int32 or missing.shape != (1,)):
-        raise ValueError("stepper_sweep: missing must be int32 [1] on the "
-                         "carry's device, beside a lane list")
+    _check_missing(carry, lanes, missing)
     idx = (_check_lanes(carry, lanes, missing) if lanes is not None
            else None)
     dev = tables.cmd.device
@@ -281,7 +302,7 @@ def stepper_sweep(model: SweepModel, tables: SweepTables,
     D = sweep_dim(carry)
     if not 1 <= model.kind <= 6 or D > MAX_SWEEP_DIM:
         raise ValueError(f"stepper_sweep: kind {model.kind} with D={D} is "
-                         f"not a kernel model (sweep_model refuses it)")
+                         f"not a kernel model")
     if model.data.device != dev:
         raise ValueError(f"stepper_sweep: model data on {model.data.device}"
                          f", not {dev}")
@@ -342,93 +363,111 @@ def stepper_sweep_plain(spec, tables: SweepTables, carry: StepperCarry, *,
     _check_sweep_args(tables, carry)
     cmd, arg, resp, prec, valid, nreq = tables
     N = cmd.shape[1]
-    B, slots = carry.row.shape[0], carry.occ.shape[1]
-    use_cache = slots > 0
+    B = carry.row.shape[0]
     dev = cmd.device
-    i32, i64 = torch.int32, torch.int64
     lane = torch.arange(B, device=dev)
-    iota = torch.arange(N, device=dev)
-    kio = torch.arange(N + 1, device=dev)
     row = carry.row.long()
     c_l, a_l, r_l = cmd[row], arg[row], resp[row]              # [B, N]
-    prec_l = prec[row].to(i64) & _M32                          # [B, W, N]
+    prec_l = prec[row].to(torch.int64) & _M32                  # [B, W, N]
     valid_l = _unpack_bits(valid[row], N)                      # [B, N]
     nreq_l = nreq[row]
     tk = carry.taken.T == 1                                    # [B, N]
     ch = carry.chosen.T.clone()                                # [B, N+1]
     st = carry.states.clone()                                  # [B, N+1, D]
-    keys, occ = carry.keys, carry.occ
-    d, status, iters, prunes, inserts = (carry.dsi[k].clone()
-                                         for k in range(5))
+    dsi = tuple(carry.dsi[k].clone() for k in range(5))
     for it in range(chunk):
         # checked every 64 trips: each check syncs
         if early_exit and it % 64 == 0 and not bool(
-                (status == RUNNING).any()):
+                (dsi[1] == RUNNING).any()):
             break
-        act = status == RUNNING
-        dl = d.long()
-        state = st[lane, dl]                                   # [B, D]
-        cur = ch[lane, dl]
-        untaken = valid_l & ~tk
-        uw = pack_words(untaken)                               # [B, W]
-        blocked = ((prec_l & uw[:, :, None]) != 0).any(1)      # [B, N]
+        state = st[lane, dsi[0].long()]                        # [B, D]
         nxt, ok = _step_all(spec, state, c_l, a_l, r_l)
-        cand = untaken & ~blocked & ok & (iota > cur[:, None])
-        has = cand.any(1)
-        j = torch.where(cand, iota, N).amin(1)
-        j = torch.where(has, j, torch.zeros_like(j))
-        child = nxt[lane, j].to(i32)                           # [B, D]
-        success = has & (d + 1 == nreq_l)
-        tw = pack_words(tk)
-        if use_cache:
-            jbit = torch.zeros_like(tw).scatter_(
-                1, (j >> 5)[:, None], (1 << (j & 31))[:, None])
-            key_child = torch.cat([tw | jbit, child.to(i64) & _M32], dim=1)
-            slot_c = hash_slot(key_child, slots)
-            hit = ((occ[lane, slot_c] == 1)
-                   & ((keys[lane, slot_c].to(i64) & _M32)
-                      == key_child).all(1))
-            prune = has & hit & ~success
-        else:
-            prune = torch.zeros_like(has)
-        descend = has & ~prune
-        d_back = (d - 1).clamp(min=0)
-        prev = ch[lane, d_back.long()].clamp(min=0)
-
-        desc, pru, exh = act & descend, act & prune, act & ~has
-        if use_cache:
-            # exhausted: the current configuration is proven
-            # non-linearizable-from
-            key_cur = torch.cat([tw, state.to(i64) & _M32], dim=1)
-            slot_cur = hash_slot(key_cur, slots)
-            keys[lane, slot_cur] = torch.where(
-                exh[:, None], _as_i32(key_cur), keys[lane, slot_cur])
-            occ[lane, slot_cur] = torch.where(exh, 1, occ[lane, slot_cur])
-        untake = exh & (d > 0) & (prev < N)
-        tk = torch.where(desc[:, None] & (iota == j[:, None]), True, tk)
-        tk = torch.where(untake[:, None] & (iota == prev[:, None]), False,
-                         tk)
-        at_d = kio == dl[:, None]
-        at_next = kio == dl[:, None] + 1     # never true past depth N
-        ch = torch.where((desc | pru)[:, None] & at_d, j[:, None].to(i32), ch)
-        ch = torch.where(desc[:, None] & at_next, -1, ch)
-        st = torch.where((desc[:, None] & at_next)[:, :, None],
-                         child[:, None, :], st)
-
-        d_new = torch.where(descend, d + 1, torch.where(prune, d, d_back))
-        iters_new = iters + 1
-        s_new = torch.where(success, SUCCESS, torch.where(
-            ~has & (d == 0), FAILURE, RUNNING))
-        s_new = torch.where((s_new == RUNNING) & (iters_new >= budget),
-                            BUDGET, s_new)
-        d = torch.where(act, d_new, d).to(i32)
-        iters = torch.where(act, iters_new, iters).to(i32)
-        status = torch.where(act, s_new, status).to(i32)
-        prunes = prunes + pru.to(i32)
-        if use_cache:
-            inserts = inserts + exh.to(i32)
-    carry.taken.copy_(tk.T.to(i32))
+        tk, ch, st, dsi = _sweep_trip(
+            lane, lane, nxt, ok, state, tk, ch, st, dsi, carry.keys,
+            carry.occ, valid_l, prec_l, nreq_l, budget=budget)
+    carry.taken.copy_(tk.T.to(torch.int32))
     carry.chosen.copy_(ch.T)
     carry.states.copy_(st)
-    carry.dsi.copy_(torch.stack([d, status, iters, prunes, inserts]))
+    carry.dsi.copy_(torch.stack(dsi))
     return carry
+
+
+def _sweep_trip(pos, lane, nxt, ok, state, tk, ch, st, dsi, keys, occ,
+                valid_l, prec_l, nreq_l, *, budget: int):
+    """One trip of the sweep regime's loop after its step, over ``L``
+    lanes at once: the ``run_one`` body past ``step_jax``.  The lanes'
+    own planes are ``[L, ...]``, indexed by ``pos`` (``arange(L)``):
+    ``nxt`` ``[L, N, D]`` and ``ok`` bool ``[L, N]`` the step of every op
+    from ``state`` ``[L, D]``, ``tk`` bool ``[L, N]``, ``ch`` ``[L,
+    N+1]``, ``st`` ``[L, N+1, D]``, ``dsi`` the five ``[L]`` rows, and the
+    rows' ``valid_l`` / ``prec_l`` / ``nreq_l``; ``lane`` holds their
+    carry lanes, which index the memo ``keys`` / ``occ`` (probed and
+    written in place).  Returns the new ``(tk, ch, st, dsi)``."""
+    N = tk.shape[1]
+    use_cache = occ.shape[1] > 0
+    slots = occ.shape[1]
+    dev = tk.device
+    i32, i64 = torch.int32, torch.int64
+    iota = torch.arange(N, device=dev)
+    kio = torch.arange(N + 1, device=dev)
+    d, status, iters, prunes, inserts = dsi
+    act = status == RUNNING
+    dl = d.long()
+    cur = ch[pos, dl]
+    untaken = valid_l & ~tk
+    uw = pack_words(untaken)                                   # [L, W]
+    blocked = ((prec_l & uw[:, :, None]) != 0).any(1)          # [L, N]
+    cand = untaken & ~blocked & ok & (iota > cur[:, None])
+    has = cand.any(1)
+    j = torch.where(cand, iota, N).amin(1)
+    j = torch.where(has, j, torch.zeros_like(j))
+    child = nxt[pos, j].to(i32)                                # [L, D]
+    success = has & (d + 1 == nreq_l)
+    tw = pack_words(tk)
+    if use_cache:
+        jbit = torch.zeros_like(tw).scatter_(
+            1, (j >> 5)[:, None], (1 << (j & 31))[:, None])
+        key_child = torch.cat([tw | jbit, child.to(i64) & _M32], dim=1)
+        slot_c = hash_slot(key_child, slots)
+        hit = ((occ[lane, slot_c] == 1)
+               & ((keys[lane, slot_c].to(i64) & _M32)
+                  == key_child).all(1))
+        prune = has & hit & ~success
+    else:
+        prune = torch.zeros_like(has)
+    descend = has & ~prune
+    d_back = (d - 1).clamp(min=0)
+    prev = ch[pos, d_back.long()].clamp(min=0)
+
+    desc, pru, exh = act & descend, act & prune, act & ~has
+    if use_cache:
+        # exhausted: the current configuration is proven
+        # non-linearizable-from
+        key_cur = torch.cat([tw, state.to(i64) & _M32], dim=1)
+        slot_cur = hash_slot(key_cur, slots)
+        keys[lane, slot_cur] = torch.where(
+            exh[:, None], _as_i32(key_cur), keys[lane, slot_cur])
+        occ[lane, slot_cur] = torch.where(exh, 1, occ[lane, slot_cur])
+    untake = exh & (d > 0) & (prev < N)
+    tk = torch.where(desc[:, None] & (iota == j[:, None]), True, tk)
+    tk = torch.where(untake[:, None] & (iota == prev[:, None]), False, tk)
+    at_d = kio == dl[:, None]
+    at_next = kio == dl[:, None] + 1     # never true past depth N
+    ch = torch.where((desc | pru)[:, None] & at_d, j[:, None].to(i32), ch)
+    ch = torch.where(desc[:, None] & at_next, -1, ch)
+    st = torch.where((desc[:, None] & at_next)[:, :, None],
+                     child[:, None, :], st)
+
+    d_new = torch.where(descend, d + 1, torch.where(prune, d, d_back))
+    iters_new = iters + 1
+    s_new = torch.where(success, SUCCESS, torch.where(
+        ~has & (d == 0), FAILURE, RUNNING))
+    s_new = torch.where((s_new == RUNNING) & (iters_new >= budget),
+                        BUDGET, s_new)
+    d = torch.where(act, d_new, d).to(i32)
+    iters = torch.where(act, iters_new, iters).to(i32)
+    status = torch.where(act, s_new, status).to(i32)
+    prunes = prunes + pru.to(i32)
+    if use_cache:
+        inserts = inserts + exh.to(i32)
+    return tk, ch, st, (d, status, iters, prunes, inserts)

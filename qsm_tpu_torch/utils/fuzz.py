@@ -287,8 +287,8 @@ def fuzz_parity(n_specs: int = 10, hists_per_spec: int = 32,
                 backends: Sequence[str] = ("memo", "cpp", "device"),
                 spec_kwargs: Optional[dict] = None,
                 vector_bounds: Optional[Tuple[int, ...]] = None,
-                device=None, timings: Optional[Dict[str, float]] = None
-                ) -> FuzzReport:
+                device=None, timings: Optional[Dict[str, float]] = None,
+                vector_spec: type = RandomVectorSpec) -> FuzzReport:
     """Differential sweep: for each random spec, every requested arm
     (:func:`fuzz_arm`) must agree with the exact memo-free Python oracle
     on every random history.  BUDGET_EXCEEDED on either side is never a
@@ -296,9 +296,9 @@ def fuzz_parity(n_specs: int = 10, hists_per_spec: int = 32,
     decided verdict always is.
 
     ``vector_bounds`` switches from scalar random tables to
-    :class:`RandomVectorSpec` with those element bounds: a small product
-    rides the scalar shadow, one past the packed-state cap the sweep
-    regime.  ``timings``, when given, receives each arm's seconds (and
+    :class:`RandomVectorSpec` (or ``vector_spec``, a subclass of it) with
+    those element bounds: a small product rides the scalar shadow, one
+    past the packed-state cap the sweep regime.  ``timings``, when given, receives each arm's seconds (and
     the oracle's, under ``"oracle"``)."""
     import time
 
@@ -320,8 +320,8 @@ def fuzz_parity(n_specs: int = 10, hists_per_spec: int = 32,
     for k in range(n_specs):
         spec_seed = seed * 1_000_003 + k
         if vector_bounds is not None:
-            spec = RandomVectorSpec(spec_seed, bounds=vector_bounds,
-                                    **(spec_kwargs or {}))
+            spec = vector_spec(spec_seed, bounds=vector_bounds,
+                               **(spec_kwargs or {}))
         else:
             spec = RandomTableSpec(spec_seed, **(spec_kwargs or {}))
         rng = random.Random(f"fuzz:{spec_seed}")

@@ -67,16 +67,17 @@ def carry_to_numpy(carry: Carry) -> Dict[str, np.ndarray]:
 
 
 def stepper_carry_from_jax(planes: Dict[str, np.ndarray], device,
-                           rows=None) -> StepperCarry:
+                           rows=None, sweep: bool = None) -> StepperCarry:
     """A :class:`StepperCarry` on ``device`` from a ``JaxTPU`` carry dict;
     lane ``i`` reads table row ``rows[i]`` (default ``i``: that backend's
-    lanes are aligned with its argument rows).  A state of more than one
-    word gives the sweep regime's layout."""
+    lanes are aligned with its argument rows).  ``sweep`` picks the sweep
+    regime's layout (default: for a state of more than one word; a scalar
+    spec without a state bound sweeps too)."""
     taken = np.asarray(planes["taken"])
     B, N = taken.shape
     states = np.asarray(planes["states"])
     dim = states.shape[2]
-    sweep = dim > 1
+    sweep = dim > 1 if sweep is None else sweep
     kw = key_words(N, dim)
     keys = planes.get("keys")
     if keys is None:

@@ -1771,9 +1771,10 @@ def test_make_mesh_never_spans_more_cards_than_the_machine(cuda):
 
 def test_lint_semantic_families_run_on_the_card(cuda):
     """Families a and b on the card by default: parity evaluates
-    step_torch there, the rebuild guard's warmed backends grow nothing,
-    the five ptxas reports are read and every edge launch matches its
-    plain version; nothing unwhitelisted but notes."""
+    step_torch there, the rebuild guard's warmed backends (the generic
+    route's among them) grow nothing, the six ptxas reports are read and
+    every edge launch matches its plain version; nothing unwhitelisted
+    but notes."""
     from qsm_tpu_torch.analysis import run_lint
     from qsm_tpu_torch.models.registry import MODELS
 
@@ -1783,13 +1784,13 @@ def test_lint_semantic_families_run_on_the_card(cuda):
     assert sorted(rep.parity) == sorted(MODELS)
     assert all(st["device"].startswith("cuda")
                for st in rep.parity.values())
-    assert len(rep.rebuild) == 3
+    assert len(rep.rebuild) == 4
     for rec in rep.rebuild.values():
         assert rec["warm"] == rec["after"]
-    assert [r["registers"] is not None for r in rep.kernels] == [True] * 5
+    assert [r["registers"] is not None for r in rep.kernels] == [True] * 6
     assert [(e["kernel"], e["max_abs_err"]) for e in rep.edges] == [
         (k, 0) for k in ("dfs_chunk", "stepper_chunk", "compact_carry",
-                         "stepper_sweep", "threefry_draws")]
+                         "stepper_sweep", "threefry_draws", "sweep_advance")]
 
 
 def test_lint_all_fifteen_families_run_on_the_card(cuda):
@@ -1850,15 +1851,16 @@ def test_lint_edge_launches_count_and_match(cuda):
     from qsm_tpu_torch.ops.draws_kernel import threefry_draws
     from qsm_tpu_torch.ops.stepper_kernel import (compact_carry,
                                                   device_sms, stepper_chunk)
+    from qsm_tpu_torch.ops.sweep_generic import sweep_advance
     from qsm_tpu_torch.ops.sweep_kernel import stepper_sweep
 
     specs = [(n, MODELS[n].make_spec(), f"model:{n}") for n in sorted(MODELS)]
     wrappers = (dfs_chunk, stepper_chunk, compact_carry, stepper_sweep,
-                threefry_draws)
+                threefry_draws, sweep_advance)
     before = [w.launches for w in wrappers]
     found, rows = launch_edge_plans(specs, cuda)
     assert found == []
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 5
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 6
     plans = kernel_plans(specs, device_sms(cuda))
     for r in rows:
         assert r["max_abs_err"] == 0
@@ -1968,3 +1970,169 @@ def test_sweep_lane_check_raises_at_the_round_read_on_the_card(
         t.check_histories(spec, hs)
     assert stepper_sweep.launches - before == len(calls) == 3
     assert t.device_histories == 0
+
+
+# --- the sweep regime's generic route (sweep_advance) ------------------------
+
+def _generic_inputs(n_keys: int, B: int, cuda, n_ops: int = 64):
+    """A KV map of ``n_keys`` keys (its kernel model withheld when the
+    sweep kernel would take it) on ``B`` lanes of the bench corpus, 8
+    pids x ``n_ops`` ops: (spec, generic model, tables, start states)."""
+    from qsm_tpu_torch.core.history import encode_batch
+    from qsm_tpu_torch.core.spec import without_sweep_kernel
+    from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
+    from qsm_tpu_torch.ops.sweep_kernel import sweep_model, sweep_tables
+
+    spec = without_sweep_kernel(KvSpec)(n_keys=n_keys)
+    hs = build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT), n=128, n_pids=8,
+                      max_ops=n_ops, seed_base=1000, seed_prefix="bench")
+    hs = (hs * (-(-B // len(hs))))[:B]
+    enc = encode_batch(hs, spec.initial_state(), max_ops=n_ops)
+    tabs = sweep_tables(*(enc.ops[:, :, k] for k in (1, 2, 3)), enc.valid,
+                        enc.precedes(), cuda)
+    starts = np.tile(np.asarray(enc.init_state, np.int32), (B, 1))
+    model = sweep_model(spec, cuda)
+    assert model.route == "generic"
+    return spec, model, tabs, starts
+
+
+@pytest.mark.parametrize("slots", [0, 16, 2048])
+@pytest.mark.parametrize("n_keys", [16, 32, 40])
+def test_sweep_advance_matches_plain_version(cuda, n_keys, slots):
+    """``sweep_advance`` against ``sweep_advance_plain`` on every carry
+    plane and the next states, trip after trip from the generic route's
+    own carries (a ragged last block; keys and states past one stride of
+    32 words at 32 and 40 keys), over every lane and over the running
+    lanes alone in another order."""
+    from qsm_tpu_torch.ops.sweep_generic import (step_planes, sweep_advance,
+                                                 sweep_advance_plain)
+    from qsm_tpu_torch.ops.sweep_kernel import fresh_sweep_carry
+
+    B = 300
+    spec, _, tabs, starts = _generic_inputs(n_keys, B, cuda)
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, 64, slots)
+    for trip in range(48):
+        lanes = torch.arange(B, dtype=torch.int32, device=cuda)
+        if trip % 2:
+            run = torch.nonzero(carry.dsi[1] == RUNNING).flatten()
+            lanes = run.flip(0).to(torch.int32)
+        il = lanes.long()
+        state = carry.states[il, carry.dsi[0, il].long()]
+        nxt, ok = step_planes(spec, state, *(t[carry.row[il].long()]
+                                             for t in tabs[:3]))
+        got, want = _clone(carry), _clone(carry)
+        s_got, s_want = state.clone(), state.clone()
+        before = sweep_advance.launches
+        sweep_advance(tabs, got, lanes, nxt, ok, budget=552_000,
+                      state_out=s_got)
+        torch.cuda.synchronize()
+        assert sweep_advance.launches == before + 1
+        sweep_advance_plain(tabs, want, lanes, nxt, ok, budget=552_000,
+                            state_out=s_want)
+        _assert_stepper_equal(got, want, f"after trip {trip + 1}")
+        assert torch.equal(s_got, s_want), f"next states, trip {trip + 1}"
+        carry = got
+    assert int(carry.dsi[2].sum()) > 0
+    if slots:
+        assert int((carry.occ == 1).sum()) > 0
+
+
+def test_sweep_advance_entry_refuses_bad_plans(cuda):
+    from qsm_tpu_torch.ops.kernels import sweep_advance_lib
+    from qsm_tpu_torch.ops.stepper_kernel import n_words
+    from qsm_tpu_torch.ops.sweep_generic import advance_launch_plan
+    from qsm_tpu_torch.ops.sweep_kernel import fresh_sweep_carry
+
+    B, N = 300, 64
+    _, _, tabs, starts = _generic_inputs(16, B, cuda)
+    c = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, N, 64)
+    nxt = torch.zeros((B, N, 16), dtype=torch.int32, device=cuda)
+    ok = torch.zeros((B, N), dtype=torch.uint8, device=cuda)
+    lanes = torch.arange(B, dtype=torch.int32, device=cuda)
+    out = torch.zeros((B, 16), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(plan, lanes=lanes.data_ptr(), out=out.data_ptr()):
+        return sweep_advance_lib().sweep_advance_launch(
+            tabs.prec.data_ptr(), tabs.valid.data_ptr(),
+            tabs.nreq.data_ptr(), c.row.data_ptr(), lanes, nxt.data_ptr(),
+            ok.data_ptr(), *(t.data_ptr() for t in c[:6]), out, B,
+            tabs.cmd.shape[0], N, n_words(N), 16, 64, 552_000, B, *plan,
+            stream)
+
+    good = tuple(advance_launch_plan(B, 132))
+    assert launch(good) == 0
+    torch.cuda.synchronize()
+    for bad in ((good[0], good[1] + 1), (9, -(-B // 9)), (0, 0)):
+        assert launch(bad) == 1, bad
+    # the lane list and the next states are required
+    assert launch(good, lanes=None) == 1 and launch(good, out=None) == 1
+
+
+def test_generic_route_equals_stepper_sweep_lane_for_lane(cuda):
+    """A kv16 batch on the generic route (its kind withheld) against the
+    built-in ``stepper_sweep`` kernel: every carry plane equal after each
+    chunk, the running lanes listed as the main path lists them."""
+    from qsm_tpu_torch.models.kv import KvSpec
+    from qsm_tpu_torch.ops.sweep_generic import (stepper_sweep_generic,
+                                                 sweep_advance)
+    from qsm_tpu_torch.ops.sweep_kernel import (fresh_sweep_carry,
+                                                stepper_sweep, sweep_model)
+
+    B = 1024
+    spec, generic, tabs, starts = _generic_inputs(16, B, cuda)
+    kernel = sweep_model(KvSpec(n_keys=16), cuda)
+    assert kernel.route == "kernel"
+    carry = fresh_sweep_carry(tabs.nreq, np.arange(B), starts, B, 64, 2048)
+    g, k = _clone(carry), _clone(carry)
+    for chunk in range(3):
+        run = torch.nonzero(g.dsi[1] == RUNNING).flatten().cpu().numpy()
+        if not run.size:
+            break
+        before = sweep_advance.launches
+        missing = torch.zeros(1, dtype=torch.int32, device=cuda)
+        stepper_sweep_generic(generic, tabs, g, chunk=384, budget=552_000,
+                              lanes=run, missing=missing)
+        stepper_sweep(kernel, tabs, k, chunk=384, budget=552_000, lanes=run)
+        torch.cuda.synchronize()
+        assert 0 < sweep_advance.launches - before <= 384
+        assert int(missing) == 0
+        _assert_stepper_equal(g, k, f"after chunk {chunk + 1}")
+    assert (g.dsi[1] != RUNNING).any()
+
+
+def test_torch_stepper_takes_the_generic_route_on_the_card(cuda):
+    """``TorchStepper`` on the card accepts a spec without a kernel model
+    and one wider than 28 words; its verdicts equal the kernel route's
+    (kv16) and the host oracle's per key (kv32) at a cut budget, and its
+    witnesses replay."""
+    from qsm_tpu_torch.models.kv import AtomicKvSUT, KvSpec, StaleCacheKvSUT
+    from qsm_tpu_torch.ops.pcomp import PComp
+    from qsm_tpu_torch.ops.stepper import TorchStepper
+    from qsm_tpu_torch.ops.sweep_generic import sweep_advance
+
+    knobs = dict(budget=6_000, mid_budget=0, rescue_budget=0)
+    spec, _, _, _ = _generic_inputs(16, 8, cuda)
+    hs = build_corpus(spec, (AtomicKvSUT, StaleCacheKvSUT), n=256, n_pids=8,
+                      max_ops=48, seed_base=1000, seed_prefix="bench")
+    generic = TorchStepper(spec, **knobs)
+    assert (generic.regime, generic.sweep_route) == ("sweep", "generic")
+    before = sweep_advance.launches
+    gv = generic.check_histories(spec, hs)
+    assert sweep_advance.launches > before
+    kv16 = KvSpec(n_keys=16)
+    kv = TorchStepper(kv16, **knobs).check_histories(kv16, hs)
+    assert np.array_equal(gv, kv)
+    wide = KvSpec(n_keys=32)
+    t = TorchStepper(wide, **knobs)
+    assert t.sweep_route == "generic"
+    whs = build_corpus(wide, (AtomicKvSUT, StaleCacheKvSUT), n=256,
+                       n_pids=8, max_ops=48, seed_base=1000,
+                       seed_prefix="bench")
+    wv = t.check_histories(wide, whs)
+    ov = PComp(wide).check_histories(wide, whs)
+    both = (wv != Verdict.BUDGET_EXCEEDED) & (ov != Verdict.BUDGET_EXCEEDED)
+    assert both.sum() > 0 and np.array_equal(wv[both], ov[both])
+    for h in [h for h, v in zip(whs, wv) if v == Verdict.LINEARIZABLE][:8]:
+        v, wit = t.check_witness(wide, h)
+        assert v == Verdict.LINEARIZABLE and verify_witness(wide, h, wit)

@@ -72,7 +72,7 @@ from qsm_tpu_torch.models.registry import MODELS
 from qsm_tpu_torch.ops.dfs_kernel import H100_SMS, SMEM_BLOCK_MAX
 
 KERNELS = ("dfs_chunk", "stepper_chunk", "compact_carry", "stepper_sweep",
-           "threefry_draws")
+           "threefry_draws", "sweep_advance")
 
 
 def _key(findings):
@@ -840,9 +840,10 @@ def test_rebuilding_stepper_is_caught_through_a_stand_in_compiler():
 
 
 def test_the_backends_grow_nothing_on_the_cpu(report):
-    assert set(report.rebuild) == {"TorchGPU cas",
-                                   "TorchStepper cas (table)",
-                                   "TorchStepper kv16 (sweep)"}
+    assert set(report.rebuild) == {
+        "TorchGPU cas", "TorchStepper cas (table)",
+        "TorchStepper kv16 (sweep)",
+        "TorchStepper kindless kv16 (sweep, generic)"}
     for rec in report.rebuild.values():
         assert rec["warm"] == rec["after"]
 
@@ -851,7 +852,7 @@ def test_the_backends_grow_nothing_on_the_cpu(report):
 
 def test_in_tree_corpus_is_clean(report):
     assert sorted(MODELS) == report.models
-    assert len(DEFAULT_OPS_FILES) == 9
+    assert len(DEFAULT_OPS_FILES) == 10
     assert len(DEFAULT_SCHED_FILES) == 4
     assert len(DEFAULT_RESILIENCE_FILES) >= 12
     assert len(DEFAULT_SERVE_FILES) == 14

@@ -197,11 +197,12 @@ def test_no_silent_cpu_and_no_sweep_regime(monkeypatch):
         STATE_DIM = 3
         CMDS = (CmdSig("noop", 1, 1),)
 
-    # it takes the sweep regime, which on CUDA needs a kernel model: the
-    # plain version never stands in for it there
+    # it takes the sweep regime's generic route, on CUDA as on the CPU: no
+    # kernel model is needed, and no plain version stands in on the card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="no step code"):
-        TorchStepper(Wide(), device="cuda")
+    card = TorchStepper(Wide(), device="cuda")
+    assert (card.regime, card.sweep_route) == ("sweep", "generic")
+    assert card.device.type == "cuda"
     assert TorchStepper(Wide(), device="cpu").regime == "sweep"
 
 

@@ -5,7 +5,8 @@ memo slots a bucket, the host compaction) the same verdicts and the same
 round, compaction and memo counters; LINEARIZABLE witnesses replay through
 both packages' ``verify_witness``.  Out-of-domain histories are decided
 on the device in this regime by both packages; the memo is sized by the
-key's width; a spec without a kernel model is refused on CUDA."""
+key's width; a spec without a kernel model takes the generic route on
+CUDA."""
 
 from __future__ import annotations
 
@@ -162,8 +163,12 @@ def test_a_spec_without_a_kernel_model_is_refused_on_cuda(monkeypatch):
     h = history_from_rows([[0, 0, 0, 0, 0, 1], [1, 0, 0, 1, 2, 3]])
     assert t.check_histories(t.spec, [h]).tolist() == [
         int(Verdict.VIOLATION)]
+    assert t.sweep_route == "generic"
+    # on CUDA it is accepted too: the generic route, as for a kind's spec
+    # wider than the kernel's 28 words
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="no step code"):
-        TorchStepper(Wide(), device="cuda")
-    with pytest.raises(ValueError, match="1..28 words"):
-        TorchStepper(KvSpec(n_keys=29, n_values=2), device="cuda")
+    for s in (Wide(), KvSpec(n_keys=29, n_values=2)):
+        card = TorchStepper(s, device="cuda")
+        assert (card.regime, card.sweep_route) == ("sweep", "generic")
+    assert TorchStepper(KvSpec(n_keys=16), device="cpu").sweep_route == \
+        "kernel"

@@ -248,13 +248,17 @@ def test_sweep_model_refuses_what_the_kernel_cannot_run():
         STATE_DIM = 3
         CMDS = (CmdSig("noop", 1, 1),)
 
-    assert sweep_model(Wide(), "cpu").kind == 0          # plain: fine
-    with pytest.raises(ValueError, match="no step code"):
-        sweep_model(Wide(), "cuda")
-    with pytest.raises(ValueError, match="1..28 words"):
-        sweep_model(KvSpec(n_keys=29), "cuda")
+    # what the kernel cannot run takes the generic route, on either device
+    # (its placeholder data stays on the host: nothing reads it)
+    for dev in ("cpu", "cuda"):
+        for s in (Wide(), KvSpec(n_keys=29)):
+            m = sweep_model(s, dev)
+            assert (m.kind, m.route) == (0, "generic")
+            assert m.data.device.type == "cpu"
+    assert KvSpec(n_keys=29).sweep_kernel() is not None   # a kind, too wide
     m = sweep_model(KvSpec(n_keys=16), "cpu")
-    assert (m.kind, m.params) == (2, (16, 4, 0))
+    assert (m.kind, m.params, m.route) == (2, (16, 4, 0), "kernel")
+    assert sweep_model(KvSpec(n_keys=MAX_SWEEP_DIM), "cpu").route == "kernel"
     r = RandomVectorSpec(3, bounds=(3, 5))
     kind, params, data = r.sweep_kernel()
     assert kind == 6 and data[:2].tolist() == [3, 5]
